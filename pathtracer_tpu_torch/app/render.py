@@ -1,9 +1,9 @@
 """Progressive renderer CLI of the PyTorch port.
 
 Renders the analytical demo scene frame by frame, folds each frame into
-the running mean and writes a PNG. With `--device cuda` every frame is one
-launch of the CUDA megakernel; with `--device cpu` it is the eager
-integrator. A CUDA device that is not there is an error, never a move to
+the running mean and writes a PNG. With `--device cuda` (the default)
+every frame is one launch of the CUDA megakernel; with `--device cpu` it is
+the eager integrator. A CUDA device that is not there is an error, never a move to
 the CPU.
 
 Usage:
@@ -37,7 +37,7 @@ def parse_args(argv=None) -> tuple[RenderConfig, str]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quirks", choices=["verbatim", "fixed"], default="verbatim")
     ap.add_argument("--precision", choices=["f32", "f64"], default="f32")
-    ap.add_argument("--device", default="cpu", help="cpu | cuda | cuda:N")
+    ap.add_argument("--device", default="cuda", help="cuda | cuda:N | cpu")
     ap.add_argument("-o", "--output", default="render.png")
     args = ap.parse_args(argv)
     cfg = RenderConfig(

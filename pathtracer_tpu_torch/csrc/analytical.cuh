@@ -95,7 +95,7 @@ __device__ __forceinline__ float closest_hit(const SceneView& s, V3 ro, V3 rd, V
   int idx = t == t0 ? 0 : (t == t1 ? 1 : 2);
   bool hit = isfinite(t);
 
-  V3 hp = ro + rd * (hit ? t : 0.0f);
+  V3 hp = madd3(ro, rd, hit ? t : 0.0f);
   V3 center = load3(s.sv + SV_SPHERE_CENTER + (idx == 0 ? 0 : 3));
   normal = idx == 2 ? load3(s.sv + SV_PLANE_NORMAL) : safe_normalize(hp - center);
 

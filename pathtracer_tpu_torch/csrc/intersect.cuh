@@ -6,17 +6,34 @@
 
 namespace pt {
 
+// The sphere test past l = center - ro, in double, as ops/intersect.py runs
+// it: near a silhouette r^2 - d2 cancels to a few float ulps of |l|^2 and
+// dt grows as 1/sqrt(r^2 - d2), so any two float orderings (FMA or not)
+// would give the gradient there different digits. In double the products of
+// float inputs are exact and t rounds to the same float on both sides.
+struct SphereHit {
+  double tca, d2, radius2, thc;
+  float t;  // +inf on a miss
+};
+
+__device__ __forceinline__ SphereHit ray_sphere_hit(V3 ro, V3 rd, V3 center, float radius) {
+  V3 lf = center - ro;
+  SphereHit h;
+  double lx = lf.x, ly = lf.y, lz = lf.z;
+  h.tca = lx * (double)rd.x + ly * (double)rd.y + lz * (double)rd.z;
+  h.d2 = (lx * lx + ly * ly + lz * lz) - h.tca * h.tca;
+  h.radius2 = (double)radius * (double)radius;
+  double x = h.radius2 - h.d2;
+  h.thc = x > 0.0 ? sqrt(x) : 0.0;
+  double t0 = h.tca - h.thc;
+  double t = t0 < 0.0 ? h.tca + h.thc : t0;
+  bool miss = (h.d2 > h.radius2) || (t < 0.0);
+  h.t = miss ? INFINITY : (float)t;
+  return h;
+}
+
 __device__ __forceinline__ float ray_sphere(V3 ro, V3 rd, V3 center, float radius) {
-  V3 l = center - ro;
-  float tca = dot(l, rd);
-  float d2 = dot(l, l) - tca * tca;
-  float radius2 = radius * radius;
-  float thc = safe_sqrt(radius2 - d2);
-  float t0 = tca - thc;
-  float t1 = tca + thc;
-  float t = t0 < 0.0f ? t1 : t0;
-  bool miss = (d2 > radius2) || (t < 0.0f);
-  return miss ? INFINITY : t;
+  return ray_sphere_hit(ro, rd, center, radius).t;
 }
 
 __device__ __forceinline__ float ray_rect(V3 ro, V3 rd, V3 corner, V3 u, V3 v) {
@@ -24,7 +41,7 @@ __device__ __forceinline__ float ray_rect(V3 ro, V3 rd, V3 corner, V3 u, V3 v) {
   float denom = dot(n, rd);
   bool facing = fabsf(denom) > 1e-8f;
   float t = dot(corner - ro, n) / (facing ? denom : 1.0f);
-  V3 rel = (ro + rd * t) - corner;
+  V3 rel = madd3(ro, rd, t) - corner;
   float uu = dot(u, u);
   float vv = dot(v, v);
   float a = dot(rel, u) / (uu > 0.0f ? uu : 1.0f);

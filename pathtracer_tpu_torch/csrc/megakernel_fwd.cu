@@ -33,7 +33,7 @@ constexpr int THREADS = 128;
 
 __global__ void __launch_bounds__(THREADS)
     render_forward_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
-                          float* __restrict__ out, int width, int height, float inv_w, float inv_h, int spp,
+                          float* __restrict__ out, int width, int height, int spp,
                           int depth, int n_lights, int n_materials, int flags) {
   extern __shared__ float sv[];
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(THREADS)
   V3 sum = splat3(0.0f);
   for (int k = 0; k < spp; ++k) {
     const uint32_t* kk = keys + 4 * k;  // (kc0, kc1, kb0, kb1) of sample k
-    V3 r = trace_sample(s, p, n, width, height, inv_w, inv_h, depth, flags, kk[0], kk[1], kk[2], kk[3]);
+    V3 r = trace_sample(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3]);
     sum = k == 0 ? r : sum + r;
   }
   if (spp > 1) sum = sum / (float)spp;
@@ -59,12 +59,12 @@ __global__ void __launch_bounds__(THREADS)
 
 // Launches one frame on `stream`; returns cudaGetLastError() (0 = success).
 extern "C" int pt_render_forward(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
-                                 int height, float inv_w, float inv_h, int spp, int depth, int n_lights,
+                                 int height, int spp, int depth, int n_lights,
                                  int n_materials, int flags, void* stream) {
   const int n = width * height;
   const int blocks = (n + pt::THREADS - 1) / pt::THREADS;
   pt::render_forward_kernel<<<blocks, pt::THREADS, n_sv * sizeof(float), (cudaStream_t)stream>>>(
-      sv, n_sv, keys, out, width, height, inv_w, inv_h, spp, depth, n_lights, n_materials, flags);
+      sv, n_sv, keys, out, width, height, spp, depth, n_lights, n_materials, flags);
   return (int)cudaGetLastError();
 }
 

@@ -35,7 +35,7 @@ __device__ __forceinline__ EmitterHit sample_lights_emitter(const SceneView& s, 
     float d = is_sph ? ray_sphere(ro, rd, pos, lt[12])
                      : (is_rect ? ray_rect(ro, rd, pos, load3(lt + 6), load3(lt + 9)) : INFINITY);
     if (!(isfinite(d) && d < e.dist && (is_sph || is_rect))) continue;
-    V3 normal = is_sph ? safe_normalize((ro + rd * d) - pos) : safe_normalize(cross(load3(lt + 6), load3(lt + 9)));
+    V3 normal = is_sph ? safe_normalize(madd3(ro, rd, d) - pos) : safe_normalize(cross(load3(lt + 6), load3(lt + 9)));
     float cos_theta = dot(-rd, normal);
     float denom = lt[13] * cos_theta * (is_sph ? 0.5f : 1.0f);
     e.pdf = (d * d) / (denom != 0.0f ? denom : 1.0f);
@@ -97,7 +97,7 @@ __device__ __forceinline__ LightSample sample_light(const SceneView& s, int idx,
 __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 rd, V3 fhp, V3 ffnormal, const Material& m,
                                            float eta, float u_pick, float r1, float r2) {
   if (s.n_lights == 0) return splat3(0.0f);
-  V3 scatter_pos = fhp + ffnormal * EPS;
+  V3 scatter_pos = madd3(fhp, ffnormal, EPS);
   // Truncation toward zero, as the reference's int cast.
   int idx = min(max((int)(u_pick * (float)s.n_lights), 0), s.n_lights - 1);
   LightSample ls = sample_light(s, idx, scatter_pos, r1, r2);
@@ -113,86 +113,127 @@ __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 rd, V3 fhp, V3
   return ls.emission * f * (mis_w / ls.pdf);
 }
 
-// One sample of one pixel: camera ray plus the bounce loop
-// (integrator make_bounce_step), returning radiance.
-__device__ __forceinline__ V3 trace_sample(const SceneView& s, int p, int n, int width, int height, float inv_w,
-                                           float inv_h, int depth, int flags, uint32_t kc0, uint32_t kc1,
-                                           uint32_t kb0, uint32_t kb1) {
+// The per-lane state that enters a bounce (integrator PathState, minus the
+// radiance sum and the alive flag, which the caller keeps).
+struct PathCarry {
+  V3 ro, rd, throughput;
+  float prev_pdf;
+  V3 prev_l;
+  float prev_hit_dist;
+};
+
+// Camera ray direction of pixel p (Pinhole::gen_ray with pixel_coords'
+// (x/W, (H-1-y)/H)) for the sub-pixel jitter (ox, oy). Formed and normalized
+// in double and rounded once, as models/camera.gen_ray does: a silhouette
+// hit's gradient depends on the last bit of the ray. The unnormalized
+// direction q and the screen position (sx, sy), rounded to float, are for
+// the adjoint.
+__device__ __forceinline__ V3 camera_ray(const SceneView& s, int p, int width, int height, float ox, float oy, V3& q,
+                                         float& sx, float& sy) {
+  int px = p % width, py = p / width;
+  double dsx = (1.0 / width) * (double)ox + (double)px / width;
+  double dsy = (1.0 / height) * (double)oy + ((double)(height - 1) - (double)py) / height;
+  double qd[3];
+  for (int c = 0; c < 3; ++c) {
+    qd[c] = ((double)s.sv[SV_LOWER_LEFT + c] - (double)s.sv[SV_CAM_ORIGIN + c]) +
+            (double)s.sv[SV_HORIZONTAL + c] * dsx + (double)s.sv[SV_VERTICAL + c] * dsy;
+  }
+  double len = sqrt(qd[0] * qd[0] + qd[1] * qd[1] + qd[2] * qd[2]);
+  q = v3((float)qd[0], (float)qd[1], (float)qd[2]);
+  sx = (float)dsx;
+  sy = (float)dsy;
+  return v3((float)(qd[0] / len), (float)(qd[1] / len), (float)(qd[2] / len));
+}
+
+__device__ __forceinline__ PathCarry init_carry(const SceneView& s, V3 rd, int flags) {
+  PathCarry c;
+  c.ro = load3(s.sv + SV_CAM_ORIGIN);
+  c.rd = rd;
+  c.throughput = splat3(1.0f);
+  c.prev_pdf = (flags & FLAG_PRIMARY_MIS) ? 0.0f : -1.0f;
+  c.prev_l = splat3(0.0f);
+  c.prev_hit_dist = -1.0f;
+  return c;
+}
+
+// One bounce of one path (integrator make_bounce_step on a live lane):
+// closest hit, emitter pass with MIS, background, emission, alpha
+// pass-through, NEE and the Disney sample that sets the next ray. Adds to
+// `radiance`, advances `c`, and returns whether the path goes on. The
+// uniforms of bounce d are uniform(kb)[(d*N + p)*8 + j], N = W*H.
+__device__ __forceinline__ bool bounce(const SceneView& s, PathCarry& c, V3& radiance, int n, int p, int d,
+                                       int flags, uint32_t kb0, uint32_t kb1) {
   const bool stale_gate = flags & FLAG_STALE_EMITTER_GATE;
   const bool primary_mis = flags & FLAG_PRIMARY_MIS;
+  const uint64_t base = ((uint64_t)d * (uint64_t)n + (uint64_t)p) * U_PER_BOUNCE;
+  const V3 ro = c.ro, rd = c.rd, throughput = c.throughput;
 
-  // Camera ray (Pinhole::gen_ray with pixel_coords' (x/W, (H-1-y)/H)).
-  int px = p % width, py = p / width;
-  float cx = (float)px / (float)width;
-  float cy = ((float)(height - 1) - (float)py) / (float)height;
-  float ox = uniform_at(kc0, kc1, (uint64_t)p * 2u);
-  float oy = uniform_at(kc0, kc1, (uint64_t)p * 2u + 1u);
-  V3 origin = load3(s.sv + SV_CAM_ORIGIN);
-  V3 rd = (load3(s.sv + SV_LOWER_LEFT) - origin) + load3(s.sv + SV_HORIZONTAL) * (inv_w * ox + cx) +
-          load3(s.sv + SV_VERTICAL) * (inv_h * oy + cy);
-  rd = normalize(rd);
-  V3 ro = origin;
+  V3 geo_normal;
+  Material mat;
+  float t = closest_hit(s, ro, rd, geo_normal, mat);
+  bool geo_hit = isfinite(t);
+  float gate_dist = geo_hit ? t : (stale_gate ? c.prev_hit_dist : INFINITY);
+  EmitterHit em = sample_lights_emitter(s, ro, rd, gate_dist);
+  bool hit = geo_hit || em.hit;
+  if (!hit) {  // background, and the path dies
+    radiance = radiance + background(s, rd) * throughput;
+    return false;
+  }
+  float hit_dist = em.hit ? em.dist : gate_dist;
 
+  finalize_material(mat);
+  V3 fhp = madd3(ro, rd, hit_dist);
+  bool entering = dot(geo_normal, rd) <= 0.0f;
+  V3 ffnormal = entering ? geo_normal : -geo_normal;
+  float eta = dot(rd, geo_normal) < 0.0f ? 1.0f / mat.ior : mat.ior;
+
+  // Alpha pass-through: Blend by the alpha coin, Mask by the cutoff.
+  bool alpha_fail = (mat.alpha_mode == 1 && uniform_at(kb0, kb1, base + 6) > mat.opacity) ||
+                    (mat.alpha_mode == 2 && mat.opacity < mat.alpha_cutoff);
+  bool passthru = !em.hit && alpha_fail;
+
+  if (!passthru) radiance = radiance + mat.emission * throughput;
+
+  if (em.hit) {  // emitter hit, MIS-weighted with the previous scatter pdf
+    float mis_w = power_heuristic(fmaxf(c.prev_pdf, 0.0f), em.pdf);
+    if (!primary_mis && c.prev_pdf < 0.0f) mis_w = 1.0f;
+    radiance = radiance + em.emission * (mis_w * 1.0f) * throughput;
+  }
+  c.prev_hit_dist = hit_dist;
+
+  if (passthru) {  // continue straight through the surface
+    c.ro = madd3(fhp, rd, EPS);
+    return true;
+  }
+  if (em.hit) return false;  // the path ends on a light
+
+  V3 ld = direct_light(s, rd, fhp, ffnormal, mat, eta, uniform_at(kb0, kb1, base + 0),
+                       uniform_at(kb0, kb1, base + 1), uniform_at(kb0, kb1, base + 2));
+  radiance = radiance + ld * throughput;
+
+  BsdfSample bs = disney_sample(mat, eta, -rd, ffnormal, c.prev_l, uniform_at(kb0, kb1, base + 3),
+                                uniform_at(kb0, kb1, base + 4), uniform_at(kb0, kb1, base + 5));
+  c.prev_pdf = bs.pdf;
+  c.prev_l = bs.l;
+  if (!(bs.pdf > 0.0f)) return false;
+  c.throughput = throughput * bs.f / splat3(bs.pdf);
+  c.ro = madd3(fhp, bs.l, EPS);
+  c.rd = bs.l;
+  return true;
+}
+
+// One sample of one pixel: camera ray plus the bounce loop, returning
+// radiance. Camera uniform j of pixel p is uniform(kc)[p*2 + j].
+__device__ __forceinline__ V3 trace_sample(const SceneView& s, int p, int n, int width, int height, int depth,
+                                           int flags, uint32_t kc0, uint32_t kc1, uint32_t kb0, uint32_t kb1) {
+  V3 q;
+  float sx, sy;
+  V3 rd = camera_ray(s, p, width, height, uniform_at(kc0, kc1, (uint64_t)p * 2u),
+                     uniform_at(kc0, kc1, (uint64_t)p * 2u + 1u), q, sx, sy);
+  PathCarry c = init_carry(s, rd, flags);
   V3 radiance = splat3(0.0f);
-  V3 throughput = splat3(1.0f);
-  float prev_pdf = primary_mis ? 0.0f : -1.0f;
-  V3 prev_l = splat3(0.0f);
-  float prev_hit_dist = -1.0f;
-
   for (int d = 0; d < depth; ++d) {
-    uint64_t base = ((uint64_t)d * (uint64_t)n + (uint64_t)p) * U_PER_BOUNCE;
-
-    V3 geo_normal;
-    Material mat;
-    float t = closest_hit(s, ro, rd, geo_normal, mat);
-    bool geo_hit = isfinite(t);
-    float gate_dist = geo_hit ? t : (stale_gate ? prev_hit_dist : INFINITY);
-    EmitterHit em = sample_lights_emitter(s, ro, rd, gate_dist);
-    bool hit = geo_hit || em.hit;
-    if (!hit) {  // background, and the path dies
-      radiance = radiance + background(s, rd) * throughput;
-      break;
-    }
-    float hit_dist = em.hit ? em.dist : gate_dist;
-
-    finalize_material(mat);
-    V3 fhp = ro + rd * hit_dist;
-    bool entering = dot(geo_normal, rd) <= 0.0f;
-    V3 ffnormal = entering ? geo_normal : -geo_normal;
-    float eta = dot(rd, geo_normal) < 0.0f ? 1.0f / mat.ior : mat.ior;
-
-    // Alpha pass-through: Blend by the alpha coin, Mask by the cutoff.
-    bool alpha_fail = (mat.alpha_mode == 1 && uniform_at(kb0, kb1, base + 6) > mat.opacity) ||
-                      (mat.alpha_mode == 2 && mat.opacity < mat.alpha_cutoff);
-    bool passthru = !em.hit && alpha_fail;
-
-    if (!passthru) radiance = radiance + mat.emission * throughput;
-
-    if (em.hit) {  // emitter hit, MIS-weighted with the previous scatter pdf
-      float mis_w = power_heuristic(fmaxf(prev_pdf, 0.0f), em.pdf);
-      if (!primary_mis && prev_pdf < 0.0f) mis_w = 1.0f;
-      radiance = radiance + em.emission * (mis_w * 1.0f) * throughput;
-    }
-    prev_hit_dist = hit_dist;
-
-    if (passthru) {  // continue straight through the surface
-      ro = fhp + rd * EPS;
-      continue;
-    }
-    if (em.hit) break;  // the path ends on a light
-
-    V3 ld = direct_light(s, rd, fhp, ffnormal, mat, eta, uniform_at(kb0, kb1, base + 0),
-                         uniform_at(kb0, kb1, base + 1), uniform_at(kb0, kb1, base + 2));
-    radiance = radiance + ld * throughput;
-
-    BsdfSample bs = disney_sample(mat, eta, -rd, ffnormal, prev_l, uniform_at(kb0, kb1, base + 3),
-                                  uniform_at(kb0, kb1, base + 4), uniform_at(kb0, kb1, base + 5));
-    prev_pdf = bs.pdf;
-    prev_l = bs.l;
-    if (!(bs.pdf > 0.0f)) break;
-    throughput = throughput * bs.f / splat3(bs.pdf);
-    ro = fhp + bs.l * EPS;
-    rd = bs.l;
+    if (!bounce(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
   }
   return radiance;
 }

@@ -31,6 +31,14 @@ __device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
 
 __device__ __forceinline__ V3 select3(bool c, V3 a, V3 b) { return c ? a : b; }
 
+// a + b * s with the product and the sum rounded apart, never fused into an
+// FMA, as the plain version's two tensor ops round it. Ray points and the
+// origins of the next rays go through it: a silhouette hit's gradient
+// depends on the last bit of the ray (intersect.cuh).
+__device__ __forceinline__ V3 madd3(V3 a, V3 b, float s) {
+  return {__fadd_rn(a.x, __fmul_rn(b.x, s)), __fadd_rn(a.y, __fmul_rn(b.y, s)), __fadd_rn(a.z, __fmul_rn(b.z, s))};
+}
+
 __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
 
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {

@@ -40,6 +40,7 @@ from ..ops.vecmath import (
     V3,
     dot,
     mask3,
+    maximum,
     onb,
     safe_normalize,
     splat3,
@@ -324,7 +325,7 @@ def make_bounce_step(
         radiance = radiance + mask3(alive & hit & ~passthru, material.emission * throughput)
 
         # Emitter hit, MIS-weighted with the previous bounce's scatter pdf.
-        mis_w = power_heuristic(torch.clamp_min(state.prev_pdf, 0.0), em.pdf)
+        mis_w = power_heuristic(maximum(state.prev_pdf, 0.0), em.pdf)
         if not quirks.primary_mis:
             mis_w = torch.where(state.prev_pdf < 0.0, 1.0, mis_w)
         radiance = radiance + mask3(alive & em.hit, em.emission * (mis_w * 1.0) * throughput)
@@ -406,21 +407,27 @@ def render_frame(
     detach: bool = False,
     estimator: str = "mis",
     uniforms: tuple | None = None,
+    basis: tuple | None = None,
 ) -> torch.Tensor:
     """Render one progressive frame -> [H, W, 4] linear RGBA (alpha 1) on
     the scene's device. `uniforms=(cam [N, 2], bounce [depth, N, 8])`
     replaces the key's stream (spp 1 only), so tests can feed JAX's
-    float64 stream."""
+    float64 stream. `basis` (lower_left, horizontal, vertical, origin)
+    replaces the camera's, as the packed scene vector holds it.
+
+    detach=True is the detached-sampling gradient estimator: autograd
+    through the frame differentiates everything but the sampled BSDF and
+    light directions and pdfs; forward values are those of detach=False."""
     dtype, device = scene.dtype, scene.device
     n = width * height
-    coords = pixel_coords(width, height, dtype, device)
+    coords = pixel_coords(width, height, torch.float64, device)
     depth = scene.recursion_depth
     cam = scene.camera.unpack()
 
     def one_sample(u):
         cam_u, bounce_u = u
         offset = V2(cam_u[:, 0], cam_u[:, 1])
-        ro, rd = gen_ray(cam, coords, offset, float(width), float(height))
+        ro, rd = gen_ray(cam, coords, offset, float(width), float(height), basis)
         return trace(scene, ro, rd, bounce_u, quirks, detach, estimator)
 
     if uniforms is not None:

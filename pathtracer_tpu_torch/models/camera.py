@@ -43,20 +43,31 @@ def camera_basis(cam: Pinhole, width: float, height: float):
     return lower_left, u * (half_width * 2.0), v * (half_height * 2.0)
 
 
-def gen_ray(cam: Pinhole, p: V2, offset: V2, width, height) -> tuple[V3, V3]:
+def gen_ray(cam: Pinhole, p: V2, offset: V2, width, height, basis=None) -> tuple[V3, V3]:
     """Batched Pinhole::gen_ray: p in [0,1)^2 (x right, y up), offset the
-    sub-pixel jitter. Returns (origin, direction) over the batch."""
+    sub-pixel jitter. Returns (origin, direction) over the batch. `basis`
+    (lower_left, horizontal, vertical, origin) replaces the camera's.
+
+    The direction is formed and normalized in float64 from the basis, p and
+    offset, then rounded once to the basis dtype, as the CUDA kernels do:
+    a silhouette hit's gradient is sensitive to the last bit of the ray
+    (see ops/intersect.ray_sphere), so both sides must round the same
+    direction. Pass p in float64 (pixel_coords(..., torch.float64)) to get
+    the kernels' rays."""
     pixel_size = V2(1.0 / width, 1.0 / height)
-    lower_left, horizontal, vertical = camera_basis(cam, width, height)
+    if basis is None:
+        basis = (*camera_basis(cam, width, height), cam.origin)
+    origin = basis[3]
+    f64 = torch.float64
+    lower_left, horizontal, vertical, origin64 = (b.to(f64) for b in basis)
     rd = (
-        (lower_left - cam.origin)
-        + horizontal * (pixel_size.x * offset.x + p.x)
-        + vertical * (pixel_size.y * offset.y + p.y)
+        (lower_left - origin64)
+        + horizontal * (pixel_size.x * offset.x.to(f64) + p.x.to(f64))
+        + vertical * (pixel_size.y * offset.y.to(f64) + p.y.to(f64))
     )
-    direction = normalize(rd)
+    direction = normalize(rd).to(origin.x.dtype)
     ones = torch.ones_like(direction.x)
-    origin = V3(cam.origin.x * ones, cam.origin.y * ones, cam.origin.z * ones)
-    return origin, direction
+    return V3(origin.x * ones, origin.y * ones, origin.z * ones), direction
 
 
 def pixel_coords(width: int, height: int, dtype=torch.float32, device=None) -> V2:

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.vecmath import V3, mix_f, v3
+from ..ops.vecmath import V3, clip, maximum, mix_f, v3
 from ..utils.tree import tree_map
 
 
@@ -112,12 +112,12 @@ def default_material(shape=(), dtype=torch.float32, device=None) -> Material:
 def finalize_material(m: Material) -> Material:
     """Material::finalize: clamp roughness, map clearcoat gloss to
     roughness, clamp the medium anisotropy, derive the GGX alphas."""
-    roughness = torch.clamp_min(m.roughness, 0.01)
+    roughness = maximum(m.roughness, 0.01)
     clearcoat_roughness = mix_f(0.1, 0.001, m.clearcoat_gloss)
-    medium = m.medium._replace(anisotropy=torch.clamp(m.medium.anisotropy, -0.9, 0.9))
+    medium = m.medium._replace(anisotropy=clip(m.medium.anisotropy, -0.9, 0.9))
     aspect = torch.sqrt(1.0 - m.anisotropic * 0.9)
-    ax = torch.clamp_min(roughness / aspect, 0.001)
-    ay = torch.clamp_min(roughness * aspect, 0.001)
+    ax = maximum(roughness / aspect, 0.001)
+    ay = maximum(roughness * aspect, 0.001)
     return m._replace(
         roughness=roughness,
         clearcoat_roughness=clearcoat_roughness,

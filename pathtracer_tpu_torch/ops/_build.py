@@ -1,11 +1,11 @@
 """Build and load the CUDA kernels of `csrc/` at first use.
 
-`nvcc` compiles the sources into a shared library with a plain C
-interface, which `ctypes` loads; nothing includes PyTorch's headers, so a
-build takes seconds. The library goes to `build/torch_kernels/<hash>/` at
-the repository root, keyed by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is reused. A missing `nvcc`
-or a failed build raises.
+`nvcc` compiles each `csrc/*.cu` into a shared library of its own with a
+plain C interface, which `ctypes` loads; nothing includes PyTorch's
+headers, and the compilers run side by side. The libraries go to
+`build/torch_kernels/<hash>/` at the repository root, keyed by a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is reused. A missing `nvcc` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -40,6 +40,11 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def kernels() -> list[str]:
+    """One shared library per `csrc/*.cu`, named by the file's stem."""
+    return [src.stem for src in sorted(CSRC.glob("*.cu"))]
+
+
 def _digest(flags: tuple) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
     for src in _sources():
@@ -49,36 +54,62 @@ def _digest(flags: tuple) -> str:
 
 
 def build(flags: tuple = NVCC_FLAGS) -> Path:
-    """Compile csrc/*.cu into one shared library (cached by content)."""
+    """Compile each csrc/*.cu into its own shared library (cached by the
+    content of every source and header); the nvcc processes run side by
+    side. Returns the directory of the libraries."""
     out_dir = BUILD_ROOT / _digest(flags)
-    lib = out_dir / "libpt_kernels.so"
-    if lib.exists():
-        return lib
+    todo = [stem for stem in kernels() if not (out_dir / f"lib{stem}.so").exists()]
+    if not todo:
+        return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libpt_kernels.so.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *flags, "-I", str(CSRC), "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
+    nvcc = find_nvcc()
+    procs = {}
+    for stem in todo:
+        tmp = out_dir / f"lib{stem}.so.tmp{os.getpid()}"
+        cmd = [nvcc, *flags, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        log = open(out_dir / f"build_{stem}.log", "w")
+        log.write(" ".join(cmd) + "\n")
+        log.flush()
+        procs[stem] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    failed = []
+    for stem, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{stem}.cu ({rc}):\n{(out_dir / f'build_{stem}.log').read_text()[-4000:]}")
+        else:
+            os.replace(tmp, out_dir / f"lib{stem}.so")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return out_dir
 
 
 def build_log(flags: tuple = NVCC_FLAGS) -> str:
-    """The compiler's output of the last build (registers, spills)."""
-    path = BUILD_ROOT / _digest(flags) / "build.log"
-    return path.read_text() if path.exists() else ""
+    """The compiler's output of the last build of each kernel (registers,
+    spills)."""
+    out_dir = BUILD_ROOT / _digest(flags)
+    return "".join(
+        (out_dir / f"build_{stem}.log").read_text()
+        for stem in kernels() if (out_dir / f"build_{stem}.log").exists()
+    )
 
 
 @functools.lru_cache(maxsize=None)
-def load(flags: tuple = NVCC_FLAGS) -> ctypes.CDLL:
-    """Build if needed and load the library, with its C signatures set."""
-    lib = ctypes.CDLL(str(build(flags)))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pt_render_forward.argtypes = [p, i, p, p, i, i, f, f, i, i, i, i, i, p]
-    lib.pt_render_forward.restype = i
+def load(kernel: str = "megakernel_fwd", flags: tuple = NVCC_FLAGS) -> ctypes.CDLL:
+    """Build if needed and load one kernel's library, with its C signatures
+    set."""
+    lib = ctypes.CDLL(str(build(flags) / f"lib{kernel}.so"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if kernel == "megakernel_fwd":
+        lib.pt_render_forward.argtypes = [p, i, p, p, i, i, i, i, i, i, i, p]
+        lib.pt_render_forward.restype = i
+    elif kernel == "megakernel_bwd":
+        lib.pt_render_backward.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.pt_render_backward.restype = i
+        lib.pt_backward_smem_bytes.argtypes = [i]
+        lib.pt_backward_smem_bytes.restype = ctypes.c_size_t
+        lib.pt_backward_threads.restype = i
+        lib.pt_backward_max_depth.restype = i
     lib.pt_error_string.argtypes = [i]
     lib.pt_error_string.restype = ctypes.c_char_p
     return lib

@@ -32,9 +32,11 @@ from .sampling import (
 from .vecmath import (
     INV_PI,
     V3,
+    clip,
     dot,
     luminance,
     mask3,
+    maximum,
     mix,
     mix_f,
     onb,
@@ -144,7 +146,7 @@ def eval_spec_refraction(mat: Material, eta, v: V3, l: V3, h: V3):
     eta2 = eta * eta
     jacobian = _guard_div(torch.abs(ldoth), denom, active)
 
-    pdf = _guard_div(g1 * torch.clamp_min(vdoth, 0.0) * d * jacobian, v.z, active)
+    pdf = _guard_div(g1 * maximum(vdoth, 0.0) * d * jacobian, v.z, active)
 
     scale = (
         (1.0 - mat.metallic) * mat.spec_trans * (1.0 - f) * d * g2
@@ -213,7 +215,7 @@ def disney_sample(
 
     # Diffuse lobe. Re-conditioned uniforms are clipped to [0, 1] because
     # lanes that picked another lobe would drive sqrt/pow to NaN.
-    r1_d = torch.clamp(_guard_div(r1, cdf0, cdf0 > 0.0), 0.0, 1.0)
+    r1_d = clip(_guard_div(r1, cdf0, cdf0 > 0.0), 0.0, 1.0)
     l_diff = sg3(cosine_sample_hemisphere(r1_d, r2))
     h_diff = sg3(safe_normalize(l_diff + v))
     f_diff, pdf_diff = eval_diffuse(mat, sheen_col, v, l_diff, h_diff)
@@ -221,7 +223,7 @@ def disney_sample(
 
     # Clearcoat lobe.
     span_c = cdf1 - cdf0
-    r1_c = torch.clamp(_guard_div(r1 - cdf0, span_c, span_c > 0.0), 0.0, 1.0)
+    r1_c = clip(_guard_div(r1 - cdf0, span_c, span_c > 0.0), 0.0, 1.0)
     h_cc = sample_gtr1(mat.clearcoat_roughness, r1_c, r2)
     h_cc = sg3(where3(h_cc.z < 0.0, -h_cc, h_cc))
     l_cc = sg3(safe_normalize(reflect(-v, h_cc)))
@@ -230,7 +232,7 @@ def disney_sample(
 
     # Specular reflection / refraction lobes.
     span_s = 1.0 - cdf1
-    r1_s = torch.clamp(_guard_div(r1 - cdf1, span_s, span_s > 0.0), 0.0, 1.0)
+    r1_s = clip(_guard_div(r1 - cdf1, span_s, span_s > 0.0), 0.0, 1.0)
     h_s = sample_ggxvndf(v, mat.ax, mat.ay, r1_s, r2)
     h_s = sg3(where3(h_s.z < 0.0, -h_s, h_s))
 

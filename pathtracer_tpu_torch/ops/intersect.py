@@ -16,17 +16,27 @@ MISS = math.inf
 
 
 def ray_sphere(ro: V3, rd: V3, center: V3, radius) -> torch.Tensor:
-    """Sphere test: t0 = tca - thc unless negative, else t1; inf on miss."""
-    l = center - ro
+    """Sphere test: t0 = tca - thc unless negative, else t1; inf on miss.
+
+    After `l = center - ro` the test runs in float64 and rounds t once to
+    the ray's dtype, as the CUDA kernels do. Near a silhouette r^2 - d2
+    cancels to a few float32 ulps of |l|^2 while d t / d(ray, sphere) grows
+    as 1/sqrt(r^2 - d2): in float32 the gradient there keeps few digits and
+    two float32 orderings (FMA contraction, another sum order) disagree. In
+    float64 both sides round the same t from the same float32 inputs."""
+    dtype = rd.x.dtype
+    f64 = torch.float64
+    l, rd = (center - ro).to(f64), rd.to(f64)
     tca = dot(l, rd)
     d2 = dot(l, l) - tca * tca
+    radius = torch.as_tensor(radius).to(f64)
     radius2 = radius * radius
     thc = safe_sqrt(radius2 - d2)
     t0 = tca - thc
     t1 = tca + thc
     t = torch.where(t0 < 0.0, t1, t0)
     miss = (d2 > radius2) | (t < 0.0)
-    return torch.where(miss, MISS, t)
+    return torch.where(miss, MISS, t).to(dtype)
 
 
 def ray_rect(ro: V3, rd: V3, corner: V3, u: V3, v: V3) -> torch.Tensor:

@@ -1,18 +1,24 @@
-"""The forward megakernel: one CUDA launch renders one frame.
+"""The megakernels: one CUDA launch renders a frame, one more gives its
+gradient.
 
-Port of the forward path of `pathtracer_tpu/ops/megakernel.py`. The TPU
-kernel `_pallas_forward` becomes `csrc/megakernel_fwd.cu`, a hand-written
-CUDA kernel for sm_90a with one thread per pixel. The scene reaches it
+Port of the analytical path of `pathtracer_tpu/ops/megakernel.py`. The TPU
+kernels `_pallas_forward` (K1) and `_pallas_backward` (K2) become
+`csrc/megakernel_fwd.cu` and `csrc/megakernel_bwd.cu`, hand-written CUDA
+kernels for sm_90a with one thread per pixel. The scene reaches them
 packed into one float32 vector by `pack_scene`, in the JAX package's
-layout (camera basis, analytical params, L light records of 15, M
-material records of 20); the random numbers are threefry drawn in the
-kernel, bit-equal to `ops/rng`, so the kernel renders the same image as
-`integrator/tracer.render_frame` for the same key.
+layout (camera basis, analytical params, L light records of 15, M material
+records of 20); the random numbers are threefry drawn in the kernel,
+bit-equal to `ops/rng`, so K1 renders the same image as
+`integrator/tracer.render_frame` for the same key and K2 replays exactly
+K1's paths.
 
-`render_frame_megakernel` is the wrapper: on a CUDA scene it launches the
-kernel or raises; on a CPU scene it runs `render_frame_reference`, the
-plain version (the eager integrator). This slice is forward only and
-covers the analytical scene without media or procedural hooks.
+`render_frame_megakernel` is the wrapper. On a CUDA scene it launches K1,
+through `MegakernelRender` (the port of `_diff_render`) when a scene leaf
+requires grad, whose backward launches K2; `pack_scene` is ordinary torch
+ops, so autograd carries d/d(sv) on to the scene leaves. A failed launch
+raises; nothing falls back to autograd. On a CPU scene it runs the plain
+version, the eager integrator under the detached-sampling estimator. The
+kernels cover the analytical scene without media or procedural hooks.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..models import analytical
 from ..models.camera import camera_basis
 from ..models.scene import Scene
 from . import rng
+from .vecmath import V3
 
 _MAT_FIELDS = (
     # (field, arity) of the media-free material record: 20 scalars.
@@ -131,8 +138,6 @@ def _check_supported(scene: Scene) -> None:
         if has_media(scene):
             raise NotImplementedError("participating media are not ported to the megakernel yet")
         scene._media_free = (mt, mt._version)
-    if any(b.requires_grad for b in scene.buffers()):
-        raise ValueError("the megakernel is forward only: a scene leaf requires grad")
 
 
 def sample_keys(key, spp: int) -> torch.Tensor:
@@ -153,11 +158,68 @@ def kernel_flags(scene: Scene, quirks: Quirks) -> int:
     )
 
 
+def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
+    """The inverse of pack_scene on a media-free scene: `scene` with every
+    packed float leaf replaced by its entry of sv (so autograd through a
+    render of it is d/d sv), and the camera basis (lower_left, horizontal,
+    vertical, origin) that sv holds in place of the camera."""
+    v = sv.reshape(-1)
+    at3 = lambda i: V3(v[i], v[i + 1], v[i + 2])
+    n_lights = scene.num_lights
+    n_mat = int(scene.params.materials.roughness.shape[0])
+    p = scene.params.unpack()
+    params = p._replace(
+        sphere_center=V3(v[[12, 15]], v[[13, 16]], v[[14, 17]]),
+        sphere_radius=v[18:20], plane_point=at3(20), plane_normal=at3(23),
+        checker_scale=v[26], checker_offset=v[27], checker_albedo=v[28:30],
+        sky_horizon=at3(30), sky_zenith=at3(33), sky_scale=v[36],
+    )
+    lt = v[37:37 + 15 * n_lights].reshape(n_lights, 15)
+    col3 = lambda t, i: V3(t[:, i], t[:, i + 1], t[:, i + 2])
+    lights = scene.lights.unpack()._replace(
+        position=col3(lt, 0), emission=col3(lt, 3), u=col3(lt, 6), v=col3(lt, 9),
+        radius=lt[:, 12], area=lt[:, 13],
+    )
+    mt = v[37 + 15 * n_lights:37 + 15 * n_lights + 20 * n_mat].reshape(n_mat, 20)
+    fields, col = {}, 0
+    for name, arity in _MAT_FIELDS:
+        if name != "alpha_mode":  # an int leaf, kept from the scene
+            fields[name] = col3(mt, col) if arity == 3 else mt[:, col]
+        col += arity
+    params = params._replace(materials=p.materials._replace(**fields))
+    return scene.replace(params=params, lights=lights), (at3(0), at3(3), at3(6), at3(9))
+
+
 def render_frame_reference(
     scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
 ) -> torch.Tensor:
-    """The plain version of the kernel: the eager integrator's frame."""
-    return render_frame(scene, key, width, height, spp=spp, quirks=quirks)
+    """The plain version of K1: the eager integrator's frame under the
+    detached-sampling estimator, whose autograd is the plain version of K2
+    (forward values are those of detach=False)."""
+    return render_frame(scene, key, width, height, spp=spp, quirks=quirks, detach=True)
+
+
+def render_frame_packed(
+    sv: torch.Tensor, scene: Scene, key, width: int, height: int, spp: int = 1,
+    quirks: Quirks = VERBATIM,
+) -> torch.Tensor:
+    """The plain version of K1 as a function of the packed scene vector
+    (the kernel's own input): the eager frame of unpack_scene(sv, scene)."""
+    s, basis = unpack_scene(sv, scene)
+    return render_frame(s, key, width, height, spp=spp, quirks=quirks, detach=True, basis=basis)
+
+
+def render_grad_reference(
+    sv: torch.Tensor, scene: Scene, key, ct: torch.Tensor, width: int, height: int,
+    spp: int = 1, quirks: Quirks = VERBATIM,
+) -> torch.Tensor:
+    """The plain version of K2: d(sum(ct * frame))/d(sv) [1, P] by autograd
+    of render_frame_packed."""
+    sv = sv.detach().requires_grad_(True)
+    with torch.enable_grad():
+        img = render_frame_packed(sv, scene, key, width, height, spp, quirks)
+        (grad,) = torch.autograd.grad(img, sv, grad_outputs=ct)
+    return grad
 
 
 class KernelLaunch(NamedTuple):
@@ -192,16 +254,15 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
 
 
 def launch(k: KernelLaunch) -> torch.Tensor:
-    """One launch of the CUDA kernel on PyTorch's current stream; returns
-    `k.out`. Counted in `render_frame_megakernel.launches`."""
+    """One launch of K1 on PyTorch's current stream; returns `k.out`.
+    Counted in `render_frame_megakernel.launches`."""
     from . import _build
 
-    lib = _build.load()
+    lib = _build.load("megakernel_fwd")
     height, width = k.out.shape[:2]
     err = lib.pt_render_forward(
         k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(),
-        width, height, 1.0 / width, 1.0 / height, k.spp, k.depth,
-        k.n_lights, k.n_materials, k.flags,
+        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags,
         torch.cuda.current_stream(k.out.device).cuda_stream,
     )
     if err != 0:
@@ -210,14 +271,66 @@ def launch(k: KernelLaunch) -> torch.Tensor:
     return k.out
 
 
+def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
+    """One launch of K2 on PyTorch's current stream: d(sum(ct * frame))/d(sv)
+    [1, P] for the frame K1 renders from `k`; ct [H, W, 4] float32 (its
+    alpha channel gets no gradient). Counted in
+    `render_frame_megakernel.bwd_launches`."""
+    from . import _build
+
+    if k.sv.device.type != "cuda":
+        raise ValueError("the backward megakernel needs CUDA tensors")
+    lib = _build.load("megakernel_bwd")
+    height, width = k.out.shape[:2]
+    n_sv = k.sv.shape[1]
+    if k.depth > lib.pt_backward_max_depth():
+        raise ValueError(f"the backward megakernel holds {lib.pt_backward_max_depth()} bounces, got depth {k.depth}")
+    smem = lib.pt_backward_smem_bytes(n_sv)
+    if smem > torch.cuda.get_device_properties(k.sv.device).shared_memory_per_block_optin:
+        raise ValueError(f"a scene of {n_sv} packed scalars needs {smem} bytes of shared memory per block")
+    if ct.shape != k.out.shape or ct.device != k.sv.device:
+        raise ValueError(f"cotangent {tuple(ct.shape)} on {ct.device}, frame {tuple(k.out.shape)} on {k.sv.device}")
+    ct = ct.to(torch.float32).contiguous()
+    blocks = -(-width * height // lib.pt_backward_threads())
+    partial = torch.empty((blocks, n_sv), dtype=torch.float32, device=k.sv.device)
+    grad = torch.empty((1, n_sv), dtype=torch.float32, device=k.sv.device)
+    err = lib.pt_render_backward(
+        k.sv.data_ptr(), n_sv, k.keys.data_ptr(), ct.data_ptr(), partial.data_ptr(), grad.data_ptr(),
+        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags,
+        torch.cuda.current_stream(k.sv.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"backward megakernel launch failed: {lib.pt_error_string(err).decode()}")
+    render_frame_megakernel.bwd_launches += 1
+    return grad
+
+
+class MegakernelRender(torch.autograd.Function):
+    """The port of `_diff_render`: K1 forward over the packed scene vector,
+    K2 backward. Only sv gets a gradient; the keys get none, as the
+    detached-sampling estimator requires."""
+
+    @staticmethod
+    def forward(ctx, sv: torch.Tensor, k: KernelLaunch) -> torch.Tensor:
+        k = k._replace(sv=sv.detach())
+        ctx.launch = k
+        return launch(k)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        return launch_backward(ctx.launch, ct), None
+
+
 def render_frame_megakernel(
     scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
 ) -> torch.Tensor:
     """Render one frame -> [H, W, 4] float32 on the scene's device.
 
-    A CUDA scene goes through the CUDA kernel (one launch, counted in
-    `render_frame_megakernel.launches`); a CPU scene through the plain
-    version. There is no fallback from one to the other."""
+    A CUDA scene goes through K1 (one launch, counted in
+    `render_frame_megakernel.launches`); when a scene leaf requires grad,
+    the frame's backward is one launch of K2 (counted in
+    `render_frame_megakernel.bwd_launches`). A CPU scene goes through the
+    plain version. There is no fallback from one to the other."""
     _check_supported(scene)
     device = scene.device
     if device.type == "cpu":
@@ -228,7 +341,11 @@ def render_frame_megakernel(
         raise ValueError(f"the megakernel renders float32 scenes, got {scene.dtype}")
     if width < 1 or height < 1 or spp < 1:
         raise ValueError(f"bad frame size {width}x{height}, spp {spp}")
-    return launch(prepare_launch(scene, key, width, height, spp, quirks))
+    k = prepare_launch(scene, key, width, height, spp, quirks)
+    if torch.is_grad_enabled() and k.sv.requires_grad:
+        return MegakernelRender.apply(k.sv, k)
+    return launch(k)
 
 
 render_frame_megakernel.launches = 0
+render_frame_megakernel.bwd_launches = 0

@@ -51,6 +51,12 @@ def prng_key(seed: int) -> torch.Tensor:
     return torch.tensor([s >> 32, s & MASK32], dtype=torch.int64)
 
 
+def fold_in(key, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)`: threefry2x32 of the key at the
+    counter (0, data) -> a new [2] int64 key."""
+    return torch.tensor(threefry2x32(key, 0, int(data) & MASK32), dtype=torch.int64)
+
+
 def _counters(n: int, device):
     i = torch.arange(n, dtype=torch.int64, device=device)
     return i >> 32, i & MASK32

@@ -14,7 +14,9 @@ from .vecmath import (
     PI,
     TWO_PI,
     V3,
+    clip,
     cross,
+    maximum,
     onb,
     safe_normalize,
     safe_sqrt,
@@ -32,7 +34,7 @@ def power_heuristic(a, b):
 
 def schlick_fresnel(u):
     """(1-u)^5 with clamp."""
-    m = torch.clamp(1.0 - u, 0.0, 1.0)
+    m = clip(1.0 - u, 0.0, 1.0)
     m2 = m * m
     return m2 * m2 * m
 
@@ -64,11 +66,11 @@ def sample_gtr1(rgh, r1, r2) -> V3:
     """GTR1 half-vector sampling; phi is driven by r1 and r2 is unused,
     as in the reference."""
     del r2
-    a = torch.clamp_min(rgh, 0.001)
+    a = maximum(rgh, 0.001)
     a2 = a * a
     phi = r1 * TWO_PI
     cos_theta = safe_sqrt((1.0 - torch.pow(a2, 1.0 - r1)) / (1.0 - a2))
-    sin_theta = torch.clamp(safe_sqrt(1.0 - cos_theta * cos_theta), 0.0, 1.0)
+    sin_theta = clip(safe_sqrt(1.0 - cos_theta * cos_theta), 0.0, 1.0)
     return V3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
 
 
@@ -94,7 +96,7 @@ def sample_ggxvndf(v: V3, ax, ay, r1, r2) -> V3:
     t2 = (1.0 - s) * safe_sqrt(1.0 - t1 * t1) + s * t2
 
     nh = t1v * t1 + t2v * t2 + vh * safe_sqrt(1.0 - t1 * t1 - t2 * t2)
-    return safe_normalize(V3(ax * nh.x, ay * nh.y, torch.clamp_min(nh.z, 0.0)))
+    return safe_normalize(V3(ax * nh.x, ay * nh.y, maximum(nh.z, 0.0)))
 
 
 def smithg(ndotv, alphag):
@@ -155,7 +157,7 @@ def sample_hg(d: V3, g, r1, r2) -> V3:
     sqr = (1.0 - g_safe * g_safe) / (1.0 + g_safe - 2.0 * g_safe * r2)
     cos_aniso = (1.0 + g_safe * g_safe - sqr * sqr) / (2.0 * g_safe)
     cos_theta = torch.where(iso, 1.0 - 2.0 * r2, cos_aniso)
-    cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
+    cos_theta = clip(cos_theta, -1.0, 1.0)
     sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
     phi = TWO_PI * r1
     local = V3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)

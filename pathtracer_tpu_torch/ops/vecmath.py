@@ -77,6 +77,9 @@ class V3(NamedTuple):
         """Gamma 2.2 decode."""
         return V3(self.x ** 2.2, self.y ** 2.2, self.z ** 2.2)
 
+    def to(self, dtype: torch.dtype) -> "V3":
+        return V3(self.x.to(dtype), self.y.to(dtype), self.z.to(dtype))
+
 
 def v3(x, y, z, dtype=torch.float32, device=None) -> V3:
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
@@ -96,6 +99,22 @@ def safe_sqrt(x):
     """sqrt clamped at zero (the double-where form of the JAX package)."""
     pos = x > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def maximum(x, c):
+    """jnp.maximum against a constant: a tie sends half the gradient to
+    each side, where torch.clamp_min would send all of it to x."""
+    return torch.maximum(x, torch.as_tensor(c, dtype=x.dtype, device=x.device))
+
+
+def minimum(x, c):
+    """jnp.minimum against a constant, with its half-and-half tie gradient."""
+    return torch.minimum(x, torch.as_tensor(c, dtype=x.dtype, device=x.device))
+
+
+def clip(x, lo, hi):
+    """jnp.clip: maximum, then minimum, with their tie gradients."""
+    return minimum(maximum(x, lo), hi)
 
 
 def dot(a: V3, b: V3) -> torch.Tensor:

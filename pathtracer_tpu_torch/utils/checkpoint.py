@@ -1,0 +1,93 @@
+"""Checkpoint/resume for inverse-rendering runs.
+
+Port of `pathtracer_tpu/utils/checkpoint.py`. A state is a nested
+structure of tuples and lists whose leaves are tensors or numbers. It is
+saved as one `.npz`: the leaves depth first as `leaf_0, leaf_1, ...` (the
+order `jax.tree_util.tree_flatten` gives the same structure) and the
+structure as a string beside them. Saving is atomic (a temporary file,
+then `os.replace`); loading enforces the structure, so a checkpoint of
+another shape never loads with its leaves misassigned.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+STRUCTURE_KEY = "__structure__"
+
+
+def _flatten(tree: Any) -> tuple[list, str]:
+    """Leaves depth first, and the structure: (...) a tuple, [...] a list,
+    * a leaf."""
+    if isinstance(tree, (tuple, list)):
+        leaves, parts = [], []
+        for child in tree:
+            sub, desc = _flatten(child)
+            leaves += sub
+            parts.append(desc)
+        open_, close = ("(", ")") if isinstance(tree, tuple) else ("[", "]")
+        return leaves, open_ + ",".join(parts) + close
+    return [tree], "*"
+
+
+def _unflatten(like: Any, leaves) -> Any:
+    if isinstance(like, (tuple, list)):
+        out = [_unflatten(child, leaves) for child in like]
+        return tuple(out) if isinstance(like, tuple) else out
+    return next(leaves)
+
+
+def _as_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_checkpoint(path: str, state: Any) -> None:
+    """Atomically save a state (nested tuples/lists of tensors) to `path`."""
+    leaves, structure = _flatten(state)
+    payload = {f"leaf_{i}": _as_numpy(leaf) for i, leaf in enumerate(leaves)}
+    payload[STRUCTURE_KEY] = np.frombuffer(json.dumps(structure).encode(), dtype=np.uint8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str, like: Any) -> Any:
+    """Load a checkpoint saved by save_checkpoint into the structure of
+    `like`. The structure and every leaf's shape must match; a tensor leaf
+    of `like` gives its dtype and device to the loaded leaf."""
+    leaves_like, structure = _flatten(like)
+    with np.load(path) as data:
+        n_saved = sum(1 for k in data.files if k.startswith("leaf_"))
+        if n_saved != len(leaves_like):
+            raise ValueError(f"checkpoint has {n_saved} leaves, expected {len(leaves_like)}")
+        if STRUCTURE_KEY not in data.files:
+            raise ValueError(f"{path} holds no structure record")
+        saved = json.loads(bytes(data[STRUCTURE_KEY]).decode())
+        if saved != structure:
+            raise ValueError(f"checkpoint structure mismatch:\n  saved:    {saved}\n  expected: {structure}")
+        arrays = [data[f"leaf_{i}"] for i in range(len(leaves_like))]
+    out = []
+    for i, (arr, want) in enumerate(zip(arrays, leaves_like)):
+        if arr.shape != tuple(np.shape(_as_numpy(want))):
+            raise ValueError(f"checkpoint leaf {i} shape {arr.shape} != expected {np.shape(_as_numpy(want))}")
+        if isinstance(want, torch.Tensor):
+            out.append(torch.as_tensor(arr, dtype=want.dtype, device=want.device))
+        else:
+            out.append(arr)
+    return _unflatten(like, iter(out))
+
+
+def latest_checkpoint(directory: str, prefix: str = "ckpt_") -> str | None:
+    """The newest checkpoint path in `directory` (by name), or None."""
+    if not os.path.isdir(directory):
+        return None
+    cands = sorted(f for f in os.listdir(directory) if f.startswith(prefix) and f.endswith(".npz"))
+    return os.path.join(directory, cands[-1]) if cands else None

@@ -11,10 +11,16 @@ whose keys are `jax.tree_util.keystr` paths into the scene's pytrees. The
 port's scene buffers are named by the same paths (`params.sphere_radius`),
 so `scene_from_dict` writes each value over the family default. This is
 how parameters cross from a JAX scene to a port scene.
+
+An optimizer's state crosses too: `invert_state_from_jax` reads the
+checkpoint a JAX `recover_demo` writes (`invert_XXXXXX.npz`: the trainable
+leaves, optax Adam's count, mu and nu, then the step), so a run started in
+JAX resumes in the port.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..models.analytical import make_scene
@@ -53,3 +59,31 @@ def scene_from_dict(desc: dict, device=None, dtype=torch.float32,
             owner, _, leaf = name.rpartition(".")
             setattr(tree.get_submodule(owner) if owner else tree, leaf, arr)
     return scene
+
+
+def invert_state_from_jax(path: str, like: list[torch.Tensor]):
+    """Read a JAX inverse-rendering checkpoint, the pytree
+    `(train, (ScaleByAdamState(count, mu, nu), EmptyState()), step)` flattened
+    into leaf_0 .. leaf_{3k+1} for k trainable leaves. `like` are the port's
+    trainable tensors in the same (JAX flatten) order; shapes must match.
+    Returns (trainable tensors, Adam state, step) with the Adam state as
+    (count, mu list, nu list), what `torch.optim.Adam` keeps per parameter
+    as step, exp_avg and exp_avg_sq."""
+    k = len(like)
+    with np.load(path) as data:
+        n_saved = sum(1 for f in data.files if f.startswith("leaf_"))
+        if n_saved != 3 * k + 2:
+            raise ValueError(f"{path}: {n_saved} leaves, a JAX Adam state of {k} leaves has {3 * k + 2}")
+        treedef = bytes(data["__treedef__"]).decode() if "__treedef__" in data.files else ""
+        if "ScaleByAdamState" not in treedef:
+            raise ValueError(f"{path} is not a JAX optax-Adam checkpoint")
+        leaves = [data[f"leaf_{i}"] for i in range(n_saved)]
+    as_like = lambda arr, t: torch.as_tensor(arr, dtype=t.dtype, device=t.device)
+    for i, t in enumerate(like):
+        for j in (i, k + 1 + i, 2 * k + 1 + i):
+            if leaves[j].shape != tuple(t.shape):
+                raise ValueError(f"{path}: leaf {j} shape {leaves[j].shape} != {tuple(t.shape)}")
+    train = [as_like(leaves[i], t) for i, t in enumerate(like)]
+    mu = [as_like(leaves[k + 1 + i], t) for i, t in enumerate(like)]
+    nu = [as_like(leaves[2 * k + 1 + i], t) for i, t in enumerate(like)]
+    return train, (int(leaves[k]), mu, nu), int(leaves[3 * k + 1])

@@ -1,6 +1,7 @@
 """The port's CLI and host utilities, and the package's import rule."""
 
 import ast
+import json
 import pathlib
 
 import numpy as np
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 from pathtracer_tpu.utils import buffer as jax_buffer
+from pathtracer_tpu_torch.app import invert
 from pathtracer_tpu_torch.app import render as cli
 from pathtracer_tpu_torch.utils import buffer, image
 
@@ -16,14 +18,16 @@ PACKAGE = pathlib.Path(__file__).resolve().parent.parent / "pathtracer_tpu_torch
 
 def test_cli_renders_png_on_cpu(tmp_path):
     out = tmp_path / "frame.png"
-    assert cli.main(["--width", "32", "--height", "24", "--frames", "2", "--depth", "2", "-o", str(out)]) == 0
+    assert cli.main(["--device", "cpu", "--width", "32", "--height", "24", "--frames", "2", "--depth", "2",
+                     "-o", str(out)]) == 0
     png = image.read_png(str(out))
     assert png.shape == (24, 32, 4) and png.dtype == np.uint8
     assert (png[..., 3] == 255).all() and png[..., :3].max() > 0
 
 
 def test_cli_render_accumulates_frames(tmp_path):
-    cfg, _ = cli.parse_args(["--width", "16", "--height", "8", "--frames", "3", "--precision", "f64"])
+    cfg, _ = cli.parse_args(["--device", "cpu", "--width", "16", "--height", "8", "--frames", "3",
+                             "--precision", "f64"])
     buf = cli.render(cfg, str(tmp_path / "a.png"), log=lambda s: None)
     assert buf.pixels.dtype == torch.float64 and float(buf.frames) == 3.0
     assert torch.isfinite(buf.pixels).all()
@@ -34,6 +38,30 @@ def test_cli_cuda_without_cuda_fails(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         cli.main(["--device", "cuda", "--frames", "1", "-o", str(tmp_path / "x.png")])
+
+
+def test_cli_defaults_to_the_card():
+    cfg, _ = cli.parse_args([])
+    assert cfg.device == "cuda"
+    args = invert.parse_args([])
+    assert (args.device, args.width, args.height, args.steps, args.spp, args.lr, args.depth) == (
+        "cuda", 256, 192, 80, 1, 3e-2, 4)
+
+
+def test_invert_cli_on_cpu(tmp_path):
+    out = tmp_path / "report.json"
+    assert invert.main(["--device", "cpu", "--width", "16", "--height", "8", "--steps", "2", "--depth", "2",
+                        "--ckpt-dir", str(tmp_path / "ck"), "--json-out", str(out)], log=lambda s: None) == 0
+    report = json.loads(out.read_text())
+    assert len(report["losses"]) == 2 and np.isfinite(report["losses"]).all()
+    assert [r["name"] for r in report["rows"]][:1] == ["params.materials.rgb.x[0]"] and len(report["rows"]) == 15
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["invert_000002.npz"]
+
+
+def test_invert_cli_cuda_without_cuda_fails(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        invert.main(["--steps", "1"])
 
 
 def test_u8_conversions_match_jax():

@@ -1,9 +1,19 @@
-"""The CUDA megakernel against its plain PyTorch version, on the card.
+"""The CUDA megakernels K1 and K2 against their plain PyTorch versions,
+on the card.
 
 Marked `cuda`: each test asks the `cuda_device` fixture for the card and
 skips without one. This file imports no JAX; the JAX side is the committed
-render tests/golden_torch/analytical_64x48_d4_k3.npy. Run on a CUDA host:
-`python -m pytest tests/test_torch_kernel_cuda.py -q`.
+render tests/golden_torch/analytical_64x48_d4_k3.npy and gradient
+tests/golden_torch/grad_analytical_64x48_d4_k3.npz. Run on a CUDA host
+(the conftest imports JAX, which that host may lack):
+`python -m pytest --noconftest tests/test_torch_kernel_cuda.py -q`.
+
+K2's tolerance, as chip_smoke.py phase 6: with the cotangent zeroed at the
+knife-edge pixels (the two forward frames differ by more than 1e-3 there:
+K2 differentiates K1's branch, the plain version the other),
+max|g_k - g_p| <= 1e-2 max|g_p| and entries above 1e-2 max|g_p| agree to
+rtol 2e-2. Against the JAX gradient fixture, the tolerances of
+tests/test_torch_grad.py.
 """
 
 import os
@@ -12,12 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from pathtracer_tpu_torch.integrator import inverse
 from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
 from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "analytical_64x48_d4_k3.npy")
+GRAD_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "grad_analytical_64x48_d4_k3.npz")
 pytestmark = pytest.mark.cuda
 
 
@@ -60,3 +72,60 @@ def test_kernel_matches_jax_fixture(cuda_device):
 def test_kernel_refuses_float64(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         MK.render_frame_megakernel(make_scene(dtype=torch.float64, device=cuda_device), rng.prng_key(0), 8, 8)
+
+
+@pytest.mark.parametrize(
+    "spp,quirks,seed", [(1, VERBATIM, 21), (2, VERBATIM, 22), (1, FIXED, 23)], ids=["spp1", "spp2", "fixed"],
+)
+def test_backward_kernel_matches_plain_version(cuda_device, spp, quirks, seed):
+    scene = make_scene(device=cuda_device)
+    key, (w, h) = rng.prng_key(seed), (320, 240)
+    k = MK.prepare_launch(scene, key, w, h, spp, quirks)
+    ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
+    launches = MK.render_frame_megakernel.bwd_launches
+    g = MK.launch_backward(k, ct)
+    assert MK.render_frame_megakernel.bwd_launches == launches + 1 and g.shape == (1, k.sv.shape[1])
+    assert torch.equal(MK.launch_backward(k, ct), g)  # reproducible bit for bit
+    assert torch.isfinite(g).all()
+    edge = (MK.launch(k) - MK.render_frame_reference(scene, key, w, h, spp, quirks)).abs()[..., :3].amax(-1) > 1e-3
+    ct_m = ct * (~edge)[..., None]
+    g = MK.launch_backward(k, ct_m).cpu().double().numpy().ravel()
+    r = MK.render_grad_reference(k.sv, scene, key, ct_m, w, h, spp, quirks).cpu().double().numpy().ravel()
+    assert np.isfinite(g).all() and np.abs(g - r).max() <= 1e-2 * np.abs(r).max()
+    big = np.abs(r) > 1e-2 * np.abs(r).max()
+    np.testing.assert_allclose(g[big], r[big], rtol=2e-2)
+
+
+def test_backward_kernel_matches_jax_fixture(cuda_device):
+    scene = make_scene(device=cuda_device)
+    leaves = dict(inverse.named_leaves(scene))
+    names = [f"lights.emission.{c}" for c in "xyz"] + [f"params.materials.rgb.{c}" for c in "xyz"]
+    names += ["params.materials.roughness", "params.sphere_center.x", "camera.origin.z"]
+    for n in names:
+        leaves[n].requires_grad_(True)
+    counts = (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches)
+    img = MK.render_frame_megakernel(scene, rng.prng_key(3), 64, 48)
+    grads = torch.autograd.grad((img[..., :3] ** 2).mean(), [leaves[n] for n in names])
+    assert (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    with np.load(GRAD_FIXTURE) as want:
+        for n, got in zip(names, grads):
+            got, ref = got.cpu().numpy(), want[n]
+            if n.startswith(("params.sphere", "camera")):
+                np.testing.assert_allclose(got, ref, rtol=1e-2, atol=1e-7, err_msg=n)
+            else:
+                np.testing.assert_allclose(got, ref, rtol=5e-3, atol=1e-8, err_msg=n)
+
+
+def test_training_step_is_two_forward_and_one_backward_launch(cuda_device):
+    MK.render_frame_megakernel.launches = MK.render_frame_megakernel.bwd_launches = 0
+    report = inverse.recover_demo(key=rng.prng_key(1), width=32, height=16, steps=2, recursion_depth=2,
+                                  device=cuda_device, verbose=False)
+    assert (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches) == (4 + 2 * 2, 2)
+    assert np.isfinite(report.losses.numpy()).all()
+
+
+def test_backward_kernel_refuses_deep_paths(cuda_device):
+    k = MK.prepare_launch(make_scene(recursion_depth=17, device=cuda_device), rng.prng_key(0), 8, 8, 1, VERBATIM)
+    with pytest.raises(ValueError, match="depth"):
+        MK.launch_backward(k, torch.zeros((8, 8, 4), device=cuda_device))

@@ -2,7 +2,7 @@
 to its plain PyTorch version.
 
 `csrc/tracer.cuh` and the headers it includes are plain C++ apart from the
-`__device__`/`__forceinline__` qualifiers and one intrinsic, so g++ builds
+`__device__`/`__forceinline__` qualifiers and three intrinsics, so g++ builds
 them behind the small shim below, and a host loop runs `trace_sample` for
 every pixel exactly as the kernel's threads do. This checks the kernel's
 path logic (lobes, lights, quirks, alpha, the threefry counters) where no
@@ -25,7 +25,8 @@ from pathtracer_tpu_torch.models.analytical import default_params, make_scene
 from pathtracer_tpu_torch.ops import _build, megakernel as MK
 from pathtracer_tpu_torch.ops import rng
 
-SHIM = r"""
+# The per-thread headers are plain C++ behind these definitions.
+PRELUDE = r"""
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
@@ -38,18 +39,22 @@ static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, int s) {
   s &= 31;
   return s ? (hi << s) | (lo >> (32 - s)) : hi;
 }
+static inline float __fmul_rn(float a, float b) { return a * b; }
+static inline float __fadd_rn(float a, float b) { return a + b; }
+"""
+
+SHIM = PRELUDE + r"""
 #include "tracer.cuh"
 
-extern "C" void host_render(const float* sv, const uint32_t* keys, float* out, int width, int height,
-                            float inv_w, float inv_h, int spp, int depth, int n_lights, int n_materials,
-                            int flags) {
+extern "C" void host_render(const float* sv, const uint32_t* keys, float* out, int width, int height, int spp,
+                            int depth, int n_lights, int n_materials, int flags) {
   const int n = width * height;
   const pt::SceneView s = {sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0};
   for (int p = 0; p < n; ++p) {
     pt::V3 sum = pt::splat3(0.0f);
     for (int k = 0; k < spp; ++k) {
       const uint32_t* kk = keys + 4 * k;
-      pt::V3 r = pt::trace_sample(s, p, n, width, height, inv_w, inv_h, depth, flags, kk[0], kk[1], kk[2], kk[3]);
+      pt::V3 r = pt::trace_sample(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3]);
       sum = k == 0 ? r : sum + r;
     }
     if (spp > 1) sum = sum / (float)spp;
@@ -62,33 +67,43 @@ extern "C" void host_render(const float* sv, const uint32_t* keys, float* out, i
 """
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def build_shim(directory, source: str) -> ctypes.CDLL:
+    """g++ builds `source` (PRELUDE plus headers of csrc/) into a library;
+    skips without a host C++ compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler to build the kernel's per-thread code")
-    d = tmp_path_factory.mktemp("kernel_host")
-    (d / "shim.cpp").write_text(SHIM)
-    so = d / "libshim.so"
+    (directory / "shim.cpp").write_text(source)
+    so = directory / "libshim.so"
     subprocess.run(
         [cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-         "-I", str(_build.CSRC), "-o", str(so), str(d / "shim.cpp")],
+         "-I", str(_build.CSRC), "-o", str(so), str(directory / "shim.cpp")],
         check=True, capture_output=True,
     )
-    lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.host_render.argtypes = [p, p, p, i, i, f, f, i, i, i, i, i]
+    return ctypes.CDLL(str(so))
+
+
+def launch_keys(key, spp: int) -> torch.Tensor:
+    """The [spp, 4] sample keys as the kernels take them (uint32 in int32)."""
+    keys = MK.sample_keys(key, spp)
+    return torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32).contiguous()
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = build_shim(tmp_path_factory.mktemp("kernel_host"), SHIM)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.host_render.argtypes = [p, p, p, i, i, i, i, i, i, i]
     return lib
 
 
 def host_render(lib, scene, key, w, h, spp, quirks):
     """What render_frame_megakernel hands the kernel, run on the host."""
     sv = MK.pack_scene(scene, w, h).contiguous()
-    keys = MK.sample_keys(key, spp)
-    keys = torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32).contiguous()
+    keys = launch_keys(key, spp)
     out = torch.empty((h, w, 4), dtype=torch.float32)
     lib.host_render(
-        sv.data_ptr(), keys.data_ptr(), out.data_ptr(), w, h, 1.0 / w, 1.0 / h, spp,
+        sv.data_ptr(), keys.data_ptr(), out.data_ptr(), w, h, spp,
         scene.recursion_depth, scene.num_lights, int(scene.params.materials.roughness.shape[0]),
         MK.kernel_flags(scene, quirks),
     )
@@ -140,3 +155,4 @@ def test_kernel_code_matches_plain_version(host_lib, case):
     diff = np.abs(img.astype(np.float64) - ref)
     assert np.quantile(diff, 0.999) < 1e-4
     assert diff.mean() < 1e-5
+
