@@ -28,9 +28,23 @@ which raises on failure (non-zero exit):
    the eager path's on the card at 64x48;
 9. times (CUDA events, after a warm-up) at 1920x1080, depth 4, spp 1: one
    training step through the kernels, K2's launch alone, and the plain
-   version's step and gradient.
+   version's step and gradient;
+10. K1 with the SDF backend (K5) vs its plain version on the card, depth 4:
+   320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and 1920x1080; a
+   smooth union (smooth_k 0.3) at 320x240; then vs the committed JAX
+   render tests/golden_torch/sdf_64x48_d4_k3.npy;
+11. the SDF main path: the render CLI with --scene sdf renders 8
+   progressive 1920x1080 depth-4 frames; every frame must be one launch of
+   K1 with the SDF backend. Then per-frame times of the wrapper, the
+   launch alone and the plain version, and ray segments per second;
+12. the march-step counter K6 vs its plain version at 320x240 and
+   1920x1080 (center rays, no random numbers): per-pixel trip counts of
+   the primary and the NEE shadow march, per pixel and per warp, and the
+   times of K6's wrapper measure_march_steps (pack, launch, per-warp
+   reductions, host reads) and of its pack and launch alone. Its 1080p
+   counts give the SDF frame's bound.
 
-Image tolerance (phases 3 and 4): quantile(|diff|, 0.999) < 1e-4 and
+Image tolerance (phases 3, 4 and 10): quantile(|diff|, 0.999) < 1e-4 and
 mean(|diff|) < 1e-5, all values finite. The two sides draw the same
 threefry numbers, so they differ only by float rounding (FMA contraction,
 libm ulps), which can flip a rare knife-edge branch in a few pixels.
@@ -43,7 +57,9 @@ above 1e-2 max|g_p| agree to rtol 2e-2. Both are float32 sums over up to
 2M pixels in another order. The numbers over all pixels are printed
 beside. Phase 7: the tolerances of tests/test_torch_grad.py (rtol 5e-3 /
 atol 1e-8 for material and light leaves, rtol 1e-2 / atol 1e-7 for
-geometry and camera).
+geometry and camera). Phase 12: the kernel's and the plain version's
+counts are equal on at least 99.9% of the pixels (both round the march
+alike; a last-bit difference at |sdf| = HIT_EPS moves a lane by a step).
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -63,6 +79,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "analytical_64x48_d4_k3.npy")
+SDF_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "sdf_64x48_d4_k3.npy")
 GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "grad_analytical_64x48_d4_k3.npz")
 Q_TOL, MEAN_TOL = 1e-4, 1e-5
 GRAD_MAX_TOL, GRAD_RTOL, EDGE_TOL = 1e-2, 2e-2, 1e-3
@@ -91,6 +108,20 @@ PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 K1_OPS = dict(f32=1430, f64=100)
 K2_OPS = dict(f32=1430 + 2560, f64=100 + 45)
 CAMERA_F64_OPS = 30
+# The SDF backend (csrc/sdf.cuh), read the same way for the demo scene (one
+# sphere, box and torus, the plane): one march step ~75 float32 operations
+# (the sphere ~10, the rounded box ~24, the torus ~14, the plane ~8, the
+# union ~4, the step and its stop tests ~15); per ray segment, K1's
+# shading without the analytical hit (~1370), the normal (~130: the four
+# gradients and their union) and the hit tests, the argmin and the checker
+# (~190), with the float64 light-sphere test of the emitter pass (~20).
+# The march work is what K6 counts: trips x SDF_STEP_OPS. K6 itself adds,
+# per pixel, the normal, the light sample (~60) and the camera ray.
+SDF_STEP_OPS = 75
+SDF_SEGMENT_OPS = dict(f32=1370 + 130 + 190, f64=20)
+K6_PIXEL_OPS = dict(f32=130 + 190 + 60, f64=0)
+SDF_Q_MIN = 0.999
+SMOOTH_K = 0.3  # a smooth union, against the demo's hard min (k = 0)
 
 
 def image_diff(a, b) -> dict:
@@ -131,13 +162,18 @@ def leaf_close(got, want, name) -> bool:
     return bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
 
 
-def bound(segments: int, pixels: int, nbytes: int, ops: dict) -> tuple[float, str]:
+def bound_of(f32_ops: float, f64_ops: float, nbytes: int) -> tuple[float, str]:
     """The least time the card could take, ms: the larger of the operations
     over their type's peak and the bytes over the memory rate."""
-    t_ops = (segments * ops["f32"] / PEAK_F32
-             + (segments * ops["f64"] + pixels * CAMERA_F64_OPS) / PEAK_F64)
+    t_ops = f32_ops / PEAK_F32 + f64_ops / PEAK_F64
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound(segments: int, pixels: int, nbytes: int, ops: dict) -> tuple[float, str]:
+    """bound_of() for `segments` ray segments of `ops` each and the camera
+    rays of `pixels`."""
+    return bound_of(segments * ops["f32"], segments * ops["f64"] + pixels * CAMERA_F64_OPS, nbytes)
 
 
 def count_segments(torch, scene, key, width: int, height: int) -> int:
@@ -160,20 +196,6 @@ def count_segments(torch, scene, key, width: int, height: int) -> int:
         return int(torch.stack(alive).sum())
 
 
-def time_frames(torch, fn, n: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call of fn() on the card (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def main() -> int:
     import torch
 
@@ -186,8 +208,11 @@ def main() -> int:
     from pathtracer_tpu_torch.integrator import inverse
     from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
     from pathtracer_tpu_torch.models.analytical import make_scene
+    from pathtracer_tpu_torch.models.sdf import make_scene as make_sdf_scene
     from pathtracer_tpu_torch.ops import _build, rng
     from pathtracer_tpu_torch.ops import megakernel as mk
+    from pathtracer_tpu_torch.ops import megakernel_sdf as mks
+    from pathtracer_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -204,8 +229,8 @@ def main() -> int:
 
     print("== 2. build")
     t0 = time.perf_counter()
-    _build.load("megakernel_fwd")
-    _build.load("megakernel_bwd")
+    for kernel in _build.kernels():
+        _build.load(kernel)
     print(f"  built (one nvcc per kernel, side by side) and loaded in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
@@ -234,14 +259,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "render.png")
         mk.render_frame_megakernel.launches = mk.render_frame_megakernel.bwd_launches = 0
+        mk.render_frame_megakernel.sdf_launches = 0
         cfg, _ = cli.parse_args([
             "--device", "cuda", "--width", str(MAIN_W), "--height", str(MAIN_H),
             "--depth", str(MAIN_DEPTH), "--spp", "1", "--frames", str(MAIN_FRAMES), "-o", png,
         ])
         buf = cli.render(cfg, png, log=lambda s: print("  " + s))
         launches = mk.render_frame_megakernel.launches
-        if mk.render_frame_megakernel.bwd_launches:
-            raise AssertionError("the forward render launched the backward kernel")
+        if mk.render_frame_megakernel.bwd_launches or mk.render_frame_megakernel.sdf_launches:
+            raise AssertionError("the forward render launched the backward kernel or the SDF backend")
         pixels = buf.pixels.cpu().numpy()
         if not os.path.getsize(png) > 0:
             raise AssertionError("no PNG written")
@@ -255,13 +281,13 @@ def main() -> int:
 
     main_scene = make_scene(recursion_depth=MAIN_DEPTH, device=dev)
     key = rng.prng_key(5)
-    ms = time_frames(torch, lambda: mk.render_frame_megakernel(main_scene, key, MAIN_W, MAIN_H), 20)
+    ms = cuda_ms(lambda: mk.render_frame_megakernel(main_scene, key, MAIN_W, MAIN_H), 20)
     prepared = mk.prepare_launch(main_scene, key, MAIN_W, MAIN_H, 1, VERBATIM)
-    launch_ms = time_frames(torch, lambda: mk.launch(prepared), 20)
-    plain_ms = time_frames(torch, lambda: mk.render_frame_reference(main_scene, key, MAIN_W, MAIN_H), 2)
+    launch_ms = cuda_ms(lambda: mk.launch(prepared), 20)
+    plain_ms = cuda_ms(lambda: mk.render_frame_reference(main_scene, key, MAIN_W, MAIN_H), 2)
     segs = MAIN_W * MAIN_H * MAIN_DEPTH
-    print(f"  wrapper {ms:.3f} ms/frame (kernel launch alone {launch_ms:.3f} ms), "
-          f"plain {plain_ms:.3f} ms/frame ({card})")
+    print(f"  wrapper {ms:.3f} ms/frame (kernel launch alone {launch_ms:.3f} ms; before the backend template: "
+          f"2.333 and 2.142 ms on an H100 80GB HBM3 at 700 W), plain {plain_ms:.3f} ms/frame ({card})")
     print(f"  ray segments/s: kernel {segs / ms * 1e3:.4e}, plain {segs / plain_ms * 1e3:.4e} ({card})")
 
     main_segments = count_segments(torch, main_scene, key, MAIN_W, MAIN_H)
@@ -389,20 +415,124 @@ def main() -> int:
         return lambda: inverse.paired_step(train, rebuild, inverse.clamp_material_params, opt, render, target,
                                            step_key)
 
-    step_ms = time_frames(torch, trainer("megakernel"), 10, warmup=2)
+    step_ms = cuda_ms(trainer("megakernel"), 10, warmup=2)
     bwd_launch = mk.prepare_launch(main_scene, key, MAIN_W, MAIN_H, 1, VERBATIM)
     ct = torch.from_numpy(np.random.default_rng(9).standard_normal((MAIN_H, MAIN_W, 4)).astype(np.float32)).to(dev)
-    bwd_ms = time_frames(torch, lambda: mk.launch_backward(bwd_launch, ct), 10)
+    bwd_ms = cuda_ms(lambda: mk.launch_backward(bwd_launch, ct), 10)
     need = peak_320 * (MAIN_W * MAIN_H) / (320 * 240)
     if need > 0.6 * total_bytes:
         raise AssertionError(f"the plain version needs ~{need / 2**30:.1f} GiB at {MAIN_W}x{MAIN_H}")
-    plain_bwd_ms = time_frames(torch, lambda: mk.render_grad_reference(
+    plain_bwd_ms = cuda_ms(lambda: mk.render_grad_reference(
         bwd_launch.sv, main_scene, key, ct, MAIN_W, MAIN_H), 2)
-    plain_step_ms = time_frames(torch, trainer("eager"), 2)
+    plain_step_ms = cuda_ms(trainer("eager"), 2)
     bwd_bound, bwd_bound_by = bound(main_segments, MAIN_W * MAIN_H, n_sv * 8 + 16 + MAIN_W * MAIN_H * 16, K2_OPS)
     print(f"  training step: kernels {step_ms:.3f} ms, plain {plain_step_ms:.3f} ms ({card})")
     print(f"  K2 launch alone {bwd_ms:.3f} ms, plain gradient (eager forward + autograd) {plain_bwd_ms:.3f} ms, "
           f"bound {bwd_bound:.4f} ms ({bwd_bound_by}) ({card})")
+
+    print("== 10. K1 with the SDF backend (K5) vs its plain version on the card (depth 4)")
+    sdf_scene = make_sdf_scene(device=dev)
+    sdf_err = 0.0
+    for w, h, spp, quirks, seed in ((320, 240, 1, VERBATIM, 31), (320, 240, 2, VERBATIM, 32),
+                                    (320, 240, 1, FIXED, 33), (MAIN_W, MAIN_H, 1, VERBATIM, 34)):
+        label = f"{w}x{h} spp{spp} {'VERBATIM' if quirks == VERBATIM else 'FIXED'}"
+        key = rng.prng_key(seed)
+        img = mk.render_frame_megakernel(sdf_scene, key, w, h, spp, quirks)
+        ref = mk.render_frame_reference(sdf_scene, key, w, h, spp, quirks)
+        torch.cuda.synchronize()
+        d = image_diff(img.cpu(), ref.cpu())
+        sdf_err = max(sdf_err, d["max"])
+        check_diff(label, d)
+    smooth_scene = make_sdf_scene(device=dev)
+    smooth_scene.params.smooth_k = torch.tensor(SMOOTH_K, device=dev)
+    key = rng.prng_key(35)
+    d = image_diff(mk.render_frame_megakernel(smooth_scene, key, 320, 240).cpu(),
+                   mk.render_frame_reference(smooth_scene, key, 320, 240).cpu())
+    sdf_err = max(sdf_err, d["max"])
+    check_diff(f"320x240 spp1 VERBATIM, smooth union k={SMOOTH_K}", d)
+    img = mk.render_frame_megakernel(sdf_scene, rng.prng_key(3), 64, 48)
+    check_diff("vs JAX (64x48, depth 4, PRNGKey(3))", image_diff(img.cpu(), np.load(SDF_FIXTURE)))
+
+    print(f"== 11. SDF main path: CLI --scene sdf, {MAIN_W}x{MAIN_H}, depth {MAIN_DEPTH}, {MAIN_FRAMES} frames")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "sdf.png")
+        mk.render_frame_megakernel.launches = mk.render_frame_megakernel.bwd_launches = 0
+        mk.render_frame_megakernel.sdf_launches = 0
+        cfg, _ = cli.parse_args([
+            "--scene", "sdf", "--device", "cuda", "--width", str(MAIN_W), "--height", str(MAIN_H),
+            "--depth", str(MAIN_DEPTH), "--spp", "1", "--frames", str(MAIN_FRAMES), "-o", png,
+        ])
+        buf = cli.render(cfg, png, log=lambda s: print("  " + s))
+        sdf_counts = (mk.render_frame_megakernel.launches, mk.render_frame_megakernel.sdf_launches,
+                      mk.render_frame_megakernel.bwd_launches)
+        pixels = buf.pixels.cpu().numpy()
+        if not os.path.getsize(png) > 0:
+            raise AssertionError("no PNG written")
+    print(f"  launches K1={sdf_counts[0]} (SDF backend {sdf_counts[1]}) K2={sdf_counts[2]}  "
+          f"mean rgb={pixels[..., :3].mean():.4f}")
+    if sdf_counts != (MAIN_FRAMES, MAIN_FRAMES, 0):
+        raise AssertionError(f"expected {MAIN_FRAMES} launches of K1 with the SDF backend and none of K2")
+    if pixels.shape != (MAIN_H, MAIN_W, 4) or not np.isfinite(pixels).all():
+        raise AssertionError("SDF main-path image is not finite or has the wrong shape")
+    if not pixels[..., :3].max() > 0.05:
+        raise AssertionError("SDF main-path image is black")
+    main_sdf = make_sdf_scene(recursion_depth=MAIN_DEPTH, device=dev)
+    key = rng.prng_key(5)
+    sdf_ms = cuda_ms(lambda: mk.render_frame_megakernel(main_sdf, key, MAIN_W, MAIN_H), 20)
+    sdf_prepared = mk.prepare_launch(main_sdf, key, MAIN_W, MAIN_H, 1, VERBATIM)
+    sdf_launch_ms = cuda_ms(lambda: mk.launch(sdf_prepared), 20)
+    sdf_plain_ms = cuda_ms(lambda: mk.render_frame_reference(main_sdf, key, MAIN_W, MAIN_H), 2)
+    sdf_segments = count_segments(torch, main_sdf, key, MAIN_W, MAIN_H)
+    print(f"  wrapper {sdf_ms:.3f} ms/frame (kernel launch alone {sdf_launch_ms:.3f} ms), "
+          f"plain {sdf_plain_ms:.3f} ms/frame ({card})")
+    print(f"  ray segments {sdf_segments} ({sdf_segments / (MAIN_W * MAIN_H):.3f} per pixel); ray segments/s: "
+          f"kernel {sdf_segments / sdf_ms * 1e3:.4e}, plain {sdf_segments / sdf_plain_ms * 1e3:.4e} ({card})")
+    print(f"  K1 analytical launch {launch_ms:.3f} ms in this run (phase 5); 2.142 ms before the backend template "
+          "(H100 80GB HBM3, 700 W)")
+
+    print("== 12. march-step counter K6 vs its plain version on the card (center rays)")
+    k6_err = 0
+    for w, h in ((320, 240), (MAIN_W, MAIN_H)):
+        mks.measure_march_steps.launches = 0
+        got = mks.measure_march_steps(main_sdf, w, h)
+        torch.cuda.synchronize()
+        k6_launches = mks.measure_march_steps.launches
+        ref = mks.march_steps_reference(main_sdf, w, h)
+        for name, r in zip(("steps", "shadow_steps"), ref):
+            diff = (got[name] - r).abs()
+            same = float((diff == 0).double().mean())
+            k6_err = max(k6_err, int(diff.max()))
+            pre = "shadow_" if name == "shadow_steps" else ""
+            print(f"  {w}x{h} {name}: equal on {same:.6f} of pixels, max |diff| {int(diff.max())}; per pixel mean "
+                  f"{got[pre + 'mean_steps']:.4f} max {got[pre + 'max_steps']}; per warp (max of 32) mean "
+                  f"{got[pre + 'warp_mean_steps']:.4f} max {got[pre + 'warp_max_steps']}")
+            if same < SDF_Q_MIN:
+                raise AssertionError(f"K6 {w}x{h} {name}: equal on {same} of pixels, below {SDF_Q_MIN}")
+        if k6_launches != 1:
+            raise AssertionError(f"measure_march_steps launched K6 {k6_launches} times, not once")
+    k6_ms = cuda_ms(lambda: mks.measure_march_steps(main_sdf, MAIN_W, MAIN_H), 20)
+    k6_launch_ms = cuda_ms(lambda: mks.launch_march_steps(main_sdf, MAIN_W, MAIN_H), 20)
+    k6_plain_ms = cuda_ms(lambda: mks.march_steps_reference(main_sdf, MAIN_W, MAIN_H), 2)
+    pix = MAIN_W * MAIN_H
+    trips = int(got["steps"].sum()) + int(got["shadow_steps"].sum())
+    warp_trips = 32 * (int(got["warp_steps"].sum()) + int(got["shadow_warp_steps"].sum()))
+    sdf_n_sv = sdf_prepared.sv.shape[1]
+    sdf_bytes = sdf_n_sv * 4 + 16 + pix * 16
+
+    def sdf_bound(march_trips):
+        return bound_of(march_trips * SDF_STEP_OPS + sdf_segments * SDF_SEGMENT_OPS["f32"],
+                        sdf_segments * SDF_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS, sdf_bytes)
+
+    sdf_bound_ms, sdf_bound_by = sdf_bound(trips)
+    sdf_warp_bound_ms, _ = sdf_bound(warp_trips)
+    k6_bound_ms, k6_bound_by = bound_of(trips * SDF_STEP_OPS + pix * K6_PIXEL_OPS["f32"], pix * CAMERA_F64_OPS,
+                                        sdf_n_sv * 4 + pix * 8)
+    print(f"  K6 wrapper {k6_ms:.3f} ms (pack and launch alone {k6_launch_ms:.3f} ms), plain {k6_plain_ms:.3f} ms, "
+          f"bound {k6_bound_ms:.4f} ms ({k6_bound_by}) ({card})")
+    print(f"  1080p march trips (primary + shadow of the first segment): {trips} summed over the pixels, {warp_trips} as the "
+          f"warps issue them ({warp_trips / trips:.3f}x)")
+    print(f"  SDF frame bound {sdf_bound_ms:.4f} ms ({sdf_bound_by}) from the pixels' trips, "
+          f"{sdf_warp_bound_ms:.4f} ms from the warps' ({card})")
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
@@ -413,6 +543,16 @@ def main() -> int:
         name="megakernel_bwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_bwd.cu",
         replaces="pathtracer_tpu/ops/megakernel.py:1771", launches=train_launches[1],
         max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_bound_by,
+        library_ms=None,
+    ), dict(
+        name="megakernel_fwd_sdf", route="cuda", source="pathtracer_tpu_torch/csrc/sdf.cuh",
+        replaces="pathtracer_tpu/ops/megakernel_sdf.py:172", launches=sdf_counts[1],
+        max_abs_err=sdf_err, ms=sdf_ms, plain_ms=sdf_plain_ms, bound_ms=sdf_bound_ms, bound_by=sdf_bound_by,
+        library_ms=None,
+    ), dict(
+        name="march_steps", route="cuda", source="pathtracer_tpu_torch/csrc/march_steps.cu",
+        replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
+        max_abs_err=float(k6_err), ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_bound_by,
         library_ms=None,
     )]
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,15 @@
 """Progressive renderer CLI of the PyTorch port.
 
-Renders the analytical demo scene frame by frame, folds each frame into
-the running mean and writes a PNG. With `--device cuda` (the default)
-every frame is one launch of the CUDA megakernel; with `--device cpu` it is
-the eager integrator. A CUDA device that is not there is an error, never a move to
+Renders a demo scene frame by frame, folds each frame into the running
+mean and writes a PNG: `--scene analytical` (two spheres over a checker
+plane, the default) or `--scene sdf` (the sphere-traced SDF scene). With
+`--device cuda` (the default) every frame is one launch of the CUDA
+megakernel, with the scene's backend; with `--device cpu` it is the eager
+integrator. A CUDA device that is not there is an error, never a move to
 the CPU.
 
 Usage:
-  python -m pathtracer_tpu_torch.app.render --device cuda \
+  python -m pathtracer_tpu_torch.app.render --device cuda --scene sdf \
       --width 1920 --height 1080 --frames 16 -o out.png
 """
 
@@ -19,7 +21,8 @@ import time
 import torch
 
 from ..integrator.tracer import accumulate
-from ..models.analytical import make_scene
+from ..models import families
+from ..models.scene import Scene
 from ..ops import rng
 from ..ops.megakernel import render_frame_megakernel
 from ..utils.buffer import ColorBuffer, new_buffer
@@ -35,17 +38,27 @@ def parse_args(argv=None) -> tuple[RenderConfig, str]:
     ap.add_argument("--spp", type=int, default=1)
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scene", default="analytical", help=" | ".join(families.FAMILIES))
     ap.add_argument("--quirks", choices=["verbatim", "fixed"], default="verbatim")
     ap.add_argument("--precision", choices=["f32", "f64"], default="f32")
     ap.add_argument("--device", default="cuda", help="cuda | cuda:N | cpu")
     ap.add_argument("-o", "--output", default="render.png")
     args = ap.parse_args(argv)
+    if not (args.scene in families.FAMILIES or args.scene in families.UNPORTED or args.scene.startswith("file:")):
+        ap.error(f"unknown scene {args.scene!r} (choose {'|'.join(families.FAMILIES)})")
     cfg = RenderConfig(
         width=args.width, height=args.height, spp=args.spp, frames=args.frames,
         depth=args.depth, seed=args.seed, precision=args.precision,
-        quirks=args.quirks, device=args.device,
+        quirks=args.quirks, device=args.device, scene=args.scene,
     )
     return cfg, args.output
+
+
+def make_scene(cfg: RenderConfig, device) -> Scene:
+    """The demo scene that cfg.scene names, on `device`."""
+    if cfg.scene.startswith("file:"):
+        raise NotImplementedError("--scene file:PATH: scene files are not ported yet (ROADMAP item 15)")
+    return families.make_family_scene(cfg.scene, dtype=cfg.dtype, recursion_depth=cfg.depth, device=device)
 
 
 def render(cfg: RenderConfig, output: str, log=print) -> ColorBuffer:
@@ -54,7 +67,7 @@ def render(cfg: RenderConfig, output: str, log=print) -> ColorBuffer:
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {cfg.device}: CUDA is not available")
-    scene = make_scene(dtype=cfg.dtype, recursion_depth=cfg.depth, device=device)
+    scene = make_scene(cfg, device)
     buf = new_buffer(cfg.width, cfg.height, cfg.dtype, device)
     key = rng.prng_key(cfg.seed)
     for f in range(cfg.frames):

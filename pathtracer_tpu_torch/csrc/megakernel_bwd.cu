@@ -51,7 +51,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int n = width * height;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p < n) {
-    const SceneView s = {sv, n_lights, n_materials, (flags & FLAG_RESPECT_MAX_DIST) != 0};
+    const SceneView s = analytical_view(sv, n_lights, n_materials, (flags & FLAG_RESPECT_MAX_DIST) != 0);
     const GradSink g = {acc + threadIdx.x, ACC_STRIDE};
     const float4 c = reinterpret_cast<const float4*>(ct)[p];
     const V3 ct_rad = v3(c.x / (float)spp, c.y / (float)spp, c.z / (float)spp);

@@ -1,8 +1,17 @@
 // Scalar per-thread twin of integrator/tracer.py (mis estimator, no media):
 // emitter pass, light sampling, NEE and the bounce loop of one sample.
+//
+// Generic over the scene backend B, the counterpart of the JAX package's
+// KernelBackend (ops/megakernel.py): a type with static
+//   float B::closest_hit(s, ro, rd, normal&, material&)  (+inf on a miss)
+//   bool  B::any_hit(s, ro, rd, max_dist)
+//   V3    B::background(s, rd)
+// over the packed scene of scene.cuh (Analytical in analytical.cuh, Sdf in
+// sdf.cuh).
 #pragma once
 
-#include "analytical.cuh"
+#include "intersect.cuh"
+#include "scene.cuh"
 #include "threefry.cuh"
 
 namespace pt {
@@ -94,6 +103,7 @@ __device__ __forceinline__ LightSample sample_light(const SceneView& s, int idx,
 }
 
 // Next-event estimation (integrator direct_light).
+template <class B>
 __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 rd, V3 fhp, V3 ffnormal, const Material& m,
                                            float eta, float u_pick, float r1, float r2) {
   if (s.n_lights == 0) return splat3(0.0f);
@@ -104,7 +114,7 @@ __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 rd, V3 fhp, V3
 
   // A failed test zeroes the contribution, so later tests are skipped.
   if (!(dot(ls.direction, ls.normal) < 0.0f)) return splat3(0.0f);
-  if (any_hit(s, scatter_pos, ls.direction, ls.dist - EPS)) return splat3(0.0f);
+  if (B::any_hit(s, scatter_pos, ls.direction, ls.dist - EPS)) return splat3(0.0f);
   float bsdf_pdf;
   V3 f = disney_eval(m, eta, -rd, ffnormal, ls.direction, bsdf_pdf);
   if (!(bsdf_pdf > 0.0f && ls.pdf > 0.0f)) return splat3(0.0f);
@@ -161,6 +171,7 @@ __device__ __forceinline__ PathCarry init_carry(const SceneView& s, V3 rd, int f
 // pass-through, NEE and the Disney sample that sets the next ray. Adds to
 // `radiance`, advances `c`, and returns whether the path goes on. The
 // uniforms of bounce d are uniform(kb)[(d*N + p)*8 + j], N = W*H.
+template <class B>
 __device__ __forceinline__ bool bounce(const SceneView& s, PathCarry& c, V3& radiance, int n, int p, int d,
                                        int flags, uint32_t kb0, uint32_t kb1) {
   const bool stale_gate = flags & FLAG_STALE_EMITTER_GATE;
@@ -170,13 +181,13 @@ __device__ __forceinline__ bool bounce(const SceneView& s, PathCarry& c, V3& rad
 
   V3 geo_normal;
   Material mat;
-  float t = closest_hit(s, ro, rd, geo_normal, mat);
+  float t = B::closest_hit(s, ro, rd, geo_normal, mat);
   bool geo_hit = isfinite(t);
   float gate_dist = geo_hit ? t : (stale_gate ? c.prev_hit_dist : INFINITY);
   EmitterHit em = sample_lights_emitter(s, ro, rd, gate_dist);
   bool hit = geo_hit || em.hit;
   if (!hit) {  // background, and the path dies
-    radiance = radiance + background(s, rd) * throughput;
+    radiance = radiance + B::background(s, rd) * throughput;
     return false;
   }
   float hit_dist = em.hit ? em.dist : gate_dist;
@@ -207,8 +218,8 @@ __device__ __forceinline__ bool bounce(const SceneView& s, PathCarry& c, V3& rad
   }
   if (em.hit) return false;  // the path ends on a light
 
-  V3 ld = direct_light(s, rd, fhp, ffnormal, mat, eta, uniform_at(kb0, kb1, base + 0),
-                       uniform_at(kb0, kb1, base + 1), uniform_at(kb0, kb1, base + 2));
+  V3 ld = direct_light<B>(s, rd, fhp, ffnormal, mat, eta, uniform_at(kb0, kb1, base + 0),
+                          uniform_at(kb0, kb1, base + 1), uniform_at(kb0, kb1, base + 2));
   radiance = radiance + ld * throughput;
 
   BsdfSample bs = disney_sample(mat, eta, -rd, ffnormal, c.prev_l, uniform_at(kb0, kb1, base + 3),
@@ -224,6 +235,7 @@ __device__ __forceinline__ bool bounce(const SceneView& s, PathCarry& c, V3& rad
 
 // One sample of one pixel: camera ray plus the bounce loop, returning
 // radiance. Camera uniform j of pixel p is uniform(kc)[p*2 + j].
+template <class B>
 __device__ __forceinline__ V3 trace_sample(const SceneView& s, int p, int n, int width, int height, int depth,
                                            int flags, uint32_t kc0, uint32_t kc1, uint32_t kb0, uint32_t kb1) {
   V3 q;
@@ -233,7 +245,7 @@ __device__ __forceinline__ V3 trace_sample(const SceneView& s, int p, int n, int
   PathCarry c = init_carry(s, rd, flags);
   V3 radiance = splat3(0.0f);
   for (int d = 0; d < depth; ++d) {
-    if (!bounce(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
+    if (!bounce<B>(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
   }
   return radiance;
 }

@@ -185,7 +185,7 @@ __device__ __forceinline__ void bounce_adj(const SceneView& s, const PathCarry& 
     float c_eta = 0.0f;
     V3 c_ffn = splat3(0.0f);
     // radiance += ld * throughput
-    c_tp += ct_rad * direct_light(s, rd, fhp, ffnormal, mat, eta, u0, u1, u2);
+    c_tp += ct_rad * direct_light<Analytical>(s, rd, fhp, ffnormal, mat, eta, u0, u1, u2);
     direct_light_adj(s, rd, fhp, ffnormal, mat, eta, u0, u1, u2, ct_rad * tp, a, c_eta, c_rd, c_ffn, g);
 
     BsdfSample bs = disney_sample(mat, eta, -rd, ffnormal, c.prev_l, u3, u4, u5);
@@ -245,7 +245,7 @@ __device__ __forceinline__ void trace_sample_adj(const SceneView& s, int p, int 
   for (int d = 0; d < depth; ++d) {
     carries[d] = c;
     bounces = d + 1;
-    if (!bounce(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
+    if (!bounce<Analytical>(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
   }
   V3 ct_ro = splat3(0.0f), ct_rd = splat3(0.0f), ct_tp = splat3(0.0f);
   for (int d = bounces - 1; d >= 0; --d) {

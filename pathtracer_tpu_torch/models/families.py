@@ -1,0 +1,36 @@
+"""The scene families of the port by name: the names of the render CLI's
+`--scene` and of the JAX package's scene dicts (`utils/sceneio`). Every
+caller that picks a family by name, or asks which family a scene is, goes
+through here.
+"""
+
+from __future__ import annotations
+
+from . import analytical, sdf
+from .scene import Scene
+
+# name -> the family's module (its make_scene and closest_hit)
+FAMILIES = {"analytical": analytical, "sdf": sdf}
+# families of the JAX package that the port does not have yet
+UNPORTED = {"mesh": "ROADMAP item 12", "bigmesh": "ROADMAP item 12"}
+
+
+def make_family_scene(family: str, **kw) -> Scene:
+    """The demo scene of `family`; `kw` go to its make_scene. A family not
+    ported yet raises NotImplementedError naming its ROADMAP item, an
+    unknown one ValueError."""
+    if family in UNPORTED:
+        raise NotImplementedError(f"scene family {family!r} is not ported yet ({UNPORTED[family]})")
+    if family not in FAMILIES:
+        raise ValueError(f"unknown scene family {family!r} (choose {'|'.join(FAMILIES)})")
+    return FAMILIES[family].make_scene(**kw)
+
+
+def family_of(scene: Scene) -> str:
+    """The family of a scene, by its closest-hit function."""
+    for name, module in FAMILIES.items():
+        if scene.closest_hit_fn is module.closest_hit:
+            return name
+    raise NotImplementedError(
+        f"the port covers the {' and '.join(FAMILIES)} scenes; the mesh and bigmesh families are ROADMAP item 12"
+    )

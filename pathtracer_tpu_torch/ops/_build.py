@@ -24,6 +24,23 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel -> its entry points' (argtypes, restype)
+SIGNATURES = {
+    "megakernel_fwd": {
+        "pt_render_forward": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pt_render_forward_sdf": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "march_steps": {
+        "pt_march_steps": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "megakernel_bwd": {
+        "pt_render_backward": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pt_backward_smem_bytes": ([_I], ctypes.c_size_t),
+        "pt_backward_threads": ([], _I),
+        "pt_backward_max_depth": ([], _I),
+    },
+}
 
 
 def find_nvcc() -> str:
@@ -36,29 +53,30 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def kernels() -> list[str]:
+def kernels(csrc: Path = CSRC) -> list[str]:
     """One shared library per `csrc/*.cu`, named by the file's stem."""
-    return [src.stem for src in sorted(CSRC.glob("*.cu"))]
+    return [src.stem for src in sorted(csrc.glob("*.cu"))]
 
 
-def _digest(flags: tuple) -> str:
+def _digest(flags: tuple, csrc: Path) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(flags: tuple = NVCC_FLAGS) -> Path:
-    """Compile each csrc/*.cu into its own shared library (cached by the
-    content of every source and header); the nvcc processes run side by
-    side. Returns the directory of the libraries."""
-    out_dir = BUILD_ROOT / _digest(flags)
-    todo = [stem for stem in kernels() if not (out_dir / f"lib{stem}.so").exists()]
+def build(flags: tuple = NVCC_FLAGS, csrc: Path = CSRC) -> Path:
+    """Compile each *.cu of `csrc` (this checkout's, or another checkout's
+    to compare with) into its own shared library, cached by the content of
+    every source and header; the nvcc processes run side by side. Returns
+    the directory of the libraries."""
+    out_dir = BUILD_ROOT / _digest(flags, csrc)
+    todo = [stem for stem in kernels(csrc) if not (out_dir / f"lib{stem}.so").exists()]
     if not todo:
         return out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -66,7 +84,7 @@ def build(flags: tuple = NVCC_FLAGS) -> Path:
     procs = {}
     for stem in todo:
         tmp = out_dir / f"lib{stem}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *flags, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        cmd = [nvcc, *flags, "-I", str(csrc), "-o", str(tmp), str(csrc / f"{stem}.cu")]
         log = open(out_dir / f"build_{stem}.log", "w")
         log.write(" ".join(cmd) + "\n")
         log.flush()
@@ -87,7 +105,7 @@ def build(flags: tuple = NVCC_FLAGS) -> Path:
 def build_log(flags: tuple = NVCC_FLAGS) -> str:
     """The compiler's output of the last build of each kernel (registers,
     spills)."""
-    out_dir = BUILD_ROOT / _digest(flags)
+    out_dir = BUILD_ROOT / _digest(flags, CSRC)
     return "".join(
         (out_dir / f"build_{stem}.log").read_text()
         for stem in kernels() if (out_dir / f"build_{stem}.log").exists()
@@ -95,21 +113,13 @@ def build_log(flags: tuple = NVCC_FLAGS) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(kernel: str = "megakernel_fwd", flags: tuple = NVCC_FLAGS) -> ctypes.CDLL:
-    """Build if needed and load one kernel's library, with its C signatures
-    set."""
-    lib = ctypes.CDLL(str(build(flags) / f"lib{kernel}.so"))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    if kernel == "megakernel_fwd":
-        lib.pt_render_forward.argtypes = [p, i, p, p, i, i, i, i, i, i, i, p]
-        lib.pt_render_forward.restype = i
-    elif kernel == "megakernel_bwd":
-        lib.pt_render_backward.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p]
-        lib.pt_render_backward.restype = i
-        lib.pt_backward_smem_bytes.argtypes = [i]
-        lib.pt_backward_smem_bytes.restype = ctypes.c_size_t
-        lib.pt_backward_threads.restype = i
-        lib.pt_backward_max_depth.restype = i
-    lib.pt_error_string.argtypes = [i]
-    lib.pt_error_string.restype = ctypes.c_char_p
+def load(kernel: str = "megakernel_fwd", flags: tuple = NVCC_FLAGS, csrc: Path = CSRC) -> ctypes.CDLL:
+    """Build if needed and load one kernel's library, with the C signatures
+    of the entry points it exports (another checkout's may lack newer
+    ones)."""
+    lib = ctypes.CDLL(str(build(flags, csrc) / f"lib{kernel}.so"))
+    for name, (argtypes, restype) in {**SIGNATURES[kernel], "pt_error_string": ([_I], ctypes.c_char_p)}.items():
+        entry = getattr(lib, name, None)
+        if entry is not None:
+            entry.argtypes, entry.restype = argtypes, restype
     return lib

@@ -1,101 +1,49 @@
 """The megakernels: one CUDA launch renders a frame, one more gives its
 gradient.
 
-Port of the analytical path of `pathtracer_tpu/ops/megakernel.py`. The TPU
-kernels `_pallas_forward` (K1) and `_pallas_backward` (K2) become
+Port of `pathtracer_tpu/ops/megakernel.py`. The TPU kernels
+`_pallas_forward` (K1) and `_pallas_backward` (K2) become
 `csrc/megakernel_fwd.cu` and `csrc/megakernel_bwd.cu`, hand-written CUDA
-kernels for sm_90a with one thread per pixel. The scene reaches them
-packed into one float32 vector by `pack_scene`, in the JAX package's
-layout (camera basis, analytical params, L light records of 15, M material
-records of 20); the random numbers are threefry drawn in the kernel,
-bit-equal to `ops/rng`, so K1 renders the same image as
-`integrator/tracer.render_frame` for the same key and K2 replays exactly
-K1's paths.
+kernels for sm_90a with one thread per pixel. K1 is generic over the scene
+backend, as the JAX package's `KernelBackend` is: the analytical scene
+(`csrc/analytical.cuh`) and the sphere-traced SDF scene (`csrc/sdf.cuh`,
+the port of the SDF backend K5, `ops/megakernel_sdf.py`); K2 takes the
+analytical scene. The scene reaches them packed into one float32 vector
+in the JAX package's layout (`pack_scene`: camera basis, analytical
+params, L light records of 15, M material records of 20;
+`megakernel_sdf.pack_sdf_scene` for the SDF scene); the random numbers
+are threefry drawn in the kernel, bit-equal to `ops/rng`, so K1 renders
+the same image as `integrator/tracer.render_frame` for the same key and
+K2 replays exactly K1's paths.
 
 `render_frame_megakernel` is the wrapper. On a CUDA scene it launches K1,
 through `MegakernelRender` (the port of `_diff_render`) when a scene leaf
 requires grad, whose backward launches K2; `pack_scene` is ordinary torch
 ops, so autograd carries d/d(sv) on to the scene leaves. A failed launch
-raises; nothing falls back to autograd. On a CPU scene it runs the plain
-version, the eager integrator under the detached-sampling estimator. The
-kernels cover the analytical scene without media or procedural hooks.
+raises; nothing falls back to autograd, and a CUDA SDF scene whose leaf
+requires grad raises (K5 inside K2 is not ported yet). On a CPU scene it
+runs the plain version, the eager integrator under the detached-sampling
+estimator, with autograd on every backend. The kernels take no media and
+no procedural hooks.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..integrator.tracer import VERBATIM, Quirks, has_media, render_frame
 from ..models import analytical
-from ..models.camera import camera_basis
+from ..models.families import family_of
 from ..models.scene import Scene
-from . import rng
+from . import megakernel_sdf, rng
+from .pack import MAT_FIELDS, cols, pack_camera, pack_lights, pack_materials
 from .vecmath import V3
-
-_MAT_FIELDS = (
-    # (field, arity) of the media-free material record: 20 scalars.
-    ("rgb", 3),
-    ("anisotropic", 1),
-    ("emission", 3),
-    ("metallic", 1),
-    ("roughness", 1),
-    ("subsurface", 1),
-    ("specular_tint", 1),
-    ("sheen", 1),
-    ("sheen_tint", 1),
-    ("clearcoat", 1),
-    ("clearcoat_gloss", 1),
-    ("spec_trans", 1),
-    ("ior", 1),
-    ("opacity", 1),
-    ("alpha_mode", 1),
-    ("alpha_cutoff", 1),
-)
-# Appended to each record when with_medium: type, density, color(3), anisotropy.
-_MEDIUM_FIELDS = (("medium_type", 1), ("density", 1), ("color", 3), ("anisotropy", 1))
 
 _FLAG_STALE_EMITTER_GATE = 1
 _FLAG_PRIMARY_MIS = 2
 _FLAG_RESPECT_MAX_DIST = 4
-
-
-def _cols(*leaves) -> list[torch.Tensor]:
-    """Flatten V3s into their components, everything as float32."""
-    out = []
-    for leaf in leaves:
-        parts = leaf if isinstance(leaf, tuple) else (leaf,)
-        out += [t.to(torch.float32) for t in parts]
-    return out
-
-
-def _records(cols: list[torch.Tensor]) -> torch.Tensor:
-    """[K] columns -> the flat row-major [K x len(cols)] record table."""
-    return torch.stack(cols, dim=1).reshape(-1)
-
-
-def pack_camera(scene: Scene, width: int, height: int) -> torch.Tensor:
-    """lower_left, horizontal, vertical, origin: 12 floats."""
-    cam = scene.camera.unpack()
-    lower_left, horizontal, vertical = camera_basis(cam, width, height)
-    return torch.stack(_cols(lower_left, horizontal, vertical, cam.origin))
-
-
-def pack_lights(scene: Scene) -> torch.Tensor:
-    """L x [position(3), emission(3), u(3), v(3), radius, area, type]."""
-    lt = scene.lights.unpack()
-    return _records(
-        _cols(lt.position, lt.emission, lt.u, lt.v, lt.radius, lt.area, lt.light_type)
-    )
-
-
-def pack_materials(materials, with_medium: bool = False) -> torch.Tensor:
-    """M x 20 (M x 26 with the medium fields)."""
-    leaves = [getattr(materials, name) for name, _ in _MAT_FIELDS]
-    if with_medium:
-        leaves += [getattr(materials.medium, name) for name, _ in _MEDIUM_FIELDS]
-    return _records(_cols(*leaves))
 
 
 def pack_scene(scene: Scene, width: int, height: int, with_medium: bool = False) -> torch.Tensor:
@@ -104,7 +52,7 @@ def pack_scene(scene: Scene, width: int, height: int, with_medium: bool = False)
     p = scene.params.unpack()
     sc = p.sphere_center
     head = torch.stack(
-        _cols(
+        cols(
             sc.x[0], sc.y[0], sc.z[0], sc.x[1], sc.y[1], sc.z[1],
             p.sphere_radius[0], p.sphere_radius[1],
             p.plane_point, p.plane_normal,
@@ -123,10 +71,25 @@ def pack_scene(scene: Scene, width: int, height: int, with_medium: bool = False)
     return flat[None, :]
 
 
+class Backend(NamedTuple):
+    """How K1 takes a scene family: its packer, the extra ints its entry
+    point takes after the flags, that entry point, and whether K2 takes it."""
+
+    pack: Callable[[Scene, int, int], torch.Tensor]
+    counts: Callable[[Scene], tuple]
+    entry: str
+    backward: bool
+
+
+BACKENDS = {
+    "analytical": Backend(pack_scene, lambda scene: (), "pt_render_forward", True),
+    "sdf": Backend(megakernel_sdf.pack_sdf_scene, megakernel_sdf.sdf_counts, "pt_render_forward_sdf", False),
+}
+
+
 def _check_supported(scene: Scene) -> None:
     """What the kernel does not take raises, on every device."""
-    if scene.closest_hit_fn is not analytical.closest_hit:
-        raise NotImplementedError("the megakernel covers the analytical scene only")
+    family_of(scene)
     if scene.procedural_fn is not None:
         raise NotImplementedError("procedural material hooks run on the eager integrator only")
     # The media check reads the device, which would make every frame wait
@@ -182,7 +145,7 @@ def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
     )
     mt = v[37 + 15 * n_lights:37 + 15 * n_lights + 20 * n_mat].reshape(n_mat, 20)
     fields, col = {}, 0
-    for name, arity in _MAT_FIELDS:
+    for name, arity in MAT_FIELDS:
         if name != "alpha_mode":  # an int leaf, kept from the scene
             fields[name] = col3(mt, col) if arity == 3 else mt[:, col]
         col += arity
@@ -233,6 +196,8 @@ class KernelLaunch(NamedTuple):
     n_lights: int
     n_materials: int
     flags: int
+    backend: str = "analytical"  # a key of BACKENDS
+    counts: tuple = ()  # the backend's extra ints, e.g. the SDF scene's (spheres, boxes, tori)
 
 
 def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks: Quirks) -> KernelLaunch:
@@ -241,8 +206,10 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     device = scene.device
     keys = sample_keys(key, spp)
     keys = torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32)
+    backend = family_of(scene)
+    b = BACKENDS[backend]
     return KernelLaunch(
-        sv=pack_scene(scene, width, height).contiguous(),
+        sv=b.pack(scene, width, height).contiguous(),
         keys=keys.pin_memory().to(device, non_blocking=True),
         out=torch.empty((height, width, 4), dtype=torch.float32, device=device),
         spp=spp,
@@ -250,24 +217,29 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
         n_lights=scene.num_lights,
         n_materials=int(scene.params.materials.roughness.shape[0]),
         flags=kernel_flags(scene, quirks),
+        backend=backend,
+        counts=b.counts(scene),
     )
 
 
 def launch(k: KernelLaunch) -> torch.Tensor:
     """One launch of K1 on PyTorch's current stream; returns `k.out`.
-    Counted in `render_frame_megakernel.launches`."""
+    Counted in `render_frame_megakernel.launches`, and those with the SDF
+    backend in `render_frame_megakernel.sdf_launches` too."""
     from . import _build
 
     lib = _build.load("megakernel_fwd")
     height, width = k.out.shape[:2]
-    err = lib.pt_render_forward(
+    err = getattr(lib, BACKENDS[k.backend].entry)(
         k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(),
-        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags,
+        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *k.counts,
         torch.cuda.current_stream(k.out.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: {lib.pt_error_string(err).decode()}")
     render_frame_megakernel.launches += 1
+    if k.backend == "sdf":
+        render_frame_megakernel.sdf_launches += 1
     return k.out
 
 
@@ -280,6 +252,8 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
 
     if k.sv.device.type != "cuda":
         raise ValueError("the backward megakernel needs CUDA tensors")
+    if not BACKENDS[k.backend].backward:
+        raise NotImplementedError(f"the backward megakernel does not take the {k.backend} scene yet (for the SDF: the next slice)")
     lib = _build.load("megakernel_bwd")
     height, width = k.out.shape[:2]
     n_sv = k.sv.shape[1]
@@ -327,10 +301,11 @@ def render_frame_megakernel(
     """Render one frame -> [H, W, 4] float32 on the scene's device.
 
     A CUDA scene goes through K1 (one launch, counted in
-    `render_frame_megakernel.launches`); when a scene leaf requires grad,
-    the frame's backward is one launch of K2 (counted in
-    `render_frame_megakernel.bwd_launches`). A CPU scene goes through the
-    plain version. There is no fallback from one to the other."""
+    `render_frame_megakernel.launches`) with its scene's backend; when a
+    leaf of an analytical scene requires grad, the frame's backward is one
+    launch of K2 (counted in `render_frame_megakernel.bwd_launches`), and
+    on an SDF scene that raises. A CPU scene goes through the plain
+    version. There is no fallback from one to the other."""
     _check_supported(scene)
     device = scene.device
     if device.type == "cpu":
@@ -343,9 +318,14 @@ def render_frame_megakernel(
         raise ValueError(f"bad frame size {width}x{height}, spp {spp}")
     k = prepare_launch(scene, key, width, height, spp, quirks)
     if torch.is_grad_enabled() and k.sv.requires_grad:
+        if not BACKENDS[k.backend].backward:
+            raise NotImplementedError(
+                f"gradients of a CUDA {k.backend} scene need its backend in K2 (for the SDF: the next slice)"
+            )
         return MegakernelRender.apply(k.sv, k)
     return launch(k)
 
 
 render_frame_megakernel.launches = 0
+render_frame_megakernel.sdf_launches = 0
 render_frame_megakernel.bwd_launches = 0

@@ -1,0 +1,70 @@
+"""The records every packed scene vector shares: the camera basis, the
+light table and the material table, in the JAX package's layout
+(`pathtracer_tpu/ops/megakernel.py` `pack_scene`). Each family's packer
+(`megakernel.pack_scene`, `megakernel_sdf.pack_sdf_scene`) puts its own
+geometry between the camera and the lights.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.camera import camera_basis
+from ..models.scene import Scene
+
+MAT_FIELDS = (
+    # (field, arity) of the media-free material record: 20 scalars.
+    ("rgb", 3),
+    ("anisotropic", 1),
+    ("emission", 3),
+    ("metallic", 1),
+    ("roughness", 1),
+    ("subsurface", 1),
+    ("specular_tint", 1),
+    ("sheen", 1),
+    ("sheen_tint", 1),
+    ("clearcoat", 1),
+    ("clearcoat_gloss", 1),
+    ("spec_trans", 1),
+    ("ior", 1),
+    ("opacity", 1),
+    ("alpha_mode", 1),
+    ("alpha_cutoff", 1),
+)
+# Appended to each record when with_medium: type, density, color(3), anisotropy.
+MEDIUM_FIELDS = (("medium_type", 1), ("density", 1), ("color", 3), ("anisotropy", 1))
+
+
+def cols(*leaves) -> list[torch.Tensor]:
+    """Flatten V3s into their components, everything as float32."""
+    out = []
+    for leaf in leaves:
+        parts = leaf if isinstance(leaf, tuple) else (leaf,)
+        out += [t.to(torch.float32) for t in parts]
+    return out
+
+
+def records(columns: list[torch.Tensor]) -> torch.Tensor:
+    """[K] columns -> the flat row-major [K x len(columns)] record table."""
+    return torch.stack(columns, dim=1).reshape(-1)
+
+
+def pack_camera(scene: Scene, width: int, height: int) -> torch.Tensor:
+    """lower_left, horizontal, vertical, origin: 12 floats."""
+    cam = scene.camera.unpack()
+    lower_left, horizontal, vertical = camera_basis(cam, width, height)
+    return torch.stack(cols(lower_left, horizontal, vertical, cam.origin))
+
+
+def pack_lights(scene: Scene) -> torch.Tensor:
+    """L x [position(3), emission(3), u(3), v(3), radius, area, type]."""
+    lt = scene.lights.unpack()
+    return records(cols(lt.position, lt.emission, lt.u, lt.v, lt.radius, lt.area, lt.light_type))
+
+
+def pack_materials(materials, with_medium: bool = False) -> torch.Tensor:
+    """M x 20 (M x 26 with the medium fields)."""
+    leaves = [getattr(materials, name) for name, _ in MAT_FIELDS]
+    if with_medium:
+        leaves += [getattr(materials.medium, name) for name, _ in MEDIUM_FIELDS]
+    return records(cols(*leaves))

@@ -70,6 +70,12 @@ class V3(NamedTuple):
     def length(self) -> torch.Tensor:
         return torch.sqrt(self.dot(self))
 
+    def abs(self) -> "V3":
+        """|v| componentwise with jnp.abs's gradient: +1 at 0, where
+        torch.abs has 0 (the two differ only in the sign of a zero)."""
+        a = lambda c: torch.where(c >= 0.0, c, -c) if c.requires_grad else torch.abs(c)
+        return V3(a(self.x), a(self.y), a(self.z))
+
     def normalize(self) -> "V3":
         return self / self.length()
 

@@ -23,6 +23,7 @@ class RenderConfig:
     precision: str = "f32"  # "f32" | "f64"
     quirks: str = "verbatim"  # "verbatim" | "fixed"
     device: str = "cpu"
+    scene: str = "analytical"  # "analytical" | "sdf"
 
     @property
     def dtype(self) -> torch.dtype:

@@ -1,6 +1,6 @@
 """Scene descriptions: build a port scene from the JAX package's scene dict.
 
-`pathtracer_tpu/utils/sceneio.scene_to_dict(scene, "analytical")` emits
+`pathtracer_tpu/utils/sceneio.scene_to_dict(scene, family)` emits
 
     {"family": "analytical", "recursion_depth": 4,
      "params": {".sphere_radius": [1.0, 1.0], ...},
@@ -10,7 +10,8 @@
 whose keys are `jax.tree_util.keystr` paths into the scene's pytrees. The
 port's scene buffers are named by the same paths (`params.sphere_radius`),
 so `scene_from_dict` writes each value over the family default. This is
-how parameters cross from a JAX scene to a port scene.
+how parameters cross from a JAX scene to a port scene, for the
+"analytical" and "sdf" families.
 
 An optimizer's state crosses too: `invert_state_from_jax` reads the
 checkpoint a JAX `recover_demo` writes (`invert_XXXXXX.npz`: the trainable
@@ -23,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.analytical import make_scene
+from ..models.families import make_family_scene
 from ..models.light import concat_lights, spherical_light
 from ..models.scene import Scene
 
@@ -32,10 +33,8 @@ def scene_from_dict(desc: dict, device=None, dtype=torch.float32,
                     recursion_depth: int | None = None) -> Scene:
     """The family's default scene with the description's leaves written
     over it (a default light table has the dict's light count). Unknown
-    paths and shape mismatches raise."""
-    family = desc.get("family", "analytical")
-    if family != "analytical":
-        raise NotImplementedError(f"scene family {family!r} is not ported yet")
+    families, paths and shape mismatches raise, as does a family not
+    ported yet (NotImplementedError)."""
     depth = recursion_depth if recursion_depth is not None else int(desc.get("recursion_depth", 4))
     # The light count is the length of the dict's light leaves; the table
     # starts as that many placeholder lights that the leaves overwrite.
@@ -44,7 +43,8 @@ def scene_from_dict(desc: dict, device=None, dtype=torch.float32,
         spherical_light((0.0, 0.0, 0.0), 1.0, (0.0, 0.0, 0.0), dtype=dtype, device=device)
         for _ in range(n_lights)
     ])
-    scene = make_scene(dtype=dtype, recursion_depth=depth, device=device, lights=lights)
+    scene = make_family_scene(desc.get("family", "analytical"), dtype=dtype, recursion_depth=depth, device=device,
+                              lights=lights)
     for section in ("params", "lights", "camera"):
         tree = getattr(scene, section)
         known = dict(tree.named_buffers(remove_duplicate=False))

@@ -25,6 +25,25 @@ def test_cli_renders_png_on_cpu(tmp_path):
     assert (png[..., 3] == 255).all() and png[..., :3].max() > 0
 
 
+def test_cli_renders_the_sdf_scene_on_cpu(tmp_path):
+    out = tmp_path / "sdf.png"
+    cfg, output = cli.parse_args(["--scene", "sdf", "--device", "cpu", "--width", "32", "--height", "16",
+                                  "--frames", "2", "--depth", "2", "-o", str(out)])
+    buf = cli.render(cfg, output, log=lambda s: None)
+    assert torch.isfinite(buf.pixels).all() and float(buf.frames) == 2.0
+    png = image.read_png(str(out))
+    assert png.shape == (16, 32, 4) and png[..., :3].max() > 0
+    assert cli.parse_args(["--scene", "sdf"])[0].device == "cuda"
+
+
+def test_cli_refuses_unported_scenes(tmp_path):
+    for scene in ("mesh", "bigmesh", "file:scene.json"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(["--scene", scene, "--device", "cpu", "--frames", "1", "-o", str(tmp_path / "x.png")])
+    with pytest.raises(SystemExit):
+        cli.main(["--scene", "teapot", "--device", "cpu", "--frames", "1", "-o", str(tmp_path / "x.png")])
+
+
 def test_cli_render_accumulates_frames(tmp_path):
     cfg, _ = cli.parse_args(["--device", "cpu", "--width", "16", "--height", "8", "--frames", "3",
                              "--precision", "f64"])

@@ -28,6 +28,7 @@ from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.models.material import finalize_material, make_material, stack_materials
 from pathtracer_tpu_torch.ops import bsdf, rng
 from pathtracer_tpu_torch.ops import megakernel as MK
+from pathtracer_tpu_torch.ops.pack import MAT_FIELDS
 from pathtracer_tpu_torch.ops.vecmath import V3
 from test_torch_kernel_host import PRELUDE, _alpha_glass_params, _three_lights, build_shim, launch_keys
 
@@ -37,7 +38,7 @@ SHIM = PRELUDE + r"""
 extern "C" void host_grad(const float* sv, const uint32_t* keys, const float* ct, float* grad, int width, int height,
                           int spp, int depth, int n_lights, int n_materials, int flags) {
   const int n = width * height;
-  const pt::SceneView s = {sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0};
+  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
   const pt::GradSink g = {grad, 1};
   for (int p = 0; p < n; ++p) {
     const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
@@ -165,7 +166,7 @@ def _material(rec):
     """A finalized [N] material batch whose float fields are columns of rec."""
     cols = iter(range(20))
     fields = {}
-    for name, arity in MK._MAT_FIELDS:
+    for name, arity in MAT_FIELDS:
         idx = [next(cols) for _ in range(arity)]
         if name == "alpha_mode":
             continue

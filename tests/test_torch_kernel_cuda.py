@@ -1,9 +1,11 @@
-"""The CUDA megakernels K1 and K2 against their plain PyTorch versions,
+"""The CUDA megakernels K1 (with the analytical and the SDF backend) and
+K2, and the march-step counter K6, against their plain PyTorch versions,
 on the card.
 
 Marked `cuda`: each test asks the `cuda_device` fixture for the card and
 skips without one. This file imports no JAX; the JAX side is the committed
-render tests/golden_torch/analytical_64x48_d4_k3.npy and gradient
+renders tests/golden_torch/analytical_64x48_d4_k3.npy and
+sdf_64x48_d4_k3.npy and gradient
 tests/golden_torch/grad_analytical_64x48_d4_k3.npz. Run on a CUDA host
 (the conftest imports JAX, which that host may lack):
 `python -m pytest --noconftest tests/test_torch_kernel_cuda.py -q`.
@@ -24,11 +26,14 @@ import torch
 
 from pathtracer_tpu_torch.integrator import inverse
 from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
+from pathtracer_tpu_torch.models import sdf
 from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import megakernel as MK
+from pathtracer_tpu_torch.ops import megakernel_sdf as MS
 from pathtracer_tpu_torch.ops import rng
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "analytical_64x48_d4_k3.npy")
+SDF_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "sdf_64x48_d4_k3.npy")
 GRAD_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "grad_analytical_64x48_d4_k3.npz")
 pytestmark = pytest.mark.cuda
 
@@ -129,3 +134,45 @@ def test_backward_kernel_refuses_deep_paths(cuda_device):
     k = MK.prepare_launch(make_scene(recursion_depth=17, device=cuda_device), rng.prng_key(0), 8, 8, 1, VERBATIM)
     with pytest.raises(ValueError, match="depth"):
         MK.launch_backward(k, torch.zeros((8, 8, 4), device=cuda_device))
+
+
+@pytest.mark.parametrize(
+    "spp,quirks,seed,smooth_k", [(1, VERBATIM, 41, 0.0), (2, VERBATIM, 42, 0.0), (1, FIXED, 43, 0.0),
+                                 (1, VERBATIM, 44, 0.3)],
+    ids=["spp1", "spp2", "fixed", "smooth"],
+)
+def test_sdf_kernel_matches_plain_version(cuda_device, spp, quirks, seed, smooth_k):
+    scene = sdf.make_scene(device=cuda_device)
+    scene.params.smooth_k = torch.tensor(smooth_k, device=cuda_device)  # 0.3: the smooth union
+    key = rng.prng_key(seed)
+    launches = MK.render_frame_megakernel.launches
+    img = MK.render_frame_megakernel(scene, key, 320, 240, spp, quirks)
+    ref = MK.render_frame_reference(scene, key, 320, 240, spp, quirks)
+    torch.cuda.synchronize()
+    assert MK.render_frame_megakernel.launches == launches + 1
+    assert_image_close(img.cpu(), ref.cpu())
+
+
+def test_sdf_kernel_matches_jax_fixture(cuda_device):
+    img = MK.render_frame_megakernel(sdf.make_scene(device=cuda_device), rng.prng_key(3), 64, 48)
+    assert_image_close(img.cpu(), np.load(SDF_FIXTURE))
+
+
+def test_march_step_kernel_matches_plain_version(cuda_device):
+    scene = sdf.make_scene(device=cuda_device)
+    launches = MS.measure_march_steps.launches
+    got = MS.measure_march_steps(scene, 320, 240)
+    assert MS.measure_march_steps.launches == launches + 1
+    ref = MS.march_steps_reference(scene, 320, 240)
+    for name, r in zip(("steps", "shadow_steps"), ref):
+        assert got[name].device == cuda_device and got[name].shape == (240, 320)
+        assert (got[name] == r).double().mean().item() >= 0.999, name
+
+
+def test_sdf_kernel_refuses_gradients(cuda_device):
+    scene = sdf.make_scene(device=cuda_device)
+    scene.params.sphere_radius.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="K2"):
+        MK.render_frame_megakernel(scene, rng.prng_key(0), 8, 8)
+    with torch.no_grad():  # a forward frame of the same scene is fine
+        assert torch.isfinite(MK.render_frame_megakernel(scene, rng.prng_key(0), 8, 8)).all()

@@ -3,8 +3,9 @@ to its plain PyTorch version.
 
 `csrc/tracer.cuh` and the headers it includes are plain C++ apart from the
 `__device__`/`__forceinline__` qualifiers and three intrinsics, so g++ builds
-them behind the small shim below, and a host loop runs `trace_sample` for
-every pixel exactly as the kernel's threads do. This checks the kernel's
+them behind the small shim below, and a host loop runs `trace_sample` with
+the analytical backend for every pixel exactly as the kernel's threads do
+(tests/test_torch_sdf_kernel_host.py does the same with the SDF backend). This checks the kernel's
 path logic (lobes, lights, quirks, alpha, the threefry counters) where no
 card is present; the card run (chip_smoke.py, test_torch_kernel_cuda.py)
 checks what nvcc makes of it. The shim is built with -ffp-contract=off,
@@ -44,17 +45,18 @@ static inline float __fadd_rn(float a, float b) { return a + b; }
 """
 
 SHIM = PRELUDE + r"""
+#include "analytical.cuh"
 #include "tracer.cuh"
 
 extern "C" void host_render(const float* sv, const uint32_t* keys, float* out, int width, int height, int spp,
                             int depth, int n_lights, int n_materials, int flags) {
   const int n = width * height;
-  const pt::SceneView s = {sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0};
+  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
   for (int p = 0; p < n; ++p) {
     pt::V3 sum = pt::splat3(0.0f);
     for (int k = 0; k < spp; ++k) {
       const uint32_t* kk = keys + 4 * k;
-      pt::V3 r = pt::trace_sample(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3]);
+      pt::V3 r = pt::trace_sample<pt::Analytical>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3]);
       sum = k == 0 ? r : sum + r;
     }
     if (spp > 1) sum = sum / (float)spp;

@@ -79,8 +79,10 @@ def test_scene_from_dict_rejects_bad_leaves():
         scene_from_dict({**desc, "params": {".no_such_leaf": 1.0}})
     with pytest.raises(ValueError):
         scene_from_dict({**desc, "params": {".sphere_radius": [1.0, 2.0, 3.0]}})
+    with pytest.raises(KeyError):  # an analytical leaf the SDF family lacks
+        scene_from_dict({"family": "sdf", "params": {".checker_offset": 1.0}})
     with pytest.raises(NotImplementedError):
-        scene_from_dict({**desc, "family": "sdf"})
+        scene_from_dict({**desc, "family": "mesh"})
 
 
 @pytest.mark.parametrize("with_medium", [False, True])
