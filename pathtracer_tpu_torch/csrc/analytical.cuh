@@ -28,8 +28,8 @@ enum : int {
   SV_LIGHTS = 37,
 };
 
-__device__ __forceinline__ SceneView analytical_view(const float* sv, int n_lights, int n_materials,
-                                                     bool respect_max_dist) {
+// The analytical scene's view (host side, for the launch and the host build).
+inline SceneView analytical_view(const float* sv, int n_lights, int n_materials, bool respect_max_dist) {
   return {sv, n_lights, n_materials, respect_max_dist, SV_LIGHTS, 0, 0, 0};
 }
 

@@ -1,73 +1,14 @@
 // Reverse-mode adjoints of analytical.cuh (closest hit, background and the
-// material pick), writing d(loss)/d(packed scene) through a GradSink.
+// material pick), writing d(loss)/d(packed scene) through a GradSink, and
+// AnalyticalAdj, the analytical backend of the adjoint tracer
+// (tracer_adj.cuh).
 #pragma once
 
 #include "analytical.cuh"
-#include "bsdf_adj.cuh"
 #include "intersect_adj.cuh"
+#include "scene_adj.cuh"
 
 namespace pt {
-
-// Where one thread adds its cotangents of the packed scene: entry j lives at
-// g[j * stride] (the backward kernel keeps one column per thread in shared
-// memory; the host build one row).
-struct GradSink {
-  float* g;
-  int stride;
-  __device__ __forceinline__ void add(int j, float v) const { g[j * stride] += v; }
-  __device__ __forceinline__ void add3(int j, V3 v) const {
-    add(j, v.x);
-    add(j + 1, v.y);
-    add(j + 2, v.z);
-  }
-};
-
-// Material record offsets (analytical.cuh layout) of the fields that carry
-// gradient; opacity, alpha_mode and alpha_cutoff are only compared.
-enum : int {
-  MAT_RGB = 0, MAT_ANISOTROPIC = 3, MAT_EMISSION = 4, MAT_METALLIC = 7, MAT_ROUGHNESS = 8, MAT_SUBSURFACE = 9,
-  MAT_SPECULAR_TINT = 10, MAT_SHEEN = 11, MAT_SHEEN_TINT = 12, MAT_CLEARCOAT = 13, MAT_CLEARCOAT_GLOSS = 14,
-  MAT_SPEC_TRANS = 15, MAT_IOR = 16,
-};
-
-__device__ __forceinline__ int light_offset(const SceneView& s, int i) { return SV_LIGHTS + i * LIGHT_STRIDE; }
-__device__ __forceinline__ int material_offset(const SceneView& s, int i) {
-  return SV_LIGHTS + s.n_lights * LIGHT_STRIDE + i * MAT_STRIDE;
-}
-
-// The record fields of a raw (un-finalized) material cotangent.
-__device__ __forceinline__ void scatter_material_adj(const GradSink& g, int off, const MatAdj& a, bool with_rgb) {
-  if (with_rgb) g.add3(off + MAT_RGB, a.rgb);
-  g.add(off + MAT_ANISOTROPIC, a.anisotropic);
-  g.add3(off + MAT_EMISSION, a.emission);
-  g.add(off + MAT_METALLIC, a.metallic);
-  g.add(off + MAT_ROUGHNESS, a.roughness);
-  g.add(off + MAT_SUBSURFACE, a.subsurface);
-  g.add(off + MAT_SPECULAR_TINT, a.specular_tint);
-  g.add(off + MAT_SHEEN, a.sheen);
-  g.add(off + MAT_SHEEN_TINT, a.sheen_tint);
-  g.add(off + MAT_CLEARCOAT, a.clearcoat);
-  g.add(off + MAT_CLEARCOAT_GLOSS, a.clearcoat_gloss);
-  g.add(off + MAT_SPEC_TRANS, a.spec_trans);
-  g.add(off + MAT_IOR, a.ior);
-}
-
-// Sky gradient: to_linear(mix(horizon, zenith, 0.5 (rd.y + 1))) * scale.
-__device__ __forceinline__ void background_adj(const SceneView& s, V3 rd, V3 ct, const GradSink& g, V3& c_rd) {
-  float t = 0.5f * (rd.y + 1.0f);
-  V3 hor = load3(s.sv + SV_SKY_HORIZON), zen = load3(s.sv + SV_SKY_ZENITH);
-  V3 c = mix(hor, zen, t);
-  float scale = s.sv[SV_SKY_SCALE];
-  g.add(SV_SKY_SCALE, dot(ct, to_linear(c)));
-  V3 c_lin = ct * scale;
-  V3 c_c = v3(c_lin.x * 2.2f * powf(c.x, 1.2f), c_lin.y * 2.2f * powf(c.y, 1.2f), c_lin.z * 2.2f * powf(c.z, 1.2f));
-  V3 c_hor = splat3(0.0f), c_zen = splat3(0.0f);
-  float c_t = 0.0f;
-  mix_adj(hor, zen, t, c_c, c_hor, c_zen, c_t);
-  g.add3(SV_SKY_HORIZON, c_hor);
-  g.add3(SV_SKY_ZENITH, c_zen);
-  c_rd.y += 0.5f * c_t;
-}
 
 // closest_hit on a ray that hits: cotangents of t, of the geometric normal
 // and of the raw material record (the plane's rgb is its checker albedo).
@@ -119,5 +60,19 @@ __device__ __forceinline__ void closest_hit_adj(const SceneView& s, V3 ro, V3 rd
     g.add(SV_CHECKER_ALBEDO + (fmodf(x1 + y1, 2.0f) < 1.0f ? 0 : 1), a.rgb.x + a.rgb.y + a.rgb.z);
   }
 }
+
+// The analytical backend with the adjoint hooks K2 calls; closest_hit_adj
+// recomputes the primitive tests, so it ignores the hit distance t.
+struct AnalyticalAdj : Analytical {
+  __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, float ct_t,
+                                                         V3 ct_normal, const MatAdj& a, const GradSink& g, V3& c_ro,
+                                                         V3& c_rd) {
+    pt::closest_hit_adj(s, ro, rd, ct_t, ct_normal, a, g, c_ro, c_rd);
+  }
+  __device__ __forceinline__ static void background_adj(const SceneView& s, V3 rd, V3 ct, const GradSink& g,
+                                                        V3& c_rd) {
+    sky_background_adj(s, SV_SKY_HORIZON, rd, ct, g, c_rd);
+  }
+};
 
 }  // namespace pt

@@ -41,8 +41,7 @@ __global__ void __launch_bounds__(MARCH_THREADS)
 // `stream`; returns cudaGetLastError() (0 = success).
 extern "C" int pt_march_steps(const float* sv, int n_sv, int* steps, int* shadow_steps, int width, int height,
                               int n_lights, int n_materials, int n_spheres, int n_boxes, int n_tori, void* stream) {
-  const pt::SceneView s = {nullptr, n_lights, n_materials, false, pt::sdf_lights_at(n_spheres, n_boxes, n_tori),
-                           n_spheres, n_boxes, n_tori};
+  const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
   const int n = width * height;
   const int blocks = (n + pt::MARCH_THREADS - 1) / pt::MARCH_THREADS;
   pt::march_steps_kernel<<<blocks, pt::MARCH_THREADS, n_sv * sizeof(float), (cudaStream_t)stream>>>(

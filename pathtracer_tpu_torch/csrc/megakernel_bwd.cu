@@ -1,4 +1,6 @@
-// Backward path-tracing megakernel (K2) for the analytical scene on Hopper.
+// Backward path-tracing megakernel (K2) on Hopper, generic over the scene
+// backend as K1 is: the analytical scene (analytical_adj.cuh) and the
+// sphere-traced SDF scene (sdf_adj.cuh, the adjoint of K5).
 //
 // Replaces the TPU kernel pathtracer_tpu/ops/megakernel.py::_pallas_backward
 // (body _make_grad_kernel: replay, stored carries, per-bounce VJP in
@@ -23,12 +25,17 @@
 // pressure. The adjoint of a bounce re-runs its forward and then several
 // hundred more flops per lane with data-dependent branches; the stored
 // carries live in a per-thread stack frame in local memory and the live
-// state needs about twice K1's registers (ptxas -v prints both). This
-// first version does nothing about that beyond __launch_bounds__.
+// state needs about twice K1's registers (ptxas -v prints both). With the
+// SDF backend each bounce's closest hit and shadow ray are marched twice,
+// in the forward sweep and in the re-run, K1's march each time, and each
+// hit adds the SDF adjoint's two forward-mode passes over the primitives.
+// This first version does nothing about that beyond __launch_bounds__.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "analytical_adj.cuh"
+#include "sdf_adj.cuh"
 #include "tracer_adj.cuh"
 
 namespace pt {
@@ -37,10 +44,11 @@ constexpr int BWD_THREADS = 128;
 constexpr int ACC_STRIDE = BWD_THREADS + 1;
 constexpr int REDUCE_THREADS = 256;
 
+template <class B>
 __global__ void __launch_bounds__(BWD_THREADS)
     render_backward_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
                            const float* __restrict__ ct, float* __restrict__ partial, int width, int height,
-                           int spp, int depth, int n_lights, int n_materials, int flags) {
+                           int spp, int depth, int flags, SceneView s) {
   extern __shared__ float smem[];
   float* sv = smem;           // [n_sv] packed scene
   float* acc = smem + n_sv;   // [n_sv][ACC_STRIDE]: column threadIdx.x is this thread's gradient
@@ -51,13 +59,13 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int n = width * height;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p < n) {
-    const SceneView s = analytical_view(sv, n_lights, n_materials, (flags & FLAG_RESPECT_MAX_DIST) != 0);
+    s.sv = sv;
     const GradSink g = {acc + threadIdx.x, ACC_STRIDE};
     const float4 c = reinterpret_cast<const float4*>(ct)[p];
     const V3 ct_rad = v3(c.x / (float)spp, c.y / (float)spp, c.z / (float)spp);
     for (int k = 0; k < spp; ++k) {
       const uint32_t* kk = keys + 4 * k;  // (kc0, kc1, kb0, kb1) of sample k
-      trace_sample_adj(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], ct_rad, g);
+      trace_sample_adj<B>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], ct_rad, g);
     }
   }
   __syncthreads();
@@ -84,32 +92,57 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
   if (threadIdx.x == 0) out[j] = (float)s[0];
 }
 
+// d(<ct, frame>)/d(sv) into grad[n_sv], using partial[ceil(W*H/THREADS)][n_sv]
+// as scratch, on `stream`; `s` is the scene's structure (its sv is set to
+// the shared copy in the kernel). Returns a cudaError_t (0 = success).
+template <class B>
+int launch_backward(const float* sv, int n_sv, const uint32_t* keys, const float* ct, float* partial, float* grad,
+                    int width, int height, int spp, int depth, int flags, SceneView s, void* stream) {
+  if (depth > MAX_DEPTH) return (int)cudaErrorInvalidValue;
+  const int n = width * height;
+  const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
+  const size_t smem = (size_t)n_sv * (1 + ACC_STRIDE) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(render_backward_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  render_backward_kernel<B><<<blocks, BWD_THREADS, smem, (cudaStream_t)stream>>>(sv, n_sv, keys, ct, partial, width,
+                                                                                 height, spp, depth, flags, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_blocks_kernel<<<n_sv, REDUCE_THREADS, 0, (cudaStream_t)stream>>>(partial, blocks, n_sv, grad);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace pt
 
 extern "C" int pt_backward_threads() { return pt::BWD_THREADS; }
 extern "C" int pt_backward_max_depth() { return pt::MAX_DEPTH; }
+extern "C" int pt_backward_sdf_max_primitives() { return pt::SDF_MAX_PRIMS; }
 
 // Dynamic shared memory the backward kernel needs for n_sv scene scalars.
 extern "C" size_t pt_backward_smem_bytes(int n_sv) { return (size_t)n_sv * (1 + pt::ACC_STRIDE) * sizeof(float); }
 
-// d(<ct, frame>)/d(sv) into grad[n_sv], using partial[ceil(W*H/THREADS)][n_sv]
-// as scratch, on `stream`. Returns a cudaError_t (0 = success).
+// The gradient of one frame of the analytical scene (0 = success, else a
+// cudaError_t).
 extern "C" int pt_render_backward(const float* sv, int n_sv, const uint32_t* keys, const float* ct, float* partial,
                                   float* grad, int width, int height, int spp, int depth,
                                   int n_lights, int n_materials, int flags, void* stream) {
-  if (depth > pt::MAX_DEPTH) return (int)cudaErrorInvalidValue;
-  const int n = width * height;
-  const int blocks = (n + pt::BWD_THREADS - 1) / pt::BWD_THREADS;
-  const size_t smem = pt_backward_smem_bytes(n_sv);
-  cudaError_t err =
-      cudaFuncSetAttribute(pt::render_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  pt::render_backward_kernel<<<blocks, pt::BWD_THREADS, smem, (cudaStream_t)stream>>>(
-      sv, n_sv, keys, ct, partial, width, height, spp, depth, n_lights, n_materials, flags);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pt::reduce_blocks_kernel<<<n_sv, pt::REDUCE_THREADS, 0, (cudaStream_t)stream>>>(partial, blocks, n_sv, grad);
-  return (int)cudaGetLastError();
+  const pt::SceneView s = pt::analytical_view(nullptr, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
+  return pt::launch_backward<pt::AnalyticalAdj>(sv, n_sv, keys, ct, partial, grad, width, height, spp, depth, flags,
+                                                s, stream);
+}
+
+// The gradient of one frame of the SDF scene with its primitive counts
+// (0 = success; more than pt_backward_sdf_max_primitives() primitives,
+// the plane included, is cudaErrorInvalidValue).
+extern "C" int pt_render_backward_sdf(const float* sv, int n_sv, const uint32_t* keys, const float* ct,
+                                      float* partial, float* grad, int width, int height, int spp, int depth,
+                                      int n_lights, int n_materials, int flags, int n_spheres, int n_boxes,
+                                      int n_tori, void* stream) {
+  if (n_spheres + n_boxes + n_tori + 1 > pt::SDF_MAX_PRIMS) return (int)cudaErrorInvalidValue;
+  const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
+  return pt::launch_backward<pt::SdfAdj>(sv, n_sv, keys, ct, partial, grad, width, height, spp, depth, flags, s,
+                                         stream);
 }
 
 extern "C" const char* pt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

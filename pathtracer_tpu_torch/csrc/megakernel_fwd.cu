@@ -81,8 +81,7 @@ int launch_forward(const float* sv, int n_sv, const uint32_t* keys, float* out, 
 extern "C" int pt_render_forward(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                  int height, int spp, int depth, int n_lights,
                                  int n_materials, int flags, void* stream) {
-  const pt::SceneView s = {nullptr, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0,
-                           pt::SV_LIGHTS, 0, 0, 0};
+  const pt::SceneView s = pt::analytical_view(nullptr, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
   return pt::launch_forward<pt::Analytical>(sv, n_sv, keys, out, width, height, spp, depth, flags, s, stream);
 }
 
@@ -90,8 +89,7 @@ extern "C" int pt_render_forward(const float* sv, int n_sv, const uint32_t* keys
 extern "C" int pt_render_forward_sdf(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                      int height, int spp, int depth, int n_lights, int n_materials, int flags,
                                      int n_spheres, int n_boxes, int n_tori, void* stream) {
-  const pt::SceneView s = {nullptr, n_lights, n_materials, false, pt::sdf_lights_at(n_spheres, n_boxes, n_tori),
-                           n_spheres, n_boxes, n_tori};
+  const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
   return pt::launch_forward<pt::Sdf>(sv, n_sv, keys, out, width, height, spp, depth, flags, s, stream);
 }
 

@@ -45,6 +45,11 @@ inline int sdf_lights_at(int n_spheres, int n_boxes, int n_tori) {
   return SDF_PRIMS + 4 * n_spheres + 7 * n_boxes + 5 * n_tori + SDF_TAIL;
 }
 
+// The SDF scene's view with its primitive counts (host side, as above).
+inline SceneView sdf_view(const float* sv, int n_lights, int n_materials, int n_spheres, int n_boxes, int n_tori) {
+  return {sv, n_lights, n_materials, false, sdf_lights_at(n_spheres, n_boxes, n_tori), n_spheres, n_boxes, n_tori};
+}
+
 // The plane record: point(3) normal(3), then smooth_k (+6), checker scale
 // (+7), albedo (+8, +9) and the sky (+10).
 __device__ __forceinline__ const float* sdf_plane(const SceneView& s) {
@@ -173,9 +178,9 @@ __device__ __forceinline__ float scene_sdf(const SceneView& s, V3 x) {
   return d;
 }
 
-// normalize(grad_x scene_sdf), models/sdf.sdf_normal: each primitive's
-// gradient folded through the union with its shares.
-__device__ __forceinline__ V3 sdf_normal(const SceneView& s, V3 x) {
+// grad_x scene_sdf, models/sdf.sdf_gradient: each primitive's gradient
+// folded through the union with its shares.
+__device__ __forceinline__ V3 sdf_gradient(const SceneView& s, V3 x) {
   const float k = sdf_plane(s)[6];
   DistGrad u = {0.0f, splat3(0.0f)};
   bool first = true;
@@ -191,8 +196,11 @@ __device__ __forceinline__ V3 sdf_normal(const SceneView& s, V3 x) {
              mul_rn(u.g.z, w) + mul_rn(b.g.z, 1.0f - w));
     u.d = smooth_min(u.d, b.d, k);
   });
-  return safe_normalize(u.g);
+  return u.g;
 }
+
+// normalize(grad_x scene_sdf), models/sdf.sdf_normal.
+__device__ __forceinline__ V3 sdf_normal(const SceneView& s, V3 x) { return safe_normalize(sdf_gradient(s, x)); }
 
 // Material id at x: the nearest primitive, the first minimum winning.
 __device__ __forceinline__ int nearest_primitive(const SceneView& s, V3 x) {
@@ -243,13 +251,18 @@ __device__ __forceinline__ bool sdf_converged(const SceneView& s, V3 ro, V3 rd, 
   return fabsf(scene_sdf(s, madd3(ro, rd, t))) < 2.0f * HIT_EPS && t <= SDF_T_MAX;
 }
 
-// Checker from the hit point: fmod(|x1 + z1|, 2) < 1 (not the analytical
-// checker, which reads the ray direction).
-__device__ __forceinline__ float sdf_checker(const SceneView& s, V3 x) {
+// Which checker albedo the hit point x takes (0 or 1): fmod(|x1 + z1|, 2)
+// < 1 picks the first (not the analytical checker, which reads the ray
+// direction).
+__device__ __forceinline__ int sdf_checker_pick(const SceneView& s, V3 x) {
   const float* pl = sdf_plane(s);
   float x1 = fmodf(floorf(x.x * pl[7]), 2.0f);
   float z1 = fmodf(floorf(x.z * pl[7]), 2.0f);
-  return fmodf(fabsf(x1 + z1), 2.0f) < 1.0f ? pl[8] : pl[9];
+  return fmodf(fabsf(x1 + z1), 2.0f) < 1.0f ? 0 : 1;
+}
+
+__device__ __forceinline__ float sdf_checker(const SceneView& s, V3 x) {
+  return sdf_plane(s)[8 + sdf_checker_pick(s, x)];
 }
 
 // Sphere-traced closest hit: t (+inf on a miss), the normal (at ro on a

@@ -12,9 +12,18 @@
 // prev_hit_dist; the radiance sum needs none, its cotangent is the same at
 // every bounce), then walks the bounces in reverse, re-running one bounce
 // at a time and applying its adjoint, and ends with the camera ray's.
+//
+// Generic over the scene backend B, as tracer.cuh is: B has tracer.cuh's
+// forward hooks and two adjoint ones,
+//   void B::closest_hit_adj(s, ro, rd, t, ct_t, ct_normal, mat_adj, g, c_ro&, c_rd&)
+//     (on a ray that hit at t: the cotangents of t, the normal and the raw
+//     material record, into the sink, ro and rd)
+//   void B::background_adj(s, rd, ct, g, c_rd&)
+// (AnalyticalAdj in analytical_adj.cuh, SdfAdj in sdf_adj.cuh).
 #pragma once
 
-#include "analytical_adj.cuh"
+#include "intersect_adj.cuh"
+#include "scene_adj.cuh"
 #include "tracer.cuh"
 
 namespace pt {
@@ -86,18 +95,21 @@ __device__ __forceinline__ void sample_lights_emitter_adj(const SceneView& s, V3
 }
 
 // NEE: ld = emission L * f * (mis / pdf) with the light sample detached.
-__device__ __forceinline__ void direct_light_adj(const SceneView& s, V3 rd, V3 fhp, V3 ffnormal, const Material& m,
-                                                 float eta, float u_pick, float r1, float r2, V3 ct, MatAdj& a,
-                                                 float& c_eta, V3& c_rd, V3& c_ffnormal, const GradSink& g) {
-  if (s.n_lights == 0) return;
+// Returns ld, what direct_light<B> returns, so the shadow ray is marched
+// once.
+template <class B>
+__device__ __forceinline__ V3 direct_light_adj(const SceneView& s, V3 rd, V3 fhp, V3 ffnormal, const Material& m,
+                                               float eta, float u_pick, float r1, float r2, V3 ct, MatAdj& a,
+                                               float& c_eta, V3& c_rd, V3& c_ffnormal, const GradSink& g) {
+  if (s.n_lights == 0) return splat3(0.0f);
   V3 scatter_pos = madd3(fhp, ffnormal, EPS);
   int idx = min(max((int)(u_pick * (float)s.n_lights), 0), s.n_lights - 1);
   LightSample ls = sample_light(s, idx, scatter_pos, r1, r2);
-  if (!(dot(ls.direction, ls.normal) < 0.0f)) return;
-  if (any_hit(s, scatter_pos, ls.direction, ls.dist - EPS)) return;
+  if (!(dot(ls.direction, ls.normal) < 0.0f)) return splat3(0.0f);
+  if (B::any_hit(s, scatter_pos, ls.direction, ls.dist - EPS)) return splat3(0.0f);
   float bsdf_pdf;
   V3 f = disney_eval(m, eta, -rd, ffnormal, ls.direction, bsdf_pdf);
-  if (!(bsdf_pdf > 0.0f && ls.pdf > 0.0f)) return;
+  if (!(bsdf_pdf > 0.0f && ls.pdf > 0.0f)) return splat3(0.0f);
   bool use_mis = s.light(idx)[13] > 0.0f;
   float mis_w = use_mis ? power_heuristic(ls.pdf, bsdf_pdf) : 1.0f;
   float sc = mis_w / ls.pdf;
@@ -110,12 +122,14 @@ __device__ __forceinline__ void direct_light_adj(const SceneView& s, V3 rd, V3 f
   V3 c_vw = splat3(0.0f);
   disney_eval_adj(m, eta, -rd, ffnormal, ls.direction, c_f, c_bpdf, a, c_eta, c_vw, c_ffnormal);
   c_rd -= c_vw;
+  return ls.emission * f * sc;
 }
 
 // Adjoint of bounce() on the carry `c` that entered it. On entry ct_ro,
 // ct_rd, ct_tp hold the cotangents of the carry the bounce hands on (zero
 // after the bounce where the path dies); on exit, those of `c`. ct_rad is
 // the radiance cotangent.
+template <class B>
 __device__ __forceinline__ void bounce_adj(const SceneView& s, const PathCarry& c, int n, int p, int d, int flags,
                                            uint32_t kb0, uint32_t kb1, V3 ct_rad, V3& ct_ro, V3& ct_rd, V3& ct_tp,
                                            const GradSink& g) {
@@ -128,13 +142,13 @@ __device__ __forceinline__ void bounce_adj(const SceneView& s, const PathCarry& 
 
   V3 geo_normal;
   Material mat;
-  float t = closest_hit(s, ro, rd, geo_normal, mat);
+  float t = B::closest_hit(s, ro, rd, geo_normal, mat);
   bool geo_hit = isfinite(t);
   float gate_dist = geo_hit ? t : (stale_gate ? c.prev_hit_dist : INFINITY);
   EmitterHit em = sample_lights_emitter(s, ro, rd, gate_dist);
   if (!(geo_hit || em.hit)) {  // background; the dead lane passes its carry on unchanged
-    c_tp += ct_rad * background(s, rd);
-    background_adj(s, rd, ct_rad * tp, g, c_rd);
+    c_tp += ct_rad * B::background(s, rd);
+    B::background_adj(s, rd, ct_rad * tp, g, c_rd);
     ct_ro = out_ro + c_ro;
     ct_rd = out_rd + c_rd;
     ct_tp = out_tp + c_tp;
@@ -185,8 +199,8 @@ __device__ __forceinline__ void bounce_adj(const SceneView& s, const PathCarry& 
     float c_eta = 0.0f;
     V3 c_ffn = splat3(0.0f);
     // radiance += ld * throughput
-    c_tp += ct_rad * direct_light<Analytical>(s, rd, fhp, ffnormal, mat, eta, u0, u1, u2);
-    direct_light_adj(s, rd, fhp, ffnormal, mat, eta, u0, u1, u2, ct_rad * tp, a, c_eta, c_rd, c_ffn, g);
+    c_tp += ct_rad * direct_light_adj<B>(s, rd, fhp, ffnormal, mat, eta, u0, u1, u2, ct_rad * tp, a, c_eta, c_rd,
+                                         c_ffn, g);
 
     BsdfSample bs = disney_sample(mat, eta, -rd, ffnormal, c.prev_l, u3, u4, u5);
     V3 c_fhp = splat3(0.0f);
@@ -212,7 +226,7 @@ __device__ __forceinline__ void bounce_adj(const SceneView& s, const PathCarry& 
 
   if (geo_hit) {  // a light seen against the sky has the default material and no surface
     finalize_material_adj(raw, a);
-    closest_hit_adj(s, ro, rd, c_t, c_n, a, g, c_ro, c_rd);
+    B::closest_hit_adj(s, ro, rd, t, c_t, c_n, a, g, c_ro, c_rd);
   }
   ct_ro = c_ro;
   ct_rd = c_rd;
@@ -231,6 +245,7 @@ __device__ __forceinline__ void camera_ray_adj(V3 q, float sx, float sy, V3 ct_r
 
 // Adds d(<ct_rad, radiance of this sample>)/d(packed scene) to g. depth must
 // be at most MAX_DEPTH.
+template <class B>
 __device__ __forceinline__ void trace_sample_adj(const SceneView& s, int p, int n, int width, int height, int depth,
                                                  int flags, uint32_t kc0, uint32_t kc1, uint32_t kb0, uint32_t kb1,
                                                  V3 ct_rad, const GradSink& g) {
@@ -245,11 +260,11 @@ __device__ __forceinline__ void trace_sample_adj(const SceneView& s, int p, int 
   for (int d = 0; d < depth; ++d) {
     carries[d] = c;
     bounces = d + 1;
-    if (!bounce<Analytical>(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
+    if (!bounce<B>(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
   }
   V3 ct_ro = splat3(0.0f), ct_rd = splat3(0.0f), ct_tp = splat3(0.0f);
   for (int d = bounces - 1; d >= 0; --d) {
-    bounce_adj(s, carries[d], n, p, d, flags, kb0, kb1, ct_rad, ct_ro, ct_rd, ct_tp, g);
+    bounce_adj<B>(s, carries[d], n, p, d, flags, kb0, kb1, ct_rad, ct_ro, ct_rd, ct_tp, g);
   }
   camera_ray_adj(q, sx, sy, ct_ro, ct_rd, g);
 }

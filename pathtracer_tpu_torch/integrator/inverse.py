@@ -1,12 +1,14 @@
 """Inverse rendering: pixel-loss gradients to scene parameters.
 
-Port of `pathtracer_tpu/integrator/inverse.py` for the analytical family.
-Every scene quantity (material table, lights, sphere geometry, checker
+Port of `pathtracer_tpu/integrator/inverse.py` for the analytical and SDF
+families. Every scene quantity (material table, lights, geometry, checker
 albedos, sky, camera) is a scene leaf, and the render is differentiable
 end to end under the detached-sampling estimator: through the eager
 integrator (`kernel="eager"`), or through the megakernels
-(`kernel="megakernel"`: K1 forward and K2 backward on a CUDA scene, the
-eager integrator on a CPU scene).
+(`kernel="megakernel"`: K1 forward and K2 backward with the scene's
+backend on a CUDA scene, the eager integrator on a CPU scene). On the SDF
+scene the geometry's gradient is the implicit-function derivative of the
+sphere-traced hit (`models/sdf.sphere_trace`'s Newton reattachment).
 
 Parameter selection is by key-path substring: `select=("materials.rgb",
 "lights.emission")` optimizes exactly those float leaves and freezes the
@@ -24,7 +26,7 @@ from typing import Callable, Iterable, NamedTuple
 import numpy as np
 import torch
 
-from ..models.analytical import make_scene as make_analytical_scene
+from ..models.families import make_family_scene, require_family
 from ..models.scene import Scene
 from ..ops import rng
 from ..ops.megakernel import render_frame_megakernel
@@ -35,7 +37,11 @@ from .tracer import VERBATIM, Quirks, render_frame
 
 _SECTIONS = ("params", "camera", "lights")  # the JAX Scene's data fields, in order
 KERNELS = ("megakernel", "eager")
-DEMO_SELECT = ("materials.rgb", "materials.roughness", "lights.emission")
+# recover_demo's trainable leaves by default, per scene family
+DEMO_SELECTS = {
+    "analytical": ("materials.rgb", "materials.roughness", "lights.emission"),
+    "sdf": ("sphere_radius", "torus_major", "lights.emission"),
+}
 
 
 def keypath_str(path: Iterable[str]) -> str:
@@ -266,19 +272,25 @@ def resume_state(path: str, train, opt) -> int:
     return step
 
 
-def demo_scenes(recursion_depth: int = 4, device=None) -> tuple[Scene, Scene]:
-    """(true, start) scenes of recover_demo: the analytical demo, and the
-    start with the albedo shifted, the roughness flattened and the light
-    dimmed."""
-    true_scene = make_analytical_scene(recursion_depth=recursion_depth, device=device)
+def demo_scenes(recursion_depth: int = 4, device=None, scene: str = "analytical") -> tuple[Scene, Scene]:
+    """(true, start) scenes of recover_demo for the `scene` family: the
+    demo scene, and the start with the light dimmed and, on the analytical
+    scene, the albedo shifted and the roughness flattened; on the SDF
+    scene, the sphere shrunk and the torus's major radius grown."""
+    true_scene = make_family_scene(scene, recursion_depth=recursion_depth, device=device)
     with torch.no_grad():
-        m = true_scene.params.materials.unpack()
         lights = true_scene.lights.unpack()
-        start_scene = replace_leaves(true_scene, {
-            **{f"params.materials.rgb.{c}": getattr(m.rgb, c) * 0.55 + 0.25 for c in "xyz"},
-            "params.materials.roughness": clip(m.roughness * 0.3 + 0.35, 0.001, 1.0),
-            **{f"lights.emission.{c}": getattr(lights.emission, c) * 0.45 for c in "xyz"},
-        })
+        dimmed = {f"lights.emission.{c}": getattr(lights.emission, c) * 0.45 for c in "xyz"}
+        p = true_scene.params.unpack()
+        if scene == "sdf":
+            start = {"params.sphere_radius": p.sphere_radius * 0.75, "params.torus_major": p.torus_major * 1.25}
+        else:
+            m = p.materials
+            start = {
+                **{f"params.materials.rgb.{c}": getattr(m.rgb, c) * 0.55 + 0.25 for c in "xyz"},
+                "params.materials.roughness": clip(m.roughness * 0.3 + 0.35, 0.001, 1.0),
+            }
+        start_scene = replace_leaves(true_scene, {**start, **dimmed})
     return true_scene, start_scene
 
 
@@ -299,22 +311,26 @@ def recover_demo(
     device="cuda",
     verbose: bool = True,
 ) -> RecoverReport:
-    """Recover material albedo, roughness and light emission from a target
-    render of the analytical demo scene.
+    """Recover scene parameters from a target render of a demo scene:
+    scene="analytical" the material albedo, roughness and light emission;
+    scene="sdf" the GEOMETRY (sphere radius, torus major radius) through the
+    implicit-function hit-distance gradient, and the light emission.
+    `select=None` picks the family's default (DEMO_SELECTS).
 
     Render the target with the true parameters (the mean of 4 frames),
-    perturb the selected leaves, then Adam-descend the paired loss
-    (`paired_image_loss`) through the chosen render path: per step two
-    renders of the same scene on keys split from fold_in(fold_in(key, 29),
-    step), the first with grad. With kernel="megakernel" on a CUDA device a
-    step is 2 launches of K1 and 1 of K2. The state is checkpointed every
-    `ckpt_every` steps to `ckpt_dir` and the demo resumes from the newest
-    checkpoint there, the port's or one a JAX `recover_demo` wrote.
+    perturb the selected leaves (demo_scenes), then Adam-descend the paired
+    loss (`paired_image_loss`) through the chosen render path, projected
+    each step by the family's PROJECTIONS: per step two renders of the same
+    scene on keys split from fold_in(fold_in(key, 29), step), the first
+    with grad. With kernel="megakernel" on a CUDA device a step is 2
+    launches of K1 and 1 of K2, each with the scene's backend. The state is
+    checkpointed every `ckpt_every` steps to `ckpt_dir` and the demo
+    resumes from the newest checkpoint there, the port's or one a JAX
+    `recover_demo` of the same family wrote.
 
-    Not ported yet: scene="sdf" (needs K5) and mesh= (sharding, ROADMAP
-    item 14) raise NotImplementedError."""
-    if scene != "analytical":
-        raise NotImplementedError(f"scene={scene!r}: only the analytical family is ported")
+    Not ported yet: mesh= (sharding, ROADMAP item 14) raises
+    NotImplementedError, as a scene family not ported does."""
+    require_family(scene)
     if mesh is not None:
         raise NotImplementedError("the sharded megakernel (mesh=) is not ported yet")
     if kernel not in KERNELS:
@@ -325,9 +341,10 @@ def recover_demo(
     if key is None:
         key = rng.prng_key(0)
     if select is None:
-        select = DEMO_SELECT
+        select = DEMO_SELECTS[scene]
+    projection = PROJECTIONS[scene]
 
-    true_scene, start_scene = demo_scenes(recursion_depth, device)
+    true_scene, start_scene = demo_scenes(recursion_depth, device, scene)
     render = make_renderer(kernel, width, height, spp, VERBATIM)
     with torch.no_grad():
         tkeys = rng.split(rng.fold_in(key, 17), 4)
@@ -349,7 +366,7 @@ def recover_demo(
     kbase = rng.fold_in(key, 29)
     losses = []
     for i in range(start_step, steps):
-        losses.append(paired_step(train, rebuild, clamp_material_params, opt, render, target, rng.fold_in(kbase, i)))
+        losses.append(paired_step(train, rebuild, projection, opt, render, target, rng.fold_in(kbase, i)))
         if verbose and (i % 10 == 0 or i == steps - 1):
             print(f"step {i:4d}  loss {float(losses[-1]):.6e}")
         if ckpt_dir is not None and ((i + 1) % ckpt_every == 0 or i == steps - 1):
@@ -357,7 +374,7 @@ def recover_demo(
             save_checkpoint(os.path.join(ckpt_dir, f"invert_{i + 1:06d}.npz"), _invert_state(train, opt, i + 1))
 
     with torch.no_grad():
-        final_scene = clamp_material_params(rebuild([t.detach() for t in train]))
+        final_scene = projection(rebuild([t.detach() for t in train]))
     final_train, _, _ = select_leaves(final_scene, select)
 
     rows = []
@@ -399,3 +416,18 @@ def clamp_material_params(scene: Scene) -> Scene:
         radius=maximum(lights.radius, 1e-3),
     )
     return scene.replace(params=scene.params.unpack()._replace(materials=m), lights=lights)
+
+
+def sdf_projection(scene: Scene) -> Scene:
+    """The SDF demo's projection: sphere and torus major radii at least
+    0.05, emission at least 0 (jnp.maximum, with its tie gradients)."""
+    p = scene.params.unpack()
+    lights = scene.lights.unpack()
+    return scene.replace(
+        params=p._replace(sphere_radius=maximum(p.sphere_radius, 0.05), torus_major=maximum(p.torus_major, 0.05)),
+        lights=lights._replace(emission=V3(*(maximum(c, 0.0) for c in lights.emission))),
+    )
+
+
+# recover_demo's projection per scene family
+PROJECTIONS = {"analytical": clamp_material_params, "sdf": sdf_projection}

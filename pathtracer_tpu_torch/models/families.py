@@ -15,14 +15,19 @@ FAMILIES = {"analytical": analytical, "sdf": sdf}
 UNPORTED = {"mesh": "ROADMAP item 12", "bigmesh": "ROADMAP item 12"}
 
 
-def make_family_scene(family: str, **kw) -> Scene:
-    """The demo scene of `family`; `kw` go to its make_scene. A family not
-    ported yet raises NotImplementedError naming its ROADMAP item, an
-    unknown one ValueError."""
+def require_family(family: str) -> None:
+    """A family not ported yet raises NotImplementedError naming its
+    ROADMAP item, an unknown one ValueError."""
     if family in UNPORTED:
         raise NotImplementedError(f"scene family {family!r} is not ported yet ({UNPORTED[family]})")
     if family not in FAMILIES:
         raise ValueError(f"unknown scene family {family!r} (choose {'|'.join(FAMILIES)})")
+
+
+def make_family_scene(family: str, **kw) -> Scene:
+    """The demo scene of `family` (require_family's errors otherwise); `kw`
+    go to its make_scene."""
+    require_family(family)
     return FAMILIES[family].make_scene(**kw)
 
 

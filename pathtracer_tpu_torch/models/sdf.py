@@ -321,14 +321,21 @@ def converged(p: SdfParams, ro: V3, rd: V3, t) -> torch.Tensor:
 def sphere_trace(p: SdfParams, ro: V3, rd: V3) -> tuple[torch.Tensor, torch.Tensor]:
     """(t, hit): t is +inf on a miss, and differentiable in the scene
     parameters and the ray through the Newton reattachment (module
-    docstring); the march runs detached."""
+    docstring); the march runs detached.
+
+    The Newton step evaluates the field at t* on a hit and at t = 0 on a
+    miss, where the JAX package evaluates it at t* on every lane: a march
+    that starts inside the union can run away (t* ~ -3e34), the field
+    overflows there, and its backward, though its cotangent is 0, is NaN
+    (0 * inf in smooth_min's unused branch). Hits are unchanged."""
     ps = _detached(p)
     ros, rds = V3(*(c.detach() for c in ro)), V3(*(c.detach() for c in rd))
     t_star, _ = march(ps, ros, rds)
     hit = converged(ps, ros, rds, t_star)
+    t_at = torch.where(hit, t_star, 0.0)
     with torch.no_grad():
-        denom = dot(rds, sdf_normal(ps, ros + rds * t_star))
-    f_val = scene_sdf(p, ro + rd * t_star)
+        denom = dot(rds, sdf_normal(ps, ros + rds * t_at))
+    f_val = scene_sdf(p, ro + rd * t_at)
     ok = torch.abs(denom) > 1e-4
     t_newton = t_star - torch.where(ok, f_val - f_val.detach(), 0.0) / torch.where(ok, denom, 1.0)
     return torch.where(hit, t_newton, math.inf), hit

@@ -4,27 +4,26 @@ gradient.
 Port of `pathtracer_tpu/ops/megakernel.py`. The TPU kernels
 `_pallas_forward` (K1) and `_pallas_backward` (K2) become
 `csrc/megakernel_fwd.cu` and `csrc/megakernel_bwd.cu`, hand-written CUDA
-kernels for sm_90a with one thread per pixel. K1 is generic over the scene
-backend, as the JAX package's `KernelBackend` is: the analytical scene
-(`csrc/analytical.cuh`) and the sphere-traced SDF scene (`csrc/sdf.cuh`,
-the port of the SDF backend K5, `ops/megakernel_sdf.py`); K2 takes the
-analytical scene. The scene reaches them packed into one float32 vector
-in the JAX package's layout (`pack_scene`: camera basis, analytical
-params, L light records of 15, M material records of 20;
-`megakernel_sdf.pack_sdf_scene` for the SDF scene); the random numbers
-are threefry drawn in the kernel, bit-equal to `ops/rng`, so K1 renders
-the same image as `integrator/tracer.render_frame` for the same key and
-K2 replays exactly K1's paths.
+kernels for sm_90a with one thread per pixel. Both are generic over the
+scene backend, as the JAX package's `KernelBackend` is: the analytical
+scene (`csrc/analytical.cuh`, its adjoint `analytical_adj.cuh`) and the
+sphere-traced SDF scene (`csrc/sdf.cuh`, the port of the SDF backend K5,
+`ops/megakernel_sdf.py`; its adjoint `sdf_adj.cuh`). The scene reaches
+them packed into one float32 vector in the JAX package's layout
+(`pack_scene`: camera basis, analytical params, L light records of 15, M
+material records of 20; `megakernel_sdf.pack_sdf_scene` for the SDF
+scene); the random numbers are threefry drawn in the kernel, bit-equal to
+`ops/rng`, so K1 renders the same image as `integrator/tracer.render_frame`
+for the same key and K2 replays exactly K1's paths.
 
 `render_frame_megakernel` is the wrapper. On a CUDA scene it launches K1,
 through `MegakernelRender` (the port of `_diff_render`) when a scene leaf
 requires grad, whose backward launches K2; `pack_scene` is ordinary torch
 ops, so autograd carries d/d(sv) on to the scene leaves. A failed launch
-raises; nothing falls back to autograd, and a CUDA SDF scene whose leaf
-requires grad raises (K5 inside K2 is not ported yet). On a CPU scene it
-runs the plain version, the eager integrator under the detached-sampling
-estimator, with autograd on every backend. The kernels take no media and
-no procedural hooks.
+raises; nothing falls back to autograd. On a CPU scene it runs the plain
+version, the eager integrator under the detached-sampling estimator, with
+autograd on every backend. The kernels take no media and no procedural
+hooks.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ from ..models import analytical
 from ..models.families import family_of
 from ..models.scene import Scene
 from . import megakernel_sdf, rng
-from .pack import MAT_FIELDS, cols, pack_camera, pack_lights, pack_materials
+from .pack import cols, pack_camera, pack_lights, pack_materials, unpack_camera, unpack_lights, unpack_materials
 from .vecmath import V3
 
 _FLAG_STALE_EMITTER_GATE = 1
@@ -69,22 +68,6 @@ def pack_scene(scene: Scene, width: int, height: int, with_medium: bool = False)
         ]
     )
     return flat[None, :]
-
-
-class Backend(NamedTuple):
-    """How K1 takes a scene family: its packer, the extra ints its entry
-    point takes after the flags, that entry point, and whether K2 takes it."""
-
-    pack: Callable[[Scene, int, int], torch.Tensor]
-    counts: Callable[[Scene], tuple]
-    entry: str
-    backward: bool
-
-
-BACKENDS = {
-    "analytical": Backend(pack_scene, lambda scene: (), "pt_render_forward", True),
-    "sdf": Backend(megakernel_sdf.pack_sdf_scene, megakernel_sdf.sdf_counts, "pt_render_forward_sdf", False),
-}
 
 
 def _check_supported(scene: Scene) -> None:
@@ -128,8 +111,6 @@ def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
     vertical, origin) that sv holds in place of the camera."""
     v = sv.reshape(-1)
     at3 = lambda i: V3(v[i], v[i + 1], v[i + 2])
-    n_lights = scene.num_lights
-    n_mat = int(scene.params.materials.roughness.shape[0])
     p = scene.params.unpack()
     params = p._replace(
         sphere_center=V3(v[[12, 15]], v[[13, 16]], v[[14, 17]]),
@@ -137,20 +118,30 @@ def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
         checker_scale=v[26], checker_offset=v[27], checker_albedo=v[28:30],
         sky_horizon=at3(30), sky_zenith=at3(33), sky_scale=v[36],
     )
-    lt = v[37:37 + 15 * n_lights].reshape(n_lights, 15)
-    col3 = lambda t, i: V3(t[:, i], t[:, i + 1], t[:, i + 2])
-    lights = scene.lights.unpack()._replace(
-        position=col3(lt, 0), emission=col3(lt, 3), u=col3(lt, 6), v=col3(lt, 9),
-        radius=lt[:, 12], area=lt[:, 13],
-    )
-    mt = v[37 + 15 * n_lights:37 + 15 * n_lights + 20 * n_mat].reshape(n_mat, 20)
-    fields, col = {}, 0
-    for name, arity in MAT_FIELDS:
-        if name != "alpha_mode":  # an int leaf, kept from the scene
-            fields[name] = col3(mt, col) if arity == 3 else mt[:, col]
-        col += arity
-    params = params._replace(materials=p.materials._replace(**fields))
-    return scene.replace(params=params, lights=lights), (at3(0), at3(3), at3(6), at3(9))
+    lights_at = 37
+    params = params._replace(materials=unpack_materials(v, lights_at + 15 * scene.num_lights, p.materials))
+    return scene.replace(params=params, lights=unpack_lights(v, lights_at, scene)), unpack_camera(v)
+
+
+class Backend(NamedTuple):
+    """How the kernels take a scene family: its packer and the packer's
+    inverse (for the plain versions), the extra ints its entry points take
+    after the flags, and K1's and K2's entry points."""
+
+    pack: Callable[[Scene, int, int], torch.Tensor]
+    unpack: Callable[[torch.Tensor, Scene], tuple]
+    counts: Callable[[Scene], tuple]
+    entry: str
+    backward: str
+
+
+BACKENDS = {
+    "analytical": Backend(pack_scene, unpack_scene, lambda scene: (), "pt_render_forward", "pt_render_backward"),
+    "sdf": Backend(
+        megakernel_sdf.pack_sdf_scene, megakernel_sdf.unpack_sdf_scene, megakernel_sdf.sdf_counts,
+        "pt_render_forward_sdf", "pt_render_backward_sdf",
+    ),
+}
 
 
 def render_frame_reference(
@@ -167,8 +158,9 @@ def render_frame_packed(
     quirks: Quirks = VERBATIM,
 ) -> torch.Tensor:
     """The plain version of K1 as a function of the packed scene vector
-    (the kernel's own input): the eager frame of unpack_scene(sv, scene)."""
-    s, basis = unpack_scene(sv, scene)
+    (the kernel's own input): the eager frame of the scene its family's
+    unpack (unpack_scene, megakernel_sdf.unpack_sdf_scene) reads from sv."""
+    s, basis = BACKENDS[family_of(scene)].unpack(sv, scene)
     return render_frame(s, key, width, height, spp=spp, quirks=quirks, detach=True, basis=basis)
 
 
@@ -247,14 +239,16 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
     """One launch of K2 on PyTorch's current stream: d(sum(ct * frame))/d(sv)
     [1, P] for the frame K1 renders from `k`; ct [H, W, 4] float32 (its
     alpha channel gets no gradient). Counted in
-    `render_frame_megakernel.bwd_launches`."""
+    `render_frame_megakernel.bwd_launches`, and those with the SDF backend
+    in `render_frame_megakernel.sdf_bwd_launches` too."""
     from . import _build
 
     if k.sv.device.type != "cuda":
         raise ValueError("the backward megakernel needs CUDA tensors")
-    if not BACKENDS[k.backend].backward:
-        raise NotImplementedError(f"the backward megakernel does not take the {k.backend} scene yet (for the SDF: the next slice)")
     lib = _build.load("megakernel_bwd")
+    if k.backend == "sdf" and sum(k.counts) + 1 > lib.pt_backward_sdf_max_primitives():
+        raise ValueError(f"the backward megakernel holds {lib.pt_backward_sdf_max_primitives()} SDF primitives "
+                         f"(the plane included), got {sum(k.counts) + 1}")
     height, width = k.out.shape[:2]
     n_sv = k.sv.shape[1]
     if k.depth > lib.pt_backward_max_depth():
@@ -268,14 +262,16 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
     blocks = -(-width * height // lib.pt_backward_threads())
     partial = torch.empty((blocks, n_sv), dtype=torch.float32, device=k.sv.device)
     grad = torch.empty((1, n_sv), dtype=torch.float32, device=k.sv.device)
-    err = lib.pt_render_backward(
+    err = getattr(lib, BACKENDS[k.backend].backward)(
         k.sv.data_ptr(), n_sv, k.keys.data_ptr(), ct.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags,
+        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *k.counts,
         torch.cuda.current_stream(k.sv.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"backward megakernel launch failed: {lib.pt_error_string(err).decode()}")
     render_frame_megakernel.bwd_launches += 1
+    if k.backend == "sdf":
+        render_frame_megakernel.sdf_bwd_launches += 1
     return grad
 
 
@@ -302,10 +298,10 @@ def render_frame_megakernel(
 
     A CUDA scene goes through K1 (one launch, counted in
     `render_frame_megakernel.launches`) with its scene's backend; when a
-    leaf of an analytical scene requires grad, the frame's backward is one
-    launch of K2 (counted in `render_frame_megakernel.bwd_launches`), and
-    on an SDF scene that raises. A CPU scene goes through the plain
-    version. There is no fallback from one to the other."""
+    scene leaf requires grad, the frame's backward is one launch of K2 with
+    the same backend (counted in `render_frame_megakernel.bwd_launches`).
+    A CPU scene goes through the plain version. There is no fallback from
+    one to the other."""
     _check_supported(scene)
     device = scene.device
     if device.type == "cpu":
@@ -318,10 +314,6 @@ def render_frame_megakernel(
         raise ValueError(f"bad frame size {width}x{height}, spp {spp}")
     k = prepare_launch(scene, key, width, height, spp, quirks)
     if torch.is_grad_enabled() and k.sv.requires_grad:
-        if not BACKENDS[k.backend].backward:
-            raise NotImplementedError(
-                f"gradients of a CUDA {k.backend} scene need its backend in K2 (for the SDF: the next slice)"
-            )
         return MegakernelRender.apply(k.sv, k)
     return launch(k)
 
@@ -329,3 +321,4 @@ def render_frame_megakernel(
 render_frame_megakernel.launches = 0
 render_frame_megakernel.sdf_launches = 0
 render_frame_megakernel.bwd_launches = 0
+render_frame_megakernel.sdf_bwd_launches = 0

@@ -1,12 +1,13 @@
-"""The SDF scene on the megakernel: its packed layout (K5's input) and the
-march-step counter K6.
+"""The SDF scene on the megakernels: its packed layout (K5's input), the
+layout's inverse for the plain versions, and the march-step counter K6.
 
 Port of `pathtracer_tpu/ops/megakernel_sdf.py`. The SDF backend K5 (the
 over-relaxed sphere trace, the analytic normal, the material argmin, the
 checker and the sky) is `csrc/sdf.cuh`, which K1 (`csrc/megakernel_fwd.cu`)
-instantiates beside the analytical backend; `ops/megakernel` launches it
-for an SDF scene. Its plain version is the eager integrator on
-`models/sdf`.
+instantiates beside the analytical backend, and its adjoint
+`csrc/sdf_adj.cuh`, which K2 (`csrc/megakernel_bwd.cu`) does;
+`ops/megakernel` launches them for an SDF scene. Their plain versions are
+the eager integrator on `models/sdf` and its autograd.
 
 `measure_march_steps` is K6 (`csrc/march_steps.cu`): for the center ray
 of every pixel, the trips of the primary march and of the NEE shadow march
@@ -16,18 +17,23 @@ capped at the light's distance, a cap of 0 on misses and on lanes that do
 not face the light). Where a TPU tile marches until its slowest lane is
 done, a warp of 32 threads does on this card, so the counts are reduced per
 warp as well as per pixel. `march_steps_reference` is its plain version.
+`hit_cosines` reads |<rd, n>| at the plain path's hits, where K2's
+gradient of a grazing hit hangs on the last bits of the incoming ray.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..integrator.tracer import EPS, sample_light
+from ..integrator.tracer import EPS, VERBATIM, draw_uniforms, init_state, make_bounce_step, sample_light
 from ..models import sdf
 from ..models.camera import gen_ray, pixel_coords
 from ..models.scene import Scene
-from .pack import cols, pack_camera, pack_lights, pack_materials, records
-from .vecmath import V2, dot, where3
+from .pack import (
+    col3, cols, pack_camera, pack_lights, pack_materials, records, unpack_camera, unpack_lights, unpack_materials,
+)
+from .rng import split
+from .vecmath import V2, V3, dot, where3
 
 WARP = 32
 
@@ -71,6 +77,35 @@ def pack_sdf_scene(scene: Scene, width: int, height: int, with_medium: bool = Fa
     return flat[None, :]
 
 
+def unpack_sdf_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
+    """The inverse of pack_sdf_scene on a media-free scene: `scene` with
+    every packed float leaf replaced by its entry of sv (so autograd
+    through a render of it is d/d sv, the plain version of K2), and the
+    camera basis (lower_left, horizontal, vertical, origin) that sv holds
+    in place of the camera."""
+    v = sv.reshape(-1)
+    n_s, n_b, n_t = sdf_counts(scene)
+    at = 12
+    sph = v[at:at + 4 * n_s].reshape(n_s, 4)
+    at += 4 * n_s
+    box = v[at:at + 7 * n_b].reshape(n_b, 7)
+    at += 7 * n_b
+    tor = v[at:at + 5 * n_t].reshape(n_t, 5)
+    at += 5 * n_t
+    at3 = lambda i: V3(v[at + i], v[at + i + 1], v[at + i + 2])
+    p = scene.params.unpack()
+    params = p._replace(
+        sphere_center=col3(sph, 0), sphere_radius=sph[:, 3],
+        box_center=col3(box, 0), box_half=col3(box, 3), box_round=box[:, 6],
+        torus_center=col3(tor, 0), torus_major=tor[:, 3], torus_minor=tor[:, 4],
+        plane_point=at3(0), plane_normal=at3(3), smooth_k=v[at + 6], checker_scale=v[at + 7],
+        checker_albedo=v[at + 8:at + 10], sky_horizon=at3(10), sky_zenith=at3(13), sky_scale=v[at + 16],
+    )
+    lights_at = at + 17
+    params = params._replace(materials=unpack_materials(v, lights_at + 15 * scene.num_lights, p.materials))
+    return scene.replace(params=params, lights=unpack_lights(v, lights_at, scene)), unpack_camera(v)
+
+
 def march_steps_reference(scene: Scene, width: int, height: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of K6: per-pixel trips of the primary and the NEE
     shadow march, [H, W] int32 each, on the scene's device."""
@@ -93,6 +128,35 @@ def march_steps_reference(scene: Scene, width: int, height: int) -> tuple[torch.
         cap = torch.where((dot(ls.direction, ls.normal) < 0.0) & hit, ls.dist - EPS, 0.0)
         _, shadow = sdf.march(p, scatter, ls.direction, t_cap=cap)
     return steps.reshape(height, width), shadow.reshape(height, width)
+
+
+def hit_cosines(scene: Scene, key, width: int, height: int, spp: int = 1, quirks=VERBATIM,
+                pixels: torch.Tensor | None = None) -> torch.Tensor:
+    """|<rd, n>| where each bounce of the plain version's path meets an SDF
+    hit, [spp, depth, n] for the `pixels` of the frame given (all by
+    default), +inf where the path is dead or misses. Where it is small the
+    Newton step's dt/dtheta = -(df/dtheta)/<rd, n> is ill-conditioned, and
+    a pixel's gradient hangs on the last bits of the incoming ray."""
+    p, dev = scene.params.unpack(), scene.device
+    coords = pixel_coords(width, height, torch.float64, dev)
+    if pixels is not None:
+        coords = V2(coords.x[pixels], coords.y[pixels])
+    out = []
+    with torch.no_grad():
+        step = make_bounce_step(scene, quirks, detach=True)
+        for k in [key] if spp == 1 else list(split(key, spp)):
+            cam_u, bounce_u = draw_uniforms(k, width * height, scene.recursion_depth, torch.float32, dev)
+            if pixels is not None:
+                cam_u, bounce_u = cam_u[pixels], bounce_u[:, pixels]
+            ro, rd = gen_ray(scene.camera.unpack(), coords, V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
+            state = init_state(ro, rd, quirks)
+            for u in bounce_u:
+                t, _ = sdf.march(p, state.ro, state.rd)
+                hit = sdf.converged(p, state.ro, state.rd, t)
+                cos = dot(state.rd, sdf.sdf_normal(p, state.ro + state.rd * torch.where(hit, t, 0.0))).abs()
+                out.append(torch.where(state.alive & hit, cos, torch.inf))
+                state = step(state, u)
+    return torch.stack(out).reshape(spp, scene.recursion_depth, -1)
 
 
 def warp_max(counts: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ import torch
 
 from ..models.camera import camera_basis
 from ..models.scene import Scene
+from .vecmath import V3
 
 MAT_FIELDS = (
     # (field, arity) of the media-free material record: 20 scalars.
@@ -68,3 +69,38 @@ def pack_materials(materials, with_medium: bool = False) -> torch.Tensor:
     if with_medium:
         leaves += [getattr(materials.medium, name) for name, _ in MEDIUM_FIELDS]
     return records(cols(*leaves))
+
+
+def col3(t: torch.Tensor, i: int) -> V3:
+    """Columns i, i+1, i+2 of a record table [K, stride] as a V3 of [K]."""
+    return V3(t[:, i], t[:, i + 1], t[:, i + 2])
+
+
+def unpack_camera(v: torch.Tensor) -> tuple:
+    """The camera basis (lower_left, horizontal, vertical, origin) that a
+    packed vector holds in its first 12 entries."""
+    return tuple(V3(v[i], v[i + 1], v[i + 2]) for i in (0, 3, 6, 9))
+
+
+def unpack_lights(v: torch.Tensor, at: int, scene: Scene) -> tuple:
+    """The scene's light table with its float leaves read from the L x 15
+    records at v[at:]."""
+    n = scene.num_lights
+    lt = v[at:at + 15 * n].reshape(n, 15)
+    return scene.lights.unpack()._replace(
+        position=col3(lt, 0), emission=col3(lt, 3), u=col3(lt, 6), v=col3(lt, 9), radius=lt[:, 12],
+        area=lt[:, 13],
+    )
+
+
+def unpack_materials(v: torch.Tensor, at: int, materials) -> tuple:
+    """`materials` with its float fields read from the M x 20 records at
+    v[at:] (alpha_mode, an int leaf, is kept)."""
+    n = int(materials.roughness.shape[0])
+    mt = v[at:at + 20 * n].reshape(n, 20)
+    fields, col = {}, 0
+    for name, arity in MAT_FIELDS:
+        if name != "alpha_mode":
+            fields[name] = col3(mt, col) if arity == 3 else mt[:, col]
+        col += arity
+    return materials._replace(**fields)

@@ -9,7 +9,8 @@ order other, this, this, other, three times. Prints the mean launch time
 of each (CUDA events, 20 launches after a warm-up), their ratio, whether
 the two frames are bit-equal, and the card's name and power limit; the
 last line is the same as one JSON object. The other tree's
-`pt_render_forward` must take this tree's arguments.
+`pt_render_forward` must take this tree's arguments. `k2_pair` does the
+same for K2's analytical launch.
 
 Usage:
   python -m pathtracer_tpu_torch.tools.k1_pair --other DIR
@@ -52,31 +53,45 @@ def launcher(csrc: Path, k: mk.KernelLaunch):
     return run
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--other", required=True, type=Path, help="root of the other checkout")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("k1_pair needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    scene = make_scene(recursion_depth=DEPTH, device=torch.device("cuda", 0))
-    k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
-    other_csrc = (args.other / "pathtracer_tpu_torch" / "csrc").resolve()
-    runs = {"other": launcher(other_csrc, k), "this": launcher(_build.CSRC, k)}
+
+
+def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
+    """Time runs["other"] and runs["this"] (each returns its output) in the
+    order other, this, this, other, ROUNDS times, LAUNCHES calls each after
+    a warm-up; print and return the means, their ratio, each timing and
+    whether the two outputs are bit-equal."""
     bit_equal = bool(torch.equal(runs["other"](), runs["this"]()))
     times = {"other": [], "this": []}
     for _ in range(ROUNDS):
         for name in ("other", "this", "this", "other"):
             times[name].append(cuda_ms(runs[name], LAUNCHES))
     mean = {name: sum(t) / len(t) for name, t in times.items()}
-    print(f"K1 analytical launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1 ({card}):")
+    log(f"{label} ({card}):")
     for name in ("other", "this"):
-        print(f"  {name}: {mean[name]:.4f} ms (each timing: {', '.join(f'{t:.4f}' for t in times[name])})")
-    print(f"  this / other = {mean['this'] / mean['other']:.4f}; frames bit-equal: {bit_equal}")
+        log(f"  {name}: {mean[name]:.4f} ms (each timing: {', '.join(f'{t:.4f}' for t in times[name])})")
+    log(f"  this / other = {mean['this'] / mean['other']:.4f}; outputs bit-equal: {bit_equal}")
+    return {"card": card, "other_ms": mean["other"], "this_ms": mean["this"], "ratio": mean["this"] / mean["other"],
+            "bit_equal": bit_equal, "times": times}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--other", required=True, type=Path, help="root of the other checkout")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_pair needs a CUDA device")
+    card = card_name()
+    scene = make_scene(recursion_depth=DEPTH, device=torch.device("cuda", 0))
+    k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
+    other_csrc = (args.other / "pathtracer_tpu_torch" / "csrc").resolve()
+    runs = {"other": launcher(other_csrc, k), "this": launcher(_build.CSRC, k)}
+    result = in_turns(runs, f"K1 analytical launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1", card)
     print(card)
-    print(json.dumps({"card": card, "other_ms": mean["other"], "this_ms": mean["this"],
-                      "ratio": mean["this"] / mean["other"], "bit_equal": bit_equal, "times": times}))
+    print(json.dumps(result))
     return 0
 
 

@@ -14,9 +14,9 @@ how parameters cross from a JAX scene to a port scene, for the
 "analytical" and "sdf" families.
 
 An optimizer's state crosses too: `invert_state_from_jax` reads the
-checkpoint a JAX `recover_demo` writes (`invert_XXXXXX.npz`: the trainable
-leaves, optax Adam's count, mu and nu, then the step), so a run started in
-JAX resumes in the port.
+checkpoint a JAX `recover_demo` writes for either family
+(`invert_XXXXXX.npz`: the trainable leaves, optax Adam's count, mu and nu,
+then the step), so a run started in JAX resumes in the port.
 """
 
 from __future__ import annotations

@@ -12,6 +12,7 @@ from pathtracer_tpu.utils import buffer as jax_buffer
 from pathtracer_tpu_torch.app import invert
 from pathtracer_tpu_torch.app import render as cli
 from pathtracer_tpu_torch.utils import buffer, image
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
 
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent / "pathtracer_tpu_torch"
 
@@ -75,6 +76,26 @@ def test_invert_cli_on_cpu(tmp_path):
     assert len(report["losses"]) == 2 and np.isfinite(report["losses"]).all()
     assert [r["name"] for r in report["rows"]][:1] == ["params.materials.rgb.x[0]"] and len(report["rows"]) == 15
     assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["invert_000002.npz"]
+
+
+def test_invert_cli_recovers_the_sdf_geometry_on_cpu(tmp_path, one_torch_thread):
+    out = tmp_path / "report.json"
+    assert invert.main(["--scene", "sdf", "--device", "cpu", "--width", "16", "--height", "8", "--steps", "2",
+                        "--depth", "2", "--ckpt-dir", str(tmp_path / "ck"), "--json-out", str(out)],
+                       log=lambda s: None) == 0
+    report = json.loads(out.read_text())
+    assert len(report["losses"]) == 2 and np.isfinite(report["losses"]).all()
+    assert [r["name"] for r in report["rows"]] == [
+        "params.sphere_radius[0]", "params.torus_major[0]", "lights.emission.x[0]", "lights.emission.y[0]",
+        "lights.emission.z[0]"]
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["invert_000002.npz"]
+
+
+def test_invert_cli_scene_choices():
+    assert invert.parse_args(["--scene", "sdf"]).scene == "sdf"
+    assert (invert.parse_args([]).scene, invert.parse_args(["--scene", "sdf"]).device) == ("analytical", "cuda")
+    with pytest.raises(SystemExit):
+        invert.parse_args(["--scene", "teapot"])
 
 
 def test_invert_cli_cuda_without_cuda_fails(monkeypatch):

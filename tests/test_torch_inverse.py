@@ -11,7 +11,12 @@ torch's and optax's Adam round in another order; Adam magnifies that over
 steps, so trajectories are short). `inverse_render` is held to JAX
 `inverse_render(kernel="xla")` the same way, once with the paired loss,
 the clamp projection and one fixed key, once with the single-render MSE
-and fresh keys.
+and fresh keys. The SDF demo (`scene="sdf"`: the sphere and torus radii
+and the emission, through the implicit-function gradient of the
+sphere-traced hit) is held the same way at 16x8, depth 1 (JAX's compile
+of the march's gradient is the cost, ~50 s cold, ~70 s at depth 2): one
+JAX run of 4 steps, the port's first 3 steps and its resume from JAX's
+step-2 checkpoint.
 """
 
 import os
@@ -27,14 +32,18 @@ from pathtracer_tpu.integrator.inverse import inverse_render as jax_inverse_rend
 from pathtracer_tpu.integrator.inverse import recover_demo as jax_recover_demo
 from pathtracer_tpu.integrator.inverse import select_leaves as jax_select_leaves
 from pathtracer_tpu.models.analytical import make_scene as jax_make_scene
+from pathtracer_tpu.models.sdf import make_scene as jax_make_sdf_scene
 from pathtracer_tpu_torch.integrator import inverse as inv
+from pathtracer_tpu_torch.models import sdf
 from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.utils import checkpoint as ck
 from pathtracer_tpu_torch.utils.sceneio import invert_state_from_jax
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
 
 W, H, DEPTH, SEED = 32, 16, 2, 1
 RUN = dict(width=W, height=H, recursion_depth=DEPTH, lr=3e-2, verbose=False)
+SDF_RUN = dict(scene="sdf", width=16, height=8, recursion_depth=1, lr=3e-2, verbose=False)
 
 
 @pytest.fixture(scope="module")
@@ -44,10 +53,58 @@ def jax_run(tmp_path_factory):
     return report, d
 
 
+@pytest.fixture(scope="module")
+def jax_sdf_run(tmp_path_factory):
+    """JAX's SDF recover_demo, 4 steps, checkpointing every step; its jit
+    of the march and its gradient is the cost, paid once per module."""
+    d = str(tmp_path_factory.mktemp("jax_invert_sdf"))
+    report = jax_recover_demo(key=jax.random.PRNGKey(SEED), steps=4, kernel="xla", ckpt_dir=d, ckpt_every=1,
+                              **SDF_RUN)
+    return report, d
+
+
 def test_leaf_names_and_order_match_jax():
     names = [n for n, leaf in inv.named_leaves(make_scene()) if leaf.is_floating_point()]
     _, _, jax_names = jax_select_leaves(jax_make_scene(), ("",))
     assert names == jax_names
+
+
+def test_sdf_leaf_names_and_order_match_jax():
+    names = [n for n, leaf in inv.named_leaves(sdf.make_scene()) if leaf.is_floating_point()]
+    _, _, jax_names = jax_select_leaves(jax_make_sdf_scene(), ("",))
+    assert names == jax_names
+
+
+def test_recover_demo_sdf_matches_jax(jax_sdf_run, tmp_path, one_torch_thread):
+    """The geometry demo: losses of 3 steps and the state after step 3
+    (radii, emission, Adam's moments) against JAX's."""
+    jax_report, jax_dir = jax_sdf_run
+    report = inv.recover_demo(key=rng.prng_key(SEED), steps=3, kernel="eager", device="cpu",
+                              ckpt_dir=str(tmp_path), ckpt_every=1, **SDF_RUN)
+    np.testing.assert_allclose(report.losses.numpy(), np.asarray(jax_report.losses)[:3], rtol=1e-3)
+    assert [r.name for r in report.rows] == [r.name for r in jax_report.rows] == [
+        "params.sphere_radius[0]", "params.torus_major[0]", "lights.emission.x[0]", "lights.emission.y[0]",
+        "lights.emission.z[0]"]
+    with np.load(os.path.join(jax_dir, "invert_000003.npz")) as want, \
+            np.load(str(tmp_path / "invert_000003.npz")) as got:
+        n = sum(1 for f in want.files if f.startswith("leaf_"))
+        assert n == sum(1 for f in got.files if f.startswith("leaf_")) == 3 * 5 + 2
+        for i in range(n):
+            np.testing.assert_allclose(got[f"leaf_{i}"], want[f"leaf_{i}"], rtol=1e-3, atol=1e-9, err_msg=f"leaf_{i}")
+    # the radii moved: their gradient is the implicit-function one
+    assert all(r.recovered != r.start_value for r in report.rows[:2])
+
+
+def test_resume_from_jax_sdf_checkpoint(jax_sdf_run, tmp_path, one_torch_thread):
+    jax_report, jax_dir = jax_sdf_run
+    shutil.copy(os.path.join(jax_dir, "invert_000002.npz"), tmp_path)
+    report = inv.recover_demo(key=rng.prng_key(SEED), steps=4, kernel="eager", device="cpu",
+                              ckpt_dir=str(tmp_path), **SDF_RUN)
+    assert report.losses.shape == (2,)
+    np.testing.assert_allclose(report.losses.numpy(), np.asarray(jax_report.losses)[2:], rtol=1e-3)
+    np.testing.assert_allclose([r.recovered for r in report.rows], [r.recovered for r in jax_report.rows],
+                               rtol=1e-3)
+    assert (tmp_path / "invert_000004.npz").exists()
 
 
 def test_recover_demo_matches_jax(jax_run, tmp_path):
@@ -161,8 +218,6 @@ def test_jax_state_reader_checks_its_input(jax_run, tmp_path):
 
 
 def test_recover_demo_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        inv.recover_demo(scene="sdf", device="cpu", steps=1, width=8, height=8, verbose=False)
     with pytest.raises(NotImplementedError):
         inv.recover_demo(mesh=object(), device="cpu", steps=1, width=8, height=8, verbose=False)
     with pytest.raises(ValueError):

@@ -16,6 +16,29 @@ The test runs at 320x240; the full size takes about 1.5 minutes with 4
 threads:
 
     python tests/test_torch_k2_rounding.py --width 1920 --height 1080
+
+`--scene sdf` rehearses K2 with the SDF backend (the Newton step's
+1/<rd, n> grows at silhouettes as the sphere test's 1/sqrt(r^2 - d^2)
+does); its plain version is about 30 times slower, so 320x240 is the
+size to rehearse at. `--pixel P` differentiates the one pixel P of the
+frame instead, with both contraction modes, and prints its gap (a pixel
+that chip_smoke.py finds at any size):
+
+    python tests/test_torch_k2_rounding.py --scene sdf --width 1920 --height 1080 --seed 45 --pixel 1898726
+
+`--grazing BELOW` takes every pixel whose plain path meets an SDF hit at
+|<rd, n>| < BELOW (phase 13 masks them at 1e-3), differentiates each alone
+with both contraction modes, and prints what the set adds to phase 13's
+two numbers in each mode. The set and the frame's plain gradient come from
+`--device`, a card at 1080p:
+
+    python tests/test_torch_k2_rounding.py --scene sdf --width 1920 --height 1080 --seed 45 --grazing 1e-3 --device cuda
+
+`--trainer STEPS` runs the SDF `recover_demo` with the host build in the
+place of K1 and K2, in both modes, against the eager trainer, as phase 15
+does on the card:
+
+    python tests/test_torch_k2_rounding.py --scene sdf --width 64 --height 48 --trainer 3
 """
 
 from __future__ import annotations
@@ -34,54 +57,92 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from pathtracer_tpu_torch.integrator import inverse  # noqa: E402
 from pathtracer_tpu_torch.integrator import tracer as T  # noqa: E402
-from pathtracer_tpu_torch.models.analytical import make_scene  # noqa: E402
 from pathtracer_tpu_torch.models.camera import gen_ray, pixel_coords  # noqa: E402
+from pathtracer_tpu_torch.models.families import family_of, make_family_scene  # noqa: E402
 from pathtracer_tpu_torch.ops import _build, rng  # noqa: E402
 from pathtracer_tpu_torch.ops import megakernel as mk  # noqa: E402
+from pathtracer_tpu_torch.ops import megakernel_sdf as mks  # noqa: E402
 from pathtracer_tpu_torch.ops.vecmath import V2  # noqa: E402
 from test_torch_kernel_bwd_host import SHIM as BWD_SHIM  # noqa: E402
 from test_torch_kernel_host import PRELUDE, SHIM as FWD_SHIM, launch_keys  # noqa: E402
+from test_torch_sdf_kernel_bwd_host import SHIM as SDF_BWD_SHIM  # noqa: E402
+
+# K1 with the SDF backend beside the SDF adjoint's shim (which has `view`).
+SDF_RENDER = r"""
+extern "C" void host_grad_pixel_sdf(const float* sv, const int* counts, const uint32_t* keys, const float* ct,
+                                    float* grad, int p, int width, int height, int depth, int n_lights,
+                                    int n_materials, int flags) {
+  const pt::SceneView s = view(sv, counts, n_lights, n_materials);
+  pt::trace_sample_adj<pt::SdfAdj>(s, p, width * height, width, height, depth, flags, keys[0], keys[1], keys[2],
+                                   keys[3], pt::v3(ct[0], ct[1], ct[2]), {grad, 1});
+}
+
+extern "C" void host_render_sdf(const float* sv, const int* counts, const uint32_t* keys, float* out, int width,
+                                int height, int spp, int depth, int n_lights, int n_materials, int flags) {
+  const int n = width * height;
+  const pt::SceneView s = view(sv, counts, n_lights, n_materials);
+  for (int p = 0; p < n; ++p) {
+    const pt::V3 r = pt::trace_sample<pt::Sdf>(s, p, n, width, height, depth, flags, keys[0], keys[1], keys[2],
+                                               keys[3]);
+    out[4 * p + 0] = r.x;
+    out[4 * p + 1] = r.y;
+    out[4 * p + 2] = r.z;
+    out[4 * p + 3] = 1.0f;
+  }
+}
+"""
 
 EDGE_TOL, GRAD_MAX_TOL, GRAD_RTOL = 1e-3, 1e-2, 2e-2
 CONTRACT = {"fast": ["-mfma", "-ffp-contract=fast"], "off": ["-ffp-contract=off"]}
 
 
-def build(flags: list[str], directory: Path) -> ctypes.CDLL:
-    """Both host shims in one library; the unfused intrinsics stay out of
-    line, so contraction cannot merge them."""
-    source = (BWD_SHIM + FWD_SHIM[len(PRELUDE):]).replace(
-        "static inline float __f", "__attribute__((noinline)) static float __f")
+def build(flags: list[str], directory: Path, scene: str = "analytical") -> ctypes.CDLL:
+    """The scene family's K2 and K1 host shims in one library (host_grad
+    and host_render; host_grad_sdf, host_grad_pixel_sdf and host_render_sdf,
+    which take the primitive counts after sv); the unfused intrinsics stay
+    out of line, so contraction cannot merge them."""
+    source = BWD_SHIM + FWD_SHIM[len(PRELUDE):] if scene == "analytical" else SDF_BWD_SHIM + SDF_RENDER
+    source = source.replace("static inline float __f", "__attribute__((noinline)) static float __f")
     (directory / "shim.cpp").write_text(source)
     so = directory / "libshim.so"
     subprocess.run(["g++", "-O2", "-std=c++17", *flags, "-shared", "-fPIC", "-I", str(_build.CSRC),
                     "-o", str(so), str(directory / "shim.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.host_grad.argtypes = [p, p, p, p, i, i, i, i, i, i, i]
-    lib.host_render.argtypes = [p, p, p, i, i, i, i, i, i, i]
+    if scene == "analytical":
+        lib.host_grad.argtypes = [p, p, p, p, i, i, i, i, i, i, i]
+        lib.host_render.argtypes = [p, p, p, i, i, i, i, i, i, i]
+    else:
+        lib.host_grad_sdf.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i]
+        lib.host_render_sdf.argtypes = [p, p, p, p, i, i, i, i, i, i, i]
+        lib.host_grad_pixel_sdf.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i]
     return lib
 
 
-def plain(scene, key, sv, ct, width: int, height: int, chunk: int = 65536):
-    """The plain version's frame and d(<ct, frame>)/d(sv), in pixel chunks
-    (its autograd holds every intermediate)."""
+def plain(scene, key, sv, ct, width: int, height: int, pixels: torch.Tensor | None = None, chunk: int = 65536):
+    """The plain version's radiance and d(<ct, radiance>)/d(sv) over the
+    `pixels` of the frame ([n, 3]; all of them by default, as [H, W, 3]),
+    in pixel chunks (its autograd holds every intermediate)."""
     n = width * height
+    idx = torch.arange(n) if pixels is None else pixels
     cam_u, bounce_u = T.draw_uniforms(key, n, scene.recursion_depth, torch.float32)
     coords = pixel_coords(width, height, torch.float64)
     leaf = sv.detach().clone().requires_grad_(True)
     grad = torch.zeros(sv.shape[1], dtype=torch.float64)
     frame, ct = [], ct.reshape(-1, 4)
-    for a in range(0, n, chunk):
-        b = min(a + chunk, n)
-        s, basis = mk.unpack_scene(leaf, scene)
-        ro, rd = gen_ray(None, V2(coords.x[a:b], coords.y[a:b]), V2(cam_u[a:b, 0], cam_u[a:b, 1]),
+    for a in range(0, idx.numel(), chunk):
+        i = idx[a:a + chunk]
+        s, basis = mk.BACKENDS[family_of(scene)].unpack(leaf, scene)
+        ro, rd = gen_ray(None, V2(coords.x[i], coords.y[i]), V2(cam_u[i, 0], cam_u[i, 1]),
                          float(width), float(height), basis)
-        rad = T.trace(s, ro, rd, bounce_u[:, a:b], T.VERBATIM, detach=True)
+        rad = T.trace(s, ro, rd, bounce_u[:, i], T.VERBATIM, detach=True)
         frame.append(torch.stack([rad.x, rad.y, rad.z], -1).detach())
-        loss = sum((rad[c] * ct[a:b, c]).sum() for c in range(3))
+        loss = sum((rad[c] * ct[i, c]).sum() for c in range(3))
         grad += torch.autograd.grad(loss, leaf)[0][0].double()
-    return torch.cat(frame).reshape(height, width, 3), grad
+    frame = torch.cat(frame)
+    return (frame.reshape(height, width, 3) if pixels is None else frame), grad
 
 
 def grad_gap(g: torch.Tensor, r: torch.Tensor) -> tuple[float, float]:
@@ -93,21 +154,28 @@ def grad_gap(g: torch.Tensor, r: torch.Tensor) -> tuple[float, float]:
     return float(d.max() / scale), float((d[big] / r.abs()[big]).max())
 
 
-def rehearse(lib, width: int, height: int, seed: int) -> dict:
-    """Phase 6's comparison on the host: the knife-edge pixel count and the
-    gap over all pixels and with the knife-edge pixels masked."""
-    scene, key = make_scene(), rng.prng_key(seed)
-    sv, keys = mk.pack_scene(scene, width, height).contiguous(), launch_keys(key, 1)
+def rehearse(lib, width: int, height: int, seed: int, family: str = "analytical") -> dict:
+    """Phase 6's (phase 13's, for the SDF family) comparison on the host:
+    the knife-edge pixel count and the gap over all pixels and with the
+    knife-edge pixels masked."""
+    scene, key = make_family_scene(family), rng.prng_key(seed)
+    sv, keys = mk.BACKENDS[family].pack(scene, width, height).contiguous(), launch_keys(key, 1)
+    counts = torch.tensor(mks.sdf_counts(scene) if family == "sdf" else (), dtype=torch.int32)
+    head = (sv.data_ptr(),) if family == "analytical" else (sv.data_ptr(), counts.data_ptr())
     ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((height, width, 4)).astype(np.float32))
-    shape = (width, height, 1, scene.recursion_depth, scene.num_lights, 3, mk.kernel_flags(scene, T.VERBATIM))
+    shape = (width, height, 1, scene.recursion_depth, scene.num_lights,
+             int(scene.params.materials.roughness.shape[0]), mk.kernel_flags(scene, T.VERBATIM))
+
+    grad_fn, render_fn = (lib.host_grad, lib.host_render) if family == "analytical" else (
+        lib.host_grad_sdf, lib.host_render_sdf)
 
     def host_grad(c):
         c, g = c.contiguous(), torch.zeros(sv.shape[1])  # held: the library reads their memory
-        lib.host_grad(sv.data_ptr(), keys.data_ptr(), c.data_ptr(), g.data_ptr(), *shape)
+        grad_fn(*head, keys.data_ptr(), c.data_ptr(), g.data_ptr(), *shape)
         return g.double()
 
     img = torch.empty((height, width, 4))
-    lib.host_render(sv.data_ptr(), keys.data_ptr(), img.data_ptr(), *shape)
+    render_fn(*head, keys.data_ptr(), img.data_ptr(), *shape)
     frame, ref = plain(scene, key, sv, ct, width, height)
     edge = (img[..., :3] - frame).abs().amax(-1) > EDGE_TOL
     out = dict(edge=int(edge.sum()), all=grad_gap(host_grad(ct), ref))
@@ -129,6 +197,105 @@ def test_contracted_backward_matches_plain(tmp_path):
     assert max_rel <= GRAD_MAX_TOL and big_rel <= GRAD_RTOL, out
 
 
+def sdf_pixel_grads(lib, scene, key, sv, ct, width: int, height: int, pixels) -> torch.Tensor:
+    """The SDF scene's host K2 on each of `pixels` alone (spp 1, VERBATIM),
+    [n, P] float64."""
+    keys = launch_keys(key, 1)
+    counts = torch.tensor(mks.sdf_counts(scene), dtype=torch.int32)
+    ct = ct.reshape(-1, 4)
+    out = torch.zeros((len(pixels), sv.shape[1]), dtype=torch.float64)
+    for j, p in enumerate(pixels.tolist()):
+        c, g = ct[p].contiguous(), torch.zeros(sv.shape[1])  # held: the library reads their memory
+        lib.host_grad_pixel_sdf(sv.data_ptr(), counts.data_ptr(), keys.data_ptr(), c.data_ptr(), g.data_ptr(), p,
+                                width, height, scene.recursion_depth, scene.num_lights,
+                                int(scene.params.materials.roughness.shape[0]), mk.kernel_flags(scene, T.VERBATIM))
+        out[j] = g.double()
+    return out
+
+
+def sdf_frame(width: int, height: int, seed: int):
+    """Phase 13's SDF case on the CPU: the scene, its key, its packed
+    vector and the numpy-seeded cotangent."""
+    scene, key = make_family_scene("sdf"), rng.prng_key(seed)
+    sv = mks.pack_sdf_scene(scene, width, height).contiguous()
+    ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((height, width, 4)).astype(np.float32))
+    return scene, key, sv, ct
+
+
+def grazing_witness(width: int, height: int, seed: int, below: float, device: str) -> dict:
+    """Phase 13's grazing pixels (the plain path meets an SDF hit at
+    |<rd, n>| < below; found on `device`), each differentiated alone by the
+    host build under both contraction modes and, summed, by the plain
+    version on the CPU: for each mode, what the set adds to phase 13's two
+    numbers (max|d| over max|g| of the whole frame's plain gradient, which
+    runs on `device`, and the largest relative error among the frame's
+    entries above 1e-2 max|g|), and the largest per-pixel gap between the
+    two modes over that max|g|."""
+    scene, key, sv, ct = sdf_frame(width, height, seed)
+    dev_scene = make_family_scene("sdf", device=device)
+    cos = mks.hit_cosines(dev_scene, key, width, height)
+    pixels = (cos < below).flatten(0, 1).any(0).nonzero()[:, 0].cpu()
+    frame = mk.render_grad_reference(sv.to(device), dev_scene, key, ct.to(device), width, height)[0].double().cpu()
+    scale = frame.abs().max()
+    big = frame.abs() > 1e-2 * scale
+    ref = plain(scene, key, sv, ct, width, height, pixels)[1]
+    out, per_pixel = dict(pixels=len(pixels)), {}
+    for contract in CONTRACT:
+        lib = build(CONTRACT[contract], Path(tempfile.mkdtemp(prefix="k2_rounding_")), "sdf")
+        per_pixel[contract] = sdf_pixel_grads(lib, scene, key, sv, ct, width, height, pixels)
+        d = (per_pixel[contract].sum(0) - ref).abs()
+        out[contract] = (float(d.max() / scale), float((d[big] / frame.abs()[big]).max()))
+    out["modes"] = float((per_pixel["fast"] - per_pixel["off"]).abs().max() / scale)
+    return out
+
+
+def host_trainer(lib, width: int, height: int, steps: int):
+    """recover_demo(scene="sdf") on the CPU with the SDF host build in the
+    place of K1 and K2 (its frames and its gradients), as chip_smoke.py
+    phase 15 runs the kernel path on the card."""
+
+    class HostFrame(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, sv, scene, key):
+            sv, keys = sv.detach().contiguous(), launch_keys(key, 1)
+            counts = torch.tensor(mks.sdf_counts(scene), dtype=torch.int32)
+            shape = (width, height, 1, scene.recursion_depth, scene.num_lights,
+                     int(scene.params.materials.roughness.shape[0]), mk.kernel_flags(scene, T.VERBATIM))
+            img = torch.empty((height, width, 4))
+            lib.host_render_sdf(sv.data_ptr(), counts.data_ptr(), keys.data_ptr(), img.data_ptr(), *shape)
+            ctx.held = (sv, counts, keys, shape)
+            return img
+
+        @staticmethod
+        def backward(ctx, ct):
+            sv, counts, keys, shape = ctx.held
+            ct, g = ct.contiguous(), torch.zeros(sv.shape[1])
+            lib.host_grad_sdf(sv.data_ptr(), counts.data_ptr(), keys.data_ptr(), ct.data_ptr(), g.data_ptr(), *shape)
+            return g[None], None, None
+
+    real = inverse.render_frame_megakernel
+    inverse.render_frame_megakernel = lambda scene, key, w, h, spp, quirks: HostFrame.apply(
+        mks.pack_sdf_scene(scene, w, h), scene, key)
+    try:
+        return inverse.recover_demo(key=rng.prng_key(0), scene="sdf", width=width, height=height, steps=steps,
+                                    kernel="megakernel", device="cpu", verbose=False)
+    finally:
+        inverse.render_frame_megakernel = real
+
+
+def one_pixel(lib, width: int, height: int, seed: int, pixel: int) -> tuple[float, list]:
+    """max|d|/max|g| of the SDF scene's host K2 and the plain version on one
+    pixel (spp 1, VERBATIM, phase 13's cotangent), and |<rd, n>| at the
+    plain path's hits, bounce by bounce (None where the lane is dead or
+    misses)."""
+    scene, key, sv, ct = sdf_frame(width, height, seed)
+    idx = torch.tensor([pixel])
+    g = sdf_pixel_grads(lib, scene, key, sv, ct, width, height, idx)[0]
+    ref = plain(scene, key, sv, ct, width, height, idx)[1]
+    cos = mks.hit_cosines(scene, key, width, height, pixels=idx)[0, :, 0].tolist()
+    return float((g - ref).abs().max() / ref.abs().max()), [None if c == float("inf") else c for c in cos]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--width", type=int, default=320)
@@ -136,11 +303,48 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=24)
     ap.add_argument("--contract", choices=tuple(CONTRACT), default="fast")
     ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--scene", choices=("analytical", "sdf"), default="analytical")
+    ap.add_argument("--pixel", type=int, default=None, help="(--scene sdf) differentiate this pixel alone")
+    ap.add_argument("--grazing", type=float, default=None, metavar="BELOW",
+                    help="(--scene sdf) the pixels with a hit at |<rd, n>| < BELOW, alone, in both modes")
+    ap.add_argument("--device", default="cpu", help="(--grazing) where to find the pixels and the frame's gradient")
+    ap.add_argument("--trainer", type=int, default=None, metavar="STEPS",
+                    help="(--scene sdf) the SDF trainer through the host build against the eager one")
     args = ap.parse_args(argv)
     torch.set_num_threads(args.threads)
-    lib = build(CONTRACT[args.contract], Path(tempfile.mkdtemp(prefix="k2_rounding_")))
-    out = rehearse(lib, args.width, args.height, args.seed)
-    print(f"{args.width}x{args.height}, depth 4, -ffp-contract={args.contract}: {out['edge']} knife-edge pixels")
+    if args.pixel is not None:
+        for contract in CONTRACT:
+            lib = build(CONTRACT[contract], Path(tempfile.mkdtemp(prefix="k2_rounding_")), "sdf")
+            gap, denoms = one_pixel(lib, args.width, args.height, args.seed, args.pixel)
+            print(f"sdf pixel {args.pixel} of {args.width}x{args.height}, seed {args.seed}, "
+                  f"-ffp-contract={contract}: max|d|/max|g| {gap:.3e}")
+        print(f"|<rd, n>| at the plain path's hits, bounce by bounce: {denoms}")
+        return 0
+    if args.trainer is not None:
+        want = inverse.recover_demo(key=rng.prng_key(0), scene="sdf", width=args.width, height=args.height,
+                                    steps=args.trainer, kernel="eager", device="cpu", verbose=False)
+        for contract in CONTRACT:
+            got = host_trainer(build(CONTRACT[contract], Path(tempfile.mkdtemp(prefix="k2_rounding_")), "sdf"),
+                               args.width, args.height, args.trainer)
+            loss_rel = np.abs(got.losses.numpy() / want.losses.numpy() - 1.0).max()
+            leaf_rel = [abs(a.recovered / b.recovered - 1.0) for a, b in zip(got.rows, want.rows)]
+            print(f"sdf trainer {args.width}x{args.height}, {args.trainer} steps, host K1 and K2 with "
+                  f"-ffp-contract={contract} against the eager one: losses max rel {loss_rel:.3e}; leaves rel "
+                  + ", ".join(f"{r.name} {x:.3e}" for r, x in zip(want.rows, leaf_rel)))
+        return 0
+    if args.grazing is not None:
+        out = grazing_witness(args.width, args.height, args.seed, args.grazing, args.device)
+        print(f"sdf {args.width}x{args.height}, seed {args.seed}: {out['pixels']} pixels with a hit at "
+              f"|<rd, n>| < {args.grazing}")
+        for contract in CONTRACT:
+            print(f"their host K2 against the plain version, -ffp-contract={contract}: max|d|/max|g| "
+                  f"{out[contract][0]:.3e}, entries > 1e-2 max rel {out[contract][1]:.3e}")
+        print(f"largest per-pixel gap between the modes: {out['modes']:.3e} of max|g|")
+        return 0
+    lib = build(CONTRACT[args.contract], Path(tempfile.mkdtemp(prefix="k2_rounding_")), args.scene)
+    out = rehearse(lib, args.width, args.height, args.seed, args.scene)
+    print(f"{args.scene} {args.width}x{args.height}, depth 4, -ffp-contract={args.contract}: {out['edge']} "
+          "knife-edge pixels")
     for label, key in (("all pixels", "all"), ("knife-edge pixels masked", "masked")):
         print(f"{label}: max|d|/max|g| {out[key][0]:.3e}, entries > 1e-2 max rel {out[key][1]:.3e}")
     return 0

@@ -18,6 +18,7 @@ lane's largest cotangent.
 """
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
@@ -32,7 +33,14 @@ from pathtracer_tpu_torch.ops.pack import MAT_FIELDS
 from pathtracer_tpu_torch.ops.vecmath import V3
 from test_torch_kernel_host import PRELUDE, _alpha_glass_params, _three_lights, build_shim, launch_keys
 
+# The host build's analytical gradients before K2 became generic over the
+# scene backend (the same cases, seeds and cotangents as below, at 32x16,
+# and at 320x240 for depth 4, spp 1), written by host_grad from the sources
+# of that time; keyed "<case>_<W>x<H>".
+UNCHANGED = os.path.join(os.path.dirname(__file__), "golden_torch", "k2_host_analytical.npz")
+
 SHIM = PRELUDE + r"""
+#include "analytical_adj.cuh"
 #include "tracer_adj.cuh"
 
 extern "C" void host_grad(const float* sv, const uint32_t* keys, const float* ct, float* grad, int width, int height,
@@ -44,7 +52,8 @@ extern "C" void host_grad(const float* sv, const uint32_t* keys, const float* ct
     const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
     for (int k = 0; k < spp; ++k) {
       const uint32_t* kk = keys + 4 * k;
-      pt::trace_sample_adj(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], c, g);
+      pt::trace_sample_adj<pt::AnalyticalAdj>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], c,
+                                              g);
     }
   }
 }
@@ -136,6 +145,25 @@ def test_backward_code_matches_autograd(bwd_lib, case):
     sv, grad = host_grad(bwd_lib, scene, key, ct, w, h, spp, quirks)
     ref = MK.render_grad_reference(sv, scene, key, ct, w, h, spp, quirks)
     assert_grad_close(grad, ref)
+
+
+def _unchanged_keys():
+    with np.load(UNCHANGED) as data:
+        return sorted(data.files)
+
+
+@pytest.mark.parametrize("name", _unchanged_keys())
+def test_analytical_gradient_is_unchanged_by_the_backend_template(bwd_lib, name):
+    """Bit for bit the gradient the analytical instantiation gave before
+    the adjoint tracer took the backend as a template parameter."""
+    case, size = name.rsplit("_", 1)
+    w, h = (int(v) for v in size.split("x"))
+    make, spp, quirks = CASES[case]
+    seed = sorted(CASES).index(case) + 21
+    ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((h, w, 4)).astype(np.float32))
+    _, grad = host_grad(bwd_lib, make(), rng.prng_key(seed), ct, w, h, spp, quirks)
+    with np.load(UNCHANGED) as want:
+        np.testing.assert_array_equal(grad[0].numpy(), want[name])
 
 
 def _lanes(n, seed):

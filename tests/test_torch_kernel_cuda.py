@@ -1,6 +1,6 @@
-"""The CUDA megakernels K1 (with the analytical and the SDF backend) and
-K2, and the march-step counter K6, against their plain PyTorch versions,
-on the card.
+"""The CUDA megakernels K1 and K2 (each with the analytical and the SDF
+backend), and the march-step counter K6, against their plain PyTorch
+versions, on the card.
 
 Marked `cuda`: each test asks the `cuda_device` fixture for the card and
 skips without one. This file imports no JAX; the JAX side is the committed
@@ -169,10 +169,28 @@ def test_march_step_kernel_matches_plain_version(cuda_device):
         assert (got[name] == r).double().mean().item() >= 0.999, name
 
 
-def test_sdf_kernel_refuses_gradients(cuda_device):
+@pytest.mark.parametrize("smooth_k", [0.0, 0.3], ids=["hard", "smooth"])
+def test_sdf_backward_kernel_matches_plain_version(cuda_device, smooth_k):
+    """K2 with the SDF backend at 64x48, depth 4: through the autograd
+    Function (one K1 and one K2 launch, both with the SDF backend), then
+    against autograd of the plain version with knife-edge pixels masked."""
     scene = sdf.make_scene(device=cuda_device)
-    scene.params.sphere_radius.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        MK.render_frame_megakernel(scene, rng.prng_key(0), 8, 8)
-    with torch.no_grad():  # a forward frame of the same scene is fine
-        assert torch.isfinite(MK.render_frame_megakernel(scene, rng.prng_key(0), 8, 8)).all()
+    scene.params.smooth_k = torch.tensor(smooth_k, device=cuda_device)
+    key, (w, h) = rng.prng_key(41), (64, 48)
+    leaf = scene.params.sphere_radius.requires_grad_(True)
+    counts = (MK.render_frame_megakernel.sdf_launches, MK.render_frame_megakernel.sdf_bwd_launches)
+    (g_leaf,) = torch.autograd.grad((MK.render_frame_megakernel(scene, key, w, h)[..., :3] ** 2).mean(), leaf)
+    assert (MK.render_frame_megakernel.sdf_launches, MK.render_frame_megakernel.sdf_bwd_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert torch.isfinite(g_leaf).all() and float(g_leaf.abs()) > 0
+    leaf.requires_grad_(False)
+    k = MK.prepare_launch(scene, key, w, h, 1, VERBATIM)
+    ct = torch.from_numpy(np.random.default_rng(41).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
+    assert torch.equal(MK.launch_backward(k, ct), MK.launch_backward(k, ct))  # reproducible bit for bit
+    edge = (MK.launch(k) - MK.render_frame_reference(scene, key, w, h)).abs()[..., :3].amax(-1) > 1e-3
+    ct_m = ct * (~edge)[..., None]
+    g = MK.launch_backward(k, ct_m).cpu().double().numpy().ravel()
+    r = MK.render_grad_reference(k.sv, scene, key, ct_m, w, h).cpu().double().numpy().ravel()
+    assert np.isfinite(g).all() and np.abs(g - r).max() <= 1e-2 * np.abs(r).max()
+    big = np.abs(r) > 1e-2 * np.abs(r).max()
+    np.testing.assert_allclose(g[big], r[big], rtol=2e-2)

@@ -69,6 +69,18 @@ extern "C" void host_render(const float* sv, const uint32_t* keys, float* out, i
 """
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch thread for the module that takes it: the eager SDF march
+    is ~100 small tensor ops a step, where torch's thread pool costs more
+    than it gains (twice the time alone, far more beside other test
+    processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def build_shim(directory, source: str) -> ctypes.CDLL:
     """g++ builds `source` (PRELUDE plus headers of csrc/) into a library;
     skips without a host C++ compiler."""

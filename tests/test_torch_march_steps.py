@@ -10,13 +10,16 @@ two agree tile for tile, for the primary march and the NEE shadow march.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from pathtracer_tpu.models.sdf import make_scene as make_jax_sdf_scene
 from pathtracer_tpu.ops.megakernel_sdf import measure_march_steps as jax_measure_march_steps
 from pathtracer_tpu_torch.models import sdf
 from pathtracer_tpu_torch.ops import megakernel_sdf as MS
-from test_torch_sdf import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 W, H = 128, 32
 

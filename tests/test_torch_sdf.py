@@ -12,11 +12,17 @@ float32 one against the committed JAX render
 tests/golden_torch/sdf_64x48_d4_k3.npy with the image gate of
 tests/test_torch_render.py.
 
-The gradient the backward kernel's SDF backend will be held to: torch
+The gradient the backward kernel's SDF backend is held to: torch
 autograd of the eager `render_frame(detach=True)` with respect to the
 sphere radius and the torus major radius, against the committed
 `jax.grad` fixture tests/golden_torch/grad_sdf_32x16_d2_k3.npz at the
-tolerance of tests/test_megakernel_sdf.py (rtol 5e-3, atol 1e-7).
+tolerance of tests/test_megakernel_sdf.py (rtol 5e-3, atol 1e-7); and with
+respect to every float leaf of the scene (camera, geometry, smooth_k,
+checker, sky, lights, materials), against
+tests/golden_torch/grad_sdf_64x48_d4_k3.npz (jax.grad of mean(rgb^2) at
+64x48, depth 4, PRNGKey(3)) at tests/test_torch_grad.py's tolerances
+(rtol 1e-2 / atol 1e-7 for the geometry and the camera, rtol 5e-3 / atol
+1e-8 for the rest). chip_smoke.py phase 14 holds K2 to both files.
 """
 
 import os
@@ -28,35 +34,30 @@ import pytest
 import torch
 
 import pathtracer_tpu as pt
+from pathtracer_tpu.integrator.inverse import select_leaves as jax_select_leaves
 from pathtracer_tpu.models import sdf as JS
 from pathtracer_tpu.ops.megakernel_sdf import pack_sdf_scene as jax_pack_sdf_scene
 from pathtracer_tpu.ops.vecmath import V3 as JV3
 from pathtracer_tpu.utils.sceneio import scene_to_dict
 from pathtracer_tpu_torch.integrator import tracer as T
+from pathtracer_tpu_torch.integrator.inverse import named_leaves
 from pathtracer_tpu_torch.models import sdf as TS
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.megakernel_sdf import pack_sdf_scene
 from pathtracer_tpu_torch.ops.vecmath import V3
 from pathtracer_tpu_torch.utils.sceneio import scene_from_dict
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
 from test_torch_render import assert_image_close
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_torch")
 FIXTURE = os.path.join(GOLDEN, "sdf_64x48_d4_k3.npy")
 GRAD_FIXTURE = os.path.join(GOLDEN, "grad_sdf_32x16_d2_k3.npz")
 GRAD_LEAVES = ("params.sphere_radius", "params.torus_major")
+FULL_GRAD_FIXTURE = os.path.join(GOLDEN, "grad_sdf_64x48_d4_k3.npz")
+GEOMETRY = ("params.sphere", "params.box", "params.torus", "params.plane", "params.smooth_k", "camera")
 DTYPES = {"f64": (jnp.float64, torch.float64), "f32": (jnp.float32, torch.float32)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The eager march is ~100 small tensor ops a step, where torch's
-    thread pool costs more than it gains (twice the time alone, far more
-    beside other test processes); the module runs on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _params(jdt, tdt, variant: str):
@@ -285,6 +286,26 @@ def test_megakernel_cpu_path_is_the_plain_version():
     assert torch.isfinite(g).all() and float(g.abs()) > 0
 
 
+def test_newton_gradient_is_finite_on_a_runaway_miss():
+    """A bounce of the 1080p frame of PRNGKey(45) starts inside the union
+    and its march runs away to t* ~ -3e34, a miss. The field at t*
+    overflows; JAX's Newton step reads it there and jax.grad is NaN (0 *
+    inf in smooth_min's unused branch), which K2, differentiating hits
+    only, is not. The plain version reads the field at t = 0 on a miss, so
+    its gradient is the miss's 0."""
+    p = TS.default_params()
+    radius = p.sphere_radius.clone().requires_grad_(True)
+    ro = V3(*(torch.tensor([v]) for v in (1.6954487562179565, -0.9954045414924622, 0.7076557278633118)))
+    rd = V3(*(torch.tensor([v]) for v in (-0.2268698364496231, 0.9211181402206421, -0.31634077429771423)))
+    t_star, _ = TS.march(TS._detached(p), ro, rd)
+    assert float(t_star) < -1e30
+    h = TS.closest_hit(p._replace(sphere_radius=radius), ro, rd)
+    assert not bool(torch.isfinite(h.t).any())
+    loss = torch.where(torch.isfinite(h.t), h.t, 0.0).sum() + sum(c.sum() for c in h.normal)
+    (g,) = torch.autograd.grad(loss, radius)
+    assert torch.equal(g, torch.zeros(1))
+
+
 def _port_grads(w: int, h: int, depth: int, key) -> dict:
     scene = TS.make_scene(recursion_depth=depth)
     leaves = dict(scene.named_buffers())
@@ -323,11 +344,61 @@ def jax_sdf_grads() -> dict:
 def test_grad_fixture_is_what_jax_computes():
     """About a minute on a CPU. Regenerate the fixture with
     `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_sdf.py` from the
-    repository root (it writes both SDF fixtures, under jax_enable_x64 as
-    the tests run)."""
+    repository root (it writes the three SDF fixtures, under
+    jax_enable_x64 as the tests run)."""
     want = jax_sdf_grads()
     with np.load(GRAD_FIXTURE) as got:
         for n in GRAD_LEAVES:
+            np.testing.assert_allclose(got[n], want[n], rtol=1e-5, atol=1e-9, err_msg=n)
+
+
+def full_grad_close(got, want, name) -> bool:
+    """tests/test_torch_grad.py's tolerances, the geometry's for every
+    primitive, the plane and smooth_k."""
+    rtol, atol = (1e-2, 1e-7) if name.startswith(GEOMETRY) else (5e-3, 1e-8)
+    return bool(np.all(np.abs(np.asarray(got, np.float64) - want) <= atol + rtol * np.abs(want)))
+
+
+def jax_sdf_full_grads() -> dict:
+    """jax.grad of mean(img[..., :3]**2) of JAX's render_frame(detach=True,
+    remat=True) on the SDF scene (float32, depth 4, 64x48, PRNGKey(3)) with
+    respect to every float leaf, keyed by its dotted path."""
+    train, rebuild, names = jax_select_leaves(JS.make_scene(dtype=jnp.float32, recursion_depth=4), ("",))
+
+    def loss(tv):
+        img = pt.render_frame(rebuild(tv), jax.random.PRNGKey(3), 64, 48, detach=True, remat=True)
+        return jnp.mean(img[..., :3] ** 2)
+
+    return {n: np.asarray(g) for n, g in zip(names, jax.grad(loss)(train))}
+
+
+def test_eager_grad_of_every_leaf_matches_jax_fixture():
+    scene = TS.make_scene()
+    leaves = dict(named_leaves(scene))
+    with np.load(FULL_GRAD_FIXTURE) as data:
+        want = {k: data[k] for k in data.files}
+    assert sorted(want) == sorted(n for n, leaf in leaves.items() if leaf.is_floating_point())
+    names = sorted(want)
+    for n in names:
+        leaves[n].requires_grad_(True)
+    img = T.render_frame(scene, rng.prng_key(3), 64, 48, detach=True)
+    grads = torch.autograd.grad((img[..., :3] ** 2).mean(), [leaves[n] for n in names], allow_unused=True)
+    for n, g in zip(names, grads):
+        got = np.zeros(want[n].shape) if g is None else g.numpy()
+        assert full_grad_close(got, want[n], n), (n, got, want[n])
+    # the geometry carries gradient (the Newton reattachment and the normal)
+    for n in ("params.sphere_radius", "params.torus_major", "params.box_half.y", "params.plane_normal.x"):
+        assert np.abs(want[n]).max() > 1e-3, n
+
+
+@pytest.mark.slow
+def test_full_grad_fixture_is_what_jax_computes():
+    """About 80 seconds on a CPU (the 64x48 depth-4 gradient of the march's
+    jit). Regenerate as test_grad_fixture_is_what_jax_computes says."""
+    want = jax_sdf_full_grads()
+    with np.load(FULL_GRAD_FIXTURE) as got:
+        assert sorted(got.files) == sorted(want)
+        for n in want:
             np.testing.assert_allclose(got[n], want[n], rtol=1e-5, atol=1e-9, err_msg=n)
 
 
@@ -335,3 +406,4 @@ if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     np.save(FIXTURE, np.asarray(pt.render_frame(JS.make_scene(), jax.random.PRNGKey(3), 64, 48)))
     np.savez(GRAD_FIXTURE, **jax_sdf_grads())
+    np.savez(FULL_GRAD_FIXTURE, **jax_sdf_full_grads())

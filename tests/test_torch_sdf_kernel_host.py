@@ -22,15 +22,15 @@ from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import megakernel_sdf as MS
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.vecmath import V3
-from test_torch_kernel_host import PRELUDE, build_shim, launch_keys
-from test_torch_sdf import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SHIM = PRELUDE + r"""
 #include "sdf.cuh"
 
 static pt::SceneView view(const float* sv, const int* counts, int n_lights, int n_materials) {
-  return {sv, n_lights, n_materials, false, pt::sdf_lights_at(counts[0], counts[1], counts[2]),
-          counts[0], counts[1], counts[2]};
+  return pt::sdf_view(sv, n_lights, n_materials, counts[0], counts[1], counts[2]);
 }
 
 extern "C" void host_render_sdf(const float* sv, const int* counts, const uint32_t* keys, float* out, int width,
