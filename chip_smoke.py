@@ -62,9 +62,29 @@ which raises on failure (non-zero exit):
    kernels, K2-SDF's launch alone, the plain step and the plain gradient;
    with `--other DIR` (another checkout, e.g. the parent commit unpacked
    with `git archive`), the analytical K2 of that tree against this one's
-   in turns, whose gradients must be bit-equal (tools/k2_pair.py).
+   in turns, whose gradients must be bit-equal (tools/k2_pair.py);
+17. K1 with the mesh backend (K7, csrc/mesh.cuh) vs its plain version on
+   the card, depth 4: 320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and
+   1920x1080; then vs the committed JAX render
+   tests/golden_torch/mesh_64x48_d4_k3.npy; a CUDA mesh scene whose
+   vertices require grad must raise NotImplementedError (K7 inside K2 is
+   ROADMAP item 12);
+18. the mesh main path: the render CLI with --scene mesh renders 8
+   progressive 1920x1080 depth-4 frames, every frame exactly one launch of
+   K1 with the mesh backend and no other launch. Then the times of the
+   wrapper, the launch alone and the plain version, ray segments per
+   second, and the bound from this frame's triangle tests
+   (tools/work.count_mesh_work: the tests K7 and K8 make, shadow rays only
+   where K1 casts one);
+19. and 20. the same for the big mesh backend (K8, csrc/bigmesh.cuh) and
+   --scene bigmesh, against tests/golden_torch/bigmesh_64x48_d4_k3.npy; the
+   plain version walks blocks of rays at 1920x1080, and the bound counts
+   the box tests and the (ray, triangle) pairs of K8's walks, each pair up
+   to the guard at which mt_hit returns.
 
-Image tolerance (phases 3, 4 and 10): quantile(|diff|, 0.999) < 1e-4 and
+The total seconds are printed before the kernels line.
+
+Image tolerance (phases 3, 4, 10, 17 and 19): quantile(|diff|, 0.999) < 1e-4 and
 mean(|diff|) < 1e-5, all values finite. The two sides draw the same
 threefry numbers, so they differ only by float rounding (FMA contraction,
 libm ulps), which can flip a rare knife-edge branch in a few pixels.
@@ -167,6 +187,25 @@ SDF_SEGMENT_OPS = dict(f32=1370 + 130 + 190, f64=20)
 SDF_ADJ_OPS = 130 + 330 + 250 + 110
 K6_PIXEL_OPS = dict(f32=130 + 190 + 60, f64=0)
 SDF_Q_MIN = 0.999
+# The mesh backends (csrc/mesh.cuh, csrc/bigmesh.cuh), read the same way: one
+# two-sided Möller-Trumbore test ~60 float32 operations (two edges, two
+# cross products, four dot products, the division and the guards; no early
+# return); one (ray, triangle) pair of the big mesh's mt_hit 8 up to the
+# determinant's guard, 14 more up to u's and 24 more to the end (it returns
+# where a guard fails); one box test of a chunk ~24. Per ray segment, K1's
+# shading without the analytical hit (~1370) and the winner's normal and
+# material (~25); in float64 only the light-sphere test of the emitter pass
+# (~20). The tests themselves are counted from this run's rays
+# (tools/work.count_mesh_work): 20 per closest hit of the small mesh and, per
+# shadow ray K1 casts, those up to the first occluder; the big mesh's walks
+# over its chunks, the closest hit's and the shadow ray's, pair by pair.
+MESH_TRI_OPS, BIGMESH_SLAB_OPS = 60, 24
+BIGMESH_DET_OPS, BIGMESH_U_OPS, BIGMESH_REST_OPS = 8, 14, 24
+MESH_SEGMENT_OPS = dict(f32=1370 + 25, f64=20)
+MESH_FIXTURES = {
+    "mesh": os.path.join(ROOT, "tests", "golden_torch", "mesh_64x48_d4_k3.npy"),
+    "bigmesh": os.path.join(ROOT, "tests", "golden_torch", "bigmesh_64x48_d4_k3.npy"),
+}
 SMOOTH_K = 0.3  # a smooth union, against the demo's hard min (k = 0)
 GRAZING = 1e-3  # phase 13 also masks pixels with an SDF hit at |<rd, n>| below this
 # Phase 15, the kernel path against the eager one at 64x48: the first 3
@@ -243,24 +282,115 @@ def bound(segments: int, pixels: int, nbytes: int, ops: dict) -> tuple[float, st
     return bound_of(segments * ops["f32"], segments * ops["f64"] + pixels * CAMERA_F64_OPS, nbytes)
 
 
-def count_segments(torch, scene, key, width: int, height: int) -> int:
-    """Ray segments of one spp-1 frame (bounces entered by a live path),
-    from the plain version on the same threefry numbers."""
-    from pathtracer_tpu_torch.integrator import tracer as T
-    from pathtracer_tpu_torch.models.camera import gen_ray, pixel_coords
-    from pathtracer_tpu_torch.ops.vecmath import V2
+COUNTERS = ("launches", "bwd_launches", "sdf_launches", "sdf_bwd_launches", "mesh_launches", "bigmesh_launches")
 
-    with torch.no_grad():
-        cam_u, bounce_u = T.draw_uniforms(key, width * height, scene.recursion_depth, torch.float32, scene.device)
-        coords = pixel_coords(width, height, torch.float64, scene.device)
-        ro, rd = gen_ray(scene.camera.unpack(), coords, V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
-        state = T.init_state(ro, rd, T.VERBATIM)
-        step = T.make_bounce_step(scene, T.VERBATIM, detach=True)
-        alive = []
-        for u in bounce_u:
-            alive.append(state.alive.sum())
-            state = step(state, u)
-        return int(torch.stack(alive).sum())
+
+def reset_counts(mk) -> None:
+    """Every launch count of the megakernels to 0."""
+    for name in COUNTERS:
+        setattr(mk.render_frame_megakernel, name, 0)
+
+
+def read_counts(mk) -> dict:
+    return {name: getattr(mk.render_frame_megakernel, name) for name in COUNTERS}
+
+
+def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first: int) -> dict:
+    """Phases `first` and `first + 1` for the mesh (K7) or the big mesh (K8)
+    backend of K1: the kernel against its plain version and the committed
+    JAX render, a CUDA scene with grad refused, then the render CLI's main
+    path and the times. Returns the kernel's row of the kernels line."""
+    from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
+    from pathtracer_tpu_torch.models import families
+    from pathtracer_tpu_torch.tools.work import count_mesh_work
+
+    what = {"mesh": "the mesh backend (K7)", "bigmesh": "the big mesh backend (K8)"}[family]
+    print(f"== {first}. K1 with {what} vs its plain version on the card (depth 4)")
+    scene = families.make_family_scene(family, device=dev)
+    err = 0.0
+    seeds = {"mesh": 61, "bigmesh": 71}[family]
+    for i, (w, h, spp, quirks) in enumerate(((320, 240, 1, VERBATIM), (320, 240, 2, VERBATIM),
+                                             (320, 240, 1, FIXED), (MAIN_W, MAIN_H, 1, VERBATIM))):
+        key = rng.prng_key(seeds + i)
+        img = mk.render_frame_megakernel(scene, key, w, h, spp, quirks)
+        ref = mk.render_frame_reference(scene, key, w, h, spp, quirks)
+        torch.cuda.synchronize()
+        d = image_diff(img.cpu(), ref.cpu())
+        err = max(err, d["max"])
+        check_diff(f"{w}x{h} spp{spp} {'VERBATIM' if quirks == VERBATIM else 'FIXED'}", d)
+        del img, ref
+    img = mk.render_frame_megakernel(scene, rng.prng_key(3), 64, 48)
+    check_diff("vs JAX (64x48, depth 4, PRNGKey(3))", image_diff(img.cpu(), np.load(MESH_FIXTURES[family])))
+    grad_scene = families.make_family_scene(family, device=dev)
+    grad_scene.params.vertices.x.requires_grad_(True)
+    try:
+        mk.render_frame_megakernel(grad_scene, rng.prng_key(0), 16, 8)
+    except NotImplementedError as e:
+        print(f"  a CUDA {family} scene with grad raises: {e}")
+    else:
+        raise AssertionError(f"a CUDA {family} scene with grad rendered without a backward kernel")
+
+    print(f"== {first + 1}. {family} main path: CLI --scene {family}, {MAIN_W}x{MAIN_H}, depth {MAIN_DEPTH}, "
+          f"{MAIN_FRAMES} frames")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, f"{family}.png")
+        cfg, _ = cli.parse_args([
+            "--scene", family, "--device", "cuda", "--width", str(MAIN_W), "--height", str(MAIN_H),
+            "--depth", str(MAIN_DEPTH), "--spp", "1", "--frames", str(MAIN_FRAMES), "-o", png,
+        ])
+        reset_counts(mk)
+        buf = cli.render(cfg, png, log=lambda s: print("  " + s))
+        counts = read_counts(mk)
+        pixels = buf.pixels.cpu().numpy()
+        if not os.path.getsize(png) > 0:
+            raise AssertionError("no PNG written")
+    print(f"  launches {counts}  mean rgb={pixels[..., :3].mean():.4f}")
+    want = {name: 0 for name in COUNTERS}
+    want.update(launches=MAIN_FRAMES, **{f"{family}_launches": MAIN_FRAMES})
+    if counts != want:
+        raise AssertionError(f"expected one launch of K1 with {what} per frame and nothing else, got {counts}")
+    if pixels.shape != (MAIN_H, MAIN_W, 4) or not np.isfinite(pixels).all():
+        raise AssertionError(f"{family} main-path image is not finite or has the wrong shape")
+    if not pixels[..., :3].max() > 0.05:
+        raise AssertionError(f"{family} main-path image is black")
+    main = families.make_family_scene(family, recursion_depth=MAIN_DEPTH, device=dev)
+    key = rng.prng_key(5)
+    ms = cuda_ms(lambda: mk.render_frame_megakernel(main, key, MAIN_W, MAIN_H), 20)
+    prepared = mk.prepare_launch(main, key, MAIN_W, MAIN_H, 1, VERBATIM)
+    launch_ms = cuda_ms(lambda: mk.launch(prepared), 20)
+    plain_ms = cuda_ms(lambda: mk.render_frame_reference(main, key, MAIN_W, MAIN_H), 2)
+    work = count_mesh_work(main, key, MAIN_W, MAIN_H)
+    segments = work["segments"]
+    pix = MAIN_W * MAIN_H
+    nbytes = prepared.sv.shape[1] * 4 + 16 + pix * 16 + sum(t.numel() * t.element_size() for t in prepared.extras)
+    if family == "mesh":
+        test_ops = (work["closest_tests"] + work["shadow_tests"]) * MESH_TRI_OPS
+        tests = (f"{work['closest_tests']} triangle tests in closest hits ({work['closest_tests'] / segments:.2f} "
+                 f"per segment), {work['shadow_tests']} in shadow rays")
+    else:
+        pairs = {w: work[f"{w}_pairs"] for w in ("closest", "shadow")}
+        test_ops = sum(work[f"{w}_pairs"] * BIGMESH_DET_OPS + work[f"{w}_det_ok"] * BIGMESH_U_OPS
+                       + work[f"{w}_u_ok"] * BIGMESH_REST_OPS + work[f"{w}_boxes"] * BIGMESH_SLAB_OPS
+                       for w in ("closest", "shadow"))
+        tests = (f"pairs {pairs['closest']} in closest hits ({pairs['closest'] / segments:.2f} per segment; "
+                 f"{work['closest_det_ok']} past the determinant's guard, {work['closest_u_ok']} past u's), "
+                 f"{pairs['shadow']} in shadow rays ({work['shadow_det_ok']}, {work['shadow_u_ok']}); box tests "
+                 f"{work['closest_boxes']} and {work['shadow_boxes']}")
+    bound_ms, bound_by = bound_of(segments * MESH_SEGMENT_OPS["f32"] + test_ops,
+                                  segments * MESH_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS, nbytes)
+    print(f"  wrapper {ms:.3f} ms/frame (kernel launch alone {launch_ms:.3f} ms), plain {plain_ms:.3f} ms/frame "
+          f"({card})")
+    print(f"  ray segments {segments} ({segments / pix:.3f} per pixel); ray segments/s: kernel "
+          f"{segments / ms * 1e3:.4e}, plain {segments / plain_ms * 1e3:.4e} ({card})")
+    print(f"  shadow rays cast {work['shadow_rays']} ({work['shadow_rays'] / segments:.3f} per segment); {tests}; "
+          f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
+    return dict(
+        name=f"megakernel_fwd_{family}", route="cuda", source=f"pathtracer_tpu_torch/csrc/{family}.cuh",
+        replaces={"mesh": "pathtracer_tpu/ops/megakernel_mesh.py:95",
+                  "bigmesh": "pathtracer_tpu/ops/megakernel_bigmesh.py:158"}[family],
+        launches=counts[f"{family}_launches"], max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    )
 
 
 def print_registers(_build) -> None:
@@ -364,6 +494,7 @@ def main(argv=None) -> int:
                     "against this tree's, in turns")
     args = ap.parse_args(argv)
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -377,6 +508,7 @@ def main(argv=None) -> int:
     from pathtracer_tpu_torch.ops import _build, rng
     from pathtracer_tpu_torch.ops import megakernel as mk
     from pathtracer_tpu_torch.ops import megakernel_sdf as mks
+    from pathtracer_tpu_torch.tools.work import count_segments
     from pathtracer_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
@@ -421,16 +553,16 @@ def main(argv=None) -> int:
     print(f"== 5. main path: CLI, {MAIN_W}x{MAIN_H}, depth {MAIN_DEPTH}, {MAIN_FRAMES} frames")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "render.png")
-        mk.render_frame_megakernel.launches = mk.render_frame_megakernel.bwd_launches = 0
-        mk.render_frame_megakernel.sdf_launches = 0
         cfg, _ = cli.parse_args([
             "--device", "cuda", "--width", str(MAIN_W), "--height", str(MAIN_H),
             "--depth", str(MAIN_DEPTH), "--spp", "1", "--frames", str(MAIN_FRAMES), "-o", png,
         ])
+        reset_counts(mk)
         buf = cli.render(cfg, png, log=lambda s: print("  " + s))
-        launches = mk.render_frame_megakernel.launches
-        if mk.render_frame_megakernel.bwd_launches or mk.render_frame_megakernel.sdf_launches:
-            raise AssertionError("the forward render launched the backward kernel or the SDF backend")
+        counts = read_counts(mk)
+        launches = counts.pop("launches")
+        if any(counts.values()):
+            raise AssertionError(f"the forward render launched the backward kernel or another backend: {counts}")
         pixels = buf.pixels.cpu().numpy()
         if not os.path.getsize(png) > 0:
             raise AssertionError("no PNG written")
@@ -453,7 +585,7 @@ def main(argv=None) -> int:
           f"2.333 and 2.142 ms on an H100 80GB HBM3 at 700 W), plain {plain_ms:.3f} ms/frame ({card})")
     print(f"  ray segments/s: kernel {segs / ms * 1e3:.4e}, plain {segs / plain_ms * 1e3:.4e} ({card})")
 
-    main_segments = count_segments(torch, main_scene, key, MAIN_W, MAIN_H)
+    main_segments = count_segments(main_scene, key, MAIN_W, MAIN_H)
     n_sv = prepared.sv.shape[1]
     fwd_bound, fwd_bound_by = bound(main_segments, MAIN_W * MAIN_H, n_sv * 4 + 16 + MAIN_W * MAIN_H * 16, K1_OPS)
     print(f"  ray segments {main_segments} ({main_segments / (MAIN_W * MAIN_H):.3f} per pixel); "
@@ -579,22 +711,21 @@ def main(argv=None) -> int:
     print(f"== 11. SDF main path: CLI --scene sdf, {MAIN_W}x{MAIN_H}, depth {MAIN_DEPTH}, {MAIN_FRAMES} frames")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "sdf.png")
-        mk.render_frame_megakernel.launches = mk.render_frame_megakernel.bwd_launches = 0
-        mk.render_frame_megakernel.sdf_launches = 0
         cfg, _ = cli.parse_args([
             "--scene", "sdf", "--device", "cuda", "--width", str(MAIN_W), "--height", str(MAIN_H),
             "--depth", str(MAIN_DEPTH), "--spp", "1", "--frames", str(MAIN_FRAMES), "-o", png,
         ])
+        reset_counts(mk)
         buf = cli.render(cfg, png, log=lambda s: print("  " + s))
         sdf_counts = (mk.render_frame_megakernel.launches, mk.render_frame_megakernel.sdf_launches,
-                      mk.render_frame_megakernel.bwd_launches)
+                      sum(v for k, v in read_counts(mk).items() if k not in ("launches", "sdf_launches")))
         pixels = buf.pixels.cpu().numpy()
         if not os.path.getsize(png) > 0:
             raise AssertionError("no PNG written")
-    print(f"  launches K1={sdf_counts[0]} (SDF backend {sdf_counts[1]}) K2={sdf_counts[2]}  "
+    print(f"  launches K1={sdf_counts[0]} (SDF backend {sdf_counts[1]}), K2 or other backends {sdf_counts[2]}  "
           f"mean rgb={pixels[..., :3].mean():.4f}")
     if sdf_counts != (MAIN_FRAMES, MAIN_FRAMES, 0):
-        raise AssertionError(f"expected {MAIN_FRAMES} launches of K1 with the SDF backend and none of K2")
+        raise AssertionError(f"expected {MAIN_FRAMES} launches of K1 with the SDF backend and nothing else")
     if pixels.shape != (MAIN_H, MAIN_W, 4) or not np.isfinite(pixels).all():
         raise AssertionError("SDF main-path image is not finite or has the wrong shape")
     if not pixels[..., :3].max() > 0.05:
@@ -605,7 +736,7 @@ def main(argv=None) -> int:
     sdf_prepared = mk.prepare_launch(main_sdf, key, MAIN_W, MAIN_H, 1, VERBATIM)
     sdf_launch_ms = cuda_ms(lambda: mk.launch(sdf_prepared), 20)
     sdf_plain_ms = cuda_ms(lambda: mk.render_frame_reference(main_sdf, key, MAIN_W, MAIN_H), 2)
-    sdf_segments = count_segments(torch, main_sdf, key, MAIN_W, MAIN_H)
+    sdf_segments = count_segments(main_sdf, key, MAIN_W, MAIN_H)
     print(f"  wrapper {sdf_ms:.3f} ms/frame (kernel launch alone {sdf_launch_ms:.3f} ms), "
           f"plain {sdf_plain_ms:.3f} ms/frame ({card})")
     print(f"  ray segments {sdf_segments} ({sdf_segments / (MAIN_W * MAIN_H):.3f} per pixel); ray segments/s: "
@@ -758,6 +889,9 @@ def main(argv=None) -> int:
     else:
         print("  analytical K2 against another tree's: not run (no --other DIR given)")
 
+    mesh_rows = [mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card, family, first)
+                 for family, first in (("mesh", 17), ("bigmesh", 19))]
+
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
         replaces="pathtracer_tpu/ops/megakernel.py:1605", launches=launches,
@@ -783,7 +917,8 @@ def main(argv=None) -> int:
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
         max_abs_err=float(k6_err), ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_bound_by,
         library_ms=None,
-    )]
+    ), *mesh_rows]
+    print(f"== total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

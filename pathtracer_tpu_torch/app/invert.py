@@ -25,8 +25,7 @@ import json
 
 import torch
 
-from ..integrator.inverse import KERNELS, recover_demo
-from ..models import families
+from ..integrator.inverse import DEMO_SELECTS, KERNELS, recover_demo
 from ..ops import rng
 
 
@@ -38,7 +37,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--spp", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-2)
     ap.add_argument("--depth", type=int, default=4)
-    ap.add_argument("--scene", choices=tuple(families.FAMILIES), default="analytical",
+    ap.add_argument("--scene", choices=tuple(DEMO_SELECTS), default="analytical",
                     help="analytical: recover albedo, roughness and emission; sdf: recover the geometry (sphere "
                     "radius, torus major radius) and the emission through implicit-function gradients")
     ap.add_argument("--kernel", choices=KERNELS, default="megakernel",

@@ -2,7 +2,9 @@
 
 Renders a demo scene frame by frame, folds each frame into the running
 mean and writes a PNG: `--scene analytical` (two spheres over a checker
-plane, the default) or `--scene sdf` (the sphere-traced SDF scene). With
+plane, the default), `--scene sdf` (the sphere-traced SDF scene), `--scene
+mesh` (20 triangles: a ground quad, a metal cube, a clearcoat pyramid) or
+`--scene bigmesh` (a 1,088-triangle sphere over the ground). With
 `--device cuda` (the default) every frame is one launch of the CUDA
 megakernel, with the scene's backend; with `--device cpu` it is the eager
 integrator. A CUDA device that is not there is an error, never a move to
@@ -44,7 +46,7 @@ def parse_args(argv=None) -> tuple[RenderConfig, str]:
     ap.add_argument("--device", default="cuda", help="cuda | cuda:N | cpu")
     ap.add_argument("-o", "--output", default="render.png")
     args = ap.parse_args(argv)
-    if not (args.scene in families.FAMILIES or args.scene in families.UNPORTED or args.scene.startswith("file:")):
+    if not (args.scene in families.FAMILIES or args.scene.startswith("file:")):
         ap.error(f"unknown scene {args.scene!r} (choose {'|'.join(families.FAMILIES)})")
     cfg = RenderConfig(
         width=args.width, height=args.height, spp=args.spp, frames=args.frames,

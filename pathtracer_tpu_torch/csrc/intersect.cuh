@@ -58,4 +58,24 @@ __device__ __forceinline__ float ray_plane(V3 ro, V3 rd, V3 normal, V3 point) {
   return miss ? INFINITY : t;
 }
 
+// Two-sided Möller-Trumbore (ops/intersect.ray_triangle): t > eps or +inf.
+// inv_det is 0 where |det| <= eps; a hit needs u, v >= 0 and u + v <= 1.
+// Every dot and cross product is unfused, in the plain version's order: a
+// ray through an edge shared by two triangles picks its triangle by the
+// last bits of u and v.
+__device__ __forceinline__ float ray_triangle(V3 ro, V3 rd, V3 v0, V3 v1, V3 v2) {
+  const float eps = 1e-7f;
+  const V3 e1 = v1 - v0, e2 = v2 - v0;
+  const V3 p = cross_rn(rd, e2);
+  const float det = dot_rn(e1, p);
+  const bool ok_det = fabsf(det) > eps;
+  const float inv_det = ok_det ? 1.0f / det : 0.0f;
+  const V3 s = ro - v0;
+  const float u = dot_rn(s, p) * inv_det;
+  const V3 q = cross_rn(s, e1);
+  const float v = dot_rn(rd, q) * inv_det;
+  const float t = dot_rn(e2, q) * inv_det;
+  return ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps ? t : INFINITY;
+}
+
 }  // namespace pt

@@ -1,6 +1,7 @@
 // Forward path-tracing megakernel (K1) on Hopper, generic over the scene
-// backend: the analytical scene (analytical.cuh) and the sphere-traced SDF
-// scene (sdf.cuh, the port of the SDF backend K5).
+// backend: the analytical scene (analytical.cuh), the sphere-traced SDF
+// scene (sdf.cuh, the port of the SDF backend K5), the small triangle mesh
+// (mesh.cuh, K7) and the big one (bigmesh.cuh, K8).
 //
 // Replaces the TPU kernel pathtracer_tpu/ops/megakernel.py::_pallas_forward
 // (body _make_kernel -> _trace_tile -> _tile_bounce, over a KernelBackend).
@@ -24,19 +25,29 @@
 // else is per-thread math with data-dependent branches (lobe choice,
 // misses, early exits). On the SDF scene the march dominates: up to 96
 // distance evaluations per ray, and a warp runs until its slowest lane's
-// march is done (grazing rays that never converge take all 96). This first
-// version does nothing about either beyond __launch_bounds__.
+// march is done (grazing rays that never converge take all 96). On the mesh
+// scenes the triangle tests do: 20 per ray for the small mesh (its topology
+// copied to shared memory beside the packed vector), and 128 for each
+// chunk of the big mesh that the ray's box test admits. This first version
+// does nothing about either beyond __launch_bounds__.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "analytical.cuh"
+#include "bigmesh.cuh"
+#include "mesh.cuh"
 #include "sdf.cuh"
 #include "tracer.cuh"
 
 namespace pt {
 
 constexpr int THREADS = 128;
+// Whether K1 copies the backend's topology to shared memory (mesh.cuh).
+template <class B>
+constexpr bool SHARED_TOPOLOGY = std::is_same_v<B, Mesh>;
 
 template <class B>
 __global__ void __launch_bounds__(THREADS)
@@ -45,6 +56,12 @@ __global__ void __launch_bounds__(THREADS)
                           SceneView s) {
   extern __shared__ float sv[];
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
+  // The small mesh's topology beside the packed vector; the other backends
+  // have none, and their instantiations compile no copy.
+  int* topo = reinterpret_cast<int*>(sv + n_sv);
+  if constexpr (SHARED_TOPOLOGY<B>) {
+    for (int i = threadIdx.x; i < 4 * s.n_tris; i += blockDim.x) topo[i] = s.topo[i];
+  }
   __syncthreads();
 
   const int n = width * height;
@@ -52,6 +69,7 @@ __global__ void __launch_bounds__(THREADS)
   if (p >= n) return;
 
   s.sv = sv;
+  if constexpr (SHARED_TOPOLOGY<B>) s.topo = topo;
   V3 sum = splat3(0.0f);
   for (int k = 0; k < spp; ++k) {
     const uint32_t* kk = keys + 4 * k;  // (kc0, kc1, kb0, kb1) of sample k
@@ -63,14 +81,16 @@ __global__ void __launch_bounds__(THREADS)
   *o = make_float4(sum.x, sum.y, sum.z, 1.0f);
 }
 
-// Launches one frame on `stream`; `s` is the scene's structure (its sv is
-// set to the shared copy in the kernel). Returns cudaGetLastError().
+// Launches one frame on `stream`; `s` is the scene's structure (its sv and
+// topology are set to the shared copies in the kernel). Returns
+// cudaGetLastError().
 template <class B>
 int launch_forward(const float* sv, int n_sv, const uint32_t* keys, float* out, int width, int height, int spp,
                    int depth, int flags, SceneView s, void* stream) {
   const int n = width * height;
   const int blocks = (n + THREADS - 1) / THREADS;
-  render_forward_kernel<B><<<blocks, THREADS, n_sv * sizeof(float), (cudaStream_t)stream>>>(
+  const size_t smem = n_sv * sizeof(float) + 4 * s.n_tris * sizeof(int);
+  render_forward_kernel<B><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       sv, n_sv, keys, out, width, height, spp, depth, flags, s);
   return (int)cudaGetLastError();
 }
@@ -91,6 +111,26 @@ extern "C" int pt_render_forward_sdf(const float* sv, int n_sv, const uint32_t* 
                                      int n_spheres, int n_boxes, int n_tori, void* stream) {
   const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
   return pt::launch_forward<pt::Sdf>(sv, n_sv, keys, out, width, height, spp, depth, flags, s, stream);
+}
+
+// One frame of the small mesh scene with its topology [n_tris, 4] int32
+// (a, b, c, material) on the card (0 = success).
+extern "C" int pt_render_forward_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
+                                      int height, int spp, int depth, int n_lights, int n_materials, int flags,
+                                      const int* topo, int n_tris, int n_verts, void* stream) {
+  const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
+  return pt::launch_forward<pt::Mesh>(sv, n_sv, keys, out, width, height, spp, depth, flags, s, stream);
+}
+
+// One frame of the big mesh scene with its tables on the card: coef
+// [n_chunks * 128, 16], attr [8, n_chunks * 128], aabb [n_chunks, 8], float32
+// (0 = success).
+extern "C" int pt_render_forward_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
+                                         int height, int spp, int depth, int n_lights, int n_materials, int flags,
+                                         const float* coef, const float* attr, const float* aabb, int n_chunks,
+                                         void* stream) {
+  const pt::SceneView s = pt::bigmesh_view(nullptr, n_lights, n_materials, coef, attr, aabb, n_chunks);
+  return pt::launch_forward<pt::BigMesh>(sv, n_sv, keys, out, width, height, spp, depth, flags, s, stream);
 }
 
 extern "C" const char* pt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,10 +1,12 @@
 // The packed scene vector as a thread reads it, for every backend: the
 // camera basis at its head, the backend's own records, then L light records
 // of 15 and M material records of 20 (ops/megakernel.pack_scene,
-// ops/megakernel_sdf.pack_sdf_scene, the JAX package's layouts):
+// ops/megakernel_sdf.pack_sdf_scene, ops/megakernel_mesh.pack_mesh_scene,
+// ops/megakernel_bigmesh.pack_bigmesh_scene, the JAX package's layouts):
 //
 //   [0, 12)   camera lower_left(3) horizontal(3) vertical(3) origin(3)
-//   ...       the backend's records (analytical.cuh, sdf.cuh)
+//   ...       the backend's records (analytical.cuh, sdf.cuh, mesh.cuh;
+//             bigmesh.cuh has none, its tables come beside the vector)
 //   L x 15    light: position(3) emission(3) u(3) v(3) radius area type
 //   M x 20    material: rgb(3) anisotropic emission(3) metallic roughness
 //             subsurface specular_tint sheen sheen_tint clearcoat
@@ -34,6 +36,16 @@ struct SceneView {
   bool respect_max_dist;  // analytical: shadow rays stop at the light
   int lights_at;          // where the light records start; the materials follow them
   int n_spheres, n_boxes, n_tori;  // the SDF scene's primitives (0 for the analytical one)
+  // The small mesh's topology, n_tris records of (a, b, c, material) (mesh.cuh);
+  // K1 copies it to shared memory beside the packed vector.
+  const int* topo = nullptr;
+  int n_tris = 0;
+  // The big mesh's tables in global memory (bigmesh.cuh): coef [n_chunks *
+  // 128, 16], attr [8, n_chunks * 128], aabb [n_chunks, 8].
+  const float* coef = nullptr;
+  const float* attr = nullptr;
+  const float* aabb = nullptr;
+  int n_chunks = 0;
 
   __device__ __forceinline__ const float* light(int i) const { return sv + lights_at + i * LIGHT_STRIDE; }
   __device__ __forceinline__ const float* material(int i) const {

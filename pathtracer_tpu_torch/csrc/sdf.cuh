@@ -56,8 +56,6 @@ __device__ __forceinline__ const float* sdf_plane(const SceneView& s) {
   return s.sv + SDF_PRIMS + 4 * s.n_spheres + 7 * s.n_boxes + 5 * s.n_tori;
 }
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float dot_rn(V3 a, V3 b) { return mul_rn(a.x, b.x) + mul_rn(a.y, b.y) + mul_rn(a.z, b.z); }
 __device__ __forceinline__ V3 abs3(V3 a) { return v3(fabsf(a.x), fabsf(a.y), fabsf(a.z)); }
 
 // jax.grad's share of one operand of maximum/minimum: 1 where it wins, 0.5

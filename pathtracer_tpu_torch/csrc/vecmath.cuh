@@ -41,6 +41,23 @@ __device__ __forceinline__ V3 madd3(V3 a, V3 b, float s) {
 
 __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
 
+// The products of a dot and a cross product rounded apart from their sums
+// (never contracted into an FMA), in the plain version's order: where a
+// decision hangs on their last bit (the SDF march, a triangle's edge) the
+// kernel rounds as the separate tensor ops do.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float dot_rn(V3 a, V3 b) { return mul_rn(a.x, b.x) + mul_rn(a.y, b.y) + mul_rn(a.z, b.z); }
+__device__ __forceinline__ V3 cross_rn(V3 a, V3 b) {
+  return {mul_rn(a.y, b.z) - mul_rn(a.z, b.y), mul_rn(a.z, b.x) - mul_rn(a.x, b.z),
+          mul_rn(a.x, b.y) - mul_rn(a.y, b.x)};
+}
+// safe_normalize over dot_rn.
+__device__ __forceinline__ V3 safe_normalize_rn(V3 a) {
+  float l2 = dot_rn(a, a);
+  float inv = l2 > 0.0f ? 1.0f / sqrtf(l2) : 0.0f;
+  return a * inv;
+}
+
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
   return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
 }

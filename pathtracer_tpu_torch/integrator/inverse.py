@@ -328,9 +328,12 @@ def recover_demo(
     resumes from the newest checkpoint there, the port's or one a JAX
     `recover_demo` of the same family wrote.
 
-    Not ported yet: mesh= (sharding, ROADMAP item 14) raises
-    NotImplementedError, as a scene family not ported does."""
+    Not ported yet: mesh= (sharding, ROADMAP item 14) and the mesh scene
+    families (their gradient on the card, ROADMAP item 12) raise
+    NotImplementedError."""
     require_family(scene)
+    if scene not in DEMO_SELECTS:
+        raise NotImplementedError(f"recover_demo of the {scene} scene is not ported yet (ROADMAP item 12)")
     if mesh is not None:
         raise NotImplementedError("the sharded megakernel (mesh=) is not ported yet")
     if kernel not in KERNELS:

@@ -6,20 +6,16 @@ through here.
 
 from __future__ import annotations
 
-from . import analytical, sdf
+from . import analytical, bigmesh, mesh, sdf
 from .scene import Scene
 
-# name -> the family's module (its make_scene and closest_hit)
-FAMILIES = {"analytical": analytical, "sdf": sdf}
-# families of the JAX package that the port does not have yet
-UNPORTED = {"mesh": "ROADMAP item 12", "bigmesh": "ROADMAP item 12"}
+# name -> the family's module (its make_scene and closest_hit); every
+# family of the JAX package
+FAMILIES = {"analytical": analytical, "sdf": sdf, "mesh": mesh, "bigmesh": bigmesh}
 
 
 def require_family(family: str) -> None:
-    """A family not ported yet raises NotImplementedError naming its
-    ROADMAP item, an unknown one ValueError."""
-    if family in UNPORTED:
-        raise NotImplementedError(f"scene family {family!r} is not ported yet ({UNPORTED[family]})")
+    """An unknown family raises ValueError."""
     if family not in FAMILIES:
         raise ValueError(f"unknown scene family {family!r} (choose {'|'.join(FAMILIES)})")
 
@@ -36,6 +32,4 @@ def family_of(scene: Scene) -> str:
     for name, module in FAMILIES.items():
         if scene.closest_hit_fn is module.closest_hit:
             return name
-    raise NotImplementedError(
-        f"the port covers the {' and '.join(FAMILIES)} scenes; the mesh and bigmesh families are ROADMAP item 12"
-    )
+    raise NotImplementedError(f"the port covers the {', '.join(FAMILIES)} scenes")

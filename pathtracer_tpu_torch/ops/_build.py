@@ -30,6 +30,8 @@ SIGNATURES = {
     "megakernel_fwd": {
         "pt_render_forward": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "pt_render_forward_sdf": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pt_render_forward_mesh": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
+        "pt_render_forward_bigmesh": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
     },
     "march_steps": {
         "pt_march_steps": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),

@@ -62,3 +62,22 @@ def ray_plane(ro: V3, rd: V3, normal: V3, point: V3, eps: float = 0.0001) -> tor
     t = dot(point - ro, normal) / torch.where(facing, denom, 1.0)
     miss = (torch.abs(denom) <= eps) | (t < 0.0)
     return torch.where(miss, MISS, t)
+
+
+def ray_triangle(ro: V3, rd: V3, v0: V3, v1: V3, v2: V3, eps: float = 1e-7) -> torch.Tensor:
+    """Two-sided Möller-Trumbore: t > eps or inf. inv_det is 0 where
+    |det| <= eps; a hit needs u, v >= 0 and u + v <= 1. The winding does not
+    matter (the caller turns the normal against the ray)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    p = rd.cross(e2)
+    det = dot(e1, p)
+    ok_det = torch.abs(det) > eps
+    inv_det = torch.where(ok_det, 1.0 / torch.where(det != 0.0, det, 1.0), 0.0)
+    s = ro - v0
+    u = dot(s, p) * inv_det
+    q = s.cross(e1)
+    v = dot(rd, q) * inv_det
+    t = dot(e2, q) * inv_det
+    ok = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps)
+    return torch.where(ok, t, MISS)

@@ -6,15 +6,19 @@ Port of `pathtracer_tpu/ops/megakernel.py`. The TPU kernels
 `csrc/megakernel_fwd.cu` and `csrc/megakernel_bwd.cu`, hand-written CUDA
 kernels for sm_90a with one thread per pixel. Both are generic over the
 scene backend, as the JAX package's `KernelBackend` is: the analytical
-scene (`csrc/analytical.cuh`, its adjoint `analytical_adj.cuh`) and the
+scene (`csrc/analytical.cuh`, its adjoint `analytical_adj.cuh`), the
 sphere-traced SDF scene (`csrc/sdf.cuh`, the port of the SDF backend K5,
-`ops/megakernel_sdf.py`; its adjoint `sdf_adj.cuh`). The scene reaches
-them packed into one float32 vector in the JAX package's layout
-(`pack_scene`: camera basis, analytical params, L light records of 15, M
-material records of 20; `megakernel_sdf.pack_sdf_scene` for the SDF
-scene); the random numbers are threefry drawn in the kernel, bit-equal to
-`ops/rng`, so K1 renders the same image as `integrator/tracer.render_frame`
-for the same key and K2 replays exactly K1's paths.
+`ops/megakernel_sdf.py`; its adjoint `sdf_adj.cuh`), and, in K1 only, the
+small and the big triangle mesh (`csrc/mesh.cuh`, K7,
+`ops/megakernel_mesh.py`; `csrc/bigmesh.cuh`, K8,
+`ops/megakernel_bigmesh.py`). The scene reaches them packed into one
+float32 vector in the JAX package's layout (`pack_scene`: camera basis,
+analytical params, L light records of 15, M material records of 20; each
+family's packer in its module), with the tensors a backend takes beside it
+(the mesh's topology, the big mesh's tables); the random numbers are
+threefry drawn in the kernel, bit-equal to `ops/rng`, so K1 renders the
+same image as `integrator/tracer.render_frame` for the same key and K2
+replays exactly K1's paths.
 
 `render_frame_megakernel` is the wrapper. On a CUDA scene it launches K1,
 through `MegakernelRender` (the port of `_diff_render`) when a scene leaf
@@ -23,7 +27,7 @@ ops, so autograd carries d/d(sv) on to the scene leaves. A failed launch
 raises; nothing falls back to autograd. On a CPU scene it runs the plain
 version, the eager integrator under the detached-sampling estimator, with
 autograd on every backend. The kernels take no media and no procedural
-hooks.
+hooks, and K2 no mesh: a CUDA mesh scene that requires grad raises.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from ..integrator.tracer import VERBATIM, Quirks, has_media, render_frame
 from ..models import analytical
 from ..models.families import family_of
 from ..models.scene import Scene
-from . import megakernel_sdf, rng
+from . import megakernel_bigmesh, megakernel_mesh, megakernel_sdf, rng
 from .pack import cols, pack_camera, pack_lights, pack_materials, unpack_camera, unpack_lights, unpack_materials
 from .vecmath import V3
 
@@ -126,13 +130,16 @@ def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
 class Backend(NamedTuple):
     """How the kernels take a scene family: its packer and the packer's
     inverse (for the plain versions), the extra ints its entry points take
-    after the flags, and K1's and K2's entry points."""
+    after the flags, K1's and K2's entry points (None where K2 does not
+    take the family yet), and the device tensors its entry points take
+    before those ints."""
 
     pack: Callable[[Scene, int, int], torch.Tensor]
     unpack: Callable[[torch.Tensor, Scene], tuple]
     counts: Callable[[Scene], tuple]
     entry: str
-    backward: str
+    backward: str | None
+    extras: Callable[[Scene], tuple] = lambda scene: ()
 
 
 BACKENDS = {
@@ -140,6 +147,14 @@ BACKENDS = {
     "sdf": Backend(
         megakernel_sdf.pack_sdf_scene, megakernel_sdf.unpack_sdf_scene, megakernel_sdf.sdf_counts,
         "pt_render_forward_sdf", "pt_render_backward_sdf",
+    ),
+    "mesh": Backend(
+        megakernel_mesh.pack_mesh_scene, megakernel_mesh.unpack_mesh_scene, megakernel_mesh.mesh_counts,
+        "pt_render_forward_mesh", None, megakernel_mesh.mesh_topology,
+    ),
+    "bigmesh": Backend(
+        megakernel_bigmesh.pack_bigmesh_scene, megakernel_bigmesh.unpack_bigmesh_scene,
+        megakernel_bigmesh.bigmesh_counts, "pt_render_forward_bigmesh", None, megakernel_bigmesh.bigmesh_tables,
     ),
 }
 
@@ -190,6 +205,7 @@ class KernelLaunch(NamedTuple):
     flags: int
     backend: str = "analytical"  # a key of BACKENDS
     counts: tuple = ()  # the backend's extra ints, e.g. the SDF scene's (spheres, boxes, tori)
+    extras: tuple = ()  # the backend's device tensors, e.g. the mesh's topology
 
 
 def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks: Quirks) -> KernelLaunch:
@@ -211,28 +227,37 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
         flags=kernel_flags(scene, quirks),
         backend=backend,
         counts=b.counts(scene),
+        extras=b.extras(scene),
     )
 
 
 def launch(k: KernelLaunch) -> torch.Tensor:
     """One launch of K1 on PyTorch's current stream; returns `k.out`.
-    Counted in `render_frame_megakernel.launches`, and those with the SDF
-    backend in `render_frame_megakernel.sdf_launches` too."""
+    Counted in `render_frame_megakernel.launches`, and those with another
+    backend than the analytical one in `render_frame_megakernel.
+    <backend>_launches` too (sdf_launches, mesh_launches, bigmesh_launches)."""
     from . import _build
 
     lib = _build.load("megakernel_fwd")
     height, width = k.out.shape[:2]
     err = getattr(lib, BACKENDS[k.backend].entry)(
         k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(),
-        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *k.counts,
-        torch.cuda.current_stream(k.out.device).cuda_stream,
+        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
+        *k.counts, torch.cuda.current_stream(k.out.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: {lib.pt_error_string(err).decode()}")
     render_frame_megakernel.launches += 1
-    if k.backend == "sdf":
-        render_frame_megakernel.sdf_launches += 1
+    if k.backend != "analytical":
+        name = f"{k.backend}_launches"
+        setattr(render_frame_megakernel, name, getattr(render_frame_megakernel, name) + 1)
     return k.out
+
+
+def _require_backward(backend: str) -> None:
+    if BACKENDS[backend].backward is None:
+        raise NotImplementedError(f"the {backend} scene's gradient on the card is not ported yet "
+                                  "(ROADMAP item 12); its CPU scene has autograd")
 
 
 def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
@@ -245,6 +270,7 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
 
     if k.sv.device.type != "cuda":
         raise ValueError("the backward megakernel needs CUDA tensors")
+    _require_backward(k.backend)
     lib = _build.load("megakernel_bwd")
     if k.backend == "sdf" and sum(k.counts) + 1 > lib.pt_backward_sdf_max_primitives():
         raise ValueError(f"the backward megakernel holds {lib.pt_backward_sdf_max_primitives()} SDF primitives "
@@ -299,9 +325,10 @@ def render_frame_megakernel(
     A CUDA scene goes through K1 (one launch, counted in
     `render_frame_megakernel.launches`) with its scene's backend; when a
     scene leaf requires grad, the frame's backward is one launch of K2 with
-    the same backend (counted in `render_frame_megakernel.bwd_launches`).
-    A CPU scene goes through the plain version. There is no fallback from
-    one to the other."""
+    the same backend (counted in `render_frame_megakernel.bwd_launches`);
+    K2 does not take the mesh scenes yet, and their gradient on the card
+    raises NotImplementedError. A CPU scene goes through the plain version.
+    There is no fallback from one to the other."""
     _check_supported(scene)
     device = scene.device
     if device.type == "cpu":
@@ -313,12 +340,15 @@ def render_frame_megakernel(
     if width < 1 or height < 1 or spp < 1:
         raise ValueError(f"bad frame size {width}x{height}, spp {spp}")
     k = prepare_launch(scene, key, width, height, spp, quirks)
-    if torch.is_grad_enabled() and k.sv.requires_grad:
+    if torch.is_grad_enabled() and (k.sv.requires_grad or any(t.requires_grad for t in k.extras)):
+        _require_backward(k.backend)
         return MegakernelRender.apply(k.sv, k)
     return launch(k)
 
 
 render_frame_megakernel.launches = 0
 render_frame_megakernel.sdf_launches = 0
+render_frame_megakernel.mesh_launches = 0
+render_frame_megakernel.bigmesh_launches = 0
 render_frame_megakernel.bwd_launches = 0
 render_frame_megakernel.sdf_bwd_launches = 0

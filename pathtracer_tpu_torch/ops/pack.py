@@ -1,8 +1,9 @@
 """The records every packed scene vector shares: the camera basis, the
 light table and the material table, in the JAX package's layout
 (`pathtracer_tpu/ops/megakernel.py` `pack_scene`). Each family's packer
-(`megakernel.pack_scene`, `megakernel_sdf.pack_sdf_scene`) puts its own
-geometry between the camera and the lights.
+(`megakernel.pack_scene`, `megakernel_sdf.pack_sdf_scene`,
+`megakernel_mesh.pack_mesh_scene`, `megakernel_bigmesh.pack_bigmesh_scene`)
+puts its own records between the camera and the lights.
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Time K1's analytical launch built from two source trees, in turns, on
-one card.
+"""Time K1's launch built from two source trees, in turns, on one card.
 
 Builds the kernels of this checkout and of another one (for instance a
 parent commit unpacked with `git archive` into a directory that
@@ -8,12 +7,14 @@ the same packed demo scene and key at 1920x1080, depth 4, spp 1, in the
 order other, this, this, other, three times. Prints the mean launch time
 of each (CUDA events, 20 launches after a warm-up), their ratio, whether
 the two frames are bit-equal, and the card's name and power limit; the
-last line is the same as one JSON object. The other tree's
-`pt_render_forward` must take this tree's arguments. `k2_pair` does the
-same for K2's analytical launch.
+last line is the same as one JSON object. With several scenes (`--scene
+analytical sdf`, the backends' demo scenes) or several other trees, every
+scene against every other tree, each pair in turns. The other tree's entry
+point of the scene's backend must take this tree's arguments. `k2_pair`
+does the same for K2's analytical launch.
 
 Usage:
-  python -m pathtracer_tpu_torch.tools.k1_pair --other DIR
+  python -m pathtracer_tpu_torch.tools.k1_pair --other DIR [DIR ...] [--scene analytical sdf]
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from pathlib import Path
 import torch
 
 from ..integrator.tracer import VERBATIM
-from ..models.analytical import make_scene
+from ..models import families
 from ..ops import _build, rng
 from ..ops import megakernel as mk
 from ..utils.timing import cuda_ms
@@ -36,21 +37,31 @@ ROUNDS, LAUNCHES = 3, 20
 
 
 def launcher(csrc: Path, k: mk.KernelLaunch):
-    """A call of `csrc`'s K1 on launch `k`, into a frame of its own."""
+    """A call of `csrc`'s K1 with launch `k`'s backend, into a frame of its
+    own."""
     lib = _build.load("megakernel_fwd", csrc=csrc)
+    entry = getattr(lib, mk.BACKENDS[k.backend].entry)
     out = torch.empty_like(k.out)
     stream = torch.cuda.current_stream(out.device).cuda_stream
 
     def run() -> torch.Tensor:
-        err = lib.pt_render_forward(
+        err = entry(
             k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), out.data_ptr(), WIDTH, HEIGHT, k.spp, k.depth,
-            k.n_lights, k.n_materials, k.flags, stream,
+            k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras), *k.counts, stream,
         )
         if err != 0:
             raise RuntimeError(f"launch failed: {lib.pt_error_string(err).decode()}")
         return out
 
     return run
+
+
+def registers(csrc: Path) -> list[str]:
+    """ptxas's lines for each K1 instantiation of `csrc`'s build: its
+    registers, stack and spills."""
+    log = (_build.build(csrc=csrc) / "build_megakernel_fwd.log").read_text().splitlines()
+    return [line.strip() for line in log if "registers" in line or "spill" in line
+            or ("Compiling entry" in line and "render_forward_kernel" in line)]
 
 
 def card_name() -> str:
@@ -80,18 +91,28 @@ def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--other", required=True, type=Path, help="root of the other checkout")
+    ap.add_argument("--other", required=True, nargs="+", type=Path, help="root of each other checkout")
+    ap.add_argument("--scene", nargs="+", default=["analytical"], choices=families.FAMILIES,
+                    help="the demo scenes whose backends to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_pair needs a CUDA device")
     card = card_name()
-    scene = make_scene(recursion_depth=DEPTH, device=torch.device("cuda", 0))
-    k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
-    other_csrc = (args.other / "pathtracer_tpu_torch" / "csrc").resolve()
-    runs = {"other": launcher(other_csrc, k), "this": launcher(_build.CSRC, k)}
-    result = in_turns(runs, f"K1 analytical launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1", card)
+    results = []
+    for family in args.scene:
+        scene = families.make_family_scene(family, recursion_depth=DEPTH, device=torch.device("cuda", 0))
+        k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
+        for other in args.other:
+            other_csrc = (other / "pathtracer_tpu_torch" / "csrc").resolve()
+            runs = {"other": launcher(other_csrc, k), "this": launcher(_build.CSRC, k)}
+            label = f"K1 {family} launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1, against {other}"
+            results.append({"scene": family, "other": str(other), **in_turns(runs, label, card)})
+    for csrc in [_build.CSRC] + [(other / "pathtracer_tpu_torch" / "csrc").resolve() for other in args.other]:
+        print(f"K1 build of {csrc}:")
+        for line in registers(csrc):
+            print("  " + line)
     print(card)
-    print(json.dumps(result))
+    print(json.dumps(results if len(results) > 1 else results[0]))
     return 0
 
 

@@ -10,8 +10,8 @@
 whose keys are `jax.tree_util.keystr` paths into the scene's pytrees. The
 port's scene buffers are named by the same paths (`params.sphere_radius`),
 so `scene_from_dict` writes each value over the family default. This is
-how parameters cross from a JAX scene to a port scene, for the
-"analytical" and "sdf" families.
+how parameters cross from a JAX scene to a port scene, for every family
+("analytical", "sdf", "mesh", "bigmesh").
 
 An optimizer's state crosses too: `invert_state_from_jax` reads the
 checkpoint a JAX `recover_demo` writes for either family
@@ -33,8 +33,8 @@ def scene_from_dict(desc: dict, device=None, dtype=torch.float32,
                     recursion_depth: int | None = None) -> Scene:
     """The family's default scene with the description's leaves written
     over it (a default light table has the dict's light count). Unknown
-    families, paths and shape mismatches raise, as does a family not
-    ported yet (NotImplementedError)."""
+    families (ValueError), paths and shape mismatches raise. The mesh
+    families' topology is the family default's, as in the JAX package."""
     depth = recursion_depth if recursion_depth is not None else int(desc.get("recursion_depth", 4))
     # The light count is the length of the dict's light leaves; the table
     # starts as that many placeholder lights that the leaves overwrite.

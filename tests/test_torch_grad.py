@@ -13,6 +13,10 @@ of the demo scene (keyed by the leaf's dotted path), at PRNGKey(3),
 64x48, depth 4, float32; the card check (chip_smoke.py phase 7) holds K2
 to it. Regenerate it with `select_leaves(scene, ("",))` of
 pathtracer_tpu.integrator.inverse and that loss, under jax_enable_x64.
+tests/golden_torch/grad_analytical_32x16_d2_k7.npz holds the small case
+(`jax_small_grads`; regenerate with `JAX_PLATFORMS=cpu PYTHONPATH=. python
+tests/test_torch_grad.py`). The checks that JAX still computes both files
+are marked `slow` (20-50 s of JAX compiles).
 """
 
 import os
@@ -30,6 +34,9 @@ from pathtracer_tpu_torch.integrator.tracer import render_frame
 from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.vecmath import clip, maximum, minimum
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "grad_analytical_64x48_d4_k3.npz")
 MATERIAL_LIGHT = dict(rtol=5e-3, atol=1e-8)
@@ -62,9 +69,15 @@ def _port_grads(scene, key, w, h, names):
     return {n: np.zeros(leaves[n].shape) if g is None else g.numpy() for n, g in zip(names, grads)}
 
 
-def test_eager_grad_matches_jax():
-    """Light emission, material rgb, a sphere center and the camera origin:
-    32x16, depth 2, PRNGKey(7)."""
+SMALL_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "grad_analytical_32x16_d2_k7.npz")
+SMALL_LEAVES = [f"lights.emission.{c}" for c in "xyz"] + [f"params.materials.rgb.{c}" for c in "xyz"] + [
+    "params.sphere_center.x", "camera.origin.z"]
+
+
+def jax_small_grads() -> dict:
+    """jax.grad of mean(img[..., :3]**2) at 32x16, depth 2, PRNGKey(7) with
+    respect to the light emission, the material rgb, the sphere centers' x
+    and the camera origin's z."""
     w, h = 32, 16
     js = pt.make_analytical_scene(dtype=jnp.float32, recursion_depth=2)
 
@@ -83,14 +96,27 @@ def test_eager_grad_matches_jax():
     em, rgb, cx, cz = jax.grad(loss, argnums=(0, 1, 2, 3))(
         js.lights.emission, js.params.materials.rgb, js.params.sphere_center.x, js.camera.origin.z
     )
-    names = [f"lights.emission.{c}" for c in "xyz"] + [f"params.materials.rgb.{c}" for c in "xyz"]
-    names += ["params.sphere_center.x", "camera.origin.z"]
-    got = _port_grads(make_scene(recursion_depth=2), rng.prng_key(7), w, h, names)
-    want = [em.x, em.y, em.z, rgb.x, rgb.y, rgb.z, cx, cz]
-    for name, ref in zip(names, want):
-        tol = GEOMETRY_CAMERA if name.startswith(("params.sphere", "camera")) else MATERIAL_LIGHT
-        np.testing.assert_allclose(got[name], np.asarray(ref), err_msg=name, **tol)
-    assert max(np.abs(got[n]).max() for n in names) > 1e-6
+    return {name: np.asarray(g) for name, g in zip(SMALL_LEAVES, [em.x, em.y, em.z, rgb.x, rgb.y, rgb.z, cx, cz])}
+
+
+def test_eager_grad_matches_jax():
+    """Light emission, material rgb, a sphere center and the camera origin:
+    32x16, depth 2, PRNGKey(7), against jax.grad as committed in
+    tests/golden_torch/grad_analytical_32x16_d2_k7.npz."""
+    got = _port_grads(make_scene(recursion_depth=2), rng.prng_key(7), 32, 16, SMALL_LEAVES)
+    with np.load(SMALL_FIXTURE) as want:
+        assert sorted(want.files) == sorted(SMALL_LEAVES)
+        for name in SMALL_LEAVES:
+            tol = GEOMETRY_CAMERA if name.startswith(("params.sphere", "camera")) else MATERIAL_LIGHT
+            np.testing.assert_allclose(got[name], want[name], err_msg=name, **tol)
+    assert max(np.abs(got[n]).max() for n in SMALL_LEAVES) > 1e-6
+
+
+@pytest.mark.slow
+def test_small_grad_fixture_is_what_jax_computes():
+    with np.load(SMALL_FIXTURE) as want:
+        for name, g in jax_small_grads().items():
+            np.testing.assert_allclose(want[name], g, rtol=1e-5, atol=1e-9, err_msg=name)
 
 
 @pytest.fixture(scope="module")
@@ -99,6 +125,7 @@ def fixture_grads():
         return {k: data[k] for k in data.files}
 
 
+@pytest.mark.slow
 def test_grad_fixture_is_what_jax_computes(fixture_grads):
     scene = pt.make_analytical_scene(dtype=jnp.float32, recursion_depth=4)
     train, rebuild, names = jax_select_leaves(scene, ("",))
@@ -126,3 +153,8 @@ def test_eager_grad_matches_fixture(fixture_grads):
     for name in FIXTURE_LEAVES:
         tol = GEOMETRY_CAMERA if name.startswith(("params.sphere", "camera")) else MATERIAL_LIGHT
         np.testing.assert_allclose(got[name], fixture_grads[name], err_msg=name, **tol)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_enable_x64", True)
+    np.savez(SMALL_FIXTURE, **jax_small_grads())

@@ -52,6 +52,7 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -68,6 +69,9 @@ from pathtracer_tpu_torch.ops.vecmath import V2  # noqa: E402
 from test_torch_kernel_bwd_host import SHIM as BWD_SHIM  # noqa: E402
 from test_torch_kernel_host import PRELUDE, SHIM as FWD_SHIM, launch_keys  # noqa: E402
 from test_torch_sdf_kernel_bwd_host import SHIM as SDF_BWD_SHIM  # noqa: E402
+from test_torch_kernel_host import one_torch_thread  # noqa: E402, F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # K1 with the SDF backend beside the SDF adjoint's shim (which has `view`).
 SDF_RENDER = r"""

@@ -32,6 +32,9 @@ from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops.pack import MAT_FIELDS
 from pathtracer_tpu_torch.ops.vecmath import V3
 from test_torch_kernel_host import PRELUDE, _alpha_glass_params, _three_lights, build_shim, launch_keys
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # The host build's analytical gradients before K2 became generic over the
 # scene backend (the same cases, seeds and cotangents as below, at 32x16,

@@ -1,11 +1,12 @@
-"""The CUDA megakernels K1 and K2 (each with the analytical and the SDF
-backend), and the march-step counter K6, against their plain PyTorch
-versions, on the card.
+"""The CUDA megakernels K1 (with the analytical, SDF, mesh and big mesh
+backends) and K2 (analytical and SDF), and the march-step counter K6,
+against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test asks the `cuda_device` fixture for the card and
 skips without one. This file imports no JAX; the JAX side is the committed
-renders tests/golden_torch/analytical_64x48_d4_k3.npy and
-sdf_64x48_d4_k3.npy and gradient
+renders tests/golden_torch/analytical_64x48_d4_k3.npy,
+sdf_64x48_d4_k3.npy, mesh_64x48_d4_k3.npy and bigmesh_64x48_d4_k3.npy and
+gradient
 tests/golden_torch/grad_analytical_64x48_d4_k3.npz. Run on a CUDA host
 (the conftest imports JAX, which that host may lack):
 `python -m pytest --noconftest tests/test_torch_kernel_cuda.py -q`.
@@ -26,7 +27,7 @@ import torch
 
 from pathtracer_tpu_torch.integrator import inverse
 from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
-from pathtracer_tpu_torch.models import sdf
+from pathtracer_tpu_torch.models import families, sdf
 from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import megakernel_sdf as MS
@@ -194,3 +195,39 @@ def test_sdf_backward_kernel_matches_plain_version(cuda_device, smooth_k):
     assert np.isfinite(g).all() and np.abs(g - r).max() <= 1e-2 * np.abs(r).max()
     big = np.abs(r) > 1e-2 * np.abs(r).max()
     np.testing.assert_allclose(g[big], r[big], rtol=2e-2)
+
+
+MESH_FIXTURES = {
+    "mesh": os.path.join(os.path.dirname(__file__), "golden_torch", "mesh_64x48_d4_k3.npy"),
+    "bigmesh": os.path.join(os.path.dirname(__file__), "golden_torch", "bigmesh_64x48_d4_k3.npy"),
+}
+
+
+@pytest.mark.parametrize("family", ["mesh", "bigmesh"])
+@pytest.mark.parametrize("spp,quirks,seed", [(1, VERBATIM, 51), (2, VERBATIM, 52), (1, FIXED, 53)],
+                         ids=["spp1", "spp2", "fixed"])
+def test_mesh_kernel_matches_plain_version(cuda_device, family, spp, quirks, seed):
+    """K1 with the mesh (K7) and the big mesh (K8) backend at 320x240,
+    depth 4, one launch each, within the image gate."""
+    scene = families.make_family_scene(family, device=cuda_device)
+    key = rng.prng_key(seed)
+    launches = getattr(MK.render_frame_megakernel, f"{family}_launches")
+    img = MK.render_frame_megakernel(scene, key, 320, 240, spp, quirks)
+    ref = MK.render_frame_reference(scene, key, 320, 240, spp, quirks)
+    torch.cuda.synchronize()
+    assert getattr(MK.render_frame_megakernel, f"{family}_launches") == launches + 1
+    assert_image_close(img.cpu(), ref.cpu())
+
+
+@pytest.mark.parametrize("family", ["mesh", "bigmesh"])
+def test_mesh_kernel_matches_jax_fixture(cuda_device, family):
+    img = MK.render_frame_megakernel(families.make_family_scene(family, device=cuda_device), rng.prng_key(3), 64, 48)
+    assert_image_close(img.cpu(), np.load(MESH_FIXTURES[family]))
+
+
+@pytest.mark.parametrize("family", ["mesh", "bigmesh"])
+def test_mesh_gradient_on_the_card_raises(cuda_device, family):
+    scene = families.make_family_scene(family, device=cuda_device)
+    scene.params.vertices.x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        MK.render_frame_megakernel(scene, rng.prng_key(0), 16, 8)

@@ -81,6 +81,9 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
 def build_shim(directory, source: str) -> ctypes.CDLL:
     """g++ builds `source` (PRELUDE plus headers of csrc/) into a library;
     skips without a host C++ compiler."""

@@ -22,6 +22,9 @@ from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.models.scene import SurfaceHit
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "analytical_64x48_d4_k3.npy")
 

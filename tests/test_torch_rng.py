@@ -11,6 +11,9 @@ import pathtracer_tpu as pt
 from pathtracer_tpu_torch.integrator import tracer as T
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.megakernel import sample_keys
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _u32(a) -> np.ndarray:

@@ -16,6 +16,9 @@ from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops.megakernel import pack_scene
 from pathtracer_tpu_torch.ops.vecmath import V2, V3
 from pathtracer_tpu_torch.utils.sceneio import scene_from_dict
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _jax_leaves(tree) -> dict:
@@ -81,8 +84,10 @@ def test_scene_from_dict_rejects_bad_leaves():
         scene_from_dict({**desc, "params": {".sphere_radius": [1.0, 2.0, 3.0]}})
     with pytest.raises(KeyError):  # an analytical leaf the SDF family lacks
         scene_from_dict({"family": "sdf", "params": {".checker_offset": 1.0}})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError):  # analytical leaves the mesh family lacks
         scene_from_dict({**desc, "family": "mesh"})
+    with pytest.raises(ValueError):
+        scene_from_dict({**desc, "family": "teapot"})
 
 
 @pytest.mark.parametrize("with_medium", [False, True])

@@ -19,6 +19,9 @@ from pathtracer_tpu_torch.ops import bsdf as TB
 from pathtracer_tpu_torch.ops import intersect as TI
 from pathtracer_tpu_torch.ops import sampling as TS
 from pathtracer_tpu_torch.ops import vecmath as TV
+from test_torch_kernel_host import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 512
 TOL = {"float64": dict(rtol=1e-12, atol=1e-12), "float32": dict(rtol=1e-5, atol=1e-6)}
