@@ -62,13 +62,12 @@ which raises on failure (non-zero exit):
    kernels, K2-SDF's launch alone, the plain step and the plain gradient;
    with `--other DIR` (another checkout, e.g. the parent commit unpacked
    with `git archive`), the analytical K2 of that tree against this one's
-   in turns, whose gradients must be bit-equal (tools/k2_pair.py);
+   in turns, whose gradients must be bit-equal: phase 24 runs that pairing
+   (tools/k2_pair.py), with the SDF K2 beside it;
 17. K1 with the mesh backend (K7, csrc/mesh.cuh) vs its plain version on
    the card, depth 4: 320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and
    1920x1080; then vs the committed JAX render
-   tests/golden_torch/mesh_64x48_d4_k3.npy; a CUDA mesh scene whose
-   vertices require grad must raise NotImplementedError (K7 inside K2 is
-   ROADMAP item 12);
+   tests/golden_torch/mesh_64x48_d4_k3.npy;
 18. the mesh main path: the render CLI with --scene mesh renders 8
    progressive 1920x1080 depth-4 frames, every frame exactly one launch of
    K1 with the mesh backend and no other launch. Then the times of the
@@ -80,7 +79,32 @@ which raises on failure (non-zero exit):
    --scene bigmesh, against tests/golden_torch/bigmesh_64x48_d4_k3.npy; the
    plain version walks blocks of rays at 1920x1080, and the bound counts
    the box tests and the (ray, triangle) pairs of K8's walks, each pair up
-   to the guard at which mt_hit returns.
+   to the guard at which mt_hit returns. A CUDA big mesh scene whose
+   vertices require grad must raise NotImplementedError (K2 takes no big
+   mesh; the JAX package differentiates it through its XLA twin), and
+   launch nothing;
+21. K2 with the mesh backend (K7's adjoint, csrc/mesh_adj.cuh) vs its
+   plain version as phase 6: 320x240 depth 4 at spp 1 and 2 VERBATIM and
+   spp 1 FIXED, and 1920x1080 when the plain version fits; the pixels whose
+   plain path passes near an edge are masked beside the knife-edge ones,
+   counted, and may be at most 0.1% of the frame;
+22. K2-mesh through the autograd Function and pack_mesh_scene to every
+   scene leaf (the 17 vertices included) vs the committed JAX gradient
+   tests/golden_torch/grad_mesh_64x48_d4_k3.npz;
+23. the mesh trainer: inverse_render(kernel="megakernel") recovering the
+   pyramid's apex (y raised from 0.9 to 1.25) and the light's emission
+   (x 0.45), selecting the vertices' y and the emission, lr 3e-2, spp 1,
+   at 256x192, depth 4, 10 steps toward a K1-mesh render of the demo mesh:
+   every step exactly 2 launches of K1-mesh and 1 of K2-mesh (the target 1
+   of K1-mesh), no other backend's, and the loss falling; then the kernel
+   path's first 3 losses and its leaves after step 3 against the eager
+   path's on the card at 64x48 (phase 15's tolerances);
+24. times at 1920x1080, depth 4, spp 1: one mesh training step through the
+   kernels, K2-mesh's launch alone, and the plain step and plain gradient,
+   K2-mesh's bound from this frame's triangle tests; with `--other
+   DIR`, the analytical and SDF K2 of that tree against this one's in
+   turns (tools/k2_pair.py --scene analytical sdf), whose gradients must
+   be bit-equal.
 
 The total seconds are printed before the kernels line.
 
@@ -101,9 +125,14 @@ beside. Phase 13 also masks the grazing pixels (a path with an SDF hit at
 ray; `tests/test_torch_k2_rounding.py --scene sdf --grazing 1e-3`
 differentiates those pixels with and without nvcc's contraction on the
 host) and prints the numbers with only the knife-edge pixels masked
-beside. Phases 7 and 14: the tolerances of tests/test_torch_grad.py (rtol
+beside. Phase 21 masks likewise the pixels whose plain path passes near an
+edge of the mesh (ops/megakernel_mesh.hit_margins: the winning triangle's
+min(u, v, 1 - u - v) below 3e-5, or |det| below 1e-5, where the last bits
+of the ray can pick the other triangle of a shared edge;
+`tests/test_torch_k2_rounding.py --scene mesh --grazing 3e-5` is their
+witness). Phases 7, 14 and 22: the tolerances of tests/test_torch_grad.py (rtol
 5e-3 / atol 1e-8 for material, light, checker and sky leaves, rtol 1e-2 /
-atol 1e-7 for the geometry and the camera); the small SDF fixture's own
+atol 1e-7 for the geometry, the vertices and the camera); the small SDF fixture's own
 (rtol 5e-3, atol 1e-7, tests/test_torch_sdf.py). Phase 12: the kernel's
 and the plain version's counts are equal on at least 99.9% of the pixels
 (both round the march alike; a last-bit difference at |sdf| = HIT_EPS
@@ -132,6 +161,7 @@ SDF_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "sdf_64x48_d4_k3.npy")
 GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "grad_analytical_64x48_d4_k3.npz")
 SDF_GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "grad_sdf_64x48_d4_k3.npz")
 SDF_GRAD_FIXTURE_SMALL = os.path.join(ROOT, "tests", "golden_torch", "grad_sdf_32x16_d2_k3.npz")
+MESH_GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "grad_mesh_64x48_d4_k3.npz")
 Q_TOL, MEAN_TOL = 1e-4, 1e-5
 GRAD_MAX_TOL, GRAD_RTOL, EDGE_TOL = 1e-2, 2e-2, 1e-3
 MAIN_W, MAIN_H, MAIN_DEPTH, MAIN_FRAMES = 1920, 1080, 4, 8
@@ -208,6 +238,20 @@ MESH_FIXTURES = {
 }
 SMOOTH_K = 0.3  # a smooth union, against the demo's hard min (k = 0)
 GRAZING = 1e-3  # phase 13 also masks pixels with an SDF hit at |<rd, n>| below this
+# Phase 21 also masks pixels with a mesh hit whose barycentric margin or
+# |det| is below these, and fails if they are more than MESH_NEAR_MAX of
+# the frame.
+MESH_MARGIN, MESH_DET, MESH_NEAR_MAX = 3e-5, 1e-5, 1e-3
+# The mesh adjoint of one closest hit (csrc/mesh_adj.cuh), read as the
+# others: ray_triangle_adj (~70: two cross products, their adjoints and the
+# division's), the normal's adjoint (~60: the cross product,
+# safe_normalize's and cross_adj) and the material scatter (~15). K2-mesh's
+# bound counts, as K2's does, what the gradient needs: K1-mesh's forward
+# (per segment MESH_SEGMENT_OPS, and the triangle tests of K1's walk from
+# tools/work), and per segment K2's adjoint of the shading without the
+# analytical hit's and this; not the replays this design adds (the
+# forward sweep, the re-run of each bounce, the adjoint's winner search).
+MESH_HIT_ADJ_OPS = 70 + 60 + 15
 # Phase 15, the kernel path against the eager one at 64x48: the first 3
 # losses within rtol 1e-4 (3.0e-6 measured on the H100) and the leaves after
 # step 3 within 1e-2 (3.0e-3 measured). Adam's normalised steps magnify a
@@ -254,7 +298,8 @@ def leaf_close(got, want, name) -> bool:
     """tests/test_torch_grad.py's fixture tolerances, the geometry's for the
     camera and every primitive (tests/test_torch_sdf.py's GEOMETRY)."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    if name.startswith(("params.sphere", "params.box", "params.torus", "params.plane", "params.smooth_k", "camera")):
+    if name.startswith(("params.sphere", "params.box", "params.torus", "params.plane", "params.smooth_k",
+                        "params.vertices", "camera")):
         atol, rtol = 1e-7, 1e-2
     else:
         atol, rtol = 1e-8, 5e-3
@@ -282,7 +327,8 @@ def bound(segments: int, pixels: int, nbytes: int, ops: dict) -> tuple[float, st
     return bound_of(segments * ops["f32"], segments * ops["f64"] + pixels * CAMERA_F64_OPS, nbytes)
 
 
-COUNTERS = ("launches", "bwd_launches", "sdf_launches", "sdf_bwd_launches", "mesh_launches", "bigmesh_launches")
+COUNTERS = ("launches", "bwd_launches", "sdf_launches", "sdf_bwd_launches", "mesh_launches", "mesh_bwd_launches",
+            "bigmesh_launches")
 
 
 def reset_counts(mk) -> None:
@@ -293,6 +339,11 @@ def reset_counts(mk) -> None:
 
 def read_counts(mk) -> dict:
     return {name: getattr(mk.render_frame_megakernel, name) for name in COUNTERS}
+
+
+def expect_counts(**nonzero) -> dict:
+    """Every launch count: those given, the others 0."""
+    return {name: nonzero.get(name, 0) for name in COUNTERS}
 
 
 def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first: int) -> dict:
@@ -321,14 +372,18 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
         del img, ref
     img = mk.render_frame_megakernel(scene, rng.prng_key(3), 64, 48)
     check_diff("vs JAX (64x48, depth 4, PRNGKey(3))", image_diff(img.cpu(), np.load(MESH_FIXTURES[family])))
-    grad_scene = families.make_family_scene(family, device=dev)
-    grad_scene.params.vertices.x.requires_grad_(True)
-    try:
-        mk.render_frame_megakernel(grad_scene, rng.prng_key(0), 16, 8)
-    except NotImplementedError as e:
-        print(f"  a CUDA {family} scene with grad raises: {e}")
-    else:
-        raise AssertionError(f"a CUDA {family} scene with grad rendered without a backward kernel")
+    if family == "bigmesh":  # K2 takes no big mesh
+        grad_scene = families.make_family_scene(family, device=dev)
+        grad_scene.params.vertices.x.requires_grad_(True)
+        reset_counts(mk)
+        try:
+            mk.render_frame_megakernel(grad_scene, rng.prng_key(0), 16, 8)
+        except NotImplementedError as e:
+            print(f"  a CUDA {family} scene with grad raises: {e}")
+        else:
+            raise AssertionError(f"a CUDA {family} scene with grad rendered without a backward kernel")
+        if read_counts(mk) != expect_counts():
+            raise AssertionError(f"the refused {family} gradient launched a kernel: {read_counts(mk)}")
 
     print(f"== {first + 1}. {family} main path: CLI --scene {family}, {MAIN_W}x{MAIN_H}, depth {MAIN_DEPTH}, "
           f"{MAIN_FRAMES} frames")
@@ -393,23 +448,173 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
     )
 
 
+def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total_bytes: int, trainer_pieces,
+                         other) -> dict:
+    """Phases 21-24, K2 with the mesh backend: against its plain version
+    and the JAX gradient, the mesh trainer, the times and, with `other`, the
+    analytical and SDF K2 of another tree in turns. Returns K2-mesh's row of
+    the kernels line."""
+    from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
+    from pathtracer_tpu_torch.models import mesh
+    from pathtracer_tpu_torch.tools.work import count_mesh_work
+
+    print("== 21. K2 with the mesh backend (K7's adjoint) vs its plain version on the card (depth 4)")
+    scene = mesh.make_scene(device=dev)
+    err, peak_320 = check_backward(torch, mk, rng, dev, total_bytes, [
+        (scene, 320, 240, 1, VERBATIM, 81, ""), (scene, 320, 240, 2, VERBATIM, 82, ""),
+        (scene, 320, 240, 1, FIXED, 83, ""), (scene, MAIN_W, MAIN_H, 1, VERBATIM, 84, ""),
+    ], moved=mesh_near_edge)
+
+    print("== 22. K2-mesh vs the JAX gradient fixture, through the autograd Function and pack_mesh_scene")
+    with np.load(MESH_GRAD_FIXTURE) as data:
+        names = sorted(data.files)
+    grad_scene = mesh.make_scene(device=dev)
+    leaves = dict(inverse.named_leaves(grad_scene))
+    for name in names:
+        leaves[name].requires_grad_(True)
+    reset_counts(mk)
+    img = mk.render_frame_megakernel(grad_scene, rng.prng_key(3), 64, 48)
+    grads = torch.autograd.grad((img[..., :3] ** 2).mean(), [leaves[n] for n in names], allow_unused=True)
+    counts = read_counts(mk)
+    print(f"  {os.path.basename(MESH_GRAD_FIXTURE)} (64x48, depth 4): launches {counts}")
+    if counts != expect_counts(launches=1, mesh_launches=1, bwd_launches=1, mesh_bwd_launches=1):
+        raise AssertionError(f"expected 1 K1 and 1 K2 launch with the mesh backend, got {counts}")
+    check_leaf_grads({n: np.zeros(tuple(leaves[n].shape)) if g is None else g.cpu().numpy()
+                      for n, g in zip(names, grads)}, MESH_GRAD_FIXTURE, leaf_close)
+
+    print(f"== 23. mesh trainer: inverse_render, {TRAIN_W}x{TRAIN_H}, depth {MAIN_DEPTH}, {TRAIN_STEPS} steps")
+    counting_render, real_render, calls = trainer_pieces
+    true_scene = mesh.make_scene(recursion_depth=MAIN_DEPTH, device=dev)
+    start = inverse.mesh_start_scene(true_scene)
+    calls.clear()
+    reset_counts(mk)
+    with torch.no_grad():
+        target = mk.render_frame_megakernel(true_scene, rng.prng_key(17), TRAIN_W, TRAIN_H)
+    inverse.render_frame_megakernel = counting_render
+    try:
+        out = inverse.inverse_render(start, target, rng.prng_key(3), inverse.MESH_SELECT, TRAIN_W, TRAIN_H,
+                                     steps=TRAIN_STEPS, lr=3e-2, spp=1, kernel="megakernel")
+        counts = read_counts(mk)
+    finally:
+        inverse.render_frame_megakernel = real_render
+    losses = out.losses.cpu().numpy()
+    apex = float(out.scene.params.vertices.y[inverse.MESH_APEX])
+    emission = [float(c) for c in out.scene.lights.unpack().emission]
+    print(f"  launches {counts}; losses {losses[0]:.6e} -> {losses[-1]:.6e}: {np.array2string(losses, precision=6)}")
+    print(f"  apex y: true 0.9000 start {inverse.MESH_APEX_Y:.4f} recovered {apex:.4f}; emission: true 3.0 start "
+          f"{3.0 * inverse.MESH_DIM:.4f} recovered {', '.join(f'{e:.4f}' for e in emission)}")
+    step_starts = [c[:2] for c in calls if c[2]]
+    want = expect_counts(launches=1 + 2 * TRAIN_STEPS, mesh_launches=1 + 2 * TRAIN_STEPS, bwd_launches=TRAIN_STEPS,
+                         mesh_bwd_launches=TRAIN_STEPS)
+    if counts != want or step_starts != [(1 + 2 * i, i) for i in range(TRAIN_STEPS)]:
+        raise AssertionError(f"a mesh step is not 2 K1-mesh + 1 K2-mesh launches: {calls} -> {counts}")
+    if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"mesh trainer losses not finite or not falling: {losses}")
+    train_bwd_launches = counts["mesh_bwd_launches"]
+    small_true = mesh.make_scene(recursion_depth=MAIN_DEPTH, device=dev)
+    with torch.no_grad():
+        small_target = mk.render_frame_megakernel(small_true, rng.prng_key(17), 64, 48)
+    runs = {kern: inverse.inverse_render(inverse.mesh_start_scene(small_true), small_target, rng.prng_key(3),
+                                         inverse.MESH_SELECT, 64, 48, steps=3, lr=3e-2, spp=1, kernel=kern)
+            for kern in inverse.KERNELS}
+    got, want = runs["megakernel"], runs["eager"]
+    loss_rel = np.abs(got.losses.cpu().numpy() / want.losses.cpu().numpy() - 1.0).max()
+    leaves_got, _, leaf_names = inverse.select_leaves(got.scene, inverse.MESH_SELECT)
+    leaves_want, _, _ = inverse.select_leaves(want.scene, inverse.MESH_SELECT)
+    leaf_rel = {n: float(((a - b).abs() / b.abs().clamp_min(1e-6)).max().detach())
+                for n, a, b in zip(leaf_names, leaves_got, leaves_want)}
+    print(f"  64x48 losses: kernels {got.losses.cpu().numpy()}, eager {want.losses.cpu().numpy()}; max rel "
+          f"{loss_rel:.3e} (tolerance {SDF_TRAIN_LOSS_RTOL})")
+    print("  leaves after step 3, max rel: " + ", ".join(f"{n} {x:.3e}" for n, x in leaf_rel.items())
+          + f" (tolerance {SDF_TRAIN_LEAF_RTOL})")
+    if not (loss_rel <= SDF_TRAIN_LOSS_RTOL and max(leaf_rel.values()) <= SDF_TRAIN_LEAF_RTOL):
+        raise AssertionError("the mesh kernel path's losses or leaves differ from the eager path's")
+
+    print(f"== 24. times: one mesh training step at {MAIN_W}x{MAIN_H}, depth {MAIN_DEPTH}, spp 1")
+    key, step_key = rng.prng_key(5), rng.prng_key(7)
+
+    def step(kern):
+        render = inverse.make_renderer(kern, MAIN_W, MAIN_H, 1, VERBATIM)
+        with torch.no_grad():
+            target = render(true_scene, rng.prng_key(8))
+        train, rebuild, _ = inverse.select_leaves(start, inverse.MESH_SELECT)
+        opt = inverse.make_adam(train, 3e-2)
+        return lambda: inverse.paired_step(train, rebuild, None, opt, render, target, step_key)
+
+    step_ms = cuda_ms(step("megakernel"), 10, warmup=2)
+    k = mk.prepare_launch(true_scene, key, MAIN_W, MAIN_H, 1, VERBATIM)
+    ct = torch.from_numpy(np.random.default_rng(9).standard_normal((MAIN_H, MAIN_W, 4)).astype(np.float32)).to(dev)
+    bwd_ms = cuda_ms(lambda: mk.launch_backward(k, ct), 10)
+    need = peak_320 * (MAIN_W * MAIN_H) / (320 * 240)
+    if need > 0.6 * total_bytes:
+        raise AssertionError(f"the plain mesh gradient needs ~{need / 2**30:.1f} GiB at {MAIN_W}x{MAIN_H}")
+    plain_bwd_ms = cuda_ms(lambda: mk.render_grad_reference(k.sv, true_scene, key, ct, MAIN_W, MAIN_H), 1, warmup=0)
+    plain_step_ms = cuda_ms(step("eager"), 1, warmup=0)
+    work = count_mesh_work(true_scene, key, MAIN_W, MAIN_H)
+    segments, pix = work["segments"], MAIN_W * MAIN_H
+    tests = work["closest_tests"] + work["shadow_tests"]
+    n_sv = k.sv.shape[1]
+    bound_ms, bound_by = bound_of(
+        segments * (MESH_SEGMENT_OPS["f32"] + K2_ADJ_OPS["f32"] - ANALYTICAL_HIT_ADJ_F32 + MESH_HIT_ADJ_OPS)
+        + tests * MESH_TRI_OPS,
+        segments * MESH_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS,
+        n_sv * 8 + 16 + pix * 16 + k.extras[0].numel() * 4)
+    print(f"  mesh training step: kernels {step_ms:.3f} ms, plain {plain_step_ms:.3f} ms ({card})")
+    print(f"  K2-mesh launch alone {bwd_ms:.3f} ms, plain gradient (eager forward + autograd) {plain_bwd_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}; {segments} segments, {tests} triangle tests in K1's walk) ({card})")
+    if other:
+        from pathtracer_tpu_torch.tools import k2_pair
+
+        for r in k2_pair.pair([Path(other)], ("analytical", "sdf"), log=lambda s: print("  " + s)):
+            if not r["bit_equal"]:
+                raise AssertionError(f"the {r['scene']} K2 of this tree and the other's give other gradients")
+    else:
+        print("  analytical and SDF K2 against another tree's: not run (no --other DIR given)")
+    return dict(
+        name="megakernel_bwd_mesh", route="cuda", source="pathtracer_tpu_torch/csrc/mesh_adj.cuh",
+        replaces="pathtracer_tpu/ops/megakernel.py:1771 + pathtracer_tpu/ops/megakernel_mesh.py:95",
+        launches=train_bwd_launches, max_abs_err=err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    )
+
+
 def print_registers(_build) -> None:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
 
-def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, grazing: bool = False) -> tuple[float, int]:
-    """K2 against its plain version (phases 6 and 13) for each case (scene,
-    W, H, spp, quirks, seed, note): d(sum(ct * frame))/d(sv) for a
-    numpy-seeded cotangent, over all pixels and with the knife-edge pixels
-    masked (with grazing=True, the SDF scene's grazing ones too), and K2
-    run twice for bit-equality. A 1920x1080 case runs when the plain
-    version's peak memory, measured at 320x240 spp 1 VERBATIM (the first
-    case) and scaled, fits in 0.6 of the card; else it prints why it did
-    not. Returns the largest masked max|d| and the 320x240 peak."""
-    from pathtracer_tpu_torch.integrator.tracer import VERBATIM
+def sdf_grazing(scene, key, w, h, spp, quirks):
+    """Phase 13's pixels: an SDF hit at |<rd, n>| < GRAZING on the plain
+    path ([h, w] bool), what they are, and the share of the frame they may
+    be (None: no limit)."""
     from pathtracer_tpu_torch.ops.megakernel_sdf import hit_cosines
+
+    near = (hit_cosines(scene, key, w, h, spp, quirks) < GRAZING).flatten(0, 1).any(0).reshape(h, w)
+    return near, f"with a hit at |<rd, n>| < {GRAZING}", None
+
+
+def mesh_near_edge(scene, key, w, h, spp, quirks):
+    """Phase 21's pixels: a mesh hit on the plain path whose barycentric
+    margin is below MESH_MARGIN or |det| below MESH_DET."""
+    from pathtracer_tpu_torch.ops.megakernel_mesh import hit_margins
+
+    margin, det = hit_margins(scene, key, w, h, spp, quirks)
+    near = ((margin < MESH_MARGIN) | (det < MESH_DET)).flatten(0, 1).any(0).reshape(h, w)
+    return near, f"near an edge (margin < {MESH_MARGIN} or |det| < {MESH_DET})", MESH_NEAR_MAX
+
+
+def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, moved=None) -> tuple[float, int]:
+    """K2 against its plain version (phases 6, 13 and 21) for each case
+    (scene, W, H, spp, quirks, seed, note): d(sum(ct * frame))/d(sv) for a
+    numpy-seeded cotangent, over all pixels and with the knife-edge pixels
+    masked (and those `moved` gives: sdf_grazing, mesh_near_edge, which
+    fails past its limit), and K2 run twice for bit-equality. A 1920x1080
+    case runs when the plain version's peak memory, measured at 320x240
+    spp 1 VERBATIM (the first case) and scaled, fits in 0.6 of the card;
+    else it prints why it did not. Returns the largest masked max|d| and
+    the 320x240 peak."""
+    from pathtracer_tpu_torch.integrator.tracer import VERBATIM
 
     err, peak_320 = 0.0, None
     for scene, w, h, spp, quirks, seed, note in cases:
@@ -420,6 +625,7 @@ def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, grazing: 
                 print(f"  {label}: skipped, the plain version would need ~{need / 2**30:.1f} GiB "
                       f"of {total_bytes / 2**30:.1f}")
                 continue
+        plain_grad = lambda c: mk.render_grad_reference(k.sv, scene, key, c, w, h, spp, quirks)
         key = rng.prng_key(seed)
         k = mk.prepare_launch(scene, key, w, h, spp, quirks)
         ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((h, w, 4)).astype(np.float32)).to(dev)
@@ -428,7 +634,7 @@ def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, grazing: 
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        r = mk.render_grad_reference(k.sv, scene, key, ct, w, h, spp, quirks)
+        r = plain_grad(ct)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev) - base
         if peak_320 is None:
@@ -440,20 +646,21 @@ def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, grazing: 
         edge = (mk.launch(k) - mk.render_frame_reference(scene, key, w, h, spp, quirks)).abs()[..., :3]
         edge = edge.amax(dim=-1) > EDGE_TOL
         n_edge = int(edge.sum())
-        if grazing:
-            graze = (hit_cosines(scene, key, w, h, spp, quirks) < GRAZING).flatten(0, 1).any(0).reshape(h, w) & ~edge
+        if moved is not None:
+            graze, kind, limit = moved(scene, key, w, h, spp, quirks)
+            graze = graze & ~edge
             masked = ct * (~edge)[..., None]
-            dm = grad_diff(mk.launch_backward(k, masked).cpu(),
-                           mk.render_grad_reference(k.sv, scene, key, masked, w, h, spp, quirks).cpu())
+            dm = grad_diff(mk.launch_backward(k, masked).cpu(), plain_grad(masked).cpu()) if n_edge else d
             print(f"    only the {n_edge} knife-edge pixels masked: max|d|/max|g|={dm['max_rel']:.3e}, "
-                  f"entries > 1e-2 max rel {dm['big_rel']:.3e}; {int(graze.sum())} more pixels with a hit at "
-                  f"|<rd, n>| < {GRAZING}")
+                  f"entries > 1e-2 max rel {dm['big_rel']:.3e}; {int(graze.sum())} more pixels {kind} "
+                  f"({int(graze.sum()) / (w * h):.3e} of the frame)")
+            if limit is not None and int(graze.sum()) > limit * w * h:
+                raise AssertionError(f"{label}: more than {limit} of the pixels {kind}")
             edge = edge | graze
         ct_m = ct * (~edge)[..., None]
-        de = grad_diff(mk.launch_backward(k, ct_m).cpu(),
-                       mk.render_grad_reference(k.sv, scene, key, ct_m, w, h, spp, quirks).cpu())
+        de = grad_diff(mk.launch_backward(k, ct_m).cpu(), plain_grad(ct_m).cpu())
         err = max(err, de["max_abs"])
-        what = f"{n_edge} knife-edge" + (f" and {int(graze.sum())} grazing" if grazing else "")
+        what = f"{n_edge} knife-edge" + (f" and {int(graze.sum())} moved" if moved is not None else "")
         print(f"  {label}: without the {what} pixels max|d|/max|g|={de['max_rel']:.3e}, "
               f"entries > 1e-2 max rel {de['big_rel']:.3e}, max|d| {de['max_abs']:.3e} (all pixels: "
               f"{d['max_rel']:.3e}, {d['big_rel']:.3e}, {d['max_abs']:.3e}); plain peak {peak / 2**20:.0f} MiB; "
@@ -490,8 +697,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one CUDA card.")
-    ap.add_argument("--other", default=None, help="root of another checkout: phase 16 times its analytical K2 "
-                    "against this tree's, in turns")
+    ap.add_argument("--other", default=None, help="root of another checkout: phase 24 times its analytical and "
+                    "SDF K2 against this tree's, in turns")
     args = ap.parse_args(argv)
 
     started = time.perf_counter()
@@ -632,12 +839,13 @@ def main(argv=None) -> int:
     try:
         with tempfile.TemporaryDirectory() as tmp:
             report_path = os.path.join(tmp, "report.json")
-            mk.render_frame_megakernel.launches = mk.render_frame_megakernel.bwd_launches = 0
+            reset_counts(mk)
             invert_cli.main([
                 "--device", "cuda", "--width", str(TRAIN_W), "--height", str(TRAIN_H),
                 "--depth", str(MAIN_DEPTH), "--steps", str(TRAIN_STEPS), "--json-out", report_path,
             ], log=lambda s: print("  " + s))
-            train_launches = (mk.render_frame_megakernel.launches, mk.render_frame_megakernel.bwd_launches)
+            counts = read_counts(mk)
+            train_launches = (counts["launches"], counts["bwd_launches"])
             with open(report_path) as f:
                 losses = json.load(f)["losses"]
     finally:
@@ -645,8 +853,8 @@ def main(argv=None) -> int:
     print(f"  launches K1={train_launches[0]} K2={train_launches[1]}; losses {losses[0]:.6e} -> {losses[-1]:.6e}")
     step_starts = [c[:2] for c in calls if c[2]]  # the render with grad opens each step
     want_starts = [(4 + 2 * i, i) for i in range(TRAIN_STEPS)]
-    if train_launches != (4 + 2 * TRAIN_STEPS, TRAIN_STEPS) or step_starts != want_starts:
-        raise AssertionError(f"a step is not 2 K1 + 1 K2 launches: {calls} -> {train_launches}")
+    if counts != expect_counts(launches=4 + 2 * TRAIN_STEPS, bwd_launches=TRAIN_STEPS) or step_starts != want_starts:
+        raise AssertionError(f"a step is not 2 K1 + 1 K2 launches of the analytical backend: {calls} -> {counts}")
     if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"trainer losses not finite or not falling: {losses}")
     runs = {kern: inverse.recover_demo(key=rng.prng_key(0), width=64, height=48, steps=3, kernel=kern,
@@ -796,7 +1004,7 @@ def main(argv=None) -> int:
         (sdf_scene, 320, 240, 1, VERBATIM, 41, ""), (sdf_scene, 320, 240, 2, VERBATIM, 42, ""),
         (sdf_scene, 320, 240, 1, FIXED, 43, ""), (smooth_bwd, 320, 240, 1, VERBATIM, 44, f", smooth_k {SMOOTH_K}"),
         (sdf_scene, MAIN_W, MAIN_H, 1, VERBATIM, 45, ""),
-    ], grazing=True)
+    ], moved=sdf_grazing)
 
     print("== 14. K2-SDF vs the JAX gradient fixtures, through the autograd Function and pack_sdf_scene")
     for fixture, (w, h, depth), close in ((SDF_GRAD_FIXTURE, (64, 48, 4), leaf_close),
@@ -824,14 +1032,14 @@ def main(argv=None) -> int:
     try:
         with tempfile.TemporaryDirectory() as tmp:
             report_path = os.path.join(tmp, "report.json")
-            mk.render_frame_megakernel.launches = mk.render_frame_megakernel.bwd_launches = 0
-            mk.render_frame_megakernel.sdf_launches = mk.render_frame_megakernel.sdf_bwd_launches = 0
+            reset_counts(mk)
             invert_cli.main([
                 "--scene", "sdf", "--device", "cuda", "--width", str(TRAIN_W), "--height", str(TRAIN_H),
                 "--depth", str(MAIN_DEPTH), "--steps", str(TRAIN_STEPS), "--json-out", report_path,
             ], log=lambda s: print("  " + s))
-            sdf_train = (mk.render_frame_megakernel.launches, mk.render_frame_megakernel.bwd_launches,
-                         mk.render_frame_megakernel.sdf_launches, mk.render_frame_megakernel.sdf_bwd_launches)
+            counts = read_counts(mk)
+            sdf_train = (counts["launches"], counts["bwd_launches"], counts["sdf_launches"],
+                         counts["sdf_bwd_launches"])
             with open(report_path) as f:
                 report = json.load(f)
     finally:
@@ -843,8 +1051,10 @@ def main(argv=None) -> int:
         print(f"  {r['name']}: true {r['true_value']:.4f} start {r['start_value']:.4f} "
               f"recovered {r['recovered']:.4f}")
     step_starts = [c[:2] for c in calls if c[2]]
-    if (sdf_train != (4 + 2 * TRAIN_STEPS, TRAIN_STEPS) * 2 or step_starts != want_starts):
-        raise AssertionError(f"an SDF step is not 2 K1-SDF + 1 K2-SDF launches: {calls} -> {sdf_train}")
+    want = expect_counts(launches=4 + 2 * TRAIN_STEPS, sdf_launches=4 + 2 * TRAIN_STEPS, bwd_launches=TRAIN_STEPS,
+                         sdf_bwd_launches=TRAIN_STEPS)
+    if counts != want or step_starts != want_starts:
+        raise AssertionError(f"an SDF step is not 2 K1-SDF + 1 K2-SDF launches: {calls} -> {counts}")
     if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"SDF trainer losses not finite or not falling: {losses}")
     runs = {kern: inverse.recover_demo(key=rng.prng_key(0), scene="sdf", width=64, height=48, steps=3, kernel=kern,
@@ -879,18 +1089,12 @@ def main(argv=None) -> int:
     print(f"  SDF training step: kernels {sdf_step_ms:.3f} ms, plain {sdf_plain_step_ms:.3f} ms ({card})")
     print(f"  K2-SDF launch alone {sdf_bwd_ms:.3f} ms, plain gradient (eager forward + autograd) "
           f"{sdf_plain_bwd_ms:.3f} ms, bound {sdf_bwd_bound_ms:.4f} ms ({sdf_bwd_bound_by}) ({card})")
-    print(f"  analytical K2 launch {bwd_ms:.3f} ms in this run (phase 9)")
-    if args.other:
-        from pathtracer_tpu_torch.tools import k2_pair
-
-        pair = k2_pair.pair(Path(args.other), log=lambda s: print("  " + s))
-        if not pair["bit_equal"]:
-            raise AssertionError("the analytical K2 of this tree and the other's give other gradients")
-    else:
-        print("  analytical K2 against another tree's: not run (no --other DIR given)")
+    print(f"  analytical K2 launch {bwd_ms:.3f} ms in this run (phase 9); against another tree's: phase 24")
 
     mesh_rows = [mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card, family, first)
                  for family, first in (("mesh", 17), ("bigmesh", 19))]
+    mesh_bwd_row = mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card, total_bytes, trainer_pieces=(
+        counting_render, real_render, calls), other=args.other)
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
@@ -917,7 +1121,7 @@ def main(argv=None) -> int:
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
         max_abs_err=float(k6_err), ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_bound_by,
         library_ms=None,
-    ), *mesh_rows]
+    ), *mesh_rows, mesh_bwd_row]
     print(f"== total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,8 @@
 // Backward path-tracing megakernel (K2) on Hopper, generic over the scene
-// backend as K1 is: the analytical scene (analytical_adj.cuh) and the
-// sphere-traced SDF scene (sdf_adj.cuh, the adjoint of K5).
+// backend as K1 is: the analytical scene (analytical_adj.cuh), the
+// sphere-traced SDF scene (sdf_adj.cuh, the adjoint of K5) and the small
+// triangle mesh (mesh_adj.cuh, the adjoint of K7). The big mesh (K8) has
+// none: the JAX package differentiates it through its XLA twin.
 //
 // Replaces the TPU kernel pathtracer_tpu/ops/megakernel.py::_pallas_backward
 // (body _make_grad_kernel: replay, stored carries, per-bounce VJP in
@@ -17,6 +19,8 @@
 //
 // Reduction: each thread adds into its own column of a [P][THREADS+1]
 // shared-memory table (padded against bank conflicts), so no atomics; the
+// small mesh's [T, 4] topology follows the table (75,720 bytes a block for
+// the demo mesh, P = 145, over 48 KB: the launch opts in to more); the
 // block then sums each row in thread order into partial[block][P], and a
 // second kernel sums the blocks of each entry in a fixed order (in double).
 // The gradient is the same bit for bit from run to run.
@@ -29,12 +33,17 @@
 // SDF backend each bounce's closest hit and shadow ray are marched twice,
 // in the forward sweep and in the re-run, K1's march each time, and each
 // hit adds the SDF adjoint's two forward-mode passes over the primitives.
+// With the mesh backend each closest hit tests every triangle three times
+// (the forward sweep, the re-run and the adjoint's winner search).
 // This first version does nothing about that beyond __launch_bounds__.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "analytical_adj.cuh"
+#include "mesh_adj.cuh"
 #include "sdf_adj.cuh"
 #include "tracer_adj.cuh"
 
@@ -43,6 +52,16 @@ namespace pt {
 constexpr int BWD_THREADS = 128;
 constexpr int ACC_STRIDE = BWD_THREADS + 1;
 constexpr int REDUCE_THREADS = 256;
+// Whether K2 copies the backend's topology to shared memory (mesh_adj.cuh),
+// as K1 does for Mesh: the other instantiations compile no copy.
+template <class B>
+constexpr bool SHARED_TOPOLOGY = std::is_same_v<B, MeshAdj>;
+
+// Dynamic shared memory of one block: the packed vector, the gradient table
+// and the topology of n_tris triangles.
+inline size_t backward_smem_bytes(int n_sv, int n_tris) {
+  return (size_t)n_sv * (1 + ACC_STRIDE) * sizeof(float) + 4 * (size_t)n_tris * sizeof(int);
+}
 
 template <class B>
 __global__ void __launch_bounds__(BWD_THREADS)
@@ -52,7 +71,11 @@ __global__ void __launch_bounds__(BWD_THREADS)
   extern __shared__ float smem[];
   float* sv = smem;           // [n_sv] packed scene
   float* acc = smem + n_sv;   // [n_sv][ACC_STRIDE]: column threadIdx.x is this thread's gradient
+  int* topo = reinterpret_cast<int*>(acc + n_sv * ACC_STRIDE);  // [n_tris][4]
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
+  if constexpr (SHARED_TOPOLOGY<B>) {
+    for (int i = threadIdx.x; i < 4 * s.n_tris; i += blockDim.x) topo[i] = s.topo[i];
+  }
   for (int j = 0; j < n_sv; ++j) acc[j * ACC_STRIDE + threadIdx.x] = 0.0f;
   __syncthreads();
 
@@ -60,6 +83,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p < n) {
     s.sv = sv;
+    if constexpr (SHARED_TOPOLOGY<B>) s.topo = topo;
     const GradSink g = {acc + threadIdx.x, ACC_STRIDE};
     const float4 c = reinterpret_cast<const float4*>(ct)[p];
     const V3 ct_rad = v3(c.x / (float)spp, c.y / (float)spp, c.z / (float)spp);
@@ -94,14 +118,14 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
 
 // d(<ct, frame>)/d(sv) into grad[n_sv], using partial[ceil(W*H/THREADS)][n_sv]
 // as scratch, on `stream`; `s` is the scene's structure (its sv is set to
-// the shared copy in the kernel). Returns a cudaError_t (0 = success).
+// the shared copies in the kernel). Returns a cudaError_t (0 = success).
 template <class B>
 int launch_backward(const float* sv, int n_sv, const uint32_t* keys, const float* ct, float* partial, float* grad,
                     int width, int height, int spp, int depth, int flags, SceneView s, void* stream) {
   if (depth > MAX_DEPTH) return (int)cudaErrorInvalidValue;
   const int n = width * height;
   const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
-  const size_t smem = (size_t)n_sv * (1 + ACC_STRIDE) * sizeof(float);
+  const size_t smem = backward_smem_bytes(n_sv, s.n_tris);
   cudaError_t err = cudaFuncSetAttribute(render_backward_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -119,8 +143,9 @@ extern "C" int pt_backward_threads() { return pt::BWD_THREADS; }
 extern "C" int pt_backward_max_depth() { return pt::MAX_DEPTH; }
 extern "C" int pt_backward_sdf_max_primitives() { return pt::SDF_MAX_PRIMS; }
 
-// Dynamic shared memory the backward kernel needs for n_sv scene scalars.
-extern "C" size_t pt_backward_smem_bytes(int n_sv) { return (size_t)n_sv * (1 + pt::ACC_STRIDE) * sizeof(float); }
+// Dynamic shared memory the backward kernel needs for n_sv scene scalars
+// and a topology of n_tris triangles (0 but for the small mesh).
+extern "C" size_t pt_backward_smem_bytes(int n_sv, int n_tris) { return pt::backward_smem_bytes(n_sv, n_tris); }
 
 // The gradient of one frame of the analytical scene (0 = success, else a
 // cudaError_t).
@@ -143,6 +168,17 @@ extern "C" int pt_render_backward_sdf(const float* sv, int n_sv, const uint32_t*
   const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
   return pt::launch_backward<pt::SdfAdj>(sv, n_sv, keys, ct, partial, grad, width, height, spp, depth, flags, s,
                                          stream);
+}
+
+// The gradient of one frame of the small mesh scene with its topology
+// [n_tris, 4] int32 (a, b, c, material) on the card (0 = success).
+extern "C" int pt_render_backward_mesh(const float* sv, int n_sv, const uint32_t* keys, const float* ct,
+                                       float* partial, float* grad, int width, int height, int spp, int depth,
+                                       int n_lights, int n_materials, int flags, const int* topo, int n_tris,
+                                       int n_verts, void* stream) {
+  const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
+  return pt::launch_backward<pt::MeshAdj>(sv, n_sv, keys, ct, partial, grad, width, height, spp, depth, flags, s,
+                                          stream);
 }
 
 extern "C" const char* pt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,14 +1,18 @@
 """Inverse rendering: pixel-loss gradients to scene parameters.
 
-Port of `pathtracer_tpu/integrator/inverse.py` for the analytical and SDF
-families. Every scene quantity (material table, lights, geometry, checker
-albedos, sky, camera) is a scene leaf, and the render is differentiable
-end to end under the detached-sampling estimator: through the eager
-integrator (`kernel="eager"`), or through the megakernels
-(`kernel="megakernel"`: K1 forward and K2 backward with the scene's
-backend on a CUDA scene, the eager integrator on a CPU scene). On the SDF
-scene the geometry's gradient is the implicit-function derivative of the
-sphere-traced hit (`models/sdf.sphere_trace`'s Newton reattachment).
+Port of `pathtracer_tpu/integrator/inverse.py`. Every scene quantity
+(material table, lights, geometry, checker albedos, sky, camera) is a
+scene leaf, and the render is differentiable end to end under the
+detached-sampling estimator: through the eager integrator
+(`kernel="eager"`), or through the megakernels (`kernel="megakernel"`: K1
+forward and K2 backward with the scene's backend on a CUDA scene, the
+eager integrator on a CPU scene). On the SDF scene the geometry's gradient
+is the implicit-function derivative of the sphere-traced hit
+(`models/sdf.sphere_trace`'s Newton reattachment); on the small mesh the
+vertices' gradient flows through Möller-Trumbore's t and the face normal,
+so `inverse_render` of a CUDA mesh scene is 2 K1-mesh launches and 1
+K2-mesh launch a step. The big mesh has no K2 (the JAX package
+differentiates it through its XLA twin): its CUDA gradient raises.
 
 Parameter selection is by key-path substring: `select=("materials.rgb",
 "lights.emission")` optimizes exactly those float leaves and freezes the
@@ -272,6 +276,24 @@ def resume_state(path: str, train, opt) -> int:
     return step
 
 
+# The mesh's vertex recovery that the tests and chip_smoke.py pass to
+# inverse_render, as the JAX package's tests/test_mesh.py passes its scene
+# (its recover_demo has no mesh demo): the leaves it trains, and its start
+# (mesh_start_scene).
+MESH_SELECT = ("params.vertices.y", "lights.emission")
+MESH_APEX, MESH_APEX_Y, MESH_DIM = 16, 1.25, 0.45
+
+
+def mesh_start_scene(true_scene: Scene) -> Scene:
+    """The demo mesh with the pyramid's apex (vertex 16) raised from y 0.9
+    to 1.25 and the light's emission dimmed to 0.45 of its value."""
+    y = true_scene.params.vertices.y.clone()
+    y[MESH_APEX] = MESH_APEX_Y
+    emission = true_scene.lights.unpack().emission
+    return replace_leaves(true_scene, {"params.vertices.y": y, **{
+        f"lights.emission.{c}": getattr(emission, c) * MESH_DIM for c in "xyz"}})
+
+
 def demo_scenes(recursion_depth: int = 4, device=None, scene: str = "analytical") -> tuple[Scene, Scene]:
     """(true, start) scenes of recover_demo for the `scene` family: the
     demo scene, and the start with the light dimmed and, on the analytical
@@ -328,12 +350,14 @@ def recover_demo(
     resumes from the newest checkpoint there, the port's or one a JAX
     `recover_demo` of the same family wrote.
 
-    Not ported yet: mesh= (sharding, ROADMAP item 14) and the mesh scene
-    families (their gradient on the card, ROADMAP item 12) raise
-    NotImplementedError."""
+    Not ported yet: mesh= (sharding, ROADMAP item 14). The mesh scene
+    families have no demo here (ROADMAP item 12): the JAX package's
+    recover_demo trains the analytical demo under their names, which the
+    port does not copy; `inverse_render` takes a mesh scene."""
     require_family(scene)
     if scene not in DEMO_SELECTS:
-        raise NotImplementedError(f"recover_demo of the {scene} scene is not ported yet (ROADMAP item 12)")
+        raise NotImplementedError(f"recover_demo has no demo of the {scene} scene (ROADMAP item 12); "
+                                  "inverse_render takes a mesh scene")
     if mesh is not None:
         raise NotImplementedError("the sharded megakernel (mesh=) is not ported yet")
     if kernel not in KERNELS:

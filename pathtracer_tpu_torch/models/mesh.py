@@ -8,8 +8,10 @@ indices and their material ids (`tri_idx`, `tri_mat`) are integer buffers
 that nothing differentiates, the static structure the JAX package keeps
 as aux data. The closest hit is the first minimum over the triangles in
 order (the JAX where-chain's strict `<`), with the winner's geometric
-normal turned against the ray. `csrc/mesh.cuh` (K7 inside K1) computes the
-same per thread.
+normal turned against the ray; at a tie (an edge two triangles share) t
+and its gradient are the first triangle's, as in the JAX chain.
+`csrc/mesh.cuh` (K7 inside K1) computes the same per thread, and
+`csrc/mesh_adj.cuh` (its adjoint inside K2) the gradient.
 """
 
 from __future__ import annotations
@@ -110,8 +112,11 @@ def closest_hit(p: MeshParams, ro: V3, rd: V3) -> SurfaceHit:
     its static id. A miss takes triangle 0's normal and the default
     material."""
     ts = _tri_ts(p, ro, rd)
-    t = torch.amin(ts, dim=-1)
-    idx = torch.argmin(ts, dim=-1)  # the first minimum, as the strict `<` chain
+    # the first minimum, as the strict `<` chain: at a tie (an edge two
+    # triangles share) t and its gradient are the first triangle's alone,
+    # where amin would share the gradient
+    idx = torch.argmin(ts, dim=-1)
+    t = torch.take_along_dim(ts, idx[..., None], dim=-1)[..., 0]
     hit = torch.isfinite(t)
     a, b, c = corners(p)
     n = safe_normalize((b - a).cross(c - a))

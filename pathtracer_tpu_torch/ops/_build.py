@@ -39,8 +39,10 @@ SIGNATURES = {
     "megakernel_bwd": {
         "pt_render_backward": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "pt_render_backward_sdf": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pt_render_backward_mesh": (
+            [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
         "pt_backward_sdf_max_primitives": ([], _I),
-        "pt_backward_smem_bytes": ([_I], ctypes.c_size_t),
+        "pt_backward_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "pt_backward_threads": ([], _I),
         "pt_backward_max_depth": ([], _I),
     },

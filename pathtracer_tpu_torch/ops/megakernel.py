@@ -8,9 +8,9 @@ kernels for sm_90a with one thread per pixel. Both are generic over the
 scene backend, as the JAX package's `KernelBackend` is: the analytical
 scene (`csrc/analytical.cuh`, its adjoint `analytical_adj.cuh`), the
 sphere-traced SDF scene (`csrc/sdf.cuh`, the port of the SDF backend K5,
-`ops/megakernel_sdf.py`; its adjoint `sdf_adj.cuh`), and, in K1 only, the
-small and the big triangle mesh (`csrc/mesh.cuh`, K7,
-`ops/megakernel_mesh.py`; `csrc/bigmesh.cuh`, K8,
+`ops/megakernel_sdf.py`; its adjoint `sdf_adj.cuh`), the small triangle
+mesh (`csrc/mesh.cuh`, K7, `ops/megakernel_mesh.py`; its adjoint
+`mesh_adj.cuh`) and, in K1 only, the big one (`csrc/bigmesh.cuh`, K8,
 `ops/megakernel_bigmesh.py`). The scene reaches them packed into one
 float32 vector in the JAX package's layout (`pack_scene`: camera basis,
 analytical params, L light records of 15, M material records of 20; each
@@ -27,7 +27,8 @@ ops, so autograd carries d/d(sv) on to the scene leaves. A failed launch
 raises; nothing falls back to autograd. On a CPU scene it runs the plain
 version, the eager integrator under the detached-sampling estimator, with
 autograd on every backend. The kernels take no media and no procedural
-hooks, and K2 no mesh: a CUDA mesh scene that requires grad raises.
+hooks, and K2 no big mesh: a CUDA big mesh scene that requires grad
+raises (the JAX package differentiates it through its XLA twin).
 """
 
 from __future__ import annotations
@@ -150,7 +151,7 @@ BACKENDS = {
     ),
     "mesh": Backend(
         megakernel_mesh.pack_mesh_scene, megakernel_mesh.unpack_mesh_scene, megakernel_mesh.mesh_counts,
-        "pt_render_forward_mesh", None, megakernel_mesh.mesh_topology,
+        "pt_render_forward_mesh", "pt_render_backward_mesh", megakernel_mesh.mesh_topology,
     ),
     "bigmesh": Backend(
         megakernel_bigmesh.pack_bigmesh_scene, megakernel_bigmesh.unpack_bigmesh_scene,
@@ -256,16 +257,20 @@ def launch(k: KernelLaunch) -> torch.Tensor:
 
 def _require_backward(backend: str) -> None:
     if BACKENDS[backend].backward is None:
-        raise NotImplementedError(f"the {backend} scene's gradient on the card is not ported yet "
-                                  "(ROADMAP item 12); its CPU scene has autograd")
+        raise NotImplementedError(f"the {backend} scene's gradient on the card is not ported (ROADMAP item 12: the "
+                                  "JAX package differentiates it through its XLA twin, not a kernel); its CPU scene "
+                                  "has autograd")
 
 
 def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
     """One launch of K2 on PyTorch's current stream: d(sum(ct * frame))/d(sv)
     [1, P] for the frame K1 renders from `k`; ct [H, W, 4] float32 (its
     alpha channel gets no gradient). Counted in
-    `render_frame_megakernel.bwd_launches`, and those with the SDF backend
-    in `render_frame_megakernel.sdf_bwd_launches` too."""
+    `render_frame_megakernel.bwd_launches`, and those with another backend
+    than the analytical one in `render_frame_megakernel.<backend>_bwd_launches`
+    too (sdf_bwd_launches, mesh_bwd_launches). A scene whose packed vector,
+    gradient table and topology exceed K2's shared memory per block (the
+    card's opt-in maximum, not K1's 48 KB of ops/megakernel_mesh) raises."""
     from . import _build
 
     if k.sv.device.type != "cuda":
@@ -279,9 +284,13 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
     n_sv = k.sv.shape[1]
     if k.depth > lib.pt_backward_max_depth():
         raise ValueError(f"the backward megakernel holds {lib.pt_backward_max_depth()} bounces, got depth {k.depth}")
-    smem = lib.pt_backward_smem_bytes(n_sv)
-    if smem > torch.cuda.get_device_properties(k.sv.device).shared_memory_per_block_optin:
-        raise ValueError(f"a scene of {n_sv} packed scalars needs {smem} bytes of shared memory per block")
+    n_tris = k.counts[0] if k.backend == "mesh" else 0
+    smem = lib.pt_backward_smem_bytes(n_sv, n_tris)
+    budget = torch.cuda.get_device_properties(k.sv.device).shared_memory_per_block_optin
+    if smem > budget:
+        raise ValueError(f"a scene of {n_sv} packed scalars and {n_tris} triangles needs {smem} bytes of shared "
+                         f"memory per block in the backward megakernel, which holds {budget} (the card's opt-in "
+                         "maximum)")
     if ct.shape != k.out.shape or ct.device != k.sv.device:
         raise ValueError(f"cotangent {tuple(ct.shape)} on {ct.device}, frame {tuple(k.out.shape)} on {k.sv.device}")
     ct = ct.to(torch.float32).contiguous()
@@ -290,14 +299,15 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
     grad = torch.empty((1, n_sv), dtype=torch.float32, device=k.sv.device)
     err = getattr(lib, BACKENDS[k.backend].backward)(
         k.sv.data_ptr(), n_sv, k.keys.data_ptr(), ct.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *k.counts,
-        torch.cuda.current_stream(k.sv.device).cuda_stream,
+        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
+        *k.counts, torch.cuda.current_stream(k.sv.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"backward megakernel launch failed: {lib.pt_error_string(err).decode()}")
     render_frame_megakernel.bwd_launches += 1
-    if k.backend == "sdf":
-        render_frame_megakernel.sdf_bwd_launches += 1
+    if k.backend != "analytical":
+        name = f"{k.backend}_bwd_launches"
+        setattr(render_frame_megakernel, name, getattr(render_frame_megakernel, name) + 1)
     return grad
 
 
@@ -326,8 +336,8 @@ def render_frame_megakernel(
     `render_frame_megakernel.launches`) with its scene's backend; when a
     scene leaf requires grad, the frame's backward is one launch of K2 with
     the same backend (counted in `render_frame_megakernel.bwd_launches`);
-    K2 does not take the mesh scenes yet, and their gradient on the card
-    raises NotImplementedError. A CPU scene goes through the plain version.
+    K2 does not take the big mesh, and its gradient on the card raises
+    NotImplementedError. A CPU scene goes through the plain version.
     There is no fallback from one to the other."""
     _check_supported(scene)
     device = scene.device
@@ -352,3 +362,4 @@ render_frame_megakernel.mesh_launches = 0
 render_frame_megakernel.bigmesh_launches = 0
 render_frame_megakernel.bwd_launches = 0
 render_frame_megakernel.sdf_bwd_launches = 0
+render_frame_megakernel.mesh_bwd_launches = 0

@@ -56,12 +56,12 @@ def launcher(csrc: Path, k: mk.KernelLaunch):
     return run
 
 
-def registers(csrc: Path) -> list[str]:
-    """ptxas's lines for each K1 instantiation of `csrc`'s build: its
-    registers, stack and spills."""
-    log = (_build.build(csrc=csrc) / "build_megakernel_fwd.log").read_text().splitlines()
+def registers(csrc: Path, kernel: str = "megakernel_fwd", entry: str = "render_forward_kernel") -> list[str]:
+    """ptxas's lines for each instantiation of `entry` in `csrc`'s build of
+    `kernel` (K1's by default): its registers, stack and spills."""
+    log = (_build.build(csrc=csrc) / f"build_{kernel}.log").read_text().splitlines()
     return [line.strip() for line in log if "registers" in line or "spill" in line
-            or ("Compiling entry" in line and "render_forward_kernel" in line)]
+            or ("Compiling entry" in line and entry in line)]
 
 
 def card_name() -> str:

@@ -1,5 +1,4 @@
-"""Time K2's analytical launch built from two source trees, in turns, on
-one card.
+"""Time K2's launch built from two source trees, in turns, on one card.
 
 The sibling of `k1_pair` for the backward kernel: builds the kernels of
 this checkout and of another one (for instance a parent commit unpacked
@@ -9,11 +8,14 @@ key and numpy-seeded cotangent at 1920x1080, depth 4, spp 1, in the order
 other, this, this, other, three times. Prints the mean launch time of each
 (CUDA events, 20 launches after a warm-up), their ratio, whether the two
 gradients are bit-equal, and the card's name and power limit; the last
-line is the same as one JSON object. The other tree's `pt_render_backward`
-must take this tree's arguments.
+line is the same as one JSON object. With several scenes (`--scene
+analytical sdf mesh`, the demo scenes of the families K2 takes) or several
+other trees, every scene against every other tree, each pair in turns.
+The other tree's entry point of the scene's backend must take this tree's
+arguments (a tree from before a backend's K2 has none to time).
 
 Usage:
-  python -m pathtracer_tpu_torch.tools.k2_pair --other DIR
+  python -m pathtracer_tpu_torch.tools.k2_pair --other DIR [DIR ...] [--scene analytical sdf]
 """
 
 from __future__ import annotations
@@ -26,16 +28,20 @@ import numpy as np
 import torch
 
 from ..integrator.tracer import VERBATIM
-from ..models.analytical import make_scene
+from ..models import families
 from ..ops import _build, rng
 from ..ops import megakernel as mk
-from .k1_pair import DEPTH, HEIGHT, WIDTH, card_name, in_turns
+from .k1_pair import DEPTH, HEIGHT, WIDTH, card_name, in_turns, registers
+
+# the families whose demo scenes K2 takes
+SCENES = tuple(name for name, b in mk.BACKENDS.items() if b.backward is not None)
 
 
 def launcher(csrc: Path, k: mk.KernelLaunch, ct: torch.Tensor):
-    """A call of `csrc`'s K2 on launch `k` and cotangent `ct`, into a
-    gradient of its own."""
+    """A call of `csrc`'s K2 with launch `k`'s backend on cotangent `ct`,
+    into a gradient of its own."""
     lib = _build.load("megakernel_bwd", csrc=csrc)
+    entry = getattr(lib, mk.BACKENDS[k.backend].backward)
     height, width = k.out.shape[:2]
     n_sv = k.sv.shape[1]
     partial = torch.empty((-(-width * height // lib.pt_backward_threads()), n_sv), device=k.sv.device)
@@ -43,9 +49,10 @@ def launcher(csrc: Path, k: mk.KernelLaunch, ct: torch.Tensor):
     stream = torch.cuda.current_stream(grad.device).cuda_stream
 
     def run() -> torch.Tensor:
-        err = lib.pt_render_backward(
+        err = entry(
             k.sv.data_ptr(), n_sv, k.keys.data_ptr(), ct.data_ptr(), partial.data_ptr(), grad.data_ptr(), width,
-            height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, stream,
+            height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
+            *k.counts, stream,
         )
         if err != 0:
             raise RuntimeError(f"launch failed: {lib.pt_error_string(err).decode()}")
@@ -54,27 +61,39 @@ def launcher(csrc: Path, k: mk.KernelLaunch, ct: torch.Tensor):
     return run
 
 
-def pair(other: Path, log=print) -> dict:
-    """K2's analytical launch of `other`'s tree against this one's, in
-    turns (k1_pair.in_turns)."""
+def pair(others: list[Path], scenes=("analytical",), log=print) -> list[dict]:
+    """K2's launch of each of `others`' trees against this one's, in turns
+    (k1_pair.in_turns), on the demo scene of each family in `scenes`."""
     dev = torch.device("cuda", 0)
-    scene = make_scene(recursion_depth=DEPTH, device=dev)
-    k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
+    card = card_name()
     ct = torch.from_numpy(np.random.default_rng(9).standard_normal((HEIGHT, WIDTH, 4)).astype(np.float32)).to(dev)
-    other_csrc = (other / "pathtracer_tpu_torch" / "csrc").resolve()
-    runs = {"other": launcher(other_csrc, k, ct), "this": launcher(_build.CSRC, k, ct)}
-    return in_turns(runs, f"K2 analytical launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1", card_name(), log)
+    results = []
+    for family in scenes:
+        scene = families.make_family_scene(family, recursion_depth=DEPTH, device=dev)
+        k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
+        for other in others:
+            other_csrc = (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
+            runs = {"other": launcher(other_csrc, k, ct), "this": launcher(_build.CSRC, k, ct)}
+            label = f"K2 {family} launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1, against {other}"
+            results.append({"scene": family, "other": str(other), **in_turns(runs, label, card, log)})
+    return results
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--other", required=True, type=Path, help="root of the other checkout")
+    ap.add_argument("--other", required=True, nargs="+", type=Path, help="root of each other checkout")
+    ap.add_argument("--scene", nargs="+", default=["analytical"], choices=SCENES,
+                    help="the demo scenes whose backends to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k2_pair needs a CUDA device")
-    result = pair(args.other)
-    print(result["card"])
-    print(json.dumps(result))
+    results = pair(args.other, args.scene)
+    for csrc in [_build.CSRC] + [(other / "pathtracer_tpu_torch" / "csrc").resolve() for other in args.other]:
+        print(f"K2 build of {csrc}:")
+        for line in registers(csrc, "megakernel_bwd", "render_backward_kernel"):
+            print("  " + line)
+    print(results[0]["card"])
+    print(json.dumps(results if len(results) > 1 else results[0]))
     return 0
 
 

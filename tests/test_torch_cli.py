@@ -109,7 +109,7 @@ def test_invert_cli_scene_choices():
     assert (invert.parse_args([]).scene, invert.parse_args(["--scene", "sdf"]).device) == ("analytical", "cuda")
     with pytest.raises(SystemExit):
         invert.parse_args(["--scene", "teapot"])
-    with pytest.raises(SystemExit):  # the mesh scenes do not train yet (ROADMAP item 12)
+    with pytest.raises(SystemExit):  # no mesh demo: the JAX CLI has none (inverse_render trains a mesh)
         invert.parse_args(["--scene", "mesh"])
 
 

@@ -18,12 +18,22 @@ of the march's gradient is the cost, ~50 s cold, ~70 s at depth 2): one
 JAX run of 4 steps, the port's first 3 steps and its resume from JAX's
 step-2 checkpoint.
 
+The mesh's vertex recovery (`inverse_render` on the demo mesh from a
+start with the pyramid's apex raised from y 0.9 to 1.25 and the light's
+emission x 0.45, selecting the vertices' y and the emission, lr 3e-2, spp
+1, toward JAX's render of the demo mesh) is held to JAX
+`inverse_render(kernel="xla")` at 32x16, depth 2, PRNGKey(3): the losses
+of 3 steps and the leaves after them, rtol 1e-3. JAX runs it op by op
+(`jax.disable_jit`): XLA's compile of the mesh's gradient outgrows 10 GB
+of host memory.
+
 The JAX runs are committed: tests/golden_torch/invert_analytical_32x16_d2_k1/
 and invert_sdf_16x8_d1_k1/ (JAX's checkpoints after steps 2 and 3, and
-report.npz with the losses and the recovered leaves), and
-inverse_render_16x8_d2_k5.npz. Regenerate them with
+report.npz with the losses and the recovered leaves),
+inverse_render_16x8_d2_k5.npz and invert_mesh_32x16_d2_k3.npz (the
+target, the losses and the leaves). Regenerate them with
 `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_inverse.py` (about
-two minutes); their guard is marked `slow`.
+four minutes); their guard is marked `slow`.
 """
 
 import os
@@ -32,6 +42,8 @@ import types
 
 import jax
 import numpy as np
+
+import pathtracer_tpu as pt
 import pytest
 import torch
 
@@ -40,9 +52,10 @@ from pathtracer_tpu.integrator.inverse import inverse_render as jax_inverse_rend
 from pathtracer_tpu.integrator.inverse import recover_demo as jax_recover_demo
 from pathtracer_tpu.integrator.inverse import select_leaves as jax_select_leaves
 from pathtracer_tpu.models.analytical import make_scene as jax_make_scene
+from pathtracer_tpu.models.mesh import make_scene as jax_make_mesh_scene
 from pathtracer_tpu.models.sdf import make_scene as jax_make_sdf_scene
 from pathtracer_tpu_torch.integrator import inverse as inv
-from pathtracer_tpu_torch.models import sdf
+from pathtracer_tpu_torch.models import mesh, sdf
 from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.utils import checkpoint as ck
@@ -68,6 +81,7 @@ INVERSE_RENDER_CASES = {
     "mse_fresh_keys": dict(crn=False, unbiased=False, clamp=False, kernel="megakernel"),
 }
 INVERSE_RENDER_SELECT = ("materials.rgb", "lights.emission")
+MESH_FIXTURE = os.path.join(GOLDEN, "invert_mesh_32x16_d2_k3.npz")
 
 
 def jax_recover(family: str, directory: str) -> None:
@@ -239,6 +253,49 @@ def test_jax_fixtures_are_what_jax_computes(tmp_path):
         assert sorted(got) == sorted(want.files)
         for k in want.files:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    with np.load(MESH_FIXTURE) as want:  # op by op: bit for bit
+        got = jax_mesh_inverse_render()
+        assert sorted(got) == sorted(want.files)
+        for k in want.files:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def jax_mesh_inverse_render() -> dict:
+    """JAX inverse_render(kernel="xla") of the mesh's vertex recovery, 3
+    steps at 32x16, depth 2, PRNGKey(3), toward JAX's render of the demo
+    mesh (PRNGKey(17)); op by op. Returns the target, the losses and the
+    optimized leaves by name."""
+    true = jax_make_mesh_scene(recursion_depth=DEPTH)
+    p, lights = true.params, true.lights
+    start = true.replace(
+        params=p._replace(vertices=p.vertices._replace(y=p.vertices.y.at[inv.MESH_APEX].set(inv.MESH_APEX_Y))),
+        lights=lights._replace(emission=lights.emission._replace(
+            **{c: getattr(lights.emission, c) * inv.MESH_DIM for c in "xyz"})),
+    )
+    with jax.disable_jit():
+        target = pt.render_frame(true, jax.random.PRNGKey(17), W, H)
+        res = jax_inverse_render(start, target, jax.random.PRNGKey(3), inv.MESH_SELECT, W, H, kernel="xla",
+                                 steps=3, lr=3e-2, spp=1)
+    want, _, names = jax_select_leaves(res.scene, inv.MESH_SELECT)
+    return {"target": np.asarray(target), "losses": np.asarray(res.losses),
+            **{name: np.asarray(r) for name, r in zip(names, want)}}
+
+
+def test_mesh_inverse_render_matches_jax():
+    """The eager mesh trainer, 3 steps of the paired loss, against JAX's as
+    committed: the losses and the vertices' y and the emission after them
+    within rtol 1e-3; the dimmed emission grows toward the truth."""
+    with np.load(MESH_FIXTURE) as data:
+        want = {k: data[k] for k in data.files}
+    start = inv.mesh_start_scene(mesh.make_scene(recursion_depth=DEPTH))
+    out = inv.inverse_render(start, torch.from_numpy(want["target"]), rng.prng_key(3), inv.MESH_SELECT, W, H,
+                             steps=3, lr=3e-2, spp=1, kernel="eager")
+    np.testing.assert_allclose(out.losses.numpy(), want["losses"], rtol=1e-3)
+    got, _, names = inv.select_leaves(out.scene, inv.MESH_SELECT)
+    assert sorted(names + ["losses", "target"]) == sorted(want)
+    for name, g in zip(names, got):
+        np.testing.assert_allclose(g.detach().numpy(), want[name], rtol=1e-3, atol=1e-9, err_msg=name)
+    assert all(float(c) > 3.0 * inv.MESH_DIM for c in out.scene.lights.unpack().emission)
 
 
 def test_megakernel_path_on_cpu_is_the_plain_version():
@@ -315,3 +372,4 @@ if __name__ == "__main__":
         os.makedirs(directory, exist_ok=True)
         jax_recover(fam, directory)
     np.savez(INVERSE_RENDER_FIXTURE, **jax_inverse_render_runs())
+    np.savez(MESH_FIXTURE, **jax_mesh_inverse_render())

@@ -26,13 +26,24 @@ that chip_smoke.py finds at any size):
 
     python tests/test_torch_k2_rounding.py --scene sdf --width 1920 --height 1080 --seed 45 --pixel 1898726
 
-`--grazing BELOW` takes every pixel whose plain path meets an SDF hit at
-|<rd, n>| < BELOW (phase 13 masks them at 1e-3), differentiates each alone
-with both contraction modes, and prints what the set adds to phase 13's
+`--scene mesh` rehearses K2 with the mesh backend (chip_smoke.py phase
+21), masking beside the knife-edge pixels those whose plain path passes
+near an edge (`ops/megakernel_mesh.hit_margins`: the winner's
+min(u, v, 1 - u - v) below 3e-5, or |det| below 1e-5), where the last bits
+of the ray can pick the other triangle of a shared edge.
+
+`--grazing BELOW` takes every pixel whose plain path meets a hit that the
+last bits of the ray can move: on the SDF scene a hit at |<rd, n>| < BELOW
+(phase 13 masks them at 1e-3), on the analytical scene likewise a grazing
+sphere or plane hit (at a silhouette the sphere test's 1/sqrt(r^2 - d^2)),
+on the mesh a hit whose barycentric margin is below BELOW (phase 21 masks
+them at 3e-5, with |det| below 1e-5). It differentiates each pixel alone
+with both contraction modes, and prints what the set adds to the phase's
 two numbers in each mode. The set and the frame's plain gradient come from
-`--device`, a card at 1080p:
+`--device`, a card at 1080p, and `--seeds` runs several frames:
 
     python tests/test_torch_k2_rounding.py --scene sdf --width 1920 --height 1080 --seed 45 --grazing 1e-3 --device cuda
+    python tests/test_torch_k2_rounding.py --scene mesh --width 320 --height 240 --seeds 81 82 83 --grazing 3e-5 --device cuda
 
 `--trainer STEPS` runs the SDF `recover_demo` with the host build in the
 place of K1 and K2, in both modes, against the eager trainer, as phase 15
@@ -64,10 +75,12 @@ from pathtracer_tpu_torch.models.camera import gen_ray, pixel_coords  # noqa: E4
 from pathtracer_tpu_torch.models.families import family_of, make_family_scene  # noqa: E402
 from pathtracer_tpu_torch.ops import _build, rng  # noqa: E402
 from pathtracer_tpu_torch.ops import megakernel as mk  # noqa: E402
+from pathtracer_tpu_torch.ops import megakernel_mesh as mkm  # noqa: E402
 from pathtracer_tpu_torch.ops import megakernel_sdf as mks  # noqa: E402
-from pathtracer_tpu_torch.ops.vecmath import V2  # noqa: E402
+from pathtracer_tpu_torch.ops.vecmath import V2, dot  # noqa: E402
 from test_torch_kernel_bwd_host import SHIM as BWD_SHIM  # noqa: E402
 from test_torch_kernel_host import PRELUDE, SHIM as FWD_SHIM, launch_keys  # noqa: E402
+from test_torch_mesh_kernel_bwd_host import SHIM as MESH_BWD_SHIM  # noqa: E402
 from test_torch_sdf_kernel_bwd_host import SHIM as SDF_BWD_SHIM  # noqa: E402
 from test_torch_kernel_host import one_torch_thread  # noqa: E402, F401
 
@@ -98,16 +111,67 @@ extern "C" void host_render_sdf(const float* sv, const int* counts, const uint32
 }
 """
 
+# One pixel of the analytical scene's K2, beside its shims' host_grad and
+# host_render.
+ANALYTICAL_PIXEL = r"""
+extern "C" void host_grad_pixel(const float* sv, const uint32_t* keys, const float* ct, float* grad, int p, int width,
+                                int height, int depth, int n_lights, int n_materials, int flags) {
+  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
+  pt::trace_sample_adj<pt::AnalyticalAdj>(s, p, width * height, width, height, depth, flags, keys[0], keys[1],
+                                          keys[2], keys[3], pt::v3(ct[0], ct[1], ct[2]), {grad, 1});
+}
+"""
+
+# K1 with the mesh backend and one pixel of K2, beside the mesh adjoint's
+# shim (which has host_grad_mesh).
+MESH_RENDER = r"""
+extern "C" void host_grad_pixel_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
+                                     const float* ct, float* grad, int p, int width, int height, int depth,
+                                     int n_lights, int n_materials, int flags) {
+  const pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
+  pt::trace_sample_adj<pt::MeshAdj>(s, p, width * height, width, height, depth, flags, keys[0], keys[1], keys[2],
+                                    keys[3], pt::v3(ct[0], ct[1], ct[2]), {grad, 1});
+}
+
+extern "C" void host_render_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
+                                 float* out, int width, int height, int spp, int depth, int n_lights, int n_materials,
+                                 int flags) {
+  const int n = width * height;
+  const pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
+  for (int p = 0; p < n; ++p) {
+    const pt::V3 r = pt::trace_sample<pt::Mesh>(s, p, n, width, height, depth, flags, keys[0], keys[1], keys[2],
+                                                keys[3]);
+    out[4 * p + 0] = r.x;
+    out[4 * p + 1] = r.y;
+    out[4 * p + 2] = r.z;
+    out[4 * p + 3] = 1.0f;
+  }
+}
+"""
+
 EDGE_TOL, GRAD_MAX_TOL, GRAD_RTOL = 1e-3, 1e-2, 2e-2
+# Phase 21's mask of the mesh's near-edge hits (ops/megakernel_mesh.hit_margins).
+MESH_MARGIN, MESH_DET = 3e-5, 1e-5
 CONTRACT = {"fast": ["-mfma", "-ffp-contract=fast"], "off": ["-ffp-contract=off"]}
+# family -> (its K2 frame, K1 frame and one-pixel K2 entry points); each
+# takes head(family) first (the packed vector, then the SDF counts or the
+# mesh's topology and sizes)
+ENTRIES = {
+    "analytical": ("host_grad", "host_render", "host_grad_pixel"),
+    "sdf": ("host_grad_sdf", "host_render_sdf", "host_grad_pixel_sdf"),
+    "mesh": ("host_grad_mesh", "host_render_mesh", "host_grad_pixel_mesh"),
+}
 
 
 def build(flags: list[str], directory: Path, scene: str = "analytical") -> ctypes.CDLL:
-    """The scene family's K2 and K1 host shims in one library (host_grad
-    and host_render; host_grad_sdf, host_grad_pixel_sdf and host_render_sdf,
-    which take the primitive counts after sv); the unfused intrinsics stay
-    out of line, so contraction cannot merge them."""
-    source = BWD_SHIM + FWD_SHIM[len(PRELUDE):] if scene == "analytical" else SDF_BWD_SHIM + SDF_RENDER
+    """The scene family's K2 and K1 host shims in one library (ENTRIES);
+    the unfused intrinsics stay out of line, so contraction cannot merge
+    them."""
+    source = {
+        "analytical": BWD_SHIM + FWD_SHIM[len(PRELUDE):] + ANALYTICAL_PIXEL,
+        "sdf": SDF_BWD_SHIM + SDF_RENDER,
+        "mesh": MESH_BWD_SHIM + MESH_RENDER,
+    }[scene]
     source = source.replace("static inline float __f", "__attribute__((noinline)) static float __f")
     (directory / "shim.cpp").write_text(source)
     so = directory / "libshim.so"
@@ -115,14 +179,61 @@ def build(flags: list[str], directory: Path, scene: str = "analytical") -> ctype
                     "-o", str(so), str(directory / "shim.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    if scene == "analytical":
-        lib.host_grad.argtypes = [p, p, p, p, i, i, i, i, i, i, i]
-        lib.host_render.argtypes = [p, p, p, i, i, i, i, i, i, i]
-    else:
-        lib.host_grad_sdf.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i]
-        lib.host_render_sdf.argtypes = [p, p, p, p, i, i, i, i, i, i, i]
-        lib.host_grad_pixel_sdf.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i]
+    head = {"analytical": [p], "sdf": [p, p], "mesh": [p, p, i, i]}[scene]
+    grad, render, pixel = (getattr(lib, name) for name in ENTRIES[scene])
+    grad.argtypes = head + [p, p, p, i, i, i, i, i, i, i]
+    render.argtypes = head + [p, p, i, i, i, i, i, i, i]
+    pixel.argtypes = head + [p, p, p, i, i, i, i, i, i, i]
     return lib
+
+
+def head(scene, sv: torch.Tensor) -> tuple[tuple, tuple]:
+    """The entry points' leading arguments for the scene's family, and the
+    tensors they point into (to hold until the call returns)."""
+    family = family_of(scene)
+    if family == "analytical":
+        return (sv.data_ptr(),), ()
+    if family == "sdf":
+        counts = torch.tensor(mks.sdf_counts(scene), dtype=torch.int32)
+        return (sv.data_ptr(), counts.data_ptr()), (counts,)
+    (topo,) = mkm.mesh_topology(scene)
+    return (sv.data_ptr(), topo.data_ptr(), *mkm.mesh_counts(scene)), (topo,)
+
+
+def hit_cosines(scene, key, width: int, height: int) -> torch.Tensor:
+    """|<rd, n>| where each bounce of the plain version's path (spp 1,
+    VERBATIM) meets the analytical scene, [depth, n], +inf where the path
+    is dead or misses."""
+    p, dev = scene.params.unpack(), scene.device
+    out = []
+    with torch.no_grad():
+        step = T.make_bounce_step(scene, T.VERBATIM, detach=True)
+        cam_u, bounce_u = T.draw_uniforms(key, width * height, scene.recursion_depth, torch.float32, dev)
+        ro, rd = gen_ray(scene.camera.unpack(), pixel_coords(width, height, torch.float64, dev),
+                         V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
+        state = T.init_state(ro, rd, T.VERBATIM)
+        for u in bounce_u:
+            hit = scene.closest_hit_fn(p, state.ro, state.rd)
+            cos = dot(state.rd, hit.normal).abs()
+            out.append(torch.where(state.alive & torch.isfinite(hit.t), cos, torch.inf))
+            state = step(state, u)
+    return torch.stack(out)
+
+
+def moved_pixels(scene, key, width: int, height: int, below: float) -> torch.Tensor:
+    """The pixels whose plain path (spp 1, VERBATIM) meets a hit that the
+    last bits of the incoming ray can move, by `--grazing BELOW`: an SDF or
+    analytical hit at |<rd, n>| < below, a mesh hit at a barycentric margin
+    below `below` or |det| < MESH_DET."""
+    family = family_of(scene)
+    if family == "sdf":
+        near = mks.hit_cosines(scene, key, width, height)[0] < below
+    elif family == "mesh":
+        margin, det = mkm.hit_margins(scene, key, width, height)
+        near = (margin[0] < below) | (det[0] < MESH_DET)
+    else:
+        near = hit_cosines(scene, key, width, height) < below
+    return near.any(0).nonzero()[:, 0].cpu()
 
 
 def plain(scene, key, sv, ct, width: int, height: int, pixels: torch.Tensor | None = None, chunk: int = 65536):
@@ -159,31 +270,34 @@ def grad_gap(g: torch.Tensor, r: torch.Tensor) -> tuple[float, float]:
 
 
 def rehearse(lib, width: int, height: int, seed: int, family: str = "analytical") -> dict:
-    """Phase 6's (phase 13's, for the SDF family) comparison on the host:
-    the knife-edge pixel count and the gap over all pixels and with the
-    knife-edge pixels masked."""
+    """Phase 6's (phase 13's for the SDF family, 21's for the mesh)
+    comparison on the host: the knife-edge pixel count and the gap over all
+    pixels and with the knife-edge pixels masked; on the mesh the pixels
+    near an edge (MESH_MARGIN, MESH_DET) are masked too and counted."""
     scene, key = make_family_scene(family), rng.prng_key(seed)
     sv, keys = mk.BACKENDS[family].pack(scene, width, height).contiguous(), launch_keys(key, 1)
-    counts = torch.tensor(mks.sdf_counts(scene) if family == "sdf" else (), dtype=torch.int32)
-    head = (sv.data_ptr(),) if family == "analytical" else (sv.data_ptr(), counts.data_ptr())
+    lead, held = head(scene, sv)
     ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((height, width, 4)).astype(np.float32))
     shape = (width, height, 1, scene.recursion_depth, scene.num_lights,
              int(scene.params.materials.roughness.shape[0]), mk.kernel_flags(scene, T.VERBATIM))
-
-    grad_fn, render_fn = (lib.host_grad, lib.host_render) if family == "analytical" else (
-        lib.host_grad_sdf, lib.host_render_sdf)
+    grad_fn, render_fn, _ = (getattr(lib, name) for name in ENTRIES[family])
 
     def host_grad(c):
         c, g = c.contiguous(), torch.zeros(sv.shape[1])  # held: the library reads their memory
-        grad_fn(*head, keys.data_ptr(), c.data_ptr(), g.data_ptr(), *shape)
+        grad_fn(*lead, keys.data_ptr(), c.data_ptr(), g.data_ptr(), *shape)
         return g.double()
 
     img = torch.empty((height, width, 4))
-    render_fn(*head, keys.data_ptr(), img.data_ptr(), *shape)
+    render_fn(*lead, keys.data_ptr(), img.data_ptr(), *shape)
     frame, ref = plain(scene, key, sv, ct, width, height)
     edge = (img[..., :3] - frame).abs().amax(-1) > EDGE_TOL
     out = dict(edge=int(edge.sum()), all=grad_gap(host_grad(ct), ref))
-    if out["edge"]:
+    if family == "mesh":
+        near = torch.zeros(width * height, dtype=torch.bool)
+        near[moved_pixels(scene, key, width, height, MESH_MARGIN)] = True
+        out["near_edge"] = int((near.reshape(height, width) & ~edge).sum())
+        edge = edge | near.reshape(height, width)
+    if edge.any():
         masked = ct * (~edge)[..., None]
         out["masked"] = grad_gap(host_grad(masked), plain(scene, key, sv, masked, width, height)[1])
     else:
@@ -201,52 +315,57 @@ def test_contracted_backward_matches_plain(tmp_path):
     assert max_rel <= GRAD_MAX_TOL and big_rel <= GRAD_RTOL, out
 
 
-def sdf_pixel_grads(lib, scene, key, sv, ct, width: int, height: int, pixels) -> torch.Tensor:
-    """The SDF scene's host K2 on each of `pixels` alone (spp 1, VERBATIM),
+def pixel_grads(lib, scene, key, sv, ct, width: int, height: int, pixels) -> torch.Tensor:
+    """The scene's host K2 on each of `pixels` alone (spp 1, VERBATIM),
     [n, P] float64."""
     keys = launch_keys(key, 1)
-    counts = torch.tensor(mks.sdf_counts(scene), dtype=torch.int32)
+    lead, held = head(scene, sv)
+    entry = getattr(lib, ENTRIES[family_of(scene)][2])
     ct = ct.reshape(-1, 4)
     out = torch.zeros((len(pixels), sv.shape[1]), dtype=torch.float64)
     for j, p in enumerate(pixels.tolist()):
         c, g = ct[p].contiguous(), torch.zeros(sv.shape[1])  # held: the library reads their memory
-        lib.host_grad_pixel_sdf(sv.data_ptr(), counts.data_ptr(), keys.data_ptr(), c.data_ptr(), g.data_ptr(), p,
-                                width, height, scene.recursion_depth, scene.num_lights,
-                                int(scene.params.materials.roughness.shape[0]), mk.kernel_flags(scene, T.VERBATIM))
+        entry(*lead, keys.data_ptr(), c.data_ptr(), g.data_ptr(), p, width, height, scene.recursion_depth,
+              scene.num_lights, int(scene.params.materials.roughness.shape[0]), mk.kernel_flags(scene, T.VERBATIM))
         out[j] = g.double()
     return out
 
 
-def sdf_frame(width: int, height: int, seed: int):
-    """Phase 13's SDF case on the CPU: the scene, its key, its packed
-    vector and the numpy-seeded cotangent."""
-    scene, key = make_family_scene("sdf"), rng.prng_key(seed)
-    sv = mks.pack_sdf_scene(scene, width, height).contiguous()
+def frame_case(width: int, height: int, seed: int, family: str = "sdf"):
+    """A phase's case on the CPU: the family's demo scene, its key, its
+    packed vector and the numpy-seeded cotangent."""
+    scene, key = make_family_scene(family), rng.prng_key(seed)
+    sv = mk.BACKENDS[family].pack(scene, width, height).contiguous()
     ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((height, width, 4)).astype(np.float32))
     return scene, key, sv, ct
 
 
-def grazing_witness(width: int, height: int, seed: int, below: float, device: str) -> dict:
-    """Phase 13's grazing pixels (the plain path meets an SDF hit at
-    |<rd, n>| < below; found on `device`), each differentiated alone by the
-    host build under both contraction modes and, summed, by the plain
-    version on the CPU: for each mode, what the set adds to phase 13's two
-    numbers (max|d| over max|g| of the whole frame's plain gradient, which
-    runs on `device`, and the largest relative error among the frame's
-    entries above 1e-2 max|g|), and the largest per-pixel gap between the
-    two modes over that max|g|."""
-    scene, key, sv, ct = sdf_frame(width, height, seed)
-    dev_scene = make_family_scene("sdf", device=device)
-    cos = mks.hit_cosines(dev_scene, key, width, height)
-    pixels = (cos < below).flatten(0, 1).any(0).nonzero()[:, 0].cpu()
+def grazing_witness(width: int, height: int, seed: int, below: float, device: str, family: str = "sdf",
+                    libs: dict | None = None) -> dict:
+    """The pixels a phase masks beside the knife-edge ones (moved_pixels:
+    phase 13's grazing SDF hits, phase 21's near-edge mesh hits, the
+    analytical scene's grazing hits; found on `device`), each
+    differentiated alone by the host build under both contraction modes
+    and, summed, by the plain version on the CPU: for each mode, what the
+    set adds to the phase's two numbers (max|d| over max|g| of the whole
+    frame's plain gradient, which runs on `device`, and the largest
+    relative error among the frame's entries above 1e-2 max|g|), and the
+    largest per-pixel gap between the two modes over that max|g|. `libs`
+    holds the family's host build of each mode (built here if None)."""
+    scene, key, sv, ct = frame_case(width, height, seed, family)
+    dev_scene = make_family_scene(family, device=device)
+    pixels = moved_pixels(dev_scene, key, width, height, below)
     frame = mk.render_grad_reference(sv.to(device), dev_scene, key, ct.to(device), width, height)[0].double().cpu()
     scale = frame.abs().max()
     big = frame.abs() > 1e-2 * scale
-    ref = plain(scene, key, sv, ct, width, height, pixels)[1]
     out, per_pixel = dict(pixels=len(pixels)), {}
+    if not len(pixels):
+        return {**out, **{contract: (0.0, 0.0) for contract in CONTRACT}, "modes": 0.0}
+    ref = plain(scene, key, sv, ct, width, height, pixels)[1]
+    libs = libs or {contract: build(flags, Path(tempfile.mkdtemp(prefix="k2_rounding_")), family)
+                    for contract, flags in CONTRACT.items()}
     for contract in CONTRACT:
-        lib = build(CONTRACT[contract], Path(tempfile.mkdtemp(prefix="k2_rounding_")), "sdf")
-        per_pixel[contract] = sdf_pixel_grads(lib, scene, key, sv, ct, width, height, pixels)
+        per_pixel[contract] = pixel_grads(libs[contract], scene, key, sv, ct, width, height, pixels)
         d = (per_pixel[contract].sum(0) - ref).abs()
         out[contract] = (float(d.max() / scale), float((d[big] / frame.abs()[big]).max()))
     out["modes"] = float((per_pixel["fast"] - per_pixel["off"]).abs().max() / scale)
@@ -292,9 +411,9 @@ def one_pixel(lib, width: int, height: int, seed: int, pixel: int) -> tuple[floa
     pixel (spp 1, VERBATIM, phase 13's cotangent), and |<rd, n>| at the
     plain path's hits, bounce by bounce (None where the lane is dead or
     misses)."""
-    scene, key, sv, ct = sdf_frame(width, height, seed)
+    scene, key, sv, ct = frame_case(width, height, seed)
     idx = torch.tensor([pixel])
-    g = sdf_pixel_grads(lib, scene, key, sv, ct, width, height, idx)[0]
+    g = pixel_grads(lib, scene, key, sv, ct, width, height, idx)[0]
     ref = plain(scene, key, sv, ct, width, height, idx)[1]
     cos = mks.hit_cosines(scene, key, width, height, pixels=idx)[0, :, 0].tolist()
     return float((g - ref).abs().max() / ref.abs().max()), [None if c == float("inf") else c for c in cos]
@@ -305,12 +424,14 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--seed", type=int, default=24)
+    ap.add_argument("--seeds", type=int, nargs="+", default=None, help="(--grazing) several frames, one per seed")
     ap.add_argument("--contract", choices=tuple(CONTRACT), default="fast")
     ap.add_argument("--threads", type=int, default=4)
-    ap.add_argument("--scene", choices=("analytical", "sdf"), default="analytical")
+    ap.add_argument("--scene", choices=tuple(ENTRIES), default="analytical")
     ap.add_argument("--pixel", type=int, default=None, help="(--scene sdf) differentiate this pixel alone")
     ap.add_argument("--grazing", type=float, default=None, metavar="BELOW",
-                    help="(--scene sdf) the pixels with a hit at |<rd, n>| < BELOW, alone, in both modes")
+                    help="the pixels with a hit the ray's last bits can move (|<rd, n>| < BELOW; on the mesh a "
+                    "barycentric margin < BELOW), alone, in both modes")
     ap.add_argument("--device", default="cpu", help="(--grazing) where to find the pixels and the frame's gradient")
     ap.add_argument("--trainer", type=int, default=None, metavar="STEPS",
                     help="(--scene sdf) the SDF trainer through the host build against the eager one")
@@ -337,18 +458,22 @@ def main(argv=None) -> int:
                   + ", ".join(f"{r.name} {x:.3e}" for r, x in zip(want.rows, leaf_rel)))
         return 0
     if args.grazing is not None:
-        out = grazing_witness(args.width, args.height, args.seed, args.grazing, args.device)
-        print(f"sdf {args.width}x{args.height}, seed {args.seed}: {out['pixels']} pixels with a hit at "
-              f"|<rd, n>| < {args.grazing}")
-        for contract in CONTRACT:
-            print(f"their host K2 against the plain version, -ffp-contract={contract}: max|d|/max|g| "
-                  f"{out[contract][0]:.3e}, entries > 1e-2 max rel {out[contract][1]:.3e}")
-        print(f"largest per-pixel gap between the modes: {out['modes']:.3e} of max|g|")
+        what = (f"a barycentric margin < {args.grazing} or |det| < {MESH_DET}" if args.scene == "mesh"
+                else f"|<rd, n>| < {args.grazing}")
+        libs = {contract: build(flags, Path(tempfile.mkdtemp(prefix="k2_rounding_")), args.scene)
+                for contract, flags in CONTRACT.items()}
+        for seed in args.seeds or [args.seed]:
+            out = grazing_witness(args.width, args.height, seed, args.grazing, args.device, args.scene, libs)
+            print(f"{args.scene} {args.width}x{args.height}, seed {seed}: {out['pixels']} pixels with a hit at {what}")
+            for contract in CONTRACT:
+                print(f"  their host K2 against the plain version, -ffp-contract={contract}: max|d|/max|g| "
+                      f"{out[contract][0]:.3e}, entries > 1e-2 max rel {out[contract][1]:.3e}")
+            print(f"  largest per-pixel gap between the modes: {out['modes']:.3e} of max|g|")
         return 0
     lib = build(CONTRACT[args.contract], Path(tempfile.mkdtemp(prefix="k2_rounding_")), args.scene)
     out = rehearse(lib, args.width, args.height, args.seed, args.scene)
     print(f"{args.scene} {args.width}x{args.height}, depth 4, -ffp-contract={args.contract}: {out['edge']} "
-          "knife-edge pixels")
+          "knife-edge pixels" + (f", {out['near_edge']} more near an edge" if "near_edge" in out else ""))
     for label, key in (("all pixels", "all"), ("knife-edge pixels masked", "masked")):
         print(f"{label}: max|d|/max|g| {out[key][0]:.3e}, entries > 1e-2 max rel {out[key][1]:.3e}")
     return 0

@@ -1,13 +1,13 @@
 """The CUDA megakernels K1 (with the analytical, SDF, mesh and big mesh
-backends) and K2 (analytical and SDF), and the march-step counter K6,
-against their plain PyTorch versions, on the card.
+backends) and K2 (analytical, SDF and mesh), and the march-step counter
+K6, against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test asks the `cuda_device` fixture for the card and
 skips without one. This file imports no JAX; the JAX side is the committed
 renders tests/golden_torch/analytical_64x48_d4_k3.npy,
 sdf_64x48_d4_k3.npy, mesh_64x48_d4_k3.npy and bigmesh_64x48_d4_k3.npy and
-gradient
-tests/golden_torch/grad_analytical_64x48_d4_k3.npz. Run on a CUDA host
+gradients tests/golden_torch/grad_analytical_64x48_d4_k3.npz and
+grad_mesh_64x48_d4_k3.npz. Run on a CUDA host
 (the conftest imports JAX, which that host may lack):
 `python -m pytest --noconftest tests/test_torch_kernel_cuda.py -q`.
 
@@ -15,8 +15,9 @@ K2's tolerance, as chip_smoke.py phase 6: with the cotangent zeroed at the
 knife-edge pixels (the two forward frames differ by more than 1e-3 there:
 K2 differentiates K1's branch, the plain version the other),
 max|g_k - g_p| <= 1e-2 max|g_p| and entries above 1e-2 max|g_p| agree to
-rtol 2e-2. Against the JAX gradient fixture, the tolerances of
-tests/test_torch_grad.py.
+rtol 2e-2; K2-mesh also with the pixels whose plain path passes near an
+edge masked (chip_smoke.py phase 21). Against the JAX gradient fixtures,
+the tolerances of tests/test_torch_grad.py.
 """
 
 import os
@@ -30,12 +31,14 @@ from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
 from pathtracer_tpu_torch.models import families, sdf
 from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import megakernel as MK
+from pathtracer_tpu_torch.ops import megakernel_mesh as MM
 from pathtracer_tpu_torch.ops import megakernel_sdf as MS
 from pathtracer_tpu_torch.ops import rng
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "analytical_64x48_d4_k3.npy")
 SDF_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "sdf_64x48_d4_k3.npy")
 GRAD_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "grad_analytical_64x48_d4_k3.npz")
+MESH_GRAD_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "grad_mesh_64x48_d4_k3.npz")
 pytestmark = pytest.mark.cuda
 
 
@@ -225,9 +228,95 @@ def test_mesh_kernel_matches_jax_fixture(cuda_device, family):
     assert_image_close(img.cpu(), np.load(MESH_FIXTURES[family]))
 
 
-@pytest.mark.parametrize("family", ["mesh", "bigmesh"])
+@pytest.mark.parametrize("family", ["bigmesh"])
 def test_mesh_gradient_on_the_card_raises(cuda_device, family):
+    """K2 takes no big mesh: its gradient on the card raises, and never
+    runs eager autograd instead."""
     scene = families.make_family_scene(family, device=cuda_device)
     scene.params.vertices.x.requires_grad_(True)
+    launches = MK.render_frame_megakernel.launches
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         MK.render_frame_megakernel(scene, rng.prng_key(0), 16, 8)
+    assert MK.render_frame_megakernel.launches == launches
+
+
+@pytest.mark.parametrize("spp,quirks,seed", [(1, VERBATIM, 91), (2, VERBATIM, 92), (1, FIXED, 93)],
+                         ids=["spp1", "spp2", "fixed"])
+def test_mesh_backward_kernel_matches_plain_version(cuda_device, spp, quirks, seed):
+    """K2 with the mesh backend at 160x120, depth 4: through the autograd
+    Function (one K1 and one K2 launch, both with the mesh backend), then
+    against autograd of the plain version with the knife-edge pixels and
+    those near an edge masked."""
+    scene = families.make_family_scene("mesh", device=cuda_device)
+    key, (w, h) = rng.prng_key(seed), (160, 120)
+    leaf = scene.params.vertices.y.requires_grad_(True)
+    counts = (MK.render_frame_megakernel.mesh_launches, MK.render_frame_megakernel.mesh_bwd_launches)
+    (g_leaf,) = torch.autograd.grad((MK.render_frame_megakernel(scene, key, w, h, spp, quirks)[..., :3] ** 2).mean(),
+                                    leaf)
+    assert (MK.render_frame_megakernel.mesh_launches, MK.render_frame_megakernel.mesh_bwd_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert torch.isfinite(g_leaf).all() and float(g_leaf.abs().max()) > 0
+    leaf.requires_grad_(False)
+    k = MK.prepare_launch(scene, key, w, h, spp, quirks)
+    ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
+    assert torch.equal(MK.launch_backward(k, ct), MK.launch_backward(k, ct))  # reproducible bit for bit
+    edge = (MK.launch(k) - MK.render_frame_reference(scene, key, w, h, spp, quirks)).abs()[..., :3].amax(-1) > 1e-3
+    margin, det = MM.hit_margins(scene, key, w, h, spp, quirks)
+    near = ((margin < 3e-5) | (det < 1e-5)).flatten(0, 1).any(0).reshape(h, w)
+    assert int(near.sum()) <= 1e-3 * w * h
+    ct_m = ct * (~(edge | near))[..., None]
+    g = MK.launch_backward(k, ct_m).cpu().double().numpy().ravel()
+    r = MK.render_grad_reference(k.sv, scene, key, ct_m, w, h, spp, quirks).cpu().double().numpy().ravel()
+    assert np.isfinite(g).all() and np.abs(g - r).max() <= 1e-2 * np.abs(r).max()
+    big = np.abs(r) > 1e-2 * np.abs(r).max()
+    np.testing.assert_allclose(g[big], r[big], rtol=2e-2)
+
+
+def test_mesh_backward_kernel_matches_jax_fixture(cuda_device):
+    """Every float leaf of the mesh scene through the autograd Function and
+    pack_mesh_scene, at tests/test_torch_grad.py's tolerances (the
+    geometry's for the vertices and the camera)."""
+    scene = families.make_family_scene("mesh", device=cuda_device)
+    leaves = dict(inverse.named_leaves(scene))
+    with np.load(MESH_GRAD_FIXTURE) as data:
+        want = {n: data[n] for n in data.files}
+    names = sorted(want)
+    for n in names:
+        leaves[n].requires_grad_(True)
+    counts = (MK.render_frame_megakernel.mesh_launches, MK.render_frame_megakernel.mesh_bwd_launches)
+    img = MK.render_frame_megakernel(scene, rng.prng_key(3), 64, 48)
+    grads = torch.autograd.grad((img[..., :3] ** 2).mean(), [leaves[n] for n in names], allow_unused=True)
+    assert (MK.render_frame_megakernel.mesh_launches, MK.render_frame_megakernel.mesh_bwd_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    for n, got in zip(names, grads):
+        got = np.zeros(want[n].shape) if got is None else got.cpu().numpy()
+        rtol, atol = (1e-2, 1e-7) if n.startswith(("params.vertices", "camera")) else (5e-3, 1e-8)
+        np.testing.assert_allclose(got, want[n], rtol=rtol, atol=atol, err_msg=n)
+
+
+def test_mesh_backward_kernel_refuses_what_its_shared_memory_cannot_hold(cuda_device):
+    """A mesh whose packed vector fits K1's 48 KB but whose gradient table
+    exceeds K2's budget (the card's opt-in maximum) raises with its sizes."""
+    scene = families.make_family_scene("mesh", device=cuda_device)
+    p = scene.params.unpack()
+    extra = torch.zeros(200, device=cuda_device)
+    scene = scene.replace(params=p._replace(vertices=type(p.vertices)(*(torch.cat([c, extra]) for c in p.vertices))))
+    k = MK.prepare_launch(scene, rng.prng_key(0), 8, 8, 1, VERBATIM)
+    with pytest.raises(ValueError, match="shared memory"):
+        MK.launch_backward(k, torch.zeros((8, 8, 4), device=cuda_device))
+
+
+def test_mesh_training_step_is_two_forward_and_one_backward_launch(cuda_device):
+    """inverse_render(kernel="megakernel") on a CUDA mesh scene: 2 K1-mesh
+    launches and 1 K2-mesh launch a step, no other backend's."""
+    scene = families.make_family_scene("mesh", recursion_depth=2, device=cuda_device)
+    target = torch.full((16, 32, 4), 0.5, device=cuda_device)
+    names = ("launches", "bwd_launches", "mesh_launches", "mesh_bwd_launches", "sdf_launches", "sdf_bwd_launches",
+             "bigmesh_launches")
+    before = {n: getattr(MK.render_frame_megakernel, n) for n in names}
+    out = inverse.inverse_render(scene, target, rng.prng_key(3), ("params.vertices.y", "lights.emission"), 32, 16,
+                                 steps=2, lr=3e-2, spp=1, kernel="megakernel")
+    counts = {n: getattr(MK.render_frame_megakernel, n) - before[n] for n in names}
+    assert counts == dict(launches=4, bwd_launches=2, mesh_launches=4, mesh_bwd_launches=2, sdf_launches=0,
+                          sdf_bwd_launches=0, bigmesh_launches=0)
+    assert np.isfinite(out.losses.cpu().numpy()).all()

@@ -15,10 +15,24 @@ the float32 one against tests/golden_torch/mesh_64x48_d4_k3.npy (JAX's
 `pt.render_frame(make_scene(), PRNGKey(3), 64, 48)`, which chip_smoke.py
 holds K1's mesh backend to) within the image gate. Regenerate both with
 `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_mesh.py` (about a
-minute: JAX compiles the unrolled triangle chain); their guard is marked
-`slow`.
+minute: JAX compiles the unrolled triangle chain, and then the gradient
+below); their guard is marked `slow`.
+
+The gradient the backward kernel's mesh backend is held to: torch autograd
+of the eager `render_frame(detach=True)` with respect to every float leaf
+(the 17 vertices, camera, sky, light, materials) against
+tests/golden_torch/grad_mesh_64x48_d4_k3.npz, jax.grad of mean(rgb^2) of
+JAX's render_frame(detach=True, remat=True) at 64x48, depth 4, PRNGKey(3),
+at tests/test_torch_grad.py's tolerances (rtol 1e-2 / atol 1e-7 for the
+vertices and the camera, rtol 5e-3 / atol 1e-8 for the rest);
+chip_smoke.py phase 22 holds K2 to it. JAX runs that gradient op by op
+(`jax.disable_jit`): XLA's compile of it outgrew 10 GB of host memory at
+16x12, depth 1. The eager closest hit takes JAX's tie rule, the first
+minimum: at an edge two triangles share, t and its whole gradient are the
+first triangle's (torch.amin would share the gradient).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -28,12 +42,14 @@ import pytest
 import torch
 
 import pathtracer_tpu as pt
+from pathtracer_tpu.integrator.inverse import select_leaves as jax_select_leaves
 from pathtracer_tpu.models import mesh as JM
 from pathtracer_tpu.ops.intersect import ray_triangle as jax_ray_triangle
 from pathtracer_tpu.ops.megakernel_mesh import pack_mesh_scene as jax_pack_mesh_scene
 from pathtracer_tpu.ops.vecmath import V3 as JV3
 from pathtracer_tpu.utils.sceneio import scene_to_dict
 from pathtracer_tpu_torch.integrator import tracer as T
+from pathtracer_tpu_torch.integrator.inverse import named_leaves
 from pathtracer_tpu_torch.models import mesh as TM
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng
@@ -47,6 +63,8 @@ from test_torch_render import assert_image_close
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_torch")
 FIXTURE = os.path.join(GOLDEN, "mesh_64x48_d4_k3.npy")
 F64_FIXTURE = os.path.join(GOLDEN, "mesh_64x32_d4_k7_f64.npy")
+GRAD_FIXTURE = os.path.join(GOLDEN, "grad_mesh_64x48_d4_k3.npz")
+GEOMETRY = ("params.vertices", "camera")
 DTYPES = {"f64": (jnp.float64, torch.float64), "f32": (jnp.float32, torch.float32)}
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -232,8 +250,8 @@ def test_fixtures_are_what_jax_computes():
 
 def test_megakernel_cpu_path_is_the_plain_version_with_autograd():
     """On the CPU the wrapper is the plain version, which keeps eager
-    autograd to the vertices; on the card the gradient raises until K7
-    runs inside K2."""
+    autograd to the vertices; on the card K2 takes the mesh, and only the
+    big mesh's gradient raises."""
     scene = TM.make_scene(recursion_depth=2)
     launches = MK.render_frame_megakernel.launches
     img = MK.render_frame_megakernel(scene, rng.prng_key(6), 16, 8)
@@ -243,11 +261,130 @@ def test_megakernel_cpu_path_is_the_plain_version_with_autograd():
     (g,) = torch.autograd.grad(MK.render_frame_megakernel(scene, rng.prng_key(6), 16, 8).sum(),
                                scene.params.vertices.y)
     assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
+    MK._require_backward("mesh")
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        MK._require_backward("mesh")
+        MK._require_backward("bigmesh")
+
+
+def full_grad_close(got, want, name) -> bool:
+    """tests/test_torch_grad.py's tolerances, the geometry's for the
+    vertices and the camera."""
+    rtol, atol = (1e-2, 1e-7) if name.startswith(GEOMETRY) else (5e-3, 1e-8)
+    return bool(np.all(np.abs(np.asarray(got, np.float64) - want) <= atol + rtol * np.abs(want)))
+
+
+def jax_mesh_grads() -> dict:
+    """jax.grad of mean(img[..., :3]**2) of JAX's render_frame(detach=True,
+    remat=True) on the mesh demo (float32, depth 4, 64x48, PRNGKey(3)) with
+    respect to every float leaf, keyed by its dotted path; op by op."""
+    train, rebuild, names = jax_select_leaves(JM.make_scene(dtype=jnp.float32, recursion_depth=4), ("",))
+
+    def loss(tv):
+        img = pt.render_frame(rebuild(tv), jax.random.PRNGKey(3), 64, 48, detach=True, remat=True)
+        return jnp.mean(img[..., :3] ** 2)
+
+    with jax.disable_jit():
+        return {n: np.asarray(g) for n, g in zip(names, jax.grad(loss)(train))}
+
+
+def test_eager_grad_of_every_leaf_matches_jax_fixture():
+    scene = TM.make_scene()
+    leaves = dict(named_leaves(scene))
+    with np.load(GRAD_FIXTURE) as data:
+        want = {k: data[k] for k in data.files}
+    assert sorted(want) == sorted(n for n, leaf in leaves.items() if leaf.is_floating_point())
+    names = sorted(want)
+    for n in names:
+        leaves[n].requires_grad_(True)
+    img = T.render_frame(scene, rng.prng_key(3), 64, 48, detach=True)
+    grads = torch.autograd.grad((img[..., :3] ** 2).mean(), [leaves[n] for n in names], allow_unused=True)
+    for n, g in zip(names, grads):
+        got = np.zeros(want[n].shape) if g is None else g.numpy()
+        assert full_grad_close(got, want[n], n), (n, got, want[n])
+    # the vertices carry gradient (the hit distance and the normal), the
+    # pyramid's apex in every coordinate
+    for c in "xyz":
+        assert np.abs(want[f"params.vertices.{c}"]).max() > 1e-3 and want[f"params.vertices.{c}"][16] != 0, c
+
+
+@pytest.mark.slow
+def test_grad_fixture_is_what_jax_computes():
+    """About three minutes on a CPU (JAX op by op). Bit for bit: the op by
+    op run has no compile to vary. Regenerate with `JAX_PLATFORMS=cpu
+    PYTHONPATH=. python tests/test_torch_mesh.py`."""
+    want = jax_mesh_grads()
+    with np.load(GRAD_FIXTURE) as got:
+        assert sorted(got.files) == sorted(want)
+        for n in want:
+            np.testing.assert_array_equal(got[n], want[n], err_msg=n)
+
+
+def _roof(jax_side: bool):
+    """Two triangles sharing the edge x = y = 0, |z| <= 1, tilted 45
+    degrees to either side, in the JAX or the port's params."""
+    verts = [(0.0, 0.0, -1.0), (0.0, 0.0, 1.0), (1.0, -1.0, 0.0), (-1.0, -1.0, 0.0)]
+    if jax_side:
+        return dataclasses.replace(JM.default_params(jnp.float32), vertices=_jv3(np.array(verts).T, jnp.float32),
+                                   tri_idx=((0, 1, 2), (0, 1, 3)), tri_mat=(1, 2))
+    return TM.default_params()._replace(vertices=_tv3(np.array(verts).T, torch.float32),
+                                        tri_idx=torch.tensor([[0, 1, 2], [0, 1, 3]]), tri_mat=torch.tensor([1, 2]))
+
+
+def test_shared_edge_tie_gives_the_first_triangle_everything_as_jax():
+    """Rays down the y axis meet the roof's shared edge at t = 5 in both
+    triangles (exact arithmetic): the gradient of t and the normal is the
+    first triangle's alone in JAX's where-chain, and in the port."""
+    ro = np.array([[0.0, 0.0, 0.0], [5.0, 5.0, 5.0], [0.0, 0.5, -0.25]])
+    rd = np.array([[0.0, 0.0, 0.0], [-1.0, -1.0, -1.0], [0.0, 0.0, 0.0]])
+    ct_n = np.array([0.3, -0.7, 0.2])
+
+    def jax_out(vx, vy, vz):
+        p = dataclasses.replace(_roof(True), vertices=JV3(vx, vy, vz))
+        h = JM.closest_hit(p, _jv3(ro, jnp.float32), _jv3(rd, jnp.float32))
+        return jnp.sum(h.t + sum(getattr(h.normal, c) * w for c, w in zip("xyz", ct_n)))
+
+    jv = _roof(True).vertices
+    want = jax.grad(jax_out, argnums=(0, 1, 2))(jv.x, jv.y, jv.z)
+    p = _roof(False)
+    leaves = [c.requires_grad_(True) for c in p.vertices]
+    h = TM.closest_hit(p._replace(vertices=V3(*leaves)), _tv3(ro, torch.float32), _tv3(rd, torch.float32))
+    assert torch.equal(h.t, torch.full((3,), 5.0))
+    got = torch.autograd.grad((h.t + sum(n * w for n, w in zip(h.normal, ct_n))).sum(), leaves)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+    assert float(got[0][0]) != 0.0 and float(got[0][3]) == 0.0  # vertex 3 is the second triangle's alone
+
+
+def test_vertex_gradient_matches_central_differences():
+    """The eager mesh gradient to the pyramid apex's y against CRN central
+    differences (the same key, so the same uniforms), as the JAX package's
+    tests/test_bigmesh.py checks its big mesh: the detached estimator
+    leaves out the silhouette's moving visibility, so sign and a loose
+    magnitude only."""
+    scene = TM.make_scene(recursion_depth=2)
+    key, (w, h), j, eps = rng.prng_key(11), (48, 32), 16, 3e-3
+
+    def loss(vy):
+        p = scene.params.unpack()
+        s = scene.replace(params=p._replace(vertices=p.vertices._replace(y=vy)))
+        return (T.render_frame(s, key, w, h, detach=True)[..., :3] ** 2).mean()
+
+    vy0 = scene.params.vertices.y.detach().clone()
+    vy = vy0.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss(vy), vy)
+    assert torch.isfinite(g).all()
+    bump = torch.zeros_like(vy0)
+    bump[j] = eps
+    with torch.no_grad():
+        fd = float((loss(vy0 + bump) - loss(vy0 - bump)) / (2 * eps))
+    an = float(g[j])
+    assert np.isfinite(fd) and an != 0.0
+    assert fd * an > 0 or abs(fd - an) < 5e-3
+    assert abs(fd - an) <= 0.5 * max(abs(fd), abs(an)) + 5e-3
 
 
 if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     for path, frame in jax_frames().items():
         np.save(path, frame)
+    np.savez(GRAD_FIXTURE, **jax_mesh_grads())
