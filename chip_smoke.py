@@ -104,9 +104,27 @@ which raises on failure (non-zero exit):
    K2-mesh's bound from this frame's triangle tests; with `--other
    DIR`, the analytical and SDF K2 of that tree against this one's in
    turns (tools/k2_pair.py --scene analytical sdf), whose gradients must
-   be bit-equal.
+   be bit-equal;
+25. K3, the occupancy kernel (K1 that also writes the bounces each
+   sample's path entered alive), on each of the four backends: against its
+   plain version (integrator/tracer.bounces_entered), per lane and in its
+   alive fractions, with its frame bit-equal to K1's, at 320x240 depth 4
+   spp 1 and 2 VERBATIM and spp 1 FIXED, and at 1920x1080; the render CLI
+   with --occupancy at 1920x1080, 2 frames, which must launch K3 once and
+   K1 once a frame, with the scene's backend, and nothing else; the K3 and
+   K1 launches in turns (tools/k1_pair.in_turns), frames bit-equal; the
+   1080p frame's alive fractions entering each bounce per lane, per block
+   and per warp, and the idle lanes of the live warps; K3's bound is K1's
+   (phases 5, 12, 18, 20) plus the counts' bytes;
+26. K4, the uniform stream (ops/megakernel.debug_uniform_stream): bit-equal
+   to its plain version at the size of a 1080p depth-4 frame's stream
+   (2025 tiles x 34 draws x 8 x 128 lanes), its statistics there
+   (tools/validate_rng's thresholds), tools/validate_rng itself (its main
+   path: two launches), its time and its bound, the least integer work
+   a draw over the integer pipes' rates (K4_INT_OPS, K4_ADD_OPS).
 
-The total seconds are printed before the kernels line.
+The total seconds, with phase 25's and phase 26's, are printed before the
+kernels line.
 
 Image tolerance (phases 3, 4, 10, 17 and 19): quantile(|diff|, 0.999) < 1e-4 and
 mean(|diff|) < 1e-5, all values finite. The two sides draw the same
@@ -136,7 +154,13 @@ atol 1e-7 for the geometry, the vertices and the camera); the small SDF fixture'
 (rtol 5e-3, atol 1e-7, tests/test_torch_sdf.py). Phase 12: the kernel's
 and the plain version's counts are equal on at least 99.9% of the pixels
 (both round the march alike; a last-bit difference at |sdf| = HIT_EPS
-moves a lane by a step).
+moves a lane by a step). Phase 25: K3's frame bit-equal to K1's; its
+per-lane counts equal to the plain version's on at least 99.9% of the
+lanes (a knife-edge lane may take the other branch, as a pixel may in
+phase 3) and its alive fractions within 1e-3 of the plain version's.
+Phase 26: K4 bit-equal to its plain version, and the stream within
+tools/validate_rng's thresholds (KS below 1.63/sqrt(n), |mean - 0.5| <
+0.005, cross-tile |correlation| < 0.05, cross-seed collisions < 1%).
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the card's name and power limit, and the one before that lists the
@@ -171,8 +195,12 @@ FIXTURE_LEAVES = (
     + ["params.materials.roughness", "params.sphere_center.x", "camera.origin.z"]
 )
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): float32 and
-# float64 outside the tensor cores, and device memory.
+# float64 outside the tensor cores, and device memory. 32-bit integer
+# operations: 64 a clock an SM (the CUDA C++ Programming Guide's throughput
+# table for compute capability 9.0: integer add, shift, funnel shift and
+# bitwise ops) on 132 SMs at the 1,980 MHz boost clock.
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 34e12, 3.35e12
+PEAK_I32 = 64 * 132 * 1.98e9
 # Operations per ray segment (one bounce entered by a live path), estimated
 # by reading the per-thread code for the demo scene (one light, three
 # primitives) on the shading path, not counted by a profiler. K1: ~1430
@@ -259,6 +287,26 @@ MESH_HIT_ADJ_OPS = 70 + 60 + 15
 # moves the torus's radius by 2.4e-4 with nvcc-like contraction and 1e-7
 # without (tests/test_torch_k2_rounding.py --scene sdf --trainer 3).
 SDF_TRAIN_LOSS_RTOL, SDF_TRAIN_LEAF_RTOL = 1e-4, 1e-2
+# Phase 25: K3's per-lane counts equal its plain version's on at least
+# OCC_SAME_MIN of the lanes (a knife-edge lane may take the other branch, as
+# a pixel may in phase 3), its alive fractions within OCC_FRAC_TOL of the
+# plain version's; the render CLI with --occupancy renders OCC_FRAMES frames.
+OCC_SAME_MIN, OCC_FRAC_TOL, OCC_FRAMES = 0.999, 1e-3, 2
+# Phase 26: K4 at the size of a 1080p depth-4 frame's stream as the TPU
+# kernel tiles it (2025 tiles of 8 x 128 lanes, 2 + 8 x 4 draws).
+STREAM_SEED, STREAM_TILES, STREAM_DRAWS, STREAM_ROWS = 5, 2025, 34, 8
+# K4's least work a draw (threefry.cuh stream_draw), by the pipes that can
+# run it at the rates of the CUDA guide's table for cc 9.0. Only the integer
+# pipe (64 a clock an SM) runs threefry's 20 funnel shifts and 20 xors and
+# the output's xor and shift: K4_INT_OPS. Its 20 adds, the 5 injections into
+# x1 (the key-only terms hoisted; x0's fold into the next round's
+# three-input add), the key added to the counter and the counter itself
+# may also issue as IMAD on the float pipe (64 a clock more): K4_ADD_OPS.
+# The conversion to float and its multiply run on other pipes, beside
+# these. The least integer work is the larger of the integer pipe's share
+# and half of all of it.
+K4_INT_OPS, K4_ADD_OPS = 20 + 20 + 2, 20 + 5 + 2 + 2
+K4_DRAW_OPS = max(K4_INT_OPS, (K4_INT_OPS + K4_ADD_OPS) / 2)
 
 
 def image_diff(a, b) -> dict:
@@ -313,10 +361,10 @@ def small_sdf_close(got, want, name) -> bool:
     return bool(np.all(np.abs(got - want) <= 1e-7 + 5e-3 * np.abs(want)))
 
 
-def bound_of(f32_ops: float, f64_ops: float, nbytes: int) -> tuple[float, str]:
+def bound_of(f32_ops: float, f64_ops: float, nbytes: int, i32_ops: float = 0) -> tuple[float, str]:
     """The least time the card could take, ms: the larger of the operations
     over their type's peak and the bytes over the memory rate."""
-    t_ops = f32_ops / PEAK_F32 + f64_ops / PEAK_F64
+    t_ops = f32_ops / PEAK_F32 + f64_ops / PEAK_F64 + i32_ops / PEAK_I32
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -327,18 +375,30 @@ def bound(segments: int, pixels: int, nbytes: int, ops: dict) -> tuple[float, st
     return bound_of(segments * ops["f32"], segments * ops["f64"] + pixels * CAMERA_F64_OPS, nbytes)
 
 
-COUNTERS = ("launches", "bwd_launches", "sdf_launches", "sdf_bwd_launches", "mesh_launches", "mesh_bwd_launches",
-            "bigmesh_launches")
+# render_frame_megakernel's counts of K1 and K2 launches, then K3's
+# (measure_occupancy_megakernel's, prefixed occupancy_) and K4's
+K1_K2_COUNTERS = ("launches", "bwd_launches", "sdf_launches", "sdf_bwd_launches", "mesh_launches",
+                  "mesh_bwd_launches", "bigmesh_launches")
+K3_COUNTERS = ("launches", "sdf_launches", "mesh_launches", "bigmesh_launches")
+COUNTERS = K1_K2_COUNTERS + tuple(f"occupancy_{name}" for name in K3_COUNTERS) + ("stream_launches",)
+
+
+def counters(mk) -> dict:
+    """Each name of COUNTERS -> (the wrapper that counts, its attribute)."""
+    out = {name: (mk.render_frame_megakernel, name) for name in K1_K2_COUNTERS}
+    out.update({f"occupancy_{name}": (mk.measure_occupancy_megakernel, name) for name in K3_COUNTERS})
+    out["stream_launches"] = (mk.debug_uniform_stream, "launches")
+    return out
 
 
 def reset_counts(mk) -> None:
     """Every launch count of the megakernels to 0."""
-    for name in COUNTERS:
-        setattr(mk.render_frame_megakernel, name, 0)
+    for fn, name in counters(mk).values():
+        setattr(fn, name, 0)
 
 
 def read_counts(mk) -> dict:
-    return {name: getattr(mk.render_frame_megakernel, name) for name in COUNTERS}
+    return {key: getattr(fn, name) for key, (fn, name) in counters(mk).items()}
 
 
 def expect_counts(**nonzero) -> dict:
@@ -346,11 +406,12 @@ def expect_counts(**nonzero) -> dict:
     return {name: nonzero.get(name, 0) for name in COUNTERS}
 
 
-def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first: int) -> dict:
+def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first: int) -> tuple[dict, tuple]:
     """Phases `first` and `first + 1` for the mesh (K7) or the big mesh (K8)
     backend of K1: the kernel against its plain version and the committed
     JAX render, a CUDA scene with grad refused, then the render CLI's main
-    path and the times. Returns the kernel's row of the kernels line."""
+    path and the times. Returns the kernel's row of the kernels line and
+    its work at 1080p, (float32 operations, float64 ones, bytes)."""
     from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
     from pathtracer_tpu_torch.models import families
     from pathtracer_tpu_torch.tools.work import count_mesh_work
@@ -414,30 +475,31 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
     prepared = mk.prepare_launch(main, key, MAIN_W, MAIN_H, 1, VERBATIM)
     launch_ms = cuda_ms(lambda: mk.launch(prepared), 20)
     plain_ms = cuda_ms(lambda: mk.render_frame_reference(main, key, MAIN_W, MAIN_H), 2)
-    work = count_mesh_work(main, key, MAIN_W, MAIN_H)
-    segments = work["segments"]
+    tests = count_mesh_work(main, key, MAIN_W, MAIN_H)
+    segments = tests["segments"]
     pix = MAIN_W * MAIN_H
     nbytes = prepared.sv.shape[1] * 4 + 16 + pix * 16 + sum(t.numel() * t.element_size() for t in prepared.extras)
     if family == "mesh":
-        test_ops = (work["closest_tests"] + work["shadow_tests"]) * MESH_TRI_OPS
-        tests = (f"{work['closest_tests']} triangle tests in closest hits ({work['closest_tests'] / segments:.2f} "
-                 f"per segment), {work['shadow_tests']} in shadow rays")
+        test_ops = (tests["closest_tests"] + tests["shadow_tests"]) * MESH_TRI_OPS
+        walk = (f"{tests['closest_tests']} triangle tests in closest hits ({tests['closest_tests'] / segments:.2f} "
+                f"per segment), {tests['shadow_tests']} in shadow rays")
     else:
-        pairs = {w: work[f"{w}_pairs"] for w in ("closest", "shadow")}
-        test_ops = sum(work[f"{w}_pairs"] * BIGMESH_DET_OPS + work[f"{w}_det_ok"] * BIGMESH_U_OPS
-                       + work[f"{w}_u_ok"] * BIGMESH_REST_OPS + work[f"{w}_boxes"] * BIGMESH_SLAB_OPS
+        pairs = {w: tests[f"{w}_pairs"] for w in ("closest", "shadow")}
+        test_ops = sum(tests[f"{w}_pairs"] * BIGMESH_DET_OPS + tests[f"{w}_det_ok"] * BIGMESH_U_OPS
+                       + tests[f"{w}_u_ok"] * BIGMESH_REST_OPS + tests[f"{w}_boxes"] * BIGMESH_SLAB_OPS
                        for w in ("closest", "shadow"))
-        tests = (f"pairs {pairs['closest']} in closest hits ({pairs['closest'] / segments:.2f} per segment; "
-                 f"{work['closest_det_ok']} past the determinant's guard, {work['closest_u_ok']} past u's), "
-                 f"{pairs['shadow']} in shadow rays ({work['shadow_det_ok']}, {work['shadow_u_ok']}); box tests "
-                 f"{work['closest_boxes']} and {work['shadow_boxes']}")
-    bound_ms, bound_by = bound_of(segments * MESH_SEGMENT_OPS["f32"] + test_ops,
-                                  segments * MESH_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS, nbytes)
+        walk = (f"pairs {pairs['closest']} in closest hits ({pairs['closest'] / segments:.2f} per segment; "
+                f"{tests['closest_det_ok']} past the determinant's guard, {tests['closest_u_ok']} past u's), "
+                f"{pairs['shadow']} in shadow rays ({tests['shadow_det_ok']}, {tests['shadow_u_ok']}); box tests "
+                f"{tests['closest_boxes']} and {tests['shadow_boxes']}")
+    work = (segments * MESH_SEGMENT_OPS["f32"] + test_ops, segments * MESH_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS,
+            nbytes)
+    bound_ms, bound_by = bound_of(*work)
     print(f"  wrapper {ms:.3f} ms/frame (kernel launch alone {launch_ms:.3f} ms), plain {plain_ms:.3f} ms/frame "
           f"({card})")
     print(f"  ray segments {segments} ({segments / pix:.3f} per pixel); ray segments/s: kernel "
           f"{segments / ms * 1e3:.4e}, plain {segments / plain_ms * 1e3:.4e} ({card})")
-    print(f"  shadow rays cast {work['shadow_rays']} ({work['shadow_rays'] / segments:.3f} per segment); {tests}; "
+    print(f"  shadow rays cast {tests['shadow_rays']} ({tests['shadow_rays'] / segments:.3f} per segment); {walk}; "
           f"bound {bound_ms:.4f} ms ({bound_by}) ({card})")
     return dict(
         name=f"megakernel_fwd_{family}", route="cuda", source=f"pathtracer_tpu_torch/csrc/{family}.cuh",
@@ -445,7 +507,7 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
                   "bigmesh": "pathtracer_tpu/ops/megakernel_bigmesh.py:158"}[family],
         launches=counts[f"{family}_launches"], max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None,
-    )
+    ), work
 
 
 def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total_bytes: int, trainer_pieces,
@@ -575,6 +637,145 @@ def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total
         replaces="pathtracer_tpu/ops/megakernel.py:1771 + pathtracer_tpu/ops/megakernel_mesh.py:95",
         launches=train_bwd_launches, max_abs_err=err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None,
+    )
+
+
+def fmt_fractions(x) -> str:
+    return "[" + ", ".join(f"{float(v):.5f}" for v in x) + "]"
+
+
+def occupancy_phase(torch, mk, cli, rng, cuda_ms, dev, card: str, k1_work: dict) -> list[dict]:
+    """Phase 25, K3 on each backend: against its plain version
+    (tracer.bounces_entered) and its frame against K1's at 320x240 and
+    1080p, the render CLI's --occupancy at 1080p, the K3 and K1 launches in
+    turns and the divergence of the 1080p frame. `k1_work` holds each
+    backend's K1 work at 1080p (float32 operations, float64 ones, bytes),
+    K3's but for its counts' bytes. Returns K3's rows of the kernels line."""
+    from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM, bounces_entered
+    from pathtracer_tpu_torch.models import families
+    from pathtracer_tpu_torch.tools.k1_pair import in_turns
+
+    print("== 25. K3 (K1 plus the bounces each path entered alive) on each backend vs its plain version (depth 4)")
+    rows = []
+    for i, family in enumerate(families.FAMILIES):
+        scene = families.make_family_scene(family, device=dev)
+        err = 0.0
+        for j, (w, h, spp, quirks) in enumerate(((320, 240, 1, VERBATIM), (320, 240, 2, VERBATIM),
+                                                 (320, 240, 1, FIXED), (MAIN_W, MAIN_H, 1, VERBATIM))):
+            key = rng.prng_key(111 + 10 * i + j)
+            k = mk.prepare_launch(scene, key, w, h, spp, quirks)
+            entered = torch.empty((spp, h, w), dtype=torch.int32, device=dev)
+            frame = mk.launch(k, entered).clone()
+            same_frame = bool(torch.equal(frame, mk.launch(k)))
+            refs = []  # the plain run, timed: the 1080p one gives K3's plain_ms
+            plain_ms = cuda_ms(lambda: refs.append(bounces_entered(scene, key, w, h, spp, quirks)), 1, warmup=0)
+            ref = refs.pop()
+            same = float((entered == ref).double().mean())
+            got, want = (mk.occupancy_stats(e, scene.recursion_depth) for e in (entered, ref))
+            d = float((got["alive_fraction"] - want["alive_fraction"]).abs().max())
+            err = max(err, d)
+            print(f"  {family} {w}x{h} spp{spp} {'VERBATIM' if quirks == VERBATIM else 'FIXED'}: frame bit-equal to "
+                  f"K1's {same_frame}; counts equal on {same:.6f} of lanes (max |diff| "
+                  f"{int((entered - ref).abs().max())}); alive fractions {fmt_fractions(got['alive_fraction'])}, plain "
+                  f"{fmt_fractions(want['alive_fraction'])}, max |diff| {d:.2e}")
+            if not (same_frame and same >= OCC_SAME_MIN and d <= OCC_FRAC_TOL):
+                raise AssertionError(f"K3 {family} {w}x{h} spp{spp}: outside tolerance (frame bit-equal to K1's, "
+                                     f"counts equal on {OCC_SAME_MIN} of lanes, fractions within {OCC_FRAC_TOL})")
+            del k, entered, frame, ref
+
+        with tempfile.TemporaryDirectory() as tmp:
+            png = os.path.join(tmp, f"{family}.png")
+            cfg, _ = cli.parse_args([
+                "--scene", family, "--device", "cuda", "--width", str(MAIN_W), "--height", str(MAIN_H),
+                "--depth", str(MAIN_DEPTH), "--spp", "1", "--frames", str(OCC_FRAMES), "--occupancy", "-o", png,
+            ])
+            reset_counts(mk)
+            buf = cli.render(cfg, png, log=lambda s: print("  " + s))
+            counts = read_counts(mk)
+            pixels = buf.pixels.cpu().numpy()
+        on = {} if family == "analytical" else {f"{family}_launches": OCC_FRAMES, f"occupancy_{family}_launches": 1}
+        print(f"  CLI --scene {family} --occupancy, {OCC_FRAMES} frames: launches {counts}")
+        if counts != expect_counts(launches=OCC_FRAMES, occupancy_launches=1, **on):
+            raise AssertionError(f"--occupancy: expected one K3 launch and one K1 launch a frame with the {family} "
+                                 f"backend and nothing else, got {counts}")
+        if pixels.shape != (MAIN_H, MAIN_W, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].max() > 0.05:
+            raise AssertionError(f"--occupancy {family}: the image is not finite, black or of the wrong shape")
+
+        main = families.make_family_scene(family, recursion_depth=MAIN_DEPTH, device=dev)
+        key = rng.prng_key(5)
+        k1 = mk.prepare_launch(main, key, MAIN_W, MAIN_H, 1, VERBATIM)
+        k3 = k1._replace(out=torch.empty_like(k1.out))
+        entered = torch.empty((1, MAIN_H, MAIN_W), dtype=torch.int32, device=dev)
+        pair = in_turns({"other": lambda: mk.launch(k1), "this": lambda: mk.launch(k3, entered)},
+                        f"K3 {family} launch (this) against K1's (other) at {MAIN_W}x{MAIN_H}, depth {MAIN_DEPTH}, "
+                        "spp 1", card, log=lambda s: print("  " + s))
+        if not pair["bit_equal"]:
+            raise AssertionError(f"K3 {family}: its 1080p frame is not K1's")
+        wrapper_ms = cuda_ms(lambda: mk.measure_occupancy_megakernel(main, key, MAIN_W, MAIN_H), 10)
+        st = mk.occupancy_stats(entered, MAIN_DEPTH)
+        print(f"  {family} 1080p frame, entering bounces 0-{MAIN_DEPTH - 1}: lanes alive "
+              f"{fmt_fractions(st['alive_fraction'])} (wasted {st['wasted_fraction']:.5f}); blocks with a live "
+              f"lane {fmt_fractions(st['block_alive_fraction'])}; warps with a live lane "
+              f"{fmt_fractions(st['warp_alive_fraction'])}, live lanes per live warp "
+              f"{fmt_fractions(st['warp_lanes'])}; idle lanes of live warps {st['warp_wasted_fraction']:.5f}")
+        f32, f64, nbytes = k1_work[family]
+        bound_ms, bound_by = bound_of(f32, f64, nbytes + 4 * MAIN_W * MAIN_H)
+        print(f"  K3 {family}: launch {pair['this_ms']:.4f} ms, K1's {pair['other_ms']:.4f} ms in turns "
+              f"({pair['ratio']:.4f}x); wrapper (launch, reductions, host reads) {wrapper_ms:.4f} ms; plain "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}) ({card})")
+        launches = counts["occupancy_launches" if family == "analytical" else f"occupancy_{family}_launches"]
+        rows.append(dict(
+            name="megakernel_fwd_occupancy" + ("" if family == "analytical" else f"_{family}"), route="cuda",
+            source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
+            replaces="pathtracer_tpu/ops/megakernel.py:1644" + {
+                "analytical": "", "sdf": " + pathtracer_tpu/ops/megakernel_sdf.py:172",
+                "mesh": " + pathtracer_tpu/ops/megakernel_mesh.py:95",
+                "bigmesh": " + pathtracer_tpu/ops/megakernel_bigmesh.py:158"}[family],
+            launches=launches, max_abs_err=err, ms=pair["this_ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None,
+        ))
+        del k1, k3, entered
+        torch.cuda.empty_cache()
+    return rows
+
+
+def uniform_stream_phase(torch, mk, cuda_ms, dev, card: str) -> dict:
+    """Phase 26, K4: bit-equal to its plain version at the 1080p size, the
+    stream's statistics there and through tools/validate_rng (its main
+    path: two launches), its time and bound. Returns its kernels row."""
+    from pathtracer_tpu_torch.tools import validate_rng
+
+    shape = (STREAM_TILES, STREAM_DRAWS, STREAM_ROWS)
+    print(f"== 26. K4, the in-kernel uniform stream, vs its plain version on the card ({STREAM_TILES} tiles x "
+          f"{STREAM_DRAWS} draws x {STREAM_ROWS} x 128 lanes)")
+    got = mk.debug_uniform_stream(STREAM_SEED, *shape, device=dev)
+    ref = mk.debug_uniform_stream_reference(STREAM_SEED, *shape, device=dev)
+    equal = bool(torch.equal(got, ref))
+    err = float((got - ref).abs().max())
+    del ref
+    result = {"stream": validate_rng.stream_stats(got),
+              "independence": validate_rng.independence(got, mk.debug_uniform_stream(STREAM_SEED + 1, *shape,
+                                                                                         device=dev))}
+    print(f"  bit-equal {equal} (max |diff| {err:.3e}); {json.dumps(result)}")
+    if not (equal and validate_rng.passes(result)):
+        raise AssertionError("K4: not its plain version's stream, or the stream fails the validation's thresholds")
+    reset_counts(mk)
+    rc = validate_rng.main(["--device", "cuda"])
+    counts = read_counts(mk)
+    if rc != 0 or counts != expect_counts(stream_launches=2):
+        raise AssertionError(f"tools/validate_rng: exit {rc}, launches {counts} (two K4 launches expected)")
+    ms = cuda_ms(lambda: mk.debug_uniform_stream(STREAM_SEED, *shape, device=dev), 20)
+    plain_ms = cuda_ms(lambda: mk.debug_uniform_stream_reference(STREAM_SEED, *shape, device=dev), 2)
+    draws = got.numel()
+    bound_ms, bound_by = bound_of(0, 0, draws * 4, i32_ops=draws * K4_DRAW_OPS)
+    print(f"  K4 {ms:.4f} ms a launch ({draws * 4 / ms / 1e6:.1f} GB/s written), plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {K4_INT_OPS} operations a draw only the integer pipe runs, "
+          f"{K4_ADD_OPS} more it shares with the float pipe; the bytes alone "
+          f"{draws * 4 / PEAK_BYTES * 1e3:.4f} ms); {bound_ms / ms:.3f} of the bound's rate ({card})")
+    return dict(
+        name="uniform_stream", route="cuda", source="pathtracer_tpu_torch/csrc/uniform_stream.cu",
+        replaces="pathtracer_tpu/ops/megakernel.py:1871", launches=counts["stream_launches"], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
     )
 
 
@@ -794,7 +995,9 @@ def main(argv=None) -> int:
 
     main_segments = count_segments(main_scene, key, MAIN_W, MAIN_H)
     n_sv = prepared.sv.shape[1]
-    fwd_bound, fwd_bound_by = bound(main_segments, MAIN_W * MAIN_H, n_sv * 4 + 16 + MAIN_W * MAIN_H * 16, K1_OPS)
+    k1_work = {"analytical": (main_segments * K1_OPS["f32"], main_segments * K1_OPS["f64"]
+                              + MAIN_W * MAIN_H * CAMERA_F64_OPS, n_sv * 4 + 16 + MAIN_W * MAIN_H * 16)}
+    fwd_bound, fwd_bound_by = bound_of(*k1_work["analytical"])
     print(f"  ray segments {main_segments} ({main_segments / (MAIN_W * MAIN_H):.3f} per pixel); "
           f"bound {fwd_bound:.4f} ms ({fwd_bound_by})")
 
@@ -981,12 +1184,13 @@ def main(argv=None) -> int:
     sdf_n_sv = sdf_prepared.sv.shape[1]
     sdf_bytes = sdf_n_sv * 4 + 16 + pix * 16
 
-    def sdf_bound(march_trips):
-        return bound_of(march_trips * SDF_STEP_OPS + sdf_segments * SDF_SEGMENT_OPS["f32"],
-                        sdf_segments * SDF_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS, sdf_bytes)
+    def sdf_work(march_trips):
+        return (march_trips * SDF_STEP_OPS + sdf_segments * SDF_SEGMENT_OPS["f32"],
+                sdf_segments * SDF_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS, sdf_bytes)
 
-    sdf_bound_ms, sdf_bound_by = sdf_bound(trips)
-    sdf_warp_bound_ms, _ = sdf_bound(warp_trips)
+    k1_work["sdf"] = sdf_work(trips)
+    sdf_bound_ms, sdf_bound_by = bound_of(*k1_work["sdf"])
+    sdf_warp_bound_ms, _ = bound_of(*sdf_work(warp_trips))
     k6_bound_ms, k6_bound_by = bound_of(trips * SDF_STEP_OPS + pix * K6_PIXEL_OPS["f32"], pix * CAMERA_F64_OPS,
                                         sdf_n_sv * 4 + pix * 8)
     print(f"  K6 wrapper {k6_ms:.3f} ms (pack and launch alone {k6_launch_ms:.3f} ms), plain {k6_plain_ms:.3f} ms, "
@@ -1091,10 +1295,17 @@ def main(argv=None) -> int:
           f"{sdf_plain_bwd_ms:.3f} ms, bound {sdf_bwd_bound_ms:.4f} ms ({sdf_bwd_bound_by}) ({card})")
     print(f"  analytical K2 launch {bwd_ms:.3f} ms in this run (phase 9); against another tree's: phase 24")
 
-    mesh_rows = [mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card, family, first)
-                 for family, first in (("mesh", 17), ("bigmesh", 19))]
+    mesh_rows = []
+    for family, first in (("mesh", 17), ("bigmesh", 19)):
+        row, k1_work[family] = mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card, family, first)
+        mesh_rows.append(row)
     mesh_bwd_row = mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card, total_bytes, trainer_pieces=(
         counting_render, real_render, calls), other=args.other)
+    t25 = time.perf_counter()
+    occupancy_rows = occupancy_phase(torch, mk, cli, rng, cuda_ms, dev, card, k1_work)
+    t26 = time.perf_counter()
+    stream_row = uniform_stream_phase(torch, mk, cuda_ms, dev, card)
+    t27 = time.perf_counter()
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
@@ -1121,8 +1332,8 @@ def main(argv=None) -> int:
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
         max_abs_err=float(k6_err), ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_bound_by,
         library_ms=None,
-    ), *mesh_rows, mesh_bwd_row]
-    print(f"== total {time.perf_counter() - started:.1f} s")
+    ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row]
+    print(f"== total {time.perf_counter() - started:.1f} s (phase 25 {t26 - t25:.1f} s, phase 26 {t27 - t26:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ mesh` (20 triangles: a ground quad, a metal cube, a clearcoat pyramid) or
 `--device cuda` (the default) every frame is one launch of the CUDA
 megakernel, with the scene's backend; with `--device cpu` it is the eager
 integrator. A CUDA device that is not there is an error, never a move to
-the CPU.
+the CPU. `--occupancy` first prints the fraction of lanes alive entering
+each bounce: on the card from one launch of the occupancy kernel K3, with
+the wasted-lane fraction and the warps' numbers; on the CPU from the eager
+probe.
 
 Usage:
   python -m pathtracer_tpu_torch.app.render --device cuda --scene sdf \
@@ -22,11 +25,11 @@ import time
 
 import torch
 
-from ..integrator.tracer import accumulate
+from ..integrator.tracer import accumulate, measure_occupancy
 from ..models import families
 from ..models.scene import Scene
 from ..ops import rng
-from ..ops.megakernel import render_frame_megakernel
+from ..ops.megakernel import measure_occupancy_megakernel, render_frame_megakernel
 from ..utils.buffer import ColorBuffer, new_buffer
 from ..utils.config import RenderConfig
 from ..utils.image import save_render
@@ -45,13 +48,15 @@ def parse_args(argv=None) -> tuple[RenderConfig, str]:
     ap.add_argument("--precision", choices=["f32", "f64"], default="f32")
     ap.add_argument("--device", default="cuda", help="cuda | cuda:N | cpu")
     ap.add_argument("-o", "--output", default="render.png")
+    ap.add_argument("--occupancy", action="store_true",
+                    help="print the alive-lane fraction entering each bounce before rendering")
     args = ap.parse_args(argv)
     if not (args.scene in families.FAMILIES or args.scene.startswith("file:")):
         ap.error(f"unknown scene {args.scene!r} (choose {'|'.join(families.FAMILIES)})")
     cfg = RenderConfig(
         width=args.width, height=args.height, spp=args.spp, frames=args.frames,
         depth=args.depth, seed=args.seed, precision=args.precision,
-        quirks=args.quirks, device=args.device, scene=args.scene,
+        quirks=args.quirks, device=args.device, scene=args.scene, occupancy=args.occupancy,
     )
     return cfg, args.output
 
@@ -63,6 +68,24 @@ def make_scene(cfg: RenderConfig, device) -> Scene:
     return families.make_family_scene(cfg.scene, dtype=cfg.dtype, recursion_depth=cfg.depth, device=device)
 
 
+def log_occupancy(cfg: RenderConfig, scene: Scene, key, log=print) -> None:
+    """The fraction of lanes alive entering each bounce of a frame from
+    `key`: on the card one launch of K3, on the CPU the eager probe."""
+    bounces = lambda xs, fmt=".3f": "  " + "  ".join(f"b{i}: {float(x):{fmt}}" for i, x in enumerate(xs))
+    if scene.device.type == "cpu":
+        log("bounce occupancy (alive-lane fraction entering each bounce):")
+        log(bounces(measure_occupancy(scene, key, cfg.width, cfg.height, cfg.spp, cfg.quirk_flags)))
+        return
+    stats = measure_occupancy_megakernel(scene, key, cfg.width, cfg.height, cfg.spp, cfg.quirk_flags)
+    log(f"kernel occupancy (alive-lane fraction entering each bounce, {stats['num_tiles']} blocks x "
+        f"{stats['tile']} lanes):")
+    log(bounces(stats["alive_fraction"]))
+    log(f"  wasted-lane fraction (compaction ceiling): {stats['wasted_fraction']:.3f}")
+    log("  warps with a live lane:" + bounces(stats["warp_alive_fraction"]))
+    log("  live lanes per live warp:" + bounces(stats["warp_lanes"], ".2f"))
+    log(f"  idle lanes of live warps: {stats['warp_wasted_fraction']:.3f}")
+
+
 def render(cfg: RenderConfig, output: str, log=print) -> ColorBuffer:
     """Render cfg.frames progressive frames, write the PNG, return the
     accumulated buffer."""
@@ -72,6 +95,8 @@ def render(cfg: RenderConfig, output: str, log=print) -> ColorBuffer:
     scene = make_scene(cfg, device)
     buf = new_buffer(cfg.width, cfg.height, cfg.dtype, device)
     key = rng.prng_key(cfg.seed)
+    if cfg.occupancy:
+        log_occupancy(cfg, scene, key, log)
     for f in range(cfg.frames):
         key, sub = rng.split(key)
         t0 = time.perf_counter()

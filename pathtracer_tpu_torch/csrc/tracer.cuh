@@ -17,7 +17,6 @@
 namespace pt {
 
 constexpr float EPS = 0.005f;
-constexpr int U_PER_BOUNCE = 8;
 
 enum : int {
   FLAG_STALE_EMITTER_GATE = 1,
@@ -176,7 +175,7 @@ __device__ __forceinline__ bool bounce(const SceneView& s, PathCarry& c, V3& rad
                                        int flags, uint32_t kb0, uint32_t kb1) {
   const bool stale_gate = flags & FLAG_STALE_EMITTER_GATE;
   const bool primary_mis = flags & FLAG_PRIMARY_MIS;
-  const uint64_t base = ((uint64_t)d * (uint64_t)n + (uint64_t)p) * U_PER_BOUNCE;
+  const uint64_t base = bounce_counter(n, p, d);
   const V3 ro = c.ro, rd = c.rd, throughput = c.throughput;
 
   V3 geo_normal;
@@ -234,17 +233,21 @@ __device__ __forceinline__ bool bounce(const SceneView& s, PathCarry& c, V3& rad
 }
 
 // One sample of one pixel: camera ray plus the bounce loop, returning
-// radiance. Camera uniform j of pixel p is uniform(kc)[p*2 + j].
-template <class B>
+// radiance. Camera uniform j of pixel p is uniform(kc)[p*2 + j]. With COUNT
+// (the occupancy kernel K3) *entered is set to the bounces the path entered
+// alive, the loop's trips; K1's instantiation compiles no count.
+template <class B, bool COUNT = false>
 __device__ __forceinline__ V3 trace_sample(const SceneView& s, int p, int n, int width, int height, int depth,
-                                           int flags, uint32_t kc0, uint32_t kc1, uint32_t kb0, uint32_t kb1) {
+                                           int flags, uint32_t kc0, uint32_t kc1, uint32_t kb0, uint32_t kb1,
+                                           int* entered = nullptr) {
   V3 q;
   float sx, sy;
-  V3 rd = camera_ray(s, p, width, height, uniform_at(kc0, kc1, (uint64_t)p * 2u),
-                     uniform_at(kc0, kc1, (uint64_t)p * 2u + 1u), q, sx, sy);
+  V3 rd = camera_ray(s, p, width, height, uniform_at(kc0, kc1, camera_counter(p, 0)),
+                     uniform_at(kc0, kc1, camera_counter(p, 1)), q, sx, sy);
   PathCarry c = init_carry(s, rd, flags);
   V3 radiance = splat3(0.0f);
   for (int d = 0; d < depth; ++d) {
+    if constexpr (COUNT) *entered = d + 1;
     if (!bounce<B>(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
   }
   return radiance;

@@ -135,7 +135,7 @@ __device__ __forceinline__ void bounce_adj(const SceneView& s, const PathCarry& 
                                            const GradSink& g) {
   const bool stale_gate = flags & FLAG_STALE_EMITTER_GATE;
   const bool primary_mis = flags & FLAG_PRIMARY_MIS;
-  const uint64_t base = ((uint64_t)d * (uint64_t)n + (uint64_t)p) * U_PER_BOUNCE;
+  const uint64_t base = bounce_counter(n, p, d);
   const V3 ro = c.ro, rd = c.rd, tp = c.throughput;
   const V3 out_ro = ct_ro, out_rd = ct_rd, out_tp = ct_tp;
   V3 c_ro = splat3(0.0f), c_rd = splat3(0.0f), c_tp = splat3(0.0f);
@@ -251,8 +251,8 @@ __device__ __forceinline__ void trace_sample_adj(const SceneView& s, int p, int 
                                                  V3 ct_rad, const GradSink& g) {
   V3 q;
   float sx, sy;
-  V3 rd = camera_ray(s, p, width, height, uniform_at(kc0, kc1, (uint64_t)p * 2u),
-                     uniform_at(kc0, kc1, (uint64_t)p * 2u + 1u), q, sx, sy);
+  V3 rd = camera_ray(s, p, width, height, uniform_at(kc0, kc1, camera_counter(p, 0)),
+                     uniform_at(kc0, kc1, camera_counter(p, 1)), q, sx, sy);
   PathCarry carries[MAX_DEPTH];
   PathCarry c = init_carry(s, rd, flags);
   V3 radiance = splat3(0.0f);

@@ -388,6 +388,61 @@ def trace(
     return state.radiance
 
 
+def _alive_entering(scene: Scene, coords: V2, cam_u, bounce_u, quirks: Quirks, width: int, height: int):
+    """Yield the lanes' alive mask entering each bounce of the paths from
+    these camera and bounce uniforms."""
+    ro, rd = gen_ray(scene.camera.unpack(), coords, V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
+    state = init_state(ro, rd, quirks)
+    bounce = make_bounce_step(scene, quirks)
+    for u in bounce_u:
+        yield state.alive
+        state = bounce(state, u)
+
+
+def measure_occupancy(
+    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
+) -> torch.Tensor:
+    """The eager occupancy probe: the fraction of lanes alive entering
+    each bounce, [depth] on the CPU (the first entry is 1), as the JAX
+    package's `measure_occupancy` computes it. 1 - the fraction is what
+    compaction could recover at that bounce.
+
+    At spp > 1 this draws, as the JAX probe does, ONE stream over the
+    W*H*spp lanes (lane i is pixel i // spp), where render_frame and the
+    kernels draw split(key, spp)[s] for sample s over the W*H pixels, so
+    the two agree at spp 1 only (`bounces_entered` follows the kernels)."""
+    coords = pixel_coords(width, height, torch.float64, scene.device)
+    if spp > 1:
+        coords = V2(coords.x.repeat_interleave(spp), coords.y.repeat_interleave(spp))
+    cam_u, bounce_u = draw_uniforms(key, width * height * spp, scene.recursion_depth, scene.dtype, scene.device)
+    with torch.no_grad():
+        alive = _alive_entering(scene, coords, cam_u, bounce_u, quirks, width, height)
+        fracs = torch.stack([a.to(torch.float64).mean() for a in alive])
+    return fracs.cpu()
+
+
+def bounces_entered(
+    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
+) -> torch.Tensor:
+    """How many bounces each sample's path entered alive, [spp, H, W] int32
+    on the scene's device: the plain version of the occupancy kernel K3
+    (`ops/megakernel.measure_occupancy_megakernel`). Sample s draws the
+    stream of render_frame and the kernels, split(key, spp)[s] (key itself
+    at spp 1), so at spp 1 the alive fraction entering bounce b, the mean
+    of (counts > b), is `measure_occupancy`'s, and at spp > 1 it is not
+    (that probe draws one stream over all W*H*spp lanes)."""
+    coords = pixel_coords(width, height, torch.float64, scene.device)
+    out = []
+    with torch.no_grad():
+        for k in [key] if spp == 1 else list(rng.split(key, spp)):
+            cam_u, bounce_u = draw_uniforms(k, width * height, scene.recursion_depth, scene.dtype, scene.device)
+            entered = torch.zeros(width * height, dtype=torch.int32, device=scene.device)
+            for alive in _alive_entering(scene, coords, cam_u, bounce_u, quirks, width, height):
+                entered += alive.to(torch.int32)
+            out.append(entered.reshape(height, width))
+    return torch.stack(out)
+
+
 def draw_uniforms(key, n: int, depth: int, dtype=torch.float32, device=None):
     """Per-frame randomness (cam jitter [N, 2], bounce uniforms
     [depth, N, 8]), bit-equal to the JAX package's `draw_uniforms`."""

@@ -32,6 +32,14 @@ SIGNATURES = {
         "pt_render_forward_sdf": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "pt_render_forward_mesh": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
         "pt_render_forward_bigmesh": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
+        "pt_render_forward_occupancy": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pt_render_forward_occupancy_sdf": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pt_render_forward_occupancy_mesh": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
+        "pt_render_forward_occupancy_bigmesh": (
+            [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
+    },
+    "uniform_stream": {
+        "pt_uniform_stream": ([_P, _P, _I, _I, _I, _P], _I),
     },
     "march_steps": {
         "pt_march_steps": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),

@@ -29,6 +29,13 @@ version, the eager integrator under the detached-sampling estimator, with
 autograd on every backend. The kernels take no media and no procedural
 hooks, and K2 no big mesh: a CUDA big mesh scene that requires grad
 raises (the JAX package differentiates it through its XLA twin).
+
+The instruments: `measure_occupancy_megakernel` (the port of
+`measure_occupancy_pallas`) launches K3, `_pallas_forward_occupancy`'s
+counterpart, which is K1's template compiled with a count of the bounces
+each sample's path entered alive, on every backend; `occupancy_stats`
+reduces the counts per block and per warp. `debug_uniform_stream` launches
+K4 (`csrc/uniform_stream.cu`), which writes the uniforms K1's threads draw.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..integrator.tracer import VERBATIM, Quirks, has_media, render_frame
+from ..integrator.tracer import VERBATIM, Quirks, bounces_entered, draw_uniforms, has_media, render_frame
 from ..models import analytical
 from ..models.families import family_of
 from ..models.scene import Scene
@@ -99,6 +106,13 @@ def sample_keys(key, spp: int) -> torch.Tensor:
     return torch.stack([rng.split(k).reshape(-1) for k in ks])
 
 
+def launch_keys(key, spp: int) -> torch.Tensor:
+    """sample_keys as the kernels take them: [spp, 4] int32 holding the
+    uint32 bits, on the host."""
+    keys = sample_keys(key, spp)
+    return torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32)
+
+
 def kernel_flags(scene: Scene, quirks: Quirks) -> int:
     """The quirk flags and the scene's shadow-ray semantics as the
     kernel's bit flags."""
@@ -131,31 +145,37 @@ def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
 class Backend(NamedTuple):
     """How the kernels take a scene family: its packer and the packer's
     inverse (for the plain versions), the extra ints its entry points take
-    after the flags, K1's and K2's entry points (None where K2 does not
-    take the family yet), and the device tensors its entry points take
+    after the flags, K1's, K3's and K2's entry points (K2's None where K2
+    does not take the family), and the device tensors its entry points take
     before those ints."""
 
     pack: Callable[[Scene, int, int], torch.Tensor]
     unpack: Callable[[torch.Tensor, Scene], tuple]
     counts: Callable[[Scene], tuple]
     entry: str
+    occupancy: str
     backward: str | None
     extras: Callable[[Scene], tuple] = lambda scene: ()
 
 
 BACKENDS = {
-    "analytical": Backend(pack_scene, unpack_scene, lambda scene: (), "pt_render_forward", "pt_render_backward"),
+    "analytical": Backend(
+        pack_scene, unpack_scene, lambda scene: (), "pt_render_forward", "pt_render_forward_occupancy",
+        "pt_render_backward",
+    ),
     "sdf": Backend(
         megakernel_sdf.pack_sdf_scene, megakernel_sdf.unpack_sdf_scene, megakernel_sdf.sdf_counts,
-        "pt_render_forward_sdf", "pt_render_backward_sdf",
+        "pt_render_forward_sdf", "pt_render_forward_occupancy_sdf", "pt_render_backward_sdf",
     ),
     "mesh": Backend(
         megakernel_mesh.pack_mesh_scene, megakernel_mesh.unpack_mesh_scene, megakernel_mesh.mesh_counts,
-        "pt_render_forward_mesh", "pt_render_backward_mesh", megakernel_mesh.mesh_topology,
+        "pt_render_forward_mesh", "pt_render_forward_occupancy_mesh", "pt_render_backward_mesh",
+        megakernel_mesh.mesh_topology,
     ),
     "bigmesh": Backend(
         megakernel_bigmesh.pack_bigmesh_scene, megakernel_bigmesh.unpack_bigmesh_scene,
-        megakernel_bigmesh.bigmesh_counts, "pt_render_forward_bigmesh", None, megakernel_bigmesh.bigmesh_tables,
+        megakernel_bigmesh.bigmesh_counts, "pt_render_forward_bigmesh", "pt_render_forward_occupancy_bigmesh", None,
+        megakernel_bigmesh.bigmesh_tables,
     ),
 }
 
@@ -213,8 +233,7 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     """Pack the scene and upload the sample keys for one frame on the
     scene's CUDA device."""
     device = scene.device
-    keys = sample_keys(key, spp)
-    keys = torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32)
+    keys = launch_keys(key, spp)
     backend = family_of(scene)
     b = BACKENDS[backend]
     return KernelLaunch(
@@ -232,26 +251,39 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     )
 
 
-def launch(k: KernelLaunch) -> torch.Tensor:
+def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of K1 on PyTorch's current stream; returns `k.out`.
     Counted in `render_frame_megakernel.launches`, and those with another
     backend than the analytical one in `render_frame_megakernel.
-    <backend>_launches` too (sdf_launches, mesh_launches, bigmesh_launches)."""
+    <backend>_launches` too (sdf_launches, mesh_launches, bigmesh_launches).
+
+    With `entered`, an int32 [spp, H, W] tensor on the card, it is one
+    launch of K3 instead: the same frame, and the bounces each sample's
+    path entered alive written to `entered`; counted alike in
+    `measure_occupancy_megakernel.launches` and `.<backend>_launches`."""
     from . import _build
 
     lib = _build.load("megakernel_fwd")
     height, width = k.out.shape[:2]
-    err = getattr(lib, BACKENDS[k.backend].entry)(
-        k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(),
+    b, counter = BACKENDS[k.backend], render_frame_megakernel
+    entry, head = getattr(lib, b.entry), ()
+    if entered is not None:
+        if (entered.shape != (k.spp, height, width) or entered.dtype != torch.int32 or entered.device != k.out.device
+                or not entered.is_contiguous()):
+            raise ValueError(f"entered must be contiguous int32 {(k.spp, height, width)} on {k.out.device}, got "
+                             f"{entered.dtype} {tuple(entered.shape)} on {entered.device}")
+        entry, head, counter = getattr(lib, b.occupancy), (entered.data_ptr(),), measure_occupancy_megakernel
+    err = entry(
+        k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(), *head,
         width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
         *k.counts, torch.cuda.current_stream(k.out.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: {lib.pt_error_string(err).decode()}")
-    render_frame_megakernel.launches += 1
+    counter.launches += 1
     if k.backend != "analytical":
         name = f"{k.backend}_launches"
-        setattr(render_frame_megakernel, name, getattr(render_frame_megakernel, name) + 1)
+        setattr(counter, name, getattr(counter, name) + 1)
     return k.out
 
 
@@ -327,6 +359,17 @@ class MegakernelRender(torch.autograd.Function):
         return launch_backward(ctx.launch, ct), None
 
 
+def _check_frame(scene: Scene, width: int, height: int, spp: int) -> None:
+    """What the kernels do not take raises: their float32 scenes on the
+    card, a frame of at least one pixel and sample."""
+    if scene.device.type != "cuda":
+        raise ValueError(f"unsupported device {scene.device}")
+    if scene.dtype != torch.float32:
+        raise ValueError(f"the megakernel renders float32 scenes, got {scene.dtype}")
+    if width < 1 or height < 1 or spp < 1:
+        raise ValueError(f"bad frame size {width}x{height}, spp {spp}")
+
+
 def render_frame_megakernel(
     scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
 ) -> torch.Tensor:
@@ -343,12 +386,7 @@ def render_frame_megakernel(
     device = scene.device
     if device.type == "cpu":
         return render_frame_reference(scene, key, width, height, spp, quirks)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if scene.dtype != torch.float32:
-        raise ValueError(f"the megakernel renders float32 scenes, got {scene.dtype}")
-    if width < 1 or height < 1 or spp < 1:
-        raise ValueError(f"bad frame size {width}x{height}, spp {spp}")
+    _check_frame(scene, width, height, spp)
     k = prepare_launch(scene, key, width, height, spp, quirks)
     if torch.is_grad_enabled() and (k.sv.requires_grad or any(t.requires_grad for t in k.extras)):
         _require_backward(k.backend)
@@ -363,3 +401,142 @@ render_frame_megakernel.bigmesh_launches = 0
 render_frame_megakernel.bwd_launches = 0
 render_frame_megakernel.sdf_bwd_launches = 0
 render_frame_megakernel.mesh_bwd_launches = 0
+
+
+# A row of lanes: of JAX's tiles and of debug_uniform_stream's output, and
+# K1's and K3's threads a block (csrc/megakernel_fwd.cu THREADS)
+LANES = 128
+WARP = megakernel_sdf.WARP
+
+
+def occupancy_stats(entered: torch.Tensor, depth: int) -> dict:
+    """Reduce K3's per-lane counts (int32 [spp, H, W], the bounces each
+    sample's path entered alive) on their device; the results are on the
+    host:
+      alive_fraction [depth]: lanes alive entering each bounce over all;
+      wasted_fraction: 1 - their mean, what compaction could recover;
+      counts [num_tiles, depth]: per tile, the lanes alive entering each
+        bounce, a tile being one of the launch's blocks (LANES consecutive
+        pixels, all their spp samples: JAX's flat tiling with tile_rows =
+        spp); tile, num_tiles, tiling as JAX's measure_occupancy_pallas;
+      block_alive_fraction [depth]: the tiles with a live lane entering
+        each bounce;
+      warp_alive_fraction [depth]: the warps (WARP consecutive pixels, one
+        sample: the threads run their samples in turn) with a live lane
+        entering each bounce, over all warps; such a warp runs the bounce;
+      warp_lanes [depth]: the live lanes per live warp entering each bounce;
+      warp_wasted_fraction: the idle lanes of the live warps over all their
+        lanes, summed over the bounces: what the card runs masked.
+    Only real pixels count: the lanes past the frame in the last block or
+    warp are dead, and only the warps' lane slots count them."""
+    spp, height, width = entered.shape
+    n = height * width
+    alive = (entered.reshape(1, spp, n) > torch.arange(depth, device=entered.device).view(depth, 1, 1)).to(torch.int32)
+
+    def groups(size):  # live lanes of each group of `size` pixels, [depth, spp, groups]
+        return torch.nn.functional.pad(alive, (0, -n % size)).reshape(depth, spp, -1, size).sum(-1)
+
+    warps = groups(WARP)
+    lanes = alive.sum(dim=(1, 2))
+    live_warps = (warps > 0).sum(dim=(1, 2))
+    counts = groups(LANES).sum(1).T
+    lanes, live_warps, counts = lanes.cpu().double(), live_warps.cpu().double(), counts.cpu()
+    alive_fraction = lanes / (spp * n)
+    return {
+        "alive_fraction": alive_fraction,
+        "wasted_fraction": 1.0 - float(alive_fraction.mean()),
+        "counts": counts,
+        "tile": LANES * spp,
+        "num_tiles": counts.shape[0],
+        "tiling": "flat",
+        "block_alive_fraction": (counts > 0).double().mean(0),
+        "warp_alive_fraction": live_warps / (spp * warps.shape[2]),
+        "warp_lanes": lanes / live_warps.clamp_min(1),
+        "warp_wasted_fraction": 1.0 - float(lanes.sum() / (WARP * live_warps.sum())),
+    }
+
+
+def measure_occupancy_megakernel(
+    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
+) -> dict:
+    """Masked-lane occupancy measured inside the forward megakernel: the
+    port of `measure_occupancy_pallas`. A CUDA scene goes through one launch
+    of K3 with the scene's backend (counted in
+    `measure_occupancy_megakernel.launches` and `.<backend>_launches`), a
+    CPU scene through its plain version, `integrator/tracer.bounces_entered`;
+    a failed build or launch raises. Returns `occupancy_stats` of the
+    per-lane counts, with the counts themselves as `entered`.
+
+    It takes no `uniforms=` or `tiling=`: the port has one stream, threefry
+    at JAX's counters (its "hbm" numbers), and its tiles are the launch's
+    blocks. So at spp 1 `alive_fraction` is the eager probe
+    `integrator/tracer.measure_occupancy`'s, and at spp > 1 it is the
+    kernels' stream's (the probe draws one stream over all lanes). Unlike
+    the TPU kernel, padded lanes never count."""
+    _check_supported(scene)
+    if scene.device.type == "cpu":
+        entered = bounces_entered(scene, key, width, height, spp, quirks)
+    else:
+        _check_frame(scene, width, height, spp)
+        k = prepare_launch(scene, key, width, height, spp, quirks)
+        entered = torch.empty((spp, height, width), dtype=torch.int32, device=scene.device)
+        launch(k, entered)
+    return {"entered": entered, **occupancy_stats(entered, scene.recursion_depth)}
+
+
+measure_occupancy_megakernel.launches = 0
+measure_occupancy_megakernel.sdf_launches = 0
+measure_occupancy_megakernel.mesh_launches = 0
+measure_occupancy_megakernel.bigmesh_launches = 0
+
+
+def debug_uniform_stream_reference(
+    seed: int, num_tiles: int, n_uniforms: int, tile_rows: int = 8, device=None
+) -> torch.Tensor:
+    """The plain version of K4: [num_tiles, n_uniforms, tile_rows, 128]
+    float32, out[t, k, r, l] draw k of pixel p = (t * tile_rows + r) * 128
+    + l of `integrator/tracer.draw_uniforms(prng_key(seed), N, depth)`
+    over N = num_tiles * tile_rows * 128 pixels: draws 0 and 1 its camera
+    draws, draw k >= 2 draw (k - 2) % 8 of bounce (k - 2) // 8."""
+    n = num_tiles * tile_rows * LANES
+    depth = max(0, -(-(n_uniforms - 2) // 8))
+    cam, bounce = draw_uniforms(rng.prng_key(seed), n, depth, torch.float32, device)
+    rows = [cam[:, 0], cam[:, 1]] + [bounce[d, :, j] for d in range(depth) for j in range(8)]
+    u = torch.stack(rows[:n_uniforms]) if n_uniforms else cam.new_empty((0, n))
+    return u.reshape(n_uniforms, num_tiles, tile_rows, LANES).permute(1, 0, 2, 3).contiguous()
+
+
+def debug_uniform_stream(
+    seed: int, num_tiles: int, n_uniforms: int, tile_rows: int = 8, device="cuda"
+) -> torch.Tensor:
+    """The megakernels' in-kernel uniform stream, for validation: the port
+    of the JAX package's `debug_uniform_stream` (same arguments, same
+    [num_tiles, n_uniforms, tile_rows, 128] float32 output). On a CUDA
+    device one launch of K4 (`csrc/uniform_stream.cu`, counted in
+    `debug_uniform_stream.launches`) draws what K1's thread for each pixel
+    draws from the frame key prng_key(seed) at spp 1, through K1's own
+    device functions; on the CPU its plain version,
+    `debug_uniform_stream_reference`. The TPU kernel's stream (the core
+    PRNG seeded per frame seed and tile) has no counterpart here: the
+    port's kernels draw threefry at JAX's counters."""
+    from . import _build
+
+    device = torch.device(device)
+    if device.type == "cpu":
+        return debug_uniform_stream_reference(seed, num_tiles, n_uniforms, tile_rows)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if num_tiles < 1 or n_uniforms < 1 or tile_rows < 1:
+        raise ValueError(f"bad stream shape: {num_tiles} tiles, {n_uniforms} uniforms, {tile_rows} rows")
+    keys = launch_keys(rng.prng_key(seed), 1).to(device)
+    out = torch.empty((num_tiles, n_uniforms, tile_rows, LANES), dtype=torch.float32, device=device)
+    lib = _build.load("uniform_stream")
+    err = lib.pt_uniform_stream(keys.data_ptr(), out.data_ptr(), num_tiles, n_uniforms, tile_rows,
+                                torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"uniform stream launch failed: {lib.pt_error_string(err).decode()}")
+    debug_uniform_stream.launches += 1
+    return out
+
+
+debug_uniform_stream.launches = 0

@@ -23,7 +23,8 @@ class RenderConfig:
     precision: str = "f32"  # "f32" | "f64"
     quirks: str = "verbatim"  # "verbatim" | "fixed"
     device: str = "cpu"
-    scene: str = "analytical"  # "analytical" | "sdf"
+    scene: str = "analytical"  # a family of models/families, or file:PATH
+    occupancy: bool = False  # print the alive-lane fraction per bounce first
 
     @property
     def dtype(self) -> torch.dtype:

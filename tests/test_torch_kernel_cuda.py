@@ -1,6 +1,7 @@
 """The CUDA megakernels K1 (with the analytical, SDF, mesh and big mesh
-backends) and K2 (analytical, SDF and mesh), and the march-step counter
-K6, against their plain PyTorch versions, on the card.
+backends), K2 (analytical, SDF and mesh) and K3 (K1 with the bounces each
+path entered alive, on every backend), the march-step counter K6 and the
+uniform stream K4, against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test asks the `cuda_device` fixture for the card and
 skips without one. This file imports no JAX; the JAX side is the committed
@@ -10,6 +11,12 @@ gradients tests/golden_torch/grad_analytical_64x48_d4_k3.npz and
 grad_mesh_64x48_d4_k3.npz. Run on a CUDA host
 (the conftest imports JAX, which that host may lack):
 `python -m pytest --noconftest tests/test_torch_kernel_cuda.py -q`.
+
+K3, as chip_smoke.py phase 25: its frame bit-equal to K1's, its per-lane
+counts equal to the plain version's on at least 99.9% of the lanes (a
+knife-edge lane may take the other branch, as K1's pixels may), its alive
+fractions within 1e-3 of the plain version's. K4 bit-equal to its plain
+version.
 
 K2's tolerance, as chip_smoke.py phase 6: with the cotangent zeroed at the
 knife-edge pixels (the two forward frames differ by more than 1e-3 there:
@@ -27,13 +34,14 @@ import pytest
 import torch
 
 from pathtracer_tpu_torch.integrator import inverse
-from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
+from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM, bounces_entered
 from pathtracer_tpu_torch.models import families, sdf
 from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import megakernel_mesh as MM
 from pathtracer_tpu_torch.ops import megakernel_sdf as MS
 from pathtracer_tpu_torch.ops import rng
+from pathtracer_tpu_torch.tools import validate_rng
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "analytical_64x48_d4_k3.npy")
 SDF_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "sdf_64x48_d4_k3.npy")
@@ -320,3 +328,43 @@ def test_mesh_training_step_is_two_forward_and_one_backward_launch(cuda_device):
     assert counts == dict(launches=4, bwd_launches=2, mesh_launches=4, mesh_bwd_launches=2, sdf_launches=0,
                           sdf_bwd_launches=0, bigmesh_launches=0)
     assert np.isfinite(out.losses.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("family", ["analytical", "sdf", "mesh", "bigmesh"])
+@pytest.mark.parametrize("spp,quirks,seed", [(1, VERBATIM, 101), (2, VERBATIM, 102), (1, FIXED, 103)],
+                         ids=["spp1", "spp2", "fixed"])
+def test_occupancy_kernel_matches_plain_version(cuda_device, family, spp, quirks, seed):
+    """K3 at 320x240, depth 4, through measure_occupancy_megakernel: one K3
+    launch with the scene's backend and no K1 launch; the counts against
+    the plain version's; its frame bit-equal to K1's."""
+    scene = families.make_family_scene(family, device=cuda_device)
+    key, (w, h) = rng.prng_key(seed), (320, 240)
+    occ, k1 = MK.measure_occupancy_megakernel, MK.render_frame_megakernel
+    before = (occ.launches, getattr(occ, f"{family}_launches", 0), k1.launches)
+    got = occ(scene, key, w, h, spp, quirks)
+    assert (occ.launches, getattr(occ, f"{family}_launches", 0), k1.launches) == (
+        before[0] + 1, before[1] + (family != "analytical"), before[2])
+    ref = bounces_entered(scene, key, w, h, spp, quirks)
+    assert got["entered"].shape == (spp, h, w) and got["entered"].device == cuda_device
+    assert (got["entered"] == ref).double().mean().item() >= 0.999
+    want = torch.stack([(ref > b).double().mean() for b in range(scene.recursion_depth)]).cpu()
+    assert (got["alive_fraction"] - want).abs().max().item() <= 1e-3
+    k = MK.prepare_launch(scene, key, w, h, spp, quirks)
+    entered = torch.empty((spp, h, w), dtype=torch.int32, device=cuda_device)
+    frame = MK.launch(k, entered).clone()
+    assert torch.equal(entered, got["entered"])  # reproducible
+    assert torch.equal(frame, MK.launch(k))
+
+
+@pytest.mark.parametrize("seed,num_tiles,n_uniforms,tile_rows", [(1234, 16, 16, 8), (7, 3, 34, 8), (-5, 2, 1, 4)])
+def test_uniform_stream_kernel_matches_plain_version(cuda_device, seed, num_tiles, n_uniforms, tile_rows):
+    launches = MK.debug_uniform_stream.launches
+    got = MK.debug_uniform_stream(seed, num_tiles, n_uniforms, tile_rows, device=cuda_device)
+    assert MK.debug_uniform_stream.launches == launches + 1
+    assert got.device == cuda_device
+    assert torch.equal(got, MK.debug_uniform_stream_reference(seed, num_tiles, n_uniforms, tile_rows, cuda_device))
+
+
+def test_uniform_stream_kernel_passes_the_validation(cuda_device):
+    result = validate_rng.validate(cuda_device)
+    assert result["ok"], result
