@@ -123,10 +123,43 @@ which raises on failure (non-zero exit):
    path: two launches), its time and its bound, the least integer work
    a draw over the integer pipes' rates (K4_INT_OPS, K4_ADD_OPS).
 
-The total seconds, with phase 25's and phase 26's, are printed before the
-kernels line.
+27. participating media: K1's MEDIA instantiation (the segment inside a
+   medium, the Scatter event, the medium transition; ops/megakernel
+   selects it for a scene whose material table declares a medium) vs its
+   plain version on the card, depth 6, on tests/test_medium.py's glass
+   sphere (sphere 1: spec_trans 1, roughness 0.05, ior 1.5) filled with
+   Absorb, Emissive, Scatter g 0 and Scatter g 0.4 (the demo: density 0.8,
+   color (0.9, 0.2, 0.1)): 320x240 at spp 1 and 2 VERBATIM and spp 1
+   FIXED, and 1920x1080 spp 1; the SDF, mesh and big mesh demos with a
+   glass Scatter material at 320x240; then vs the committed JAX render
+   tests/golden_torch/media_analytical_64x48_d6_k3.npy. The pixels that
+   took another branch (|diff| > 1e-3) are counted; on the mesh, the
+   pixels whose plain path meets two coplanar triangles at once (the
+   cube's bottom face lies on the floor; ops/megakernel_mesh.hit_ties)
+   are left out and counted. The MEDIA instantiations' registers and
+   spills are printed;
+28. the media main path: 8 progressive 1920x1080 depth-6 frames of the
+   Scatter demo through render_frame_megakernel and accumulate, written to
+   a PNG, every frame exactly one launch of K1's MEDIA instantiation and
+   nothing else; the times of the wrapper, the launch alone and the plain
+   version, and the bound from this frame's segments, those inside the
+   medium and the scatter events (tools/work.count_media_work); a CUDA
+   media scene whose leaves require grad raises NotImplementedError (K2's
+   media branch is the next slice) and launches nothing. With `--other
+   DIR`, the media-free K1 and K3 of both trees on each backend in turns
+   (tools/k1_pair.pair), frames and counts bit-equal, and each media-free
+   instantiation's registers, stack and spills the other tree's;
+29. K3's MEDIA instantiation vs its plain version (bounces_entered), per
+   lane and in its alive fractions, its frame bit-equal to K1's MEDIA
+   frame, on each backend's glass Scatter scene at 320x240 (the analytical
+   one also at spp 2, FIXED and 1920x1080; the mesh's coplanar ties left
+   out); then one measure_occupancy_megakernel call at 1920x1080 (one K3
+   MEDIA launch) and K3 against K1 in turns there.
 
-Image tolerance (phases 3, 4, 10, 17 and 19): quantile(|diff|, 0.999) < 1e-4 and
+The total seconds, with phase 25's, phase 26's and phases 27-29's, are
+printed before the kernels line.
+
+Image tolerance (phases 3, 4, 10, 17, 19 and 27): quantile(|diff|, 0.999) < 1e-4 and
 mean(|diff|) < 1e-5, all values finite. The two sides draw the same
 threefry numbers, so they differ only by float rounding (FMA contraction,
 libm ulps), which can flip a rare knife-edge branch in a few pixels.
@@ -186,6 +219,7 @@ GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "grad_analytical_64x4
 SDF_GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "grad_sdf_64x48_d4_k3.npz")
 SDF_GRAD_FIXTURE_SMALL = os.path.join(ROOT, "tests", "golden_torch", "grad_sdf_32x16_d2_k3.npz")
 MESH_GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "grad_mesh_64x48_d4_k3.npz")
+MEDIA_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "media_analytical_64x48_d6_k3.npy")
 Q_TOL, MEAN_TOL = 1e-4, 1e-5
 GRAD_MAX_TOL, GRAD_RTOL, EDGE_TOL = 1e-2, 2e-2, 1e-3
 MAIN_W, MAIN_H, MAIN_DEPTH, MAIN_FRAMES = 1920, 1080, 4, 8
@@ -307,6 +341,31 @@ STREAM_SEED, STREAM_TILES, STREAM_DRAWS, STREAM_ROWS = 5, 2025, 34, 8
 # and half of all of it.
 K4_INT_OPS, K4_ADD_OPS = 20 + 20 + 2, 20 + 5 + 2 + 2
 K4_DRAW_OPS = max(K4_INT_OPS, (K4_INT_OPS + K4_ADD_OPS) / 2)
+# Phases 27-29: tests/test_medium.py's glass (the material of MEDIA_GLASS
+# in each family's demo) filled with each medium of MEDIA: (type, density,
+# color, anisotropy); "scatter g0.4" is the demo of the main path, at
+# MEDIA_DEPTH (test_medium.py's depth).
+MEDIA_DEPTH = 6
+MEDIA_GLASS = {"analytical": 1, "sdf": 0, "mesh": 1, "bigmesh": 1}
+MEDIA = {
+    "absorb": (1, 0.8, (0.9, 0.2, 0.1), 0.0),
+    "emissive": (3, 0.5, (0.2, 0.8, 0.3), 0.0),
+    "scatter g0": (2, 2.0, (1.0, 1.0, 1.0), 0.0),
+    "scatter g0.4": (2, 0.8, (0.9, 0.2, 0.1), 0.4),
+}
+MEDIA_MAIN = "scatter g0.4"
+# A pixel that took another branch differs by more than FLIP; a mesh hit
+# whose two nearest triangles' t are within MEDIA_TIE of each other is a
+# coplanar tie.
+FLIP, MEDIA_TIE = 1e-3, 1e-6
+# K1's MEDIA work, read from tracer.cuh as K1_OPS: per segment that enters
+# its bounce inside a medium, the free flight's draw (threefry's ~86 integer
+# operations at the float32 rate), its log and division (~20) and the
+# segment's terms (~10); a scatter event skips the surface's disney_eval
+# (~330) and disney_sample (~275) and runs hg_phase (~15) and sample_hg
+# (~60: the inverse CDF, the basis, the rotation).
+MEDIUM_SEGMENT_OPS = 86 + 20 + 10
+SCATTER_SAVED_OPS = 330 + 275 - 15 - 60
 
 
 def image_diff(a, b) -> dict:
@@ -378,8 +437,8 @@ def bound(segments: int, pixels: int, nbytes: int, ops: dict) -> tuple[float, st
 # render_frame_megakernel's counts of K1 and K2 launches, then K3's
 # (measure_occupancy_megakernel's, prefixed occupancy_) and K4's
 K1_K2_COUNTERS = ("launches", "bwd_launches", "sdf_launches", "sdf_bwd_launches", "mesh_launches",
-                  "mesh_bwd_launches", "bigmesh_launches")
-K3_COUNTERS = ("launches", "sdf_launches", "mesh_launches", "bigmesh_launches")
+                  "mesh_bwd_launches", "bigmesh_launches", "media_launches")
+K3_COUNTERS = ("launches", "sdf_launches", "mesh_launches", "bigmesh_launches", "media_launches")
 COUNTERS = K1_K2_COUNTERS + tuple(f"occupancy_{name}" for name in K3_COUNTERS) + ("stream_launches",)
 
 
@@ -779,6 +838,202 @@ def uniform_stream_phase(torch, mk, cuda_ms, dev, card: str) -> dict:
     )
 
 
+def media_scene(torch, families, family: str, dev, name: str, depth: int = MEDIA_DEPTH):
+    """The family's demo with its MEDIA_GLASS material made glass
+    (tests/test_medium.py's: spec_trans 1, metallic 0, roughness 0.05, ior
+    1.5) and filled with the medium `name` of MEDIA."""
+    med_type, density, color, g = MEDIA[name]
+    scene = families.make_family_scene(family, recursion_depth=depth, device=dev)
+    m, i = scene.params.materials, MEDIA_GLASS[family]
+    with torch.no_grad():
+        m.spec_trans[i], m.metallic[i], m.roughness[i], m.ior[i] = 1.0, 0.0, 0.05, 1.5
+        m.medium.medium_type[i], m.medium.density[i], m.medium.anisotropy[i] = med_type, density, g
+        m.medium.color.x[i], m.medium.color.y[i], m.medium.color.z[i] = color
+    return scene
+
+
+def coplanar_ties(torch, scene, key, w, h, spp, quirks):
+    """[h, w] bool on the host: the mesh pixels whose plain path meets two
+    coplanar triangles at once (none off the small mesh)."""
+    from pathtracer_tpu_torch.models import families
+    from pathtracer_tpu_torch.ops.megakernel_mesh import hit_ties
+
+    if families.family_of(scene) != "mesh":
+        return torch.zeros((h, w), dtype=torch.bool)
+    return (hit_ties(scene, key, w, h, spp, quirks) < MEDIA_TIE).any(1).any(0).reshape(h, w).cpu()
+
+
+def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list[dict]:
+    """Phases 27-29: K1's and K3's MEDIA instantiations against their plain
+    versions and the JAX render, the media main path with its times and
+    bound, the refused gradient, with `other` the media-free K1 and K3 of
+    another tree in turns, and K3 MEDIA. Returns the two rows of the
+    kernels line."""
+    from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM, accumulate, bounces_entered
+    from pathtracer_tpu_torch.models import families
+    from pathtracer_tpu_torch.tools import k1_pair
+    from pathtracer_tpu_torch.tools.work import count_media_work
+    from pathtracer_tpu_torch.utils.buffer import ColorBuffer, new_buffer
+    from pathtracer_tpu_torch.utils.image import save_render
+
+    print(f"== 27. K1's media instantiation vs its plain version on the card (depth {MEDIA_DEPTH})")
+    for key_, line in sorted(k1_pair.instantiations(_build.CSRC).items()):
+        if key_[2]:
+            print(f"  {key_[0]} {'K3' if key_[1] else 'K1'} MEDIA: {line}")
+    err = 0.0
+    cases = [("analytical", name, w, h, spp, quirks) for name in MEDIA
+             for w, h, spp, quirks in ((320, 240, 1, VERBATIM), (320, 240, 2, VERBATIM), (320, 240, 1, FIXED),
+                                       (MAIN_W, MAIN_H, 1, VERBATIM))]
+    cases += [(family, MEDIA_MAIN, 320, 240, 1, VERBATIM) for family in ("sdf", "mesh", "bigmesh")]
+    for i, (family, name, w, h, spp, quirks) in enumerate(cases):
+        scene = media_scene(torch, families, family, dev, name)
+        key = rng.prng_key(201 + i)
+        reset_counts(mk)
+        img = mk.render_frame_megakernel(scene, key, w, h, spp, quirks).cpu()
+        counts = read_counts(mk)
+        on = {} if family == "analytical" else {f"{family}_launches": 1}
+        if counts != expect_counts(launches=1, media_launches=1, **on):
+            raise AssertionError(f"{family} {name}: expected one launch of K1's MEDIA instantiation, got {counts}")
+        ref = mk.render_frame_reference(scene, key, w, h, spp, quirks).cpu()
+        ties = coplanar_ties(torch, scene, key, w, h, spp, quirks)
+        flips = (img - ref).abs()[..., :3].amax(-1) > FLIP
+        d = image_diff(img[~ties], ref[~ties])
+        if family == "analytical":
+            err = max(err, d["max"])
+        label = f"{family} {name} {w}x{h} spp{spp} {'VERBATIM' if quirks == VERBATIM else 'FIXED'}"
+        print(f"  {label}: {int((flips & ~ties).sum())} pixels flipped (|diff| > {FLIP})"
+              + (f"; {int(ties.sum())} coplanar-tie pixels left out ({int((flips & ties).sum())} flipped)"
+                 if family == "mesh" else ""))
+        check_diff(label, d)
+        del img, ref
+    scene = media_scene(torch, families, "analytical", dev, MEDIA_MAIN)
+    img = mk.render_frame_megakernel(scene, rng.prng_key(3), 64, 48)
+    check_diff("vs JAX (Scatter g 0.4, 64x48, depth 6, PRNGKey(3))", image_diff(img.cpu(), np.load(MEDIA_FIXTURE)))
+
+    print(f"== 28. media main path: the Scatter demo, {MAIN_W}x{MAIN_H}, depth {MEDIA_DEPTH}, {MAIN_FRAMES} "
+          "progressive frames")
+    main = media_scene(torch, families, "analytical", dev, MEDIA_MAIN)
+    buf = new_buffer(MAIN_W, MAIN_H, torch.float32, dev)
+    key = rng.prng_key(0)
+    reset_counts(mk)
+    for f in range(MAIN_FRAMES):
+        key, sub = rng.split(key)
+        buf = ColorBuffer(*accumulate(buf.pixels, mk.render_frame_megakernel(main, sub, MAIN_W, MAIN_H), buf.frames))
+        counts = read_counts(mk)
+        if counts != expect_counts(launches=f + 1, media_launches=f + 1):
+            raise AssertionError(f"frame {f + 1} is not one launch of K1's MEDIA instantiation: {counts}")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "media.png")
+        save_render(png, buf.pixels)
+        if not os.path.getsize(png) > 0:
+            raise AssertionError("no PNG written")
+    pixels = buf.pixels.cpu().numpy()
+    print(f"  launches {counts}  mean rgb={pixels[..., :3].mean():.4f}; wrote a PNG")
+    if pixels.shape != (MAIN_H, MAIN_W, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].max() > 0.05:
+        raise AssertionError("the media main-path image is not finite, black or of the wrong shape")
+    main_launches = counts["media_launches"]
+    key = rng.prng_key(5)
+    ms = cuda_ms(lambda: mk.render_frame_megakernel(main, key, MAIN_W, MAIN_H), 20)
+    k1 = mk.prepare_launch(main, key, MAIN_W, MAIN_H, 1, VERBATIM)
+    launch_ms = cuda_ms(lambda: mk.launch(k1), 20)
+    plain_ms = cuda_ms(lambda: mk.render_frame_reference(main, key, MAIN_W, MAIN_H), 2)
+    work = count_media_work(main, key, MAIN_W, MAIN_H)
+    pix = MAIN_W * MAIN_H
+    k1_work = (work["segments"] * K1_OPS["f32"] + work["medium"] * MEDIUM_SEGMENT_OPS
+               - work["scatter"] * SCATTER_SAVED_OPS,
+               work["segments"] * K1_OPS["f64"] + pix * CAMERA_F64_OPS, k1.sv.shape[1] * 4 + 16 + pix * 16)
+    bound_ms, bound_by = bound_of(*k1_work)
+    print(f"  wrapper {ms:.3f} ms/frame (kernel launch alone {launch_ms:.3f} ms), plain {plain_ms:.3f} ms/frame "
+          f"({card})")
+    print(f"  ray segments {work['segments']} ({work['segments'] / pix:.3f} per pixel), {work['medium']} inside the "
+          f"medium, {work['scatter']} scatter events; ray segments/s: kernel {work['segments'] / ms * 1e3:.4e}, "
+          f"plain {work['segments'] / plain_ms * 1e3:.4e}; bound {bound_ms:.4f} ms ({bound_by}) ({card})")
+    # where the time goes: the same glass without its medium through the
+    # media-free K1 and through the MEDIA instantiation (a vacuum record)
+    glass = media_scene(torch, families, "analytical", dev, MEDIA_MAIN)
+    glass.params.materials.medium.medium_type.zero_()
+    kv = mk.prepare_launch(glass, key, MAIN_W, MAIN_H, 1, VERBATIM)
+    km = kv._replace(sv=mk.pack_scene(glass, MAIN_W, MAIN_H, True).contiguous(), media=True)
+    vacuum_ms, vacuum_media_ms = cuda_ms(lambda: mk.launch(kv), 20), cuda_ms(lambda: mk.launch(km), 20)
+    vacuum_segments = count_media_work(glass, key, MAIN_W, MAIN_H)["segments"]
+    print(f"  the glass without its medium ({vacuum_segments} segments): media-free K1 {vacuum_ms:.3f} ms, the MEDIA "
+          f"instantiation {vacuum_media_ms:.3f} ms; with the Scatter medium {launch_ms:.3f} ms ({card})")
+    grad_scene = media_scene(torch, families, "analytical", dev, MEDIA_MAIN)
+    grad_scene.params.materials.medium.density.requires_grad_(True)
+    reset_counts(mk)
+    try:
+        mk.render_frame_megakernel(grad_scene, rng.prng_key(0), 16, 8)
+    except NotImplementedError as e:
+        print(f"  a CUDA media scene with grad raises: {e}")
+    else:
+        raise AssertionError("a CUDA media scene with grad rendered without K2's media branch")
+    if read_counts(mk) != expect_counts():
+        raise AssertionError(f"the refused media gradient launched a kernel: {read_counts(mk)}")
+    if other:
+        results = k1_pair.pair([Path(other)], families.FAMILIES, log=lambda s: print("  " + s))
+        same = k1_pair.same_resources(Path(other), log=lambda s: print("  " + s))
+        if not (same and all(r["bit_equal"] for r in results)):
+            raise AssertionError("the media-free K1 or K3 of this tree and the other's differ in output or resources")
+    else:
+        print("  media-free K1 and K3 against another tree's: not run (no --other DIR given)")
+
+    print("== 29. K3's media instantiation vs its plain version (bounces_entered), frame bit-equal to K1's")
+    k3_err = 0.0
+    cases = [("analytical", w, h, spp, quirks) for w, h, spp, quirks in (
+        (320, 240, 1, VERBATIM), (320, 240, 2, VERBATIM), (320, 240, 1, FIXED), (MAIN_W, MAIN_H, 1, VERBATIM))]
+    cases += [(family, 320, 240, 1, VERBATIM) for family in ("sdf", "mesh", "bigmesh")]
+    for i, (family, w, h, spp, quirks) in enumerate(cases):
+        scene = media_scene(torch, families, family, dev, MEDIA_MAIN)
+        key = rng.prng_key(301 + i)
+        k = mk.prepare_launch(scene, key, w, h, spp, quirks)
+        entered = torch.empty((spp, h, w), dtype=torch.int32, device=dev)
+        frame = mk.launch(k, entered).clone()
+        same_frame = bool(torch.equal(frame, mk.launch(k)))
+        ref = bounces_entered(scene, key, w, h, spp, quirks)
+        keep = ~coplanar_ties(torch, scene, key, w, h, spp, quirks).to(dev)
+        same = float((entered[:, keep] == ref[:, keep]).double().mean())
+        got, want = (mk.occupancy_stats(e, MEDIA_DEPTH) for e in (entered, ref))
+        d = float((got["alive_fraction"] - want["alive_fraction"]).abs().max())
+        k3_err = max(k3_err, d)
+        print(f"  {family} {w}x{h} spp{spp} {'VERBATIM' if quirks == VERBATIM else 'FIXED'}: frame bit-equal to "
+              f"K1's {same_frame}; counts equal on {same:.6f} of lanes"
+              + (f" ({int((~keep).sum())} coplanar-tie pixels left out)" if family == "mesh" else "")
+              + f"; alive fractions {fmt_fractions(got['alive_fraction'])}, max |diff| {d:.2e}")
+        if not (same_frame and same >= OCC_SAME_MIN and d <= OCC_FRAC_TOL):
+            raise AssertionError(f"K3 MEDIA {family} {w}x{h} spp{spp}: outside tolerance")
+        del k, entered, frame, ref
+    key = rng.prng_key(5)
+    reset_counts(mk)
+    occ = mk.measure_occupancy_megakernel(main, key, MAIN_W, MAIN_H)
+    counts = read_counts(mk)
+    if counts != expect_counts(occupancy_launches=1, occupancy_media_launches=1):
+        raise AssertionError(f"measure_occupancy_megakernel on the media scene: not one K3 MEDIA launch: {counts}")
+    print(f"  measure_occupancy_megakernel at {MAIN_W}x{MAIN_H}: launches {counts}; alive fractions "
+          f"{fmt_fractions(occ['alive_fraction'])}, idle lanes of live warps {occ['warp_wasted_fraction']:.5f}")
+    k3 = k1._replace(out=torch.empty_like(k1.out))
+    entered = torch.empty((1, MAIN_H, MAIN_W), dtype=torch.int32, device=dev)
+    pair = k1_pair.in_turns({"other": lambda: mk.launch(k1), "this": lambda: mk.launch(k3, entered)},
+                            f"K3 MEDIA launch (this) against K1 MEDIA's (other) at {MAIN_W}x{MAIN_H}, depth "
+                            f"{MEDIA_DEPTH}, spp 1", card, log=lambda s: print("  " + s))
+    if not pair["bit_equal"]:
+        raise AssertionError("K3 MEDIA: its 1080p frame is not K1 MEDIA's")
+    refs = []
+    k3_plain_ms = cuda_ms(lambda: refs.append(bounces_entered(main, key, MAIN_W, MAIN_H)), 1, warmup=0)
+    k3_bound_ms, k3_bound_by = bound_of(k1_work[0], k1_work[1], k1_work[2] + 4 * pix)
+    print(f"  K3 MEDIA launch {pair['this_ms']:.4f} ms, K1 MEDIA's {pair['other_ms']:.4f} ms in turns "
+          f"({pair['ratio']:.4f}x); plain {k3_plain_ms:.3f} ms; bound {k3_bound_ms:.4f} ms ({k3_bound_by}) ({card})")
+    return [dict(
+        name="megakernel_fwd_media", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
+        replaces="pathtracer_tpu/ops/megakernel.py:1605", launches=main_launches, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    ), dict(
+        name="megakernel_fwd_occupancy_media", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
+        replaces="pathtracer_tpu/ops/megakernel.py:1644", launches=counts["occupancy_media_launches"],
+        max_abs_err=k3_err, ms=pair["this_ms"], plain_ms=k3_plain_ms, bound_ms=k3_bound_ms, bound_by=k3_bound_by,
+        library_ms=None,
+    )]
+
+
 def print_registers(_build) -> None:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -899,7 +1154,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one CUDA card.")
     ap.add_argument("--other", default=None, help="root of another checkout: phase 24 times its analytical and "
-                    "SDF K2 against this tree's, in turns")
+                    "SDF K2 against this tree's, phase 28 its media-free K1 and K3 on every backend, in turns")
     args = ap.parse_args(argv)
 
     started = time.perf_counter()
@@ -1306,6 +1561,8 @@ def main(argv=None) -> int:
     t26 = time.perf_counter()
     stream_row = uniform_stream_phase(torch, mk, cuda_ms, dev, card)
     t27 = time.perf_counter()
+    media_rows = media_phases(torch, mk, _build, rng, cuda_ms, dev, card, args.other)
+    t30 = time.perf_counter()
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
@@ -1332,8 +1589,9 @@ def main(argv=None) -> int:
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
         max_abs_err=float(k6_err), ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_bound_by,
         library_ms=None,
-    ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row]
-    print(f"== total {time.perf_counter() - started:.1f} s (phase 25 {t26 - t25:.1f} s, phase 26 {t27 - t26:.1f} s)")
+    ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row, *media_rows]
+    print(f"== total {time.perf_counter() - started:.1f} s (phase 25 {t26 - t25:.1f} s, phase 26 {t27 - t26:.1f} s, "
+          f"phases 27-29 {t30 - t27:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,8 @@ __device__ __forceinline__ void primitive_ts(const SceneView& s, V3 ro, V3 rd, f
 // a miss, where the material is Material::new), the normal and the
 // un-finalized material; the plane's albedo is the checker computed from
 // the ray direction with Rust's truncated float `%` (fmodf).
-__device__ __forceinline__ float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, Material& mat) {
+template <class M = Material>
+__device__ __forceinline__ float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, M& mat) {
   float t0, t1, tp;
   primitive_ts(s, ro, rd, t0, t1, tp);
   float t = fminf(fminf(t0, t1), tp);
@@ -61,7 +62,7 @@ __device__ __forceinline__ float closest_hit(const SceneView& s, V3 ro, V3 rd, V
     mat = default_material();
     return INFINITY;
   }
-  mat = load_material(s.material(min(idx, s.n_materials - 1)));
+  load_material(s, min(idx, s.n_materials - 1), mat);
   if (idx == 2) {
     float safe_dy = rd.y != 0.0f ? rd.y : 1.0f;
     float cx = rd.x / safe_dy * s.sv[SV_CHECKER_SCALE] + s.sv[SV_CHECKER_OFFSET];
@@ -84,7 +85,8 @@ __device__ __forceinline__ bool any_hit(const SceneView& s, V3 ro, V3 rd, float 
 
 // The analytical backend of the generic tracer.
 struct Analytical {
-  __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, Material& mat) {
+  template <class M = Material>
+  __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, M& mat) {
     return pt::closest_hit(s, ro, rd, normal, mat);
   }
   __device__ __forceinline__ static bool any_hit(const SceneView& s, V3 ro, V3 rd, float max_dist) {

@@ -102,7 +102,8 @@ __device__ __forceinline__ float safe_inv_dir(float d) { return 1.0f / (fabsf(d)
 
 // The big mesh backend of the generic tracer.
 struct BigMesh {
-  __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, Material& mat) {
+  template <class M = Material>
+  __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, M& mat) {
     const V3 m = cross_rn(ro, rd);
     const V3 invd = v3(safe_inv_dir(rd.x), safe_inv_dir(rd.y), safe_inv_dir(rd.z));
     float best = INFINITY;
@@ -127,7 +128,7 @@ struct BigMesh {
       mat = default_material();
       return INFINITY;
     }
-    mat = load_material(s.material((int)table(s.attr + 3 * tpad + win)));
+    load_material(s, (int)table(s.attr + 3 * tpad + win), mat);
     return best;
   }
 

@@ -14,6 +14,11 @@
 // (the TPU's tiles, this card's blocks and warps) reduces from it exactly,
 // and the loop and its early exit stay K1's. K1's instantiation compiles no
 // count (COUNT = false), as it compiles no topology copy outside the mesh.
+// A scene whose material table declares a medium takes the MEDIA
+// instantiation of both (_make_kernel with has_media: the segment inside a
+// medium, the Scatter event, the medium transition; tracer.cuh), its own
+// entry points over 26-scalar material records; the media-free
+// instantiations compile none of it.
 // It computes what integrator/tracer.render_frame computes for one frame:
 // one thread per pixel loops over the spp samples and, per sample, runs the
 // camera ray and up to `depth` bounces of closest hit, emitter pass with
@@ -58,7 +63,7 @@ constexpr int THREADS = 128;
 template <class B>
 constexpr bool SHARED_TOPOLOGY = std::is_same_v<B, Mesh>;
 
-template <class B, bool COUNT>
+template <class B, bool COUNT, bool MEDIA>
 __global__ void __launch_bounds__(THREADS)
     render_forward_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
                           float* __restrict__ out, int* __restrict__ entered, int width, int height, int spp,
@@ -83,7 +88,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int k = 0; k < spp; ++k) {
     const uint32_t* kk = keys + 4 * k;  // (kc0, kc1, kb0, kb1) of sample k
     int e = 0;  // the bounces entered, which K1 (COUNT = false) neither counts nor writes
-    V3 r = trace_sample<B, COUNT>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], &e);
+    V3 r = trace_sample<B, COUNT, MEDIA>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], &e);
     if constexpr (COUNT) entered[k * n + p] = e;
     sum = k == 0 ? r : sum + r;
   }
@@ -94,18 +99,19 @@ __global__ void __launch_bounds__(THREADS)
 
 // Launches one frame on `stream`: K1, or K3 when `entered` (int32 [spp, H,
 // W]) is given; `s` is the scene's structure (its sv and topology are set to
-// the shared copies in the kernel). Returns cudaGetLastError().
-template <class B>
+// the shared copies in the kernel); MEDIA selects the media instantiation.
+// Returns cudaGetLastError().
+template <class B, bool MEDIA = false>
 int launch_forward(const float* sv, int n_sv, const uint32_t* keys, float* out, int* entered, int width,
                    int height, int spp, int depth, int flags, SceneView s, void* stream) {
   const int n = width * height;
   const int blocks = (n + THREADS - 1) / THREADS;
   const size_t smem = n_sv * sizeof(float) + 4 * s.n_tris * sizeof(int);
   if (entered == nullptr) {
-    render_forward_kernel<B, false><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+    render_forward_kernel<B, false, MEDIA><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
         sv, n_sv, keys, out, nullptr, width, height, spp, depth, flags, s);
   } else {
-    render_forward_kernel<B, true><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+    render_forward_kernel<B, true, MEDIA><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
         sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s);
   }
   return (int)cudaGetLastError();
@@ -179,6 +185,72 @@ extern "C" int pt_render_forward_bigmesh(const float* sv, int n_sv, const uint32
                                          void* stream) {
   return pt_render_forward_occupancy_bigmesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
                                              n_materials, flags, coef, attr, aabb, n_chunks, stream);
+}
+
+// The media instantiation's entry points, K3's and K1's for each backend:
+// the same arguments as the media-free ones, over a packed vector whose
+// material records hold 26 scalars.
+extern "C" int pt_render_forward_occupancy_media(const float* sv, int n_sv, const uint32_t* keys, float* out,
+                                                 int* entered, int width, int height, int spp, int depth, int n_lights,
+                                                 int n_materials, int flags, void* stream) {
+  const pt::SceneView s = pt::analytical_view(nullptr, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
+  return pt::launch_forward<pt::Analytical, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s,
+                                                  stream);
+}
+
+extern "C" int pt_render_forward_occupancy_media_sdf(const float* sv, int n_sv, const uint32_t* keys, float* out,
+                                                     int* entered, int width, int height, int spp, int depth,
+                                                     int n_lights, int n_materials, int flags, int n_spheres,
+                                                     int n_boxes, int n_tori, void* stream) {
+  const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
+  return pt::launch_forward<pt::Sdf, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
+}
+
+extern "C" int pt_render_forward_occupancy_media_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
+                                                      int* entered, int width, int height, int spp, int depth,
+                                                      int n_lights, int n_materials, int flags, const int* topo,
+                                                      int n_tris, int n_verts, void* stream) {
+  const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
+  return pt::launch_forward<pt::Mesh, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
+}
+
+extern "C" int pt_render_forward_occupancy_media_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
+                                                         int* entered, int width, int height, int spp, int depth,
+                                                         int n_lights, int n_materials, int flags, const float* coef,
+                                                         const float* attr, const float* aabb, int n_chunks,
+                                                         void* stream) {
+  const pt::SceneView s = pt::bigmesh_view(nullptr, n_lights, n_materials, coef, attr, aabb, n_chunks);
+  return pt::launch_forward<pt::BigMesh, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s,
+                                               stream);
+}
+
+extern "C" int pt_render_forward_media(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
+                                       int height, int spp, int depth, int n_lights, int n_materials, int flags,
+                                       void* stream) {
+  return pt_render_forward_occupancy_media(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
+                                           n_materials, flags, stream);
+}
+
+extern "C" int pt_render_forward_media_sdf(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
+                                           int height, int spp, int depth, int n_lights, int n_materials, int flags,
+                                           int n_spheres, int n_boxes, int n_tori, void* stream) {
+  return pt_render_forward_occupancy_media_sdf(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
+                                               n_materials, flags, n_spheres, n_boxes, n_tori, stream);
+}
+
+extern "C" int pt_render_forward_media_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
+                                            int height, int spp, int depth, int n_lights, int n_materials, int flags,
+                                            const int* topo, int n_tris, int n_verts, void* stream) {
+  return pt_render_forward_occupancy_media_mesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
+                                                n_materials, flags, topo, n_tris, n_verts, stream);
+}
+
+extern "C" int pt_render_forward_media_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
+                                               int height, int spp, int depth, int n_lights, int n_materials,
+                                               int flags, const float* coef, const float* attr, const float* aabb,
+                                               int n_chunks, void* stream) {
+  return pt_render_forward_occupancy_media_bigmesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
+                                                   n_materials, flags, coef, attr, aabb, n_chunks, stream);
 }
 
 extern "C" const char* pt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

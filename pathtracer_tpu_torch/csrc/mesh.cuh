@@ -50,7 +50,8 @@ __device__ __forceinline__ float mesh_triangle(const SceneView& s, int i, V3 ro,
 struct Mesh {
   // First minimum over the triangles; on a miss triangle 0's normal and the
   // default material, as the JAX where-chain leaves them.
-  __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, Material& mat) {
+  template <class M = Material>
+  __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, M& mat) {
     float best = INFINITY;
     int idx = 0;
     for (int i = 0; i < s.n_tris; ++i) {
@@ -68,7 +69,7 @@ struct Mesh {
       mat = default_material();
       return INFINITY;
     }
-    mat = load_material(s.material(tri[3]));
+    load_material(s, tri[3], mat);
     return best;
   }
 

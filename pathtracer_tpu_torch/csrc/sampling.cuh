@@ -1,5 +1,9 @@
 // Scalar per-thread twin of ops/sampling.py (the parts the forward path
 // runs). Every division keeps the Python code's zero-denominator guard.
+// The Henyey-Greenstein terms round every product apart from the sums it
+// feeds (__fmul_rn), in the plain version's order: sample_hg's cos divides
+// a difference of nearly equal terms by 2g, where an FMA's last bit is
+// magnified at small |g|.
 #pragma once
 
 #include "vecmath.cuh"
@@ -103,6 +107,30 @@ __device__ __forceinline__ V3 uniform_sample_hemisphere(float r1, float r2) {
   float r = safe_sqrt(1.0f - r1 * r1);
   float phi = TWO_PI * r2;
   return v3(r * cosf(phi), r * sinf(phi), r1);
+}
+
+// Henyey-Greenstein phase p(cos; g), normalized over the sphere; cos is
+// between the propagation and the scattered direction (g > 0 forward).
+__device__ __forceinline__ float hg_phase(float cos_theta, float g) {
+  float g2 = __fmul_rn(g, g);
+  float denom = __fadd_rn(1.0f, g2) - __fmul_rn(__fmul_rn(2.0f, g), cos_theta);
+  return INV_PI * 0.25f * (1.0f - g2) / (denom * safe_sqrt(denom));
+}
+
+// Importance-samples hg_phase about the unit direction d (its pdf is
+// hg_phase); |g| < 1e-3 samples the uniform sphere.
+__device__ __forceinline__ V3 sample_hg(V3 d, float g, float r1, float r2) {
+  bool iso = fabsf(g) < 1e-3f;
+  float gs = iso ? 0.5f : g;
+  float g2 = __fmul_rn(gs, gs);
+  float sqr = (1.0f - g2) / (__fadd_rn(1.0f, gs) - __fmul_rn(__fmul_rn(2.0f, gs), r2));
+  float cos_aniso = (__fadd_rn(1.0f, g2) - __fmul_rn(sqr, sqr)) / (2.0f * gs);
+  float cos_theta = clampf(iso ? 1.0f - __fmul_rn(2.0f, r2) : cos_aniso, -1.0f, 1.0f);
+  float sin_theta = safe_sqrt(1.0f - __fmul_rn(cos_theta, cos_theta));
+  float phi = TWO_PI * r1;
+  V3 t, b;
+  onb(d, t, b);
+  return to_world(t, b, d, v3(sin_theta * cosf(phi), sin_theta * sinf(phi), cos_theta));
 }
 
 }  // namespace pt

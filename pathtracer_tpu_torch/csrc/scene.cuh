@@ -11,6 +11,12 @@
 //   M x 20    material: rgb(3) anisotropic emission(3) metallic roughness
 //             subsurface specular_tint sheen sheen_tint clearcoat
 //             clearcoat_gloss spec_trans ior opacity alpha_mode alpha_cutoff
+//
+// A scene whose material table declares a medium packs M records of 26
+// instead: the 20 above, then the medium's type density color(3)
+// anisotropy. The kernels' media instantiation reads them into a
+// MediaMaterial (load_material's overloads); the media-free one never sees
+// them.
 #pragma once
 
 #include "bsdf.cuh"
@@ -24,6 +30,7 @@ enum : int {
   SV_CAM_ORIGIN = 9,
   LIGHT_STRIDE = 15,
   MAT_STRIDE = 20,
+  MAT_STRIDE_MEDIA = 26,
 };
 
 __device__ __forceinline__ V3 load3(const float* p) { return v3(p[0], p[1], p[2]); }
@@ -72,6 +79,41 @@ __device__ __forceinline__ Material load_material(const float* p) {
   m.alpha_mode = (int)p[18];
   m.alpha_cutoff = p[19];
   return m;
+}
+
+// The medium a material fills its inside with: type 0 none (vacuum), 1
+// Absorb, 2 Scatter (HG of anisotropy g), 3 Emissive.
+struct Medium {
+  int type;
+  float density;
+  V3 color;
+  float aniso;
+};
+
+__device__ __forceinline__ Medium vacuum() { return {0, 0.0f, splat3(0.0f), 0.0f}; }
+
+// A material with its medium, as the media instantiation's closest hit
+// returns it; assigning a Material (Material::new on a miss) leaves it
+// vacuum.
+struct MediaMaterial : Material {
+  Medium medium;
+  __device__ __forceinline__ MediaMaterial& operator=(const Material& m) {
+    Material::operator=(m);
+    medium = vacuum();
+    return *this;
+  }
+};
+
+// The backends' closest hits load material i into `m`: a record of 20, or of
+// 26 with its medium.
+__device__ __forceinline__ void load_material(const SceneView& s, int i, Material& m) {
+  m = load_material(s.material(i));
+}
+
+__device__ __forceinline__ void load_material(const SceneView& s, int i, MediaMaterial& m) {
+  const float* p = s.sv + s.lights_at + s.n_lights * LIGHT_STRIDE + i * MAT_STRIDE_MEDIA;
+  m = load_material(p);
+  m.medium = {(int)p[20], p[21], load3(p + 22), p[25]};
 }
 
 // The sky shared by the demo scenes: gamma-2.2-decoded lerp of horizon and

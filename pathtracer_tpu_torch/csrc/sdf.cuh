@@ -266,7 +266,8 @@ __device__ __forceinline__ float sdf_checker(const SceneView& s, V3 x) {
 // Sphere-traced closest hit: t (+inf on a miss), the normal (at ro on a
 // miss: never used, but finite) and the un-finalized material (the default
 // one on a miss; the checker's albedo on the plane).
-__device__ __forceinline__ float sdf_closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, Material& mat) {
+template <class M = Material>
+__device__ __forceinline__ float sdf_closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, M& mat) {
   const float t = sdf_march(s, ro, rd, SDF_T_MAX).t;
   const bool hit = sdf_converged(s, ro, rd, t);
   const V3 x = madd3(ro, rd, hit ? t : 0.0f);
@@ -276,7 +277,7 @@ __device__ __forceinline__ float sdf_closest_hit(const SceneView& s, V3 ro, V3 r
     return INFINITY;
   }
   const int idx = nearest_primitive(s, x);
-  mat = load_material(s.material(idx));
+  load_material(s, idx, mat);
   if (idx == s.n_materials - 1) mat.rgb = splat3(sdf_checker(s, x));
   return t;
 }
@@ -294,7 +295,8 @@ __device__ __forceinline__ V3 sdf_background(const SceneView& s, V3 rd) { return
 
 // The SDF backend of the generic tracer.
 struct Sdf {
-  __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, Material& mat) {
+  template <class M = Material>
+  __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, M& mat) {
     return sdf_closest_hit(s, ro, rd, normal, mat);
   }
   __device__ __forceinline__ static bool any_hit(const SceneView& s, V3 ro, V3 rd, float max_dist) {

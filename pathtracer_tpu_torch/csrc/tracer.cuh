@@ -1,5 +1,9 @@
-// Scalar per-thread twin of integrator/tracer.py (mis estimator, no media):
-// emitter pass, light sampling, NEE and the bounce loop of one sample.
+// Scalar per-thread twin of integrator/tracer.py (mis estimator): emitter
+// pass, light sampling, NEE and the bounce loop of one sample. The media
+// segment (Absorb, Emissive, HG single Scatter) is media_bounce, which only
+// the kernels' MEDIA instantiation runs (a scene whose material table
+// declares a medium, as the JAX kernel's has_media); the media-free bounce
+// compiles none of it.
 //
 // Generic over the scene backend B, the counterpart of the JAX package's
 // KernelBackend (ops/megakernel.py): a type with static
@@ -122,6 +126,35 @@ __device__ __forceinline__ V3 direct_light(const SceneView& s, V3 rd, V3 fhp, V3
   return ls.emission * f * (mis_w / ls.pdf);
 }
 
+// Next-event estimation of the media instantiation, at a surface
+// (direct_light's, from scatter_pos = fhp + ffnormal * EPS) or, with
+// `phase`, at a volumetric scatter point (integrator
+// scatter_direct_light): there the HG phase of anisotropy g is the value
+// and the pdf in place of the Disney BSDF. One function for both, so the
+// shadow ray (the SDF's march) is inlined once.
+template <class B>
+__device__ __forceinline__ V3 media_direct_light(const SceneView& s, V3 rd, V3 scatter_pos, V3 ffnormal,
+                                                 const Material& m, float eta, bool phase, float g, float u_pick,
+                                                 float r1, float r2) {
+  if (s.n_lights == 0) return splat3(0.0f);
+  int idx = min(max((int)(u_pick * (float)s.n_lights), 0), s.n_lights - 1);
+  LightSample ls = sample_light(s, idx, scatter_pos, r1, r2);
+  if (!(dot(ls.direction, ls.normal) < 0.0f)) return splat3(0.0f);
+  if (B::any_hit(s, scatter_pos, ls.direction, ls.dist - EPS)) return splat3(0.0f);
+  float area = s.light(idx)[13];
+  if (phase) {
+    float p = hg_phase(dot(rd, ls.direction), g);
+    if (!(p > 0.0f && ls.pdf > 0.0f)) return splat3(0.0f);
+    float mis_w = area > 0.0f ? power_heuristic(ls.pdf, p) : 1.0f;
+    return ls.emission * splat3(mis_w * p / ls.pdf);
+  }
+  float bsdf_pdf;
+  V3 f = disney_eval(m, eta, -rd, ffnormal, ls.direction, bsdf_pdf);
+  if (!(bsdf_pdf > 0.0f && ls.pdf > 0.0f)) return splat3(0.0f);
+  float mis_w = area > 0.0f ? power_heuristic(ls.pdf, bsdf_pdf) : 1.0f;
+  return ls.emission * f * (mis_w / ls.pdf);
+}
+
 // The per-lane state that enters a bounce (integrator PathState, minus the
 // radiance sum and the alive flag, which the caller keeps).
 struct PathCarry {
@@ -129,6 +162,11 @@ struct PathCarry {
   float prev_pdf;
   V3 prev_l;
   float prev_hit_dist;
+};
+
+// The media instantiation's state: the medium the ray travels in too.
+struct MediaCarry : PathCarry {
+  Medium med;
 };
 
 // Camera ray direction of pixel p (Pinhole::gen_ray with pixel_coords'
@@ -232,11 +270,126 @@ __device__ __forceinline__ bool bounce(const SceneView& s, PathCarry& c, V3& rad
   return true;
 }
 
+// bounce with the media segment (integrator make_bounce_step on a live lane
+// of a scene with a medium), in the plain version's order: the segment
+// just travelled inside the carried medium (Absorb attenuates the
+// throughput, Emissive adds to the radiance); the Scatter event, a free
+// flight from uniform 7 that ends before the hit, which scatters there (the
+// albedo, the HG-phase NEE on uniforms 0-2, the HG continuation on 3-4) and
+// does no surface work; else bounce's surface, and on a transmission the
+// medium transition (into a front face: the surface's medium; out of a
+// back face: vacuum). The surface's NEE and the scatter point's are one
+// call of media_direct_light. The surface part repeats bounce's rather than
+// share it: the media-free K1 and K3 must compile to the same machine code
+// whatever this function does, and a helper shared with bounce moved their
+// registers (tools/k1_pair.same_resources compares the machine code with
+// another tree's).
+template <class B>
+__device__ __forceinline__ bool media_bounce(const SceneView& s, MediaCarry& c, V3& radiance, int n, int p, int d,
+                                             int flags, uint32_t kb0, uint32_t kb1) {
+  const bool stale_gate = flags & FLAG_STALE_EMITTER_GATE;
+  const bool primary_mis = flags & FLAG_PRIMARY_MIS;
+  const uint64_t base = bounce_counter(n, p, d);
+  const V3 ro = c.ro, rd = c.rd;
+  const Medium med = c.med;
+  V3 throughput = c.throughput;
+
+  V3 geo_normal;
+  MediaMaterial mat;
+  float t = B::closest_hit(s, ro, rd, geo_normal, mat);
+  bool geo_hit = isfinite(t);
+  float gate_dist = geo_hit ? t : (stale_gate ? c.prev_hit_dist : INFINITY);
+  EmitterHit em = sample_lights_emitter(s, ro, rd, gate_dist);
+  bool hit = geo_hit || em.hit;
+  if (!hit) {  // background, and the path dies
+    radiance = radiance + B::background(s, rd) * throughput;
+    return false;
+  }
+  float hit_dist = em.hit ? em.dist : gate_dist;
+  c.prev_hit_dist = hit_dist;
+
+  if (med.type == 3) radiance = radiance + med.color * splat3(med.density * hit_dist) * throughput;
+  if (med.type == 1) {
+    const float ext = med.density * hit_dist;
+    throughput = throughput * v3(expf(-(1.0f - med.color.x) * ext), expf(-(1.0f - med.color.y) * ext),
+                                 expf(-(1.0f - med.color.z) * ext));
+  }
+  bool scat = false;
+  V3 scatter_pos;
+  if (med.type == 2 && med.density > 0.0f) {
+    const float s_free = -logf(fmaxf(1.0f - uniform_at(kb0, kb1, base + 7), 1e-12f)) / fmaxf(med.density, 1e-12f);
+    scat = s_free < hit_dist;
+    scatter_pos = madd3(ro, rd, s_free);
+  }
+
+  V3 fhp, ffnormal;
+  bool entering;
+  float eta;
+  if (scat) {
+    throughput = throughput * med.color;
+  } else {
+    finalize_material(mat);
+    fhp = madd3(ro, rd, hit_dist);
+    entering = dot(geo_normal, rd) <= 0.0f;
+    ffnormal = entering ? geo_normal : -geo_normal;
+    eta = dot(rd, geo_normal) < 0.0f ? 1.0f / mat.ior : mat.ior;
+
+    bool alpha_fail = (mat.alpha_mode == 1 && uniform_at(kb0, kb1, base + 6) > mat.opacity) ||
+                      (mat.alpha_mode == 2 && mat.opacity < mat.alpha_cutoff);
+    bool passthru = !em.hit && alpha_fail;
+
+    if (!passthru) radiance = radiance + mat.emission * throughput;
+
+    if (em.hit) {
+      float mis_w = power_heuristic(fmaxf(c.prev_pdf, 0.0f), em.pdf);
+      if (!primary_mis && c.prev_pdf < 0.0f) mis_w = 1.0f;
+      radiance = radiance + em.emission * (mis_w * 1.0f) * throughput;
+    }
+    if (passthru) {
+      c.ro = madd3(fhp, rd, EPS);
+      c.throughput = throughput;
+      return true;
+    }
+    if (em.hit) return false;
+    scatter_pos = madd3(fhp, ffnormal, EPS);
+  }
+
+  V3 ld = media_direct_light<B>(s, rd, scatter_pos, ffnormal, mat, eta, scat, med.aniso,
+                                uniform_at(kb0, kb1, base + 0), uniform_at(kb0, kb1, base + 1),
+                                uniform_at(kb0, kb1, base + 2));
+  radiance = radiance + ld * throughput;
+
+  if (scat) {  // on from the scatter point along the HG sample, still inside the medium
+    const V3 l = sample_hg(rd, med.aniso, uniform_at(kb0, kb1, base + 3), uniform_at(kb0, kb1, base + 4));
+    c.prev_pdf = hg_phase(dot(rd, l), med.aniso);
+    c.prev_l = l;
+    c.throughput = throughput;
+    c.ro = scatter_pos;
+    c.rd = l;
+    return true;
+  }
+
+  BsdfSample bs = disney_sample(mat, eta, -rd, ffnormal, c.prev_l, uniform_at(kb0, kb1, base + 3),
+                                uniform_at(kb0, kb1, base + 4), uniform_at(kb0, kb1, base + 5));
+  c.prev_pdf = bs.pdf;
+  c.prev_l = bs.l;
+  if (!(bs.pdf > 0.0f)) return false;
+  c.throughput = throughput * bs.f / splat3(bs.pdf);
+  c.ro = madd3(fhp, bs.l, EPS);
+  c.rd = bs.l;
+  if (dot(bs.l, ffnormal) < 0.0f) {  // transmitted: the medium changes
+    const Medium& mm = mat.medium;
+    c.med = entering ? Medium{mm.type, mm.density, mm.color, clampf(mm.aniso, -0.9f, 0.9f)} : vacuum();
+  }
+  return true;
+}
+
 // One sample of one pixel: camera ray plus the bounce loop, returning
 // radiance. Camera uniform j of pixel p is uniform(kc)[p*2 + j]. With COUNT
 // (the occupancy kernel K3) *entered is set to the bounces the path entered
-// alive, the loop's trips; K1's instantiation compiles no count.
-template <class B, bool COUNT = false>
+// alive, the loop's trips; K1's instantiation compiles no count. With MEDIA
+// (a scene with a medium) the loop runs media_bounce from vacuum.
+template <class B, bool COUNT = false, bool MEDIA = false>
 __device__ __forceinline__ V3 trace_sample(const SceneView& s, int p, int n, int width, int height, int depth,
                                            int flags, uint32_t kc0, uint32_t kc1, uint32_t kb0, uint32_t kb1,
                                            int* entered = nullptr) {
@@ -244,13 +397,25 @@ __device__ __forceinline__ V3 trace_sample(const SceneView& s, int p, int n, int
   float sx, sy;
   V3 rd = camera_ray(s, p, width, height, uniform_at(kc0, kc1, camera_counter(p, 0)),
                      uniform_at(kc0, kc1, camera_counter(p, 1)), q, sx, sy);
-  PathCarry c = init_carry(s, rd, flags);
-  V3 radiance = splat3(0.0f);
-  for (int d = 0; d < depth; ++d) {
-    if constexpr (COUNT) *entered = d + 1;
-    if (!bounce<B>(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
+  if constexpr (MEDIA) {
+    MediaCarry c;
+    static_cast<PathCarry&>(c) = init_carry(s, rd, flags);
+    c.med = vacuum();
+    V3 radiance = splat3(0.0f);
+    for (int d = 0; d < depth; ++d) {
+      if constexpr (COUNT) *entered = d + 1;
+      if (!media_bounce<B>(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
+    }
+    return radiance;
+  } else {
+    PathCarry c = init_carry(s, rd, flags);
+    V3 radiance = splat3(0.0f);
+    for (int d = 0; d < depth; ++d) {
+      if constexpr (COUNT) *entered = d + 1;
+      if (!bounce<B>(s, c, radiance, n, p, d, flags, kb0, kb1)) break;
+    }
+    return radiance;
   }
-  return radiance;
 }
 
 }  // namespace pt

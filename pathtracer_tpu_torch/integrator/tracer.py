@@ -15,8 +15,11 @@ Kept from the reference, behind `Quirks`:
 - `primary_mis`: an emitter hit is always MIS-weighted with the previous
   scatter pdf, which is 0 on the primary ray.
 
-This slice implements the `mis` estimator on media-free scenes; media and
-the `bsdf`/`nee` estimators raise NotImplementedError.
+Participating media (the material's `medium`: Absorb, Emissive, HG
+single Scatter) and the three direct-lighting estimators (`mis`, `bsdf`,
+`nee`) are the JAX package's. A media-free scene skips the media segment,
+whose every term is masked off there, as the kernel's media-free
+instantiation compiles none of it.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from ..models.scene import Scene
 from ..ops import rng
 from ..ops.bsdf import disney_eval, disney_sample
 from ..ops.intersect import ray_rect, ray_sphere
-from ..ops.sampling import power_heuristic, uniform_sample_hemisphere
+from ..ops.sampling import hg_phase, power_heuristic, sample_hg, uniform_sample_hemisphere
 from ..ops.vecmath import (
     V2,
     V3,
@@ -230,11 +233,12 @@ def sample_light(
 
 def direct_light(
     scene: Scene, rd: V3, fhp: V3, ffnormal: V3, material: Material, eta, u,
-    detach: bool = False,
+    detach: bool = False, mis: bool = True,
 ) -> V3:
     """Next-event estimation: pick one light uniformly, sample it, test the
     shadow ray, MIS-weight against the BSDF pdf. u = [..., 3]
-    (pick, r1, r2)."""
+    (pick, r1, r2). mis=False weighs the light sample 1 (the NEE-only
+    estimator)."""
     u_pick, r1, r2 = u[..., 0], u[..., 1], u[..., 2]
     n_lights = scene.num_lights
     if n_lights == 0:
@@ -251,10 +255,41 @@ def direct_light(
     f, bsdf_pdf = disney_eval(material, eta, -rd, ffnormal, ls.direction)
 
     area = gather_light(lights, idx).area
-    mis_w = torch.where(area > 0.0, power_heuristic(ls.pdf, bsdf_pdf), 1.0)
+    if mis:
+        mis_w = torch.where(area > 0.0, power_heuristic(ls.pdf, bsdf_pdf), 1.0)
+    else:
+        mis_w = torch.ones_like(ls.pdf)
     ok = facing & (~in_shadow) & (bsdf_pdf > 0.0) & (ls.pdf > 0.0)
     scale = torch.where(ok, mis_w / torch.where(ls.pdf != 0.0, ls.pdf, 1.0), 0.0)
     return ls.emission * f * scale
+
+
+def scatter_direct_light(
+    scene: Scene, rd: V3, scatter_pos: V3, g, u, detach: bool = False, mis: bool = True,
+) -> V3:
+    """Next-event estimation from a volumetric scatter point: direct_light
+    with the HG phase p(cos; g) in place of the BSDF, as value and as pdf
+    (HG sampling is exact)."""
+    u_pick, r1, r2 = u[..., 0], u[..., 1], u[..., 2]
+    n_lights = scene.num_lights
+    if n_lights == 0:
+        return zeros3(rd.x.shape, rd.x.dtype, rd.x.device)
+    lights = scene.lights.unpack()
+
+    idx = torch.clamp((u_pick * n_lights).to(torch.int64), 0, n_lights - 1)
+    ls = sample_light(lights, idx, scatter_pos, r1, r2, detach)
+
+    facing = dot(ls.direction, ls.normal) < 0.0
+    in_shadow = scene.any_hit(scatter_pos, ls.direction, ls.dist - EPS)
+    p = hg_phase(dot(rd, ls.direction), g)
+    area = gather_light(lights, idx).area
+    if mis:
+        mis_w = torch.where(area > 0.0, power_heuristic(ls.pdf, p), 1.0)
+    else:
+        mis_w = torch.ones_like(ls.pdf)
+    ok = facing & (~in_shadow) & (p > 0.0) & (ls.pdf > 0.0)
+    scale = torch.where(ok, mis_w * p / torch.where(ls.pdf != 0.0, ls.pdf, 1.0), 0.0)
+    return ls.emission * splat3(scale)
 
 
 class PathState(NamedTuple):
@@ -268,6 +303,13 @@ class PathState(NamedTuple):
     prev_pdf: torch.Tensor  # scatter pdf of the previous bounce
     prev_l: V3  # scatter direction of the previous bounce (stale-l quirk)
     prev_hit_dist: torch.Tensor  # hit distance carry (stale-gate quirk)
+    # The medium the ray travels in (type 0: vacuum): Absorb attenuates by
+    # exp(-(1 - color) density t) a segment, Emissive adds color density t,
+    # Scatter samples an exponential free flight and scatters by HG.
+    med_type: torch.Tensor  # int32
+    med_density: torch.Tensor
+    med_color: V3
+    med_aniso: torch.Tensor  # HG g, clamped to +-0.9 by finalize_material
 
 
 def has_media(scene: Scene) -> bool:
@@ -279,14 +321,17 @@ def make_bounce_step(
     estimator: str = "mis",
 ):
     """One bounce of the per-pixel loop, batched: closest hit, emitter
-    pass with MIS, background, emission, alpha pass-through, NEE and the
-    Disney sample that sets the next ray."""
+    pass with MIS, the medium's segment and scatter event, background,
+    emission, alpha pass-through, NEE and the Disney sample that sets the
+    next ray.
+
+    estimator: "mis" (NEE and BSDF sampling, power-heuristic weighted),
+    "bsdf" (no NEE, emitter hits weigh 1) or "nee" (emitter hits weigh 0,
+    light samples 1); the three agree in expectation."""
     if estimator not in ("mis", "bsdf", "nee"):
         raise ValueError(f"unknown estimator {estimator!r}")
-    if estimator != "mis":
-        raise NotImplementedError(f"estimator {estimator!r} is not ported yet")
-    if has_media(scene):
-        raise NotImplementedError("participating media are not ported yet")
+    media = has_media(scene)
+    sg_ = (lambda x: x.detach()) if detach else (lambda x: x)
 
     def bounce(state: PathState, u: torch.Tensor) -> PathState:
         ro, rd = state.ro, state.rd
@@ -304,6 +349,39 @@ def make_bounce_step(
         hit = geo_hit | em.hit
         hit_dist = torch.where(em.hit, em.dist, gate_dist)
 
+        if media:
+            # The segment just travelled inside the medium: Absorb
+            # attenuates, Emissive adds.
+            seg = torch.where(hit, hit_dist, 0.0)
+            seg_on = alive & hit & (state.med_type != 0)
+            absorbing = seg_on & (state.med_type == 1)
+            emitting = seg_on & (state.med_type == 3)
+            ext = state.med_density * seg
+            c = state.med_color
+            att = V3(torch.exp(-(1.0 - c.x) * ext), torch.exp(-(1.0 - c.y) * ext), torch.exp(-(1.0 - c.z) * ext))
+            radiance = radiance + mask3(emitting, c * splat3(state.med_density * seg) * throughput)
+            throughput = where3(absorbing, throughput * att, throughput)
+
+            # Scatter: a free flight s ~ Exp(density) that ends inside the
+            # segment scatters there (the pdf cancels the transmittance, so
+            # the throughput takes the albedo only), with its own NEE by
+            # the HG phase and an HG-sampled continuation.
+            sigma = maximum(state.med_density, 1e-12)
+            s_free = -torch.log(maximum(1.0 - u[..., 7], 1e-12)) / sigma
+            scat = alive & hit & (state.med_type == 2) & (state.med_density > 0.0) & (s_free < hit_dist)
+            scatter_pos = ro + rd * sg_(torch.where(scat, s_free, 0.0))
+            throughput = where3(scat, throughput * c, throughput)
+            if estimator != "bsdf":
+                ld_s = scatter_direct_light(
+                    scene, rd, scatter_pos, state.med_aniso, u[..., 0:3], detach, mis=(estimator == "mis")
+                )
+                radiance = radiance + mask3(scat, ld_s * throughput)
+            l_hg = sample_hg(rd, state.med_aniso, u[..., 3], u[..., 4])
+            l_hg = V3(sg_(l_hg.x), sg_(l_hg.y), sg_(l_hg.z))
+            pdf_hg = hg_phase(dot(rd, l_hg), state.med_aniso)
+        else:
+            scat = torch.zeros_like(alive)
+
         # Miss: background times throughput, and the path dies.
         bg = scene.background(rd)
         radiance = radiance + mask3(alive & ~hit, bg * throughput)
@@ -320,20 +398,25 @@ def make_bounce_step(
         alpha_fail = ((am == 1) & (u[..., 6] > material.opacity)) | (
             (am == 2) & (material.opacity < material.alpha_cutoff)
         )
-        passthru = alive & hit & ~em.hit & alpha_fail
+        passthru = alive & hit & ~em.hit & alpha_fail & ~scat
 
-        radiance = radiance + mask3(alive & hit & ~passthru, material.emission * throughput)
+        radiance = radiance + mask3(alive & hit & ~passthru & ~scat, material.emission * throughput)
 
         # Emitter hit, MIS-weighted with the previous bounce's scatter pdf.
         mis_w = power_heuristic(maximum(state.prev_pdf, 0.0), em.pdf)
         if not quirks.primary_mis:
             mis_w = torch.where(state.prev_pdf < 0.0, 1.0, mis_w)
-        radiance = radiance + mask3(alive & em.hit, em.emission * (mis_w * 1.0) * throughput)
+        if estimator == "bsdf":
+            mis_w = torch.ones_like(mis_w)
+        elif estimator == "nee":
+            mis_w = torch.zeros_like(mis_w)
+        radiance = radiance + mask3(alive & em.hit & ~scat, em.emission * (mis_w * 1.0) * throughput)
 
-        shade = alive & hit & ~em.hit & ~passthru
+        shade = alive & hit & ~em.hit & ~scat & ~passthru
 
-        ld = direct_light(scene, rd, fhp, ffnormal, material, eta, u[..., 0:3], detach)
-        radiance = radiance + mask3(shade, ld * throughput)
+        if estimator != "bsdf":
+            ld = direct_light(scene, rd, fhp, ffnormal, material, eta, u[..., 0:3], detach, mis=(estimator == "mis"))
+            radiance = radiance + mask3(shade, ld * throughput)
 
         bs = disney_sample(material, eta, -rd, ffnormal, state.prev_l, u[..., 3:6], detach)
         cont = shade & (bs.pdf > 0.0)
@@ -344,16 +427,43 @@ def make_bounce_step(
         rd_next = where3(cont, bs.l, rd)
         ro_next = where3(passthru, fhp + rd * EPS, ro_next)
         rd_next = where3(passthru, rd, rd_next)
+        prev_pdf = torch.where(shade, bs.pdf, state.prev_pdf)
+        prev_l = where3(shade, bs.l, state.prev_l)
+        med = (state.med_type, state.med_density, state.med_color, state.med_aniso)
+
+        if media:
+            # Scatter: on from the scatter point along the HG sample, still
+            # inside the medium, whose pdf the next emitter hit weighs.
+            ro_next = where3(scat, scatter_pos, ro_next)
+            rd_next = where3(scat, l_hg, rd_next)
+            prev_pdf = torch.where(scat, sg_(pdf_hg), prev_pdf)
+            prev_l = where3(scat, l_hg, prev_l)
+            # A transmission into a front face takes the surface's medium,
+            # one out of a back face returns to vacuum.
+            transmitted = cont & (dot(bs.l, ffnormal) < 0.0)
+            enter_m, exit_m = transmitted & entering, transmitted & ~entering
+            mm = material.medium
+            zero = torch.zeros_like(state.med_density)
+            med = (
+                torch.where(enter_m, mm.medium_type, torch.where(exit_m, 0, state.med_type)),
+                torch.where(enter_m, mm.density, torch.where(exit_m, 0.0, state.med_density)),
+                where3(enter_m, mm.color, where3(exit_m, splat3(zero), state.med_color)),
+                torch.where(enter_m, mm.anisotropy, torch.where(exit_m, 0.0, state.med_aniso)),
+            )
 
         return PathState(
             ro=ro_next,
             rd=rd_next,
             radiance=radiance,
             throughput=throughput,
-            alive=cont | passthru,
-            prev_pdf=torch.where(shade, bs.pdf, state.prev_pdf),
-            prev_l=where3(shade, bs.l, state.prev_l),
+            alive=cont | passthru | scat,
+            prev_pdf=prev_pdf,
+            prev_l=prev_l,
             prev_hit_dist=torch.where(alive & hit, hit_dist, state.prev_hit_dist),
+            med_type=med[0],
+            med_density=med[1],
+            med_color=med[2],
+            med_aniso=med[3],
         )
 
     return bounce
@@ -373,6 +483,10 @@ def init_state(ro: V3, rd: V3, quirks: Quirks = VERBATIM) -> PathState:
         prev_pdf=full(0.0 if quirks.primary_mis else -1.0),
         prev_l=zeros3(n, dtype, device),
         prev_hit_dist=full(-1.0),
+        med_type=torch.zeros(n, dtype=torch.int32, device=device),  # vacuum
+        med_density=full(0.0),
+        med_color=zeros3(n, dtype, device),
+        med_aniso=full(0.0),
     )
 
 

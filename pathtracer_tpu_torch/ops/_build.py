@@ -56,6 +56,19 @@ SIGNATURES = {
     },
 }
 
+# The media instantiations take the media-free entry points' arguments.
+_FWD = SIGNATURES["megakernel_fwd"]
+_FWD.update({
+    "pt_render_forward_media": _FWD["pt_render_forward"],
+    "pt_render_forward_media_sdf": _FWD["pt_render_forward_sdf"],
+    "pt_render_forward_media_mesh": _FWD["pt_render_forward_mesh"],
+    "pt_render_forward_media_bigmesh": _FWD["pt_render_forward_bigmesh"],
+    "pt_render_forward_occupancy_media": _FWD["pt_render_forward_occupancy"],
+    "pt_render_forward_occupancy_media_sdf": _FWD["pt_render_forward_occupancy_sdf"],
+    "pt_render_forward_occupancy_media_mesh": _FWD["pt_render_forward_occupancy_mesh"],
+    "pt_render_forward_occupancy_media_bigmesh": _FWD["pt_render_forward_occupancy_bigmesh"],
+})
+
 
 def find_nvcc() -> str:
     for cand in (

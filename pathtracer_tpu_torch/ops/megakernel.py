@@ -13,8 +13,9 @@ mesh (`csrc/mesh.cuh`, K7, `ops/megakernel_mesh.py`; its adjoint
 `mesh_adj.cuh`) and, in K1 only, the big one (`csrc/bigmesh.cuh`, K8,
 `ops/megakernel_bigmesh.py`). The scene reaches them packed into one
 float32 vector in the JAX package's layout (`pack_scene`: camera basis,
-analytical params, L light records of 15, M material records of 20; each
-family's packer in its module), with the tensors a backend takes beside it
+analytical params, L light records of 15, M material records of 20, or 26
+with the medium's six when a material declares one; each family's packer
+in its module), with the tensors a backend takes beside it
 (the mesh's topology, the big mesh's tables); the random numbers are
 threefry drawn in the kernel, bit-equal to `ops/rng`, so K1 renders the
 same image as `integrator/tracer.render_frame` for the same key and K2
@@ -26,9 +27,12 @@ requires grad, whose backward launches K2; `pack_scene` is ordinary torch
 ops, so autograd carries d/d(sv) on to the scene leaves. A failed launch
 raises; nothing falls back to autograd. On a CPU scene it runs the plain
 version, the eager integrator under the detached-sampling estimator, with
-autograd on every backend. The kernels take no media and no procedural
-hooks, and K2 no big mesh: a CUDA big mesh scene that requires grad
-raises (the JAX package differentiates it through its XLA twin).
+autograd on every backend. A scene whose material table declares a
+medium goes through K1's (and K3's) media instantiation, the port of
+`_tile_bounce(has_media=True)`, on every backend. The kernels take no
+procedural hooks, and K2 no big mesh and no media: a CUDA scene of either
+that requires grad raises (the JAX package differentiates the big mesh
+through its XLA twin; K2's media branch is the next slice).
 
 The instruments: `measure_occupancy_megakernel` (the port of
 `measure_occupancy_pallas`) launches K3, `_pallas_forward_occupancy`'s
@@ -87,15 +91,20 @@ def _check_supported(scene: Scene) -> None:
     family_of(scene)
     if scene.procedural_fn is not None:
         raise NotImplementedError("procedural material hooks run on the eager integrator only")
-    # The media check reads the device, which would make every frame wait
-    # for the card; a scene remembers the medium_type tensor and version it
-    # passed with, and editing or replacing that tensor checks again.
+
+
+def scene_media(scene: Scene) -> bool:
+    """Whether the scene's material table declares a medium, which selects
+    the kernels' media instantiation and the 26-scalar material records.
+    The check reads the device, which would make every frame wait for the
+    card; a scene remembers the medium_type tensor and version it was
+    checked with, and editing or replacing that tensor checks again."""
     mt = scene.params.materials.medium.medium_type
-    passed = getattr(scene, "_media_free", None)
-    if passed is None or passed[0] is not mt or passed[1] != mt._version:
-        if has_media(scene):
-            raise NotImplementedError("participating media are not ported to the megakernel yet")
-        scene._media_free = (mt, mt._version)
+    seen = getattr(scene, "_media", None)
+    if seen is None or seen[0] is not mt or seen[1] != mt._version:
+        seen = (mt, mt._version, has_media(scene))
+        scene._media = seen
+    return seen[2]
 
 
 def sample_keys(key, spp: int) -> torch.Tensor:
@@ -124,7 +133,7 @@ def kernel_flags(scene: Scene, quirks: Quirks) -> int:
 
 
 def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
-    """The inverse of pack_scene on a media-free scene: `scene` with every
+    """The inverse of pack_scene, with or without the medium: `scene` with every
     packed float leaf replaced by its entry of sv (so autograd through a
     render of it is d/d sv), and the camera basis (lower_left, horizontal,
     vertical, origin) that sv holds in place of the camera."""
@@ -143,39 +152,44 @@ def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
 
 
 class Backend(NamedTuple):
-    """How the kernels take a scene family: its packer and the packer's
-    inverse (for the plain versions), the extra ints its entry points take
-    after the flags, K1's, K3's and K2's entry points (K2's None where K2
-    does not take the family), and the device tensors its entry points take
-    before those ints."""
+    """How the kernels take a scene family: its packer (with_medium as its
+    fourth argument) and the packer's inverse (for the plain versions), the
+    extra ints its entry points take after the flags, K1's, K3's and K2's
+    entry points (K2's None where K2 does not take the family), the device
+    tensors its entry points take before those ints, and K1's and K3's
+    media entry points (the same arguments)."""
 
-    pack: Callable[[Scene, int, int], torch.Tensor]
+    pack: Callable[..., torch.Tensor]
     unpack: Callable[[torch.Tensor, Scene], tuple]
     counts: Callable[[Scene], tuple]
     entry: str
     occupancy: str
     backward: str | None
-    extras: Callable[[Scene], tuple] = lambda scene: ()
+    extras: Callable[[Scene], tuple]
+    media_entry: str
+    media_occupancy: str
 
 
 BACKENDS = {
     "analytical": Backend(
         pack_scene, unpack_scene, lambda scene: (), "pt_render_forward", "pt_render_forward_occupancy",
-        "pt_render_backward",
+        "pt_render_backward", lambda scene: (), "pt_render_forward_media", "pt_render_forward_occupancy_media",
     ),
     "sdf": Backend(
         megakernel_sdf.pack_sdf_scene, megakernel_sdf.unpack_sdf_scene, megakernel_sdf.sdf_counts,
-        "pt_render_forward_sdf", "pt_render_forward_occupancy_sdf", "pt_render_backward_sdf",
+        "pt_render_forward_sdf", "pt_render_forward_occupancy_sdf", "pt_render_backward_sdf", lambda scene: (),
+        "pt_render_forward_media_sdf", "pt_render_forward_occupancy_media_sdf",
     ),
     "mesh": Backend(
         megakernel_mesh.pack_mesh_scene, megakernel_mesh.unpack_mesh_scene, megakernel_mesh.mesh_counts,
         "pt_render_forward_mesh", "pt_render_forward_occupancy_mesh", "pt_render_backward_mesh",
-        megakernel_mesh.mesh_topology,
+        megakernel_mesh.mesh_topology, "pt_render_forward_media_mesh", "pt_render_forward_occupancy_media_mesh",
     ),
     "bigmesh": Backend(
         megakernel_bigmesh.pack_bigmesh_scene, megakernel_bigmesh.unpack_bigmesh_scene,
         megakernel_bigmesh.bigmesh_counts, "pt_render_forward_bigmesh", "pt_render_forward_occupancy_bigmesh", None,
-        megakernel_bigmesh.bigmesh_tables,
+        megakernel_bigmesh.bigmesh_tables, "pt_render_forward_media_bigmesh",
+        "pt_render_forward_occupancy_media_bigmesh",
     ),
 }
 
@@ -195,7 +209,8 @@ def render_frame_packed(
 ) -> torch.Tensor:
     """The plain version of K1 as a function of the packed scene vector
     (the kernel's own input): the eager frame of the scene its family's
-    unpack (unpack_scene, megakernel_sdf.unpack_sdf_scene) reads from sv."""
+    unpack (unpack_scene, megakernel_sdf.unpack_sdf_scene) reads from sv,
+    the medium's fields too where sv holds 26-scalar material records."""
     s, basis = BACKENDS[family_of(scene)].unpack(sv, scene)
     return render_frame(s, key, width, height, spp=spp, quirks=quirks, detach=True, basis=basis)
 
@@ -227,17 +242,20 @@ class KernelLaunch(NamedTuple):
     backend: str = "analytical"  # a key of BACKENDS
     counts: tuple = ()  # the backend's extra ints, e.g. the SDF scene's (spheres, boxes, tori)
     extras: tuple = ()  # the backend's device tensors, e.g. the mesh's topology
+    media: bool = False  # the media instantiation, over 26-scalar material records
 
 
 def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks: Quirks) -> KernelLaunch:
     """Pack the scene and upload the sample keys for one frame on the
-    scene's CUDA device."""
+    scene's CUDA device; a scene with a medium takes the media
+    instantiation."""
     device = scene.device
     keys = launch_keys(key, spp)
     backend = family_of(scene)
     b = BACKENDS[backend]
+    media = scene_media(scene)
     return KernelLaunch(
-        sv=b.pack(scene, width, height).contiguous(),
+        sv=b.pack(scene, width, height, media).contiguous(),
         keys=keys.pin_memory().to(device, non_blocking=True),
         out=torch.empty((height, width, 4), dtype=torch.float32, device=device),
         spp=spp,
@@ -248,6 +266,7 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
         backend=backend,
         counts=b.counts(scene),
         extras=b.extras(scene),
+        media=media,
     )
 
 
@@ -255,7 +274,9 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     """One launch of K1 on PyTorch's current stream; returns `k.out`.
     Counted in `render_frame_megakernel.launches`, and those with another
     backend than the analytical one in `render_frame_megakernel.
-    <backend>_launches` too (sdf_launches, mesh_launches, bigmesh_launches).
+    <backend>_launches` too (sdf_launches, mesh_launches, bigmesh_launches);
+    a launch of the media instantiation (`k.media`) in `.media_launches`
+    too.
 
     With `entered`, an int32 [spp, H, W] tensor on the card, it is one
     launch of K3 instead: the same frame, and the bounces each sample's
@@ -266,13 +287,14 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     lib = _build.load("megakernel_fwd")
     height, width = k.out.shape[:2]
     b, counter = BACKENDS[k.backend], render_frame_megakernel
-    entry, head = getattr(lib, b.entry), ()
+    entry, head = getattr(lib, b.media_entry if k.media else b.entry), ()
     if entered is not None:
         if (entered.shape != (k.spp, height, width) or entered.dtype != torch.int32 or entered.device != k.out.device
                 or not entered.is_contiguous()):
             raise ValueError(f"entered must be contiguous int32 {(k.spp, height, width)} on {k.out.device}, got "
                              f"{entered.dtype} {tuple(entered.shape)} on {entered.device}")
-        entry, head, counter = getattr(lib, b.occupancy), (entered.data_ptr(),), measure_occupancy_megakernel
+        entry = getattr(lib, b.media_occupancy if k.media else b.occupancy)
+        head, counter = (entered.data_ptr(),), measure_occupancy_megakernel
     err = entry(
         k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(), *head,
         width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
@@ -284,14 +306,19 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     if k.backend != "analytical":
         name = f"{k.backend}_launches"
         setattr(counter, name, getattr(counter, name) + 1)
+    if k.media:
+        counter.media_launches += 1
     return k.out
 
 
-def _require_backward(backend: str) -> None:
+def _require_backward(backend: str, media: bool = False) -> None:
     if BACKENDS[backend].backward is None:
         raise NotImplementedError(f"the {backend} scene's gradient on the card is not ported (ROADMAP item 12: the "
                                   "JAX package differentiates it through its XLA twin, not a kernel); its CPU scene "
                                   "has autograd")
+    if media:
+        raise NotImplementedError("the gradient of a scene with participating media on the card needs K2's media "
+                                  "branch, the next slice of the port; its CPU scene has autograd")
 
 
 def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
@@ -307,7 +334,7 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
 
     if k.sv.device.type != "cuda":
         raise ValueError("the backward megakernel needs CUDA tensors")
-    _require_backward(k.backend)
+    _require_backward(k.backend, k.media)
     lib = _build.load("megakernel_bwd")
     if k.backend == "sdf" and sum(k.counts) + 1 > lib.pt_backward_sdf_max_primitives():
         raise ValueError(f"the backward megakernel holds {lib.pt_backward_sdf_max_primitives()} SDF primitives "
@@ -379,8 +406,11 @@ def render_frame_megakernel(
     `render_frame_megakernel.launches`) with its scene's backend; when a
     scene leaf requires grad, the frame's backward is one launch of K2 with
     the same backend (counted in `render_frame_megakernel.bwd_launches`);
-    K2 does not take the big mesh, and its gradient on the card raises
-    NotImplementedError. A CPU scene goes through the plain version.
+    K2 takes neither the big mesh nor media, and such a gradient on the
+    card raises NotImplementedError before any launch. A scene with a
+    medium takes K1's media instantiation (also counted in
+    `render_frame_megakernel.media_launches`). A CPU scene goes through the
+    plain version.
     There is no fallback from one to the other."""
     _check_supported(scene)
     device = scene.device
@@ -389,7 +419,7 @@ def render_frame_megakernel(
     _check_frame(scene, width, height, spp)
     k = prepare_launch(scene, key, width, height, spp, quirks)
     if torch.is_grad_enabled() and (k.sv.requires_grad or any(t.requires_grad for t in k.extras)):
-        _require_backward(k.backend)
+        _require_backward(k.backend, k.media)
         return MegakernelRender.apply(k.sv, k)
     return launch(k)
 
@@ -398,6 +428,7 @@ render_frame_megakernel.launches = 0
 render_frame_megakernel.sdf_launches = 0
 render_frame_megakernel.mesh_launches = 0
 render_frame_megakernel.bigmesh_launches = 0
+render_frame_megakernel.media_launches = 0
 render_frame_megakernel.bwd_launches = 0
 render_frame_megakernel.sdf_bwd_launches = 0
 render_frame_megakernel.mesh_bwd_launches = 0
@@ -462,8 +493,9 @@ def measure_occupancy_megakernel(
     """Masked-lane occupancy measured inside the forward megakernel: the
     port of `measure_occupancy_pallas`. A CUDA scene goes through one launch
     of K3 with the scene's backend (counted in
-    `measure_occupancy_megakernel.launches` and `.<backend>_launches`), a
-    CPU scene through its plain version, `integrator/tracer.bounces_entered`;
+    `measure_occupancy_megakernel.launches` and `.<backend>_launches`, and
+    a scene with a medium, whose launch takes K3's media instantiation, in
+    `.media_launches` too), a CPU scene through its plain version, `integrator/tracer.bounces_entered`;
     a failed build or launch raises. Returns `occupancy_stats` of the
     per-lane counts, with the counts themselves as `entered`.
 
@@ -488,6 +520,7 @@ measure_occupancy_megakernel.launches = 0
 measure_occupancy_megakernel.sdf_launches = 0
 measure_occupancy_megakernel.mesh_launches = 0
 measure_occupancy_megakernel.bigmesh_launches = 0
+measure_occupancy_megakernel.media_launches = 0
 
 
 def debug_uniform_stream_reference(

@@ -40,7 +40,7 @@ def pack_bigmesh_scene(scene: Scene, width: int, height: int, with_medium: bool 
 
 
 def unpack_bigmesh_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
-    """The inverse of pack_bigmesh_scene on a media-free scene: `scene` with
+    """The inverse of pack_bigmesh_scene, with or without the medium: `scene` with
     every packed float leaf replaced by its entry of sv (the vertices are
     not packed and stay the scene's), and the camera basis."""
     v = sv.reshape(-1)

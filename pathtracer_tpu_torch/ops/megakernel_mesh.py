@@ -55,7 +55,7 @@ def pack_mesh_scene(scene: Scene, width: int, height: int, with_medium: bool = F
 
 
 def unpack_mesh_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
-    """The inverse of pack_mesh_scene on a media-free scene: `scene` with
+    """The inverse of pack_mesh_scene, with or without the medium: `scene` with
     every packed float leaf replaced by its entry of sv, and the camera
     basis (lower_left, horizontal, vertical, origin) that sv holds."""
     v = sv.reshape(-1)
@@ -91,6 +91,27 @@ def mesh_topology(scene: Scene) -> tuple[torch.Tensor]:
     return (torch.cat([p.tri_idx, p.tri_mat[:, None]], dim=1).to(torch.int32).contiguous(),)
 
 
+def _bounce_hits(scene: Scene, key, width: int, height: int, spp: int, quirks, pixels):
+    """Each bounce of the plain version's paths through the `pixels` of the
+    frame (all by default), sample by sample: (state entering the bounce,
+    hit distance of every triangle [n, T])."""
+    p, dev = scene.params.unpack(), scene.device
+    coords = pixel_coords(width, height, torch.float64, dev)
+    if pixels is not None:
+        coords = V2(coords.x[pixels], coords.y[pixels])
+    with torch.no_grad():
+        step = make_bounce_step(scene, quirks, detach=True)
+        for k in [key] if spp == 1 else list(split(key, spp)):
+            cam_u, bounce_u = draw_uniforms(k, width * height, scene.recursion_depth, torch.float32, dev)
+            if pixels is not None:
+                cam_u, bounce_u = cam_u[pixels], bounce_u[:, pixels]
+            ro, rd = gen_ray(scene.camera.unpack(), coords, V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
+            state = init_state(ro, rd, quirks)
+            for u in bounce_u:
+                yield state, mesh._tri_ts(p, state.ro, state.rd)
+                state = step(state, u)
+
+
 def hit_margins(scene: Scene, key, width: int, height: int, spp: int = 1, quirks=VERBATIM,
                 pixels: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(margin, |det|) where each bounce of the plain version's path meets
@@ -101,33 +122,35 @@ def hit_margins(scene: Scene, key, width: int, height: int, spp: int = 1, quirks
     an edge, and the last bits of the incoming ray can pick the other
     triangle of a shared edge (another normal, other vertices) or miss;
     where |det| is small it grazes the triangle's plane."""
-    p, dev = scene.params.unpack(), scene.device
-    coords = pixel_coords(width, height, torch.float64, dev)
-    if pixels is not None:
-        coords = V2(coords.x[pixels], coords.y[pixels])
-    a, b, c = mesh.corners(p)
+    a, b, c = mesh.corners(scene.params.unpack())
     margins, dets = [], []
-    with torch.no_grad():
-        step = make_bounce_step(scene, quirks, detach=True)
-        for k in [key] if spp == 1 else list(split(key, spp)):
-            cam_u, bounce_u = draw_uniforms(k, width * height, scene.recursion_depth, torch.float32, dev)
-            if pixels is not None:
-                cam_u, bounce_u = cam_u[pixels], bounce_u[:, pixels]
-            ro, rd = gen_ray(scene.camera.unpack(), coords, V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
-            state = init_state(ro, rd, quirks)
-            for u in bounce_u:
-                ts = mesh._tri_ts(p, state.ro, state.rd)
-                idx = torch.argmin(ts, dim=-1)
-                hit = state.alive & torch.isfinite(torch.take_along_dim(ts, idx[..., None], dim=-1)[..., 0])
-                v0, v1, v2 = (V3(q.x[idx], q.y[idx], q.z[idx]) for q in (a, b, c))
-                e1, e2, s = v1 - v0, v2 - v0, state.ro - v0
-                pv = state.rd.cross(e2)
-                det = dot(e1, pv)
-                inv = 1.0 / torch.where(det != 0.0, det, 1.0)
-                bu, bv = dot(s, pv) * inv, dot(state.rd, s.cross(e1)) * inv
-                margin = torch.minimum(torch.minimum(bu, bv), 1.0 - bu - bv)
-                margins.append(torch.where(hit, margin, torch.inf))
-                dets.append(torch.where(hit, det.abs(), torch.inf))
-                state = step(state, u)
+    for state, ts in _bounce_hits(scene, key, width, height, spp, quirks, pixels):
+        idx = torch.argmin(ts, dim=-1)
+        hit = state.alive & torch.isfinite(torch.take_along_dim(ts, idx[..., None], dim=-1)[..., 0])
+        v0, v1, v2 = (V3(q.x[idx], q.y[idx], q.z[idx]) for q in (a, b, c))
+        e1, e2, s = v1 - v0, v2 - v0, state.ro - v0
+        pv = state.rd.cross(e2)
+        det = dot(e1, pv)
+        inv = 1.0 / torch.where(det != 0.0, det, 1.0)
+        bu, bv = dot(s, pv) * inv, dot(state.rd, s.cross(e1)) * inv
+        margin = torch.minimum(torch.minimum(bu, bv), 1.0 - bu - bv)
+        margins.append(torch.where(hit, margin, torch.inf))
+        dets.append(torch.where(hit, det.abs(), torch.inf))
     shape = (spp, scene.recursion_depth, -1)
     return torch.stack(margins).reshape(shape), torch.stack(dets).reshape(shape)
+
+
+def hit_ties(scene: Scene, key, width: int, height: int, spp: int = 1, quirks=VERBATIM,
+             pixels: torch.Tensor | None = None) -> torch.Tensor:
+    """(t2 - t1) / t1 where each bounce of the plain version's path meets
+    the mesh, t1 <= t2 the two nearest triangles' hit distances,
+    [spp, depth, n] as hit_margins, +inf where the path is dead or meets
+    one triangle alone. Near 0 the ray meets two coplanar triangles at
+    once (the demo cube's bottom face lies on the floor), and the first
+    minimum that wins depends on the last bits of the ray."""
+    gaps = []
+    for state, ts in _bounce_hits(scene, key, width, height, spp, quirks, pixels):
+        t12 = torch.topk(ts, 2, dim=-1, largest=False).values
+        t1, t2 = t12[..., 0], t12[..., 1]
+        gaps.append(torch.where(state.alive & torch.isfinite(t2), (t2 - t1) / t1, torch.inf))
+    return torch.stack(gaps).reshape(spp, scene.recursion_depth, -1)

@@ -78,7 +78,7 @@ def pack_sdf_scene(scene: Scene, width: int, height: int, with_medium: bool = Fa
 
 
 def unpack_sdf_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
-    """The inverse of pack_sdf_scene on a media-free scene: `scene` with
+    """The inverse of pack_sdf_scene, with or without the medium: `scene` with
     every packed float leaf replaced by its entry of sv (so autograd
     through a render of it is d/d sv, the plain version of K2), and the
     camera basis (lower_left, horizontal, vertical, origin) that sv holds

@@ -95,13 +95,18 @@ def unpack_lights(v: torch.Tensor, at: int, scene: Scene) -> tuple:
 
 
 def unpack_materials(v: torch.Tensor, at: int, materials) -> tuple:
-    """`materials` with its float fields read from the M x 20 records at
-    v[at:] (alpha_mode, an int leaf, is kept)."""
+    """`materials` with its float fields read from the records at v[at:],
+    the vector's tail: M x 20, or M x 26 with the medium's fields (the int
+    leaves alpha_mode and medium_type are kept)."""
     n = int(materials.roughness.shape[0])
-    mt = v[at:at + 20 * n].reshape(n, 20)
+    stride = (v.shape[0] - at) // n if n else 20
+    if stride not in (20, 26) or at + stride * n != v.shape[0]:
+        raise ValueError(f"{v.shape[0] - at} scalars after offset {at} are not {n} material records")
+    mt = v[at:].reshape(n, stride)
     fields, col = {}, 0
-    for name, arity in MAT_FIELDS:
-        if name != "alpha_mode":
+    for name, arity in MAT_FIELDS + (MEDIUM_FIELDS if stride == 26 else ()):
+        if name not in ("alpha_mode", "medium_type"):
             fields[name] = col3(mt, col) if arity == 3 else mt[:, col]
         col += arity
-    return materials._replace(**fields)
+    medium = {k: fields.pop(k) for k in ("density", "color", "anisotropy") if k in fields}
+    return materials._replace(**fields, medium=materials.medium._replace(**medium))

@@ -9,9 +9,12 @@ of each (CUDA events, 20 launches after a warm-up), their ratio, whether
 the two frames are bit-equal, and the card's name and power limit; the
 last line is the same as one JSON object. With several scenes (`--scene
 analytical sdf`, the backends' demo scenes) or several other trees, every
-scene against every other tree, each pair in turns. The other tree's entry
-point of the scene's backend must take this tree's arguments. `k2_pair`
-does the same for K2's analytical launch.
+scene against every other tree, each pair in turns; then K3's launch (K1
+that also writes the bounces each path entered alive) of the two trees
+alike, counts and frames compared. Last, each instantiation's registers,
+stack, spills and machine code against the other tree's. The other tree's
+entry point of the scene's backend must take this tree's arguments.
+`k2_pair` does the same for K2's analytical launch.
 
 Usage:
   python -m pathtracer_tpu_torch.tools.k1_pair --other DIR [DIR ...] [--scene analytical sdf]
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 from pathlib import Path
 
@@ -36,22 +40,26 @@ WIDTH, HEIGHT, DEPTH = 1920, 1080, 4
 ROUNDS, LAUNCHES = 3, 20
 
 
-def launcher(csrc: Path, k: mk.KernelLaunch):
+def launcher(csrc: Path, k: mk.KernelLaunch, occupancy: bool = False):
     """A call of `csrc`'s K1 with launch `k`'s backend, into a frame of its
-    own."""
+    own; with `occupancy`, of its K3, returning the frame and the counts
+    (int32 [spp, H, W]) as one tensor of int32 bits."""
     lib = _build.load("megakernel_fwd", csrc=csrc)
-    entry = getattr(lib, mk.BACKENDS[k.backend].entry)
+    b = mk.BACKENDS[k.backend]
+    entry = getattr(lib, b.occupancy if occupancy else b.entry)
     out = torch.empty_like(k.out)
+    entered = torch.empty((k.spp,) + k.out.shape[:2], dtype=torch.int32, device=out.device)
+    head = (entered.data_ptr(),) if occupancy else ()
     stream = torch.cuda.current_stream(out.device).cuda_stream
 
     def run() -> torch.Tensor:
         err = entry(
-            k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), out.data_ptr(), WIDTH, HEIGHT, k.spp, k.depth,
-            k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras), *k.counts, stream,
+            k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), out.data_ptr(), *head, WIDTH, HEIGHT, k.spp,
+            k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras), *k.counts, stream,
         )
         if err != 0:
             raise RuntimeError(f"launch failed: {lib.pt_error_string(err).decode()}")
-        return out
+        return torch.cat([out.view(torch.int32).reshape(-1), entered.reshape(-1)]) if occupancy else out
 
     return run
 
@@ -89,6 +97,84 @@ def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
             "bit_equal": bit_equal, "times": times}
 
 
+_INSTANCE = re.compile(r"render_forward_kernelINS_\d+(\w+?)ELb([01])E(?:Lb([01])E)?E")
+
+
+def instantiations(csrc: Path) -> dict:
+    """(backend, COUNT, MEDIA) -> ptxas's resource lines of that
+    instantiation of K1's template in `csrc`'s build: its stack and spills,
+    its registers (a tree without the MEDIA parameter has MEDIA false)."""
+    out, key = {}, None
+    for line in registers(csrc):
+        m = _INSTANCE.search(line)
+        if "Compiling entry" in line:
+            key = (m.group(1), m.group(2) == "1", m.group(3) == "1") if m else None
+            if key:
+                out[key] = []
+        elif key and "Function properties" not in line:
+            out[key].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def sass(csrc: Path) -> dict:
+    """(backend, COUNT, MEDIA) -> the machine code of that instantiation of
+    K1's template in `csrc`'s build, as cuobjdump lists it without
+    addresses and encodings; {} where the toolkit has no cuobjdump."""
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    lib = _build.build(csrc=csrc) / "libmegakernel_fwd.so"
+    listing = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    out, key = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            m = _INSTANCE.search(line)
+            key = (m.group(1), m.group(2) == "1", m.group(3) == "1") if m else None
+            if key:
+                out[key] = []
+        elif key:
+            code = re.sub(r"/\*[^*]*\*/", "", line).strip()
+            if code and not code.startswith("."):
+                out[key].append(code)
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def same_resources(other: Path, log=print) -> bool:
+    """Whether each instantiation of `other`'s K1 template has this tree's
+    registers, stack and spills (this tree's media instantiations aside);
+    logs them, and whether their machine code is the same instruction for
+    instruction."""
+    other_csrc = (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
+    mine, theirs = instantiations(_build.CSRC), instantiations(other_csrc)
+    same = bool(theirs) and all(mine.get(k) == v for k, v in theirs.items())
+    my_code, their_code = sass(_build.CSRC), sass(other_csrc)
+    for k, v in sorted(theirs.items()):
+        code = ("machine code not listed (no cuobjdump)" if not their_code else
+                f"machine code {'the same' if my_code.get(k) == their_code.get(k) else 'DIFFERENT'} "
+                f"({len(their_code.get(k, '').splitlines())} instructions)")
+        log(f"  {k[0]} {'K3' if k[1] else 'K1'}: this {mine.get(k)}; other {v}; {code}")
+    return same
+
+
+def pair(others: list[Path], scenes=("analytical",), log=print) -> list[dict]:
+    """K1's and K3's launches of each of `others`' trees against this
+    one's, in turns, on the demo scene of each family in `scenes`."""
+    card = card_name()
+    results = []
+    for family in scenes:
+        scene = families.make_family_scene(family, recursion_depth=DEPTH, device=torch.device("cuda", 0))
+        k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
+        for other in others:
+            other_csrc = (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
+            for occ in (False, True):
+                runs = {"other": launcher(other_csrc, k, occ), "this": launcher(_build.CSRC, k, occ)}
+                name = "K3" if occ else "K1"
+                label = f"{name} {family} launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1, against {other}"
+                results.append({"kernel": name, "scene": family, "other": str(other),
+                                **in_turns(runs, label, card, log)})
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--other", required=True, nargs="+", type=Path, help="root of each other checkout")
@@ -98,19 +184,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("k1_pair needs a CUDA device")
     card = card_name()
-    results = []
-    for family in args.scene:
-        scene = families.make_family_scene(family, recursion_depth=DEPTH, device=torch.device("cuda", 0))
-        k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
-        for other in args.other:
-            other_csrc = (other / "pathtracer_tpu_torch" / "csrc").resolve()
-            runs = {"other": launcher(other_csrc, k), "this": launcher(_build.CSRC, k)}
-            label = f"K1 {family} launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1, against {other}"
-            results.append({"scene": family, "other": str(other), **in_turns(runs, label, card)})
-    for csrc in [_build.CSRC] + [(other / "pathtracer_tpu_torch" / "csrc").resolve() for other in args.other]:
-        print(f"K1 build of {csrc}:")
-        for line in registers(csrc):
-            print("  " + line)
+    results = pair(args.other, args.scene)
+    for other in args.other:
+        print(f"K1's and K3's instantiations against {other}:")
+        same_resources(other)
     print(card)
     print(json.dumps(results if len(results) > 1 else results[0]))
     return 0

@@ -1,6 +1,7 @@
 """What one frame asks of K1, counted from its plain version on the same
-threefry numbers: the ray segments (bounces entered by a live path) and,
-for the mesh scenes, the triangle and box tests their backends make.
+threefry numbers: the ray segments (bounces entered by a live path), in a
+scene with a medium those inside one and the scatter events, and, for the
+mesh scenes, the triangle and box tests their backends make.
 
 `chip_smoke.py` turns these counts into each kernel's bound. They replay
 the kernels' walks, not the plain version's (which tests every triangle):
@@ -30,7 +31,7 @@ from ..models import bigmesh, mesh
 from ..models.camera import gen_ray, pixel_coords
 from ..models.scene import Scene
 from ..ops.intersect import MISS
-from ..ops.vecmath import V2, V3, dot
+from ..ops.vecmath import V2, V3, dot, maximum
 
 
 def count_segments(scene: Scene, key, width: int, height: int, per_bounce=None) -> int:
@@ -50,6 +51,33 @@ def count_segments(scene: Scene, key, width: int, height: int, per_bounce=None) 
             if per_bounce is not None:
                 per_bounce(alive[-1])
         return int(torch.stack(alive).sum())
+
+
+def count_media_work(scene: Scene, key, width: int, height: int) -> dict:
+    """The segments of one spp-1 frame of a scene with a medium: all of
+    them, those that enter their bounce inside a medium, and the scatter
+    events (a free flight that ends before the hit, where K1 runs the HG
+    phase's NEE and sample instead of the surface's Disney BSDF). A scatter
+    event is a lane inside a Scatter medium whose next ray starts at its
+    free flight's end, as the plain version computes it."""
+    out = dict(segments=0, medium=0, scatter=0)
+    with torch.no_grad():
+        cam_u, bounce_u = T.draw_uniforms(key, width * height, scene.recursion_depth, torch.float32, scene.device)
+        coords = pixel_coords(width, height, torch.float64, scene.device)
+        ro, rd = gen_ray(scene.camera.unpack(), coords, V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
+        state = T.init_state(ro, rd, T.VERBATIM)
+        step = T.make_bounce_step(scene, T.VERBATIM, detach=True)
+        for u in bounce_u:
+            nxt = step(state, u)
+            s_free = -torch.log(maximum(1.0 - u[..., 7], 1e-12)) / maximum(state.med_density, 1e-12)
+            end = state.ro + state.rd * s_free
+            scat = state.alive & (state.med_type == 2) & (state.med_density > 0.0)
+            scat &= (nxt.ro.x == end.x) & (nxt.ro.y == end.y) & (nxt.ro.z == end.z)
+            out["segments"] += int(state.alive.sum())
+            out["medium"] += int((state.alive & (state.med_type != 0)).sum())
+            out["scatter"] += int(scat.sum())
+            state = nxt
+    return out
 
 
 def chunk_cull(aabb: torch.Tensor, o, d, t_far) -> torch.Tensor:

@@ -22,7 +22,7 @@ class RenderConfig:
     seed: int = 0
     precision: str = "f32"  # "f32" | "f64"
     quirks: str = "verbatim"  # "verbatim" | "fixed"
-    device: str = "cpu"
+    device: str = "cuda"  # as the CLI; the eager integrator on the CPU with "cpu"
     scene: str = "analytical"  # a family of models/families, or file:PATH
     occupancy: bool = False  # print the alive-lane fraction per bounce first
 

@@ -12,6 +12,7 @@ from pathtracer_tpu.utils import buffer as jax_buffer
 from pathtracer_tpu_torch.app import invert
 from pathtracer_tpu_torch.app import render as cli
 from pathtracer_tpu_torch.utils import buffer, image
+from pathtracer_tpu_torch.utils.config import RenderConfig
 from test_torch_kernel_host import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -79,6 +80,15 @@ def test_cli_defaults_to_the_card():
     args = invert.parse_args([])
     assert (args.device, args.width, args.height, args.steps, args.spp, args.lr, args.depth) == (
         "cuda", 256, 192, 80, 1, 3e-2, 4)
+
+
+def test_render_config_defaults_to_the_card(tmp_path, monkeypatch):
+    """RenderConfig, as the CLI, renders on the card unless asked for the
+    CPU, and without CUDA fails rather than falling back."""
+    assert RenderConfig().device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        cli.render(RenderConfig(width=8, height=8, frames=1), str(tmp_path / "x.png"), log=lambda s: None)
 
 
 def test_invert_cli_on_cpu(tmp_path):

@@ -18,6 +18,14 @@ knife-edge lane may take the other branch, as K1's pixels may), its alive
 fractions within 1e-3 of the plain version's. K4 bit-equal to its plain
 version.
 
+K1's and K3's media instantiations, as chip_smoke.py phases 27 and 29: the
+glass-and-medium scenes of tests/test_torch_media_kernel_host.py (the
+mesh's pixels whose plain path meets two coplanar triangles at once left
+out of the gate), the committed JAX render
+tests/golden_torch/media_analytical_64x48_d6_k3.npy, K3's media frame
+bit-equal to K1's; a CUDA media scene that requires grad raises (K2 has no
+media branch yet) and launches nothing.
+
 K2's tolerance, as chip_smoke.py phase 6: with the cotangent zeroed at the
 knife-edge pixels (the two forward frames differ by more than 1e-3 there:
 K2 differentiates K1's branch, the plain version the other),
@@ -41,12 +49,15 @@ from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import megakernel_mesh as MM
 from pathtracer_tpu_torch.ops import megakernel_sdf as MS
 from pathtracer_tpu_torch.ops import rng
+from pathtracer_tpu_torch.models.material import MediumType
 from pathtracer_tpu_torch.tools import validate_rng
+from test_torch_media_kernel_host import DEMO, media_scene
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "analytical_64x48_d4_k3.npy")
 SDF_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "sdf_64x48_d4_k3.npy")
 GRAD_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "grad_analytical_64x48_d4_k3.npz")
 MESH_GRAD_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "grad_mesh_64x48_d4_k3.npz")
+MEDIA_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "media_analytical_64x48_d6_k3.npy")
 pytestmark = pytest.mark.cuda
 
 
@@ -368,3 +379,76 @@ def test_uniform_stream_kernel_matches_plain_version(cuda_device, seed, num_tile
 def test_uniform_stream_kernel_passes_the_validation(cuda_device):
     result = validate_rng.validate(cuda_device)
     assert result["ok"], result
+
+
+MEDIA_CASES = {
+    "absorb": ("analytical", MediumType.ABSORB, DEMO),
+    "emissive": ("analytical", MediumType.EMISSIVE, dict(density=0.5, color=(0.2, 0.8, 0.3))),
+    "scatter": ("analytical", MediumType.SCATTER, dict(anisotropy=0.4, **DEMO)),
+    "scatter_g0": ("analytical", MediumType.SCATTER, dict(density=2.0, color=(1.0, 1.0, 1.0))),
+    "sdf_scatter": ("sdf", MediumType.SCATTER, dict(anisotropy=0.4, **DEMO)),
+    "mesh_scatter": ("mesh", MediumType.SCATTER, dict(anisotropy=0.4, **DEMO)),
+    "bigmesh_scatter": ("bigmesh", MediumType.SCATTER, dict(anisotropy=0.4, **DEMO)),
+}
+
+
+@pytest.mark.parametrize("spp,quirks,seed", [(1, VERBATIM, 111), (2, VERBATIM, 112), (1, FIXED, 113)],
+                         ids=["spp1", "spp2", "fixed"])
+@pytest.mark.parametrize("case", sorted(MEDIA_CASES))
+def test_media_kernel_matches_plain_version(cuda_device, case, spp, quirks, seed):
+    """K1's media instantiation at 320x240, depth 6: one launch, counted
+    in media_launches, within the image gate of the plain version."""
+    family, med_type, medium = MEDIA_CASES[case]
+    scene = media_scene(family, med_type, device=cuda_device, **medium)
+    key, (w, h) = rng.prng_key(seed), (320, 240)
+    before = (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.media_launches)
+    img = MK.render_frame_megakernel(scene, key, w, h, spp, quirks)
+    assert (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.media_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = MK.render_frame_reference(scene, key, w, h, spp, quirks)
+    keep = torch.ones((h, w), dtype=torch.bool)
+    if family == "mesh":
+        keep = ~(MM.hit_ties(scene, key, w, h, spp, quirks) < 1e-6).any(1).any(0).reshape(h, w).cpu()
+    assert_image_close(img.cpu()[keep], ref.cpu()[keep])
+
+
+def test_media_kernel_matches_jax_fixture(cuda_device):
+    scene = media_scene("analytical", MediumType.SCATTER, device=cuda_device, anisotropy=0.4, **DEMO)
+    img = MK.render_frame_megakernel(scene, rng.prng_key(3), 64, 48)
+    assert_image_close(img.cpu(), np.load(MEDIA_FIXTURE))
+
+
+@pytest.mark.parametrize("family", ["analytical", "sdf", "mesh", "bigmesh"])
+def test_media_occupancy_kernel_matches_plain_version(cuda_device, family):
+    """K3's media instantiation: one launch (counted in media_launches), its
+    counts against bounces_entered on 99.9% of the lanes (the mesh's
+    coplanar ties left out), its frame bit-equal to K1's media frame."""
+    scene = media_scene(family, MediumType.SCATTER, device=cuda_device, anisotropy=0.4, **DEMO)
+    key, (w, h) = rng.prng_key(121), (320, 240)
+    occ = MK.measure_occupancy_megakernel
+    before = (occ.launches, occ.media_launches)
+    got = occ(scene, key, w, h)
+    assert (occ.launches, occ.media_launches) == (before[0] + 1, before[1] + 1)
+    keep = torch.ones((h, w), dtype=torch.bool, device=cuda_device)
+    if family == "mesh":
+        keep = ~(MM.hit_ties(scene, key, w, h) < 1e-6).any(1).any(0).reshape(h, w)
+    same = got["entered"][:, keep] == bounces_entered(scene, key, w, h)[:, keep]
+    assert same.double().mean().item() >= 0.999
+    k = MK.prepare_launch(scene, key, w, h, 1, VERBATIM)
+    assert k.media
+    entered = torch.empty((1, h, w), dtype=torch.int32, device=cuda_device)
+    frame = MK.launch(k, entered).clone()
+    assert torch.equal(entered, got["entered"])
+    assert torch.equal(frame, MK.launch(k))
+
+
+def test_media_gradient_on_the_card_raises(cuda_device):
+    """K2 has no media branch yet: a CUDA media scene whose leaves require
+    grad raises before any launch; the CPU scene keeps its autograd."""
+    scene = media_scene("analytical", MediumType.SCATTER, device=cuda_device, anisotropy=0.4, **DEMO)
+    scene.params.materials.medium.density.requires_grad_(True)
+    before = (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches)
+    with pytest.raises(NotImplementedError, match="K2's media branch"):
+        MK.render_frame_megakernel(scene, rng.prng_key(0), 16, 8)
+    assert (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches) == before
+

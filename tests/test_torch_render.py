@@ -130,17 +130,31 @@ def test_megakernel_refuses_what_it_does_not_take():
     (g,) = torch.autograd.grad(MK.render_frame_megakernel(scene, key, 8, 8).sum(), scene.params.sphere_radius)
     assert torch.isfinite(g).all()
 
+    # media are taken now: the launch remembers the medium_type tensor and
+    # version it checked, and replacing or editing that tensor after a
+    # media-free frame makes the next launch take the media packing (26
+    # scalars a material), whose plain version is render_frame's frame
+    def takes_media(scene):
+        media = MK.scene_media(scene)
+        sv = MK.pack_scene(scene, 8, 8, media)
+        assert sv.shape[1] == 37 + 15 + (26 if media else 20) * 3
+        plain = MK.render_frame_packed(sv, scene, key, 8, 8)
+        assert torch.equal(plain, T.render_frame(scene, key, 8, 8, detach=True))
+        assert torch.equal(plain, MK.render_frame_megakernel(scene, key, 8, 8))
+        return media
+
     scene = make_scene()
-    MK.render_frame_megakernel(scene, key, 8, 8)
+    assert not takes_media(scene)
+    with torch.no_grad():
+        scene.params.materials.spec_trans[1] = 1.0
     scene.params.materials.medium.medium_type = torch.tensor([0, 2, 0], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="media"):
-        MK.render_frame_megakernel(scene, key, 8, 8)
-    # an in-place edit after a passing frame is seen too
+    scene.params.materials.medium.density[1] = 3.0
+    assert takes_media(scene)
+    # an in-place edit after a media-free frame is seen too
     scene = make_scene()
-    MK.render_frame_megakernel(scene, key, 8, 8)
+    assert not takes_media(scene)
     scene.params.materials.medium.medium_type[1] = 1
-    with pytest.raises(NotImplementedError, match="media"):
-        MK.render_frame_megakernel(scene, key, 8, 8)
+    assert takes_media(scene)
 
     hook = lambda p, hit, ro, rd: hit.material  # noqa: E731
     with pytest.raises(NotImplementedError, match="procedural"):
@@ -150,5 +164,5 @@ def test_megakernel_refuses_what_it_does_not_take():
     with pytest.raises(NotImplementedError, match="analytical"):
         MK.render_frame_megakernel(make_scene().replace(closest_hit_fn=other), key, 8, 8)
 
-    with pytest.raises(NotImplementedError):
-        T.render_frame(make_scene(), key, 8, 8, estimator="nee")
+    with pytest.raises(ValueError, match="estimator"):
+        T.render_frame(make_scene(), key, 8, 8, estimator="path")
