@@ -144,8 +144,8 @@ which raises on failure (non-zero exit):
    nothing else; the times of the wrapper, the launch alone and the plain
    version, and the bound from this frame's segments, those inside the
    medium and the scatter events (tools/work.count_media_work); a CUDA
-   media scene whose leaves require grad raises NotImplementedError (K2's
-   media branch is the next slice) and launches nothing. With `--other
+   media scene whose leaves require grad renders with one K1 MEDIA launch,
+   and its backward is one K2 MEDIA launch and nothing else. With `--other
    DIR`, the media-free K1 and K3 of both trees on each backend in turns
    (tools/k1_pair.pair), frames and counts bit-equal, and each media-free
    instantiation's registers, stack and spills the other tree's;
@@ -155,16 +155,51 @@ which raises on failure (non-zero exit):
    one also at spp 2, FIXED and 1920x1080; the mesh's coplanar ties left
    out); then one measure_occupancy_megakernel call at 1920x1080 (one K3
    MEDIA launch) and K3 against K1 in turns there.
+30. K2's MEDIA instantiation (tracer_adj.cuh media_bounce_adj: the
+   segment's Absorb and Emissive terms, the Scatter event with its HG-phase
+   NEE, the medium's cotangent carried through the reverse sweep) vs its
+   plain version, as phase 6, depth 6: the analytical glass filled with
+   Scatter g 0.4, Absorb and Emissive, and the lit-medium case (the light
+   inside the Scatter medium, shadow rays that stop at it), at 320x240 spp 1
+   and 2 VERBATIM and spp 1 FIXED; the Scatter demo at 1920x1080 spp 1 (at
+   the largest size the plain gradient fits in, if not there); the SDF and
+   mesh glass Scatter scenes at 320x240 (the SDF's grazing pixels masked
+   as in phase 13, the mesh's near-edge pixels and coplanar ties as in
+   phases 21 and 27). K2 MEDIA is built without FMA contraction
+   (csrc/megakernel_bwd_media.cu). Its instantiations' registers, stack
+   and spills and each scene's shared memory a block are printed;
+31. K2 MEDIA through the autograd Function and pack_scene, every float
+   leaf, against the committed JAX gradient
+   tests/golden_torch/grad_media_64x48_d6_k3.npz (Absorb, Emissive, Scatter
+   g 0.4 and the lit case, 64x48, depth 6, PRNGKey(3)), one K1 MEDIA and one
+   K2 MEDIA launch a case; the Scatter density's gradient exactly 0;
+32. the media main path: inverse_render(kernel="megakernel") recovering
+   the Absorb demo's density and color (started at 0.4 and (0.5, 0.5,
+   0.5)), lr 3e-2, spp 1, 256x192, depth 6, 10 steps toward a K1 MEDIA
+   render: every step exactly 2 K1 MEDIA and 1 K2 MEDIA launches, no other
+   backend's, and the loss falling; the kernel path's first 3 losses and
+   its leaves after step 3 against the eager path's at 64x48 (phase 15's
+   tolerances); then 3 steps each on the SDF and mesh glass Scatter
+   scenes, 2 K1 MEDIA and 1 K2 MEDIA launches a step with their backend;
+33. times: one media training step at 1920x1080, depth 6, spp 1 (the
+   Scatter demo's density, color and anisotropy), K2 MEDIA's launch alone,
+   the plain gradient and the plain step, and K2 MEDIA's bound from this
+   frame's segments, those inside the medium and the scatter events; the
+   SDF and mesh K2 MEDIA at 320x240 likewise. With `--other DIR`, the mesh
+   K2 of that tree against this one's in turns (phase 24 pairs the
+   analytical and SDF ones) and the media-free K2 instantiations'
+   registers, stack, spills and machine code against that tree's
+   (tools/k2_pair.same_resources).
 
-The total seconds, with phase 25's, phase 26's and phases 27-29's, are
-printed before the kernels line.
+The total seconds, with phase 25's, phase 26's, phases 27-29's and phases
+30-33's, are printed before the kernels line.
 
 Image tolerance (phases 3, 4, 10, 17, 19 and 27): quantile(|diff|, 0.999) < 1e-4 and
 mean(|diff|) < 1e-5, all values finite. The two sides draw the same
 threefry numbers, so they differ only by float rounding (FMA contraction,
 libm ulps), which can flip a rare knife-edge branch in a few pixels.
 
-Gradient tolerance (phases 6 and 13), at every size: with the cotangent
+Gradient tolerance (phases 6, 13, 21 and 30), at every size: with the cotangent
 zeroed at the knife-edge pixels (where the two forward frames differ by
 more than 1e-3: a branch taken the other way, so K2 differentiates K1's
 path and the plain version another), max|g_k - g_p| <= 1e-2 max|g_p|, and
@@ -181,10 +216,18 @@ edge of the mesh (ops/megakernel_mesh.hit_margins: the winning triangle's
 min(u, v, 1 - u - v) below 3e-5, or |det| below 1e-5, where the last bits
 of the ray can pick the other triangle of a shared edge;
 `tests/test_torch_k2_rounding.py --scene mesh --grazing 3e-5` is their
-witness). Phases 7, 14 and 22: the tolerances of tests/test_torch_grad.py (rtol
+witness). Phase 30 masks no more than phases 6, 13 and 21 do: K2 MEDIA
+rounds each product and sum apart (`tests/test_torch_k2_rounding.py
+--media absorb --spp 2 --seed 405` shows why: with contraction the host
+build sits 1.3e-2 off the plain version, without it 2e-5, every pixel
+counted). Phases 7, 14 and 22: the tolerances of tests/test_torch_grad.py (rtol
 5e-3 / atol 1e-8 for material, light, checker and sky leaves, rtol 1e-2 /
 atol 1e-7 for the geometry, the vertices and the camera); the small SDF fixture's own
-(rtol 5e-3, atol 1e-7, tests/test_torch_sdf.py). Phase 12: the kernel's
+(rtol 5e-3, atol 1e-7, tests/test_torch_sdf.py). Phase 31: the same, with
+the light's position and radius as geometry, and each leaf's rtol taken of
+the summed magnitudes of its four row bands' gradients in the fixture where
+that is larger than its own (tests/test_torch_media_grad.py: a float32 sum
+rounds in proportion to its terms). Phase 12: the kernel's
 and the plain version's counts are equal on at least 99.9% of the pixels
 (both round the march alike; a last-bit difference at |sdf| = HIT_EPS
 moves a lane by a step). Phase 25: K3's frame bit-equal to K1's; its
@@ -366,6 +409,31 @@ FLIP, MEDIA_TIE = 1e-3, 1e-6
 # (~60: the inverse CDF, the basis, the rotation).
 MEDIUM_SEGMENT_OPS = 86 + 20 + 10
 SCATTER_SAVED_OPS = 330 + 275 - 15 - 60
+# Phases 30-33, K2's MEDIA instantiation. The lit-medium case: the Scatter
+# demo with the light (position, radius, emission) inside sphere 1 and
+# shadow rays that stop at it, so that the scatter points' HG-phase NEE
+# contributes (tests/test_torch_media_grad.py). Phase 31's fixture holds
+# jax.grad of every float leaf for each case of MEDIA_GRAD_CASES and each
+# of its MEDIA_GRAD_BANDS bands of rows (the whole gradient's rtol is taken
+# of the bands' summed magnitudes where that is larger: a float32 sum
+# rounds in proportion to its terms). Phase 32 recovers the Absorb demo's
+# density and color from MEDIA_TRAIN_START.
+MEDIA_GRAD_FIXTURE = os.path.join(ROOT, "tests", "golden_torch", "grad_media_64x48_d6_k3.npz")
+MEDIA_GRAD_BANDS = 4
+MEDIA_GRAD_CASES = {"absorb": "absorb", "emissive": "emissive", "scatter": MEDIA_MAIN, "lit": MEDIA_MAIN}
+LIT_LIGHT = ((1.1, 0.0, 0.0), 0.25, (3.0, 3.0, 3.0))
+MEDIA_GEOMETRY = ("params.sphere", "params.plane", "lights.position", "lights.radius", "camera")
+MEDIA_SELECT = ("medium.density", "medium.color")
+MEDIA_TRAIN_START = (0.4, (0.5, 0.5, 0.5))
+MEDIA_TRAIN_FAMILY_STEPS = 3
+# K2's MEDIA work, read from tracer_adj.cuh as K2_OPS: per segment inside a
+# medium, K1's MEDIUM_SEGMENT_OPS and the segment's adjoint (~30: the
+# exponent's and the emission's products); a scatter event skips K1's
+# SCATTER_SAVED_OPS and the adjoints of disney_eval (~1000) and
+# disney_sample (~500), and runs hg_phase_adj (~25) and the phase NEE's
+# scale and MIS adjoint (~35).
+MEDIUM_SEGMENT_ADJ_OPS = 30
+SCATTER_SAVED_ADJ_OPS = 1000 + 500 - 25 - 35
 
 
 def image_diff(a, b) -> dict:
@@ -437,7 +505,7 @@ def bound(segments: int, pixels: int, nbytes: int, ops: dict) -> tuple[float, st
 # render_frame_megakernel's counts of K1 and K2 launches, then K3's
 # (measure_occupancy_megakernel's, prefixed occupancy_) and K4's
 K1_K2_COUNTERS = ("launches", "bwd_launches", "sdf_launches", "sdf_bwd_launches", "mesh_launches",
-                  "mesh_bwd_launches", "bigmesh_launches", "media_launches")
+                  "mesh_bwd_launches", "bigmesh_launches", "media_launches", "media_bwd_launches")
 K3_COUNTERS = ("launches", "sdf_launches", "mesh_launches", "bigmesh_launches", "media_launches")
 COUNTERS = K1_K2_COUNTERS + tuple(f"occupancy_{name}" for name in K3_COUNTERS) + ("stream_launches",)
 
@@ -838,12 +906,17 @@ def uniform_stream_phase(torch, mk, cuda_ms, dev, card: str) -> dict:
     )
 
 
-def media_scene(torch, families, family: str, dev, name: str, depth: int = MEDIA_DEPTH):
+def media_scene(torch, families, family: str, dev, name: str, depth: int = MEDIA_DEPTH, lit: bool = False):
     """The family's demo with its MEDIA_GLASS material made glass
     (tests/test_medium.py's: spec_trans 1, metallic 0, roughness 0.05, ior
-    1.5) and filled with the medium `name` of MEDIA."""
+    1.5) and filled with the medium `name` of MEDIA; with `lit` (the
+    analytical scene) the light is LIT_LIGHT, inside the medium, and shadow
+    rays stop at it."""
+    from pathtracer_tpu_torch.models.light import spherical_light
+
     med_type, density, color, g = MEDIA[name]
-    scene = families.make_family_scene(family, recursion_depth=depth, device=dev)
+    extra = dict(respect_max_dist=True, lights=spherical_light(*LIT_LIGHT, device=dev)) if lit else {}
+    scene = families.make_family_scene(family, recursion_depth=depth, device=dev, **extra)
     m, i = scene.params.materials, MEDIA_GLASS[family]
     with torch.no_grad():
         m.spec_trans[i], m.metallic[i], m.roughness[i], m.ior[i] = 1.0, 0.0, 0.05, 1.5
@@ -959,16 +1032,17 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
     print(f"  the glass without its medium ({vacuum_segments} segments): media-free K1 {vacuum_ms:.3f} ms, the MEDIA "
           f"instantiation {vacuum_media_ms:.3f} ms; with the Scatter medium {launch_ms:.3f} ms ({card})")
     grad_scene = media_scene(torch, families, "analytical", dev, MEDIA_MAIN)
-    grad_scene.params.materials.medium.density.requires_grad_(True)
+    density = grad_scene.params.materials.medium.density.requires_grad_(True)
     reset_counts(mk)
-    try:
-        mk.render_frame_megakernel(grad_scene, rng.prng_key(0), 16, 8)
-    except NotImplementedError as e:
-        print(f"  a CUDA media scene with grad raises: {e}")
-    else:
-        raise AssertionError("a CUDA media scene with grad rendered without K2's media branch")
-    if read_counts(mk) != expect_counts():
-        raise AssertionError(f"the refused media gradient launched a kernel: {read_counts(mk)}")
+    img = mk.render_frame_megakernel(grad_scene, rng.prng_key(0), 16, 8)
+    fwd_counts = read_counts(mk)
+    reset_counts(mk)
+    torch.autograd.grad(img[..., :3].sum(), density)
+    if (fwd_counts, read_counts(mk)) != (expect_counts(launches=1, media_launches=1),
+                                         expect_counts(bwd_launches=1, media_bwd_launches=1)):
+        raise AssertionError(f"a CUDA media scene with grad: not one K1 MEDIA launch, then one K2 MEDIA launch and "
+                             f"nothing else: {fwd_counts}, {read_counts(mk)}")
+    print("  a CUDA media scene with grad: one K1 MEDIA launch, its backward one K2 MEDIA launch and nothing else")
     if other:
         results = k1_pair.pair([Path(other)], families.FAMILIES, log=lambda s: print("  " + s))
         same = k1_pair.same_resources(Path(other), log=lambda s: print("  " + s))
@@ -1034,6 +1108,277 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
     )]
 
 
+def media_moved(scene, key, w, h, spp, quirks):
+    """Phase 30's pixels on the mesh: mesh_near_edge's and the coplanar ties
+    (a path inside the glass cube that meets its bottom face and the floor
+    at one t), which may be 5% of the frame (the host tests' bound)."""
+    import torch
+
+    near, _, _ = mesh_near_edge(scene, key, w, h, spp, quirks)
+    ties = coplanar_ties(torch, scene, key, w, h, spp, quirks).to(near.device)
+    return near | ties, f"near an edge or at a coplanar tie ({int(ties.sum())} ties)", 0.05
+
+
+def media_leaf_close(got, want, name, scale) -> bool:
+    """leaf_close's tolerances for phase 31 (the light's position and radius
+    with the geometry), the rtol taken of `scale` where that is larger than
+    |want|."""
+    rtol, atol = (1e-2, 1e-7) if name.startswith(MEDIA_GEOMETRY) else (5e-3, 1e-8)
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return bool(np.all(np.abs(got - want) <= atol + rtol * np.maximum(np.abs(want), scale)))
+
+
+def k2_media_ops(work: dict, segment_f32: float) -> float:
+    """K2 MEDIA's float32 operations for count_media_work's `work`, at
+    `segment_f32` a segment off media."""
+    return (work["segments"] * segment_f32 + work["medium"] * (MEDIUM_SEGMENT_OPS + MEDIUM_SEGMENT_ADJ_OPS)
+            - work["scatter"] * (SCATTER_SAVED_OPS + SCATTER_SAVED_ADJ_OPS))
+
+
+def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: str, total_bytes: int,
+                          trainer_pieces, other) -> list[dict]:
+    """Phases 30-33, K2's MEDIA instantiation: against its plain version and
+    the JAX gradients, the media trainer (the main path) with the SDF and
+    mesh ones, the times, and with `other` the media-free K2 of another tree
+    in turns and its machine code. Returns its rows of the kernels line, one
+    a backend."""
+    from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
+    from pathtracer_tpu_torch.models import families
+    from pathtracer_tpu_torch.ops import megakernel_sdf as mks
+    from pathtracer_tpu_torch.tools import k1_pair, k2_pair
+    from pathtracer_tpu_torch.tools.work import count_media_work, count_mesh_work
+
+    print(f"== 30. K2's media instantiation vs its plain version on the card (depth {MEDIA_DEPTH})")
+    lib = _build.load("megakernel_bwd")
+    for kernel in ("megakernel_bwd", "megakernel_bwd_media"):
+        for key_, line in sorted(k1_pair.instantiations(_build.CSRC, kernel, k2_pair.k2_key).items()):
+            print(f"  {key_[0]} K2{' MEDIA' if key_[1] else ''}: {line}")
+    scenes = {name: media_scene(torch, families, "analytical", dev, name) for name in ("absorb", "emissive", MEDIA_MAIN)}
+    scenes["lit"] = media_scene(torch, families, "analytical", dev, MEDIA_MAIN, lit=True)
+    for family in ("sdf", "mesh"):
+        scenes[family] = media_scene(torch, families, family, dev, MEDIA_MAIN)
+    for name, sc in scenes.items():
+        k = mk.prepare_launch(sc, rng.prng_key(0), 8, 8, 1, VERBATIM)
+        n_tris = k.counts[0] if name == "mesh" else 0
+        print(f"  {name}: P = {k.sv.shape[1]}, {lib.pt_backward_smem_bytes(k.sv.shape[1], n_tris)} B of shared "
+              "memory a block")
+    cases = [(scenes[name], 320, 240, spp, quirks, 401 + 3 * i + j, f", {name}")
+             for i, name in enumerate((MEDIA_MAIN, "absorb", "emissive", "lit"))
+             for j, (spp, quirks) in enumerate(((1, VERBATIM), (2, VERBATIM), (1, FIXED)))]
+    err, peak_320 = check_backward(torch, mk, rng, dev, total_bytes, cases)
+    w, h = MAIN_W, MAIN_H
+    while peak_320 * (w * h) / (320 * 240) > 0.6 * total_bytes:
+        w, h = w // 2, h // 2
+    if w != MAIN_W:
+        print(f"  the plain gradient does not fit at {MAIN_W}x{MAIN_H}: the largest case is {w}x{h}")
+    e, _ = check_backward(torch, mk, rng, dev, total_bytes, [(scenes[MEDIA_MAIN], w, h, 1, VERBATIM, 420,
+                                                              f", {MEDIA_MAIN}")], peak_320=peak_320)
+    err = max(err, e)
+    family_err = {}
+    for family, seed, moved in (("sdf", 421, sdf_grazing), ("mesh", 422, media_moved)):
+        family_err[family], _ = check_backward(torch, mk, rng, dev, total_bytes, [
+            (scenes[family], 320, 240, 1, VERBATIM, seed, f", {family} {MEDIA_MAIN}")], moved=moved)
+
+    print("== 31. K2 MEDIA vs the JAX gradient fixture, every leaf, through the autograd Function and the packers")
+    with np.load(MEDIA_GRAD_FIXTURE) as data:
+        fixture = {k: data[k] for k in data.files}
+    bad = []
+    for case, name in MEDIA_GRAD_CASES.items():
+        want = {k[len(case) + 1:]: v for k, v in fixture.items()
+                if k.startswith(case + "/") and "/" not in k[len(case) + 1:]}
+        scene = media_scene(torch, families, "analytical", dev, name, lit=case == "lit")
+        leaves = dict(inverse.named_leaves(scene))
+        names = sorted(want)
+        if names != sorted(n for n, leaf in leaves.items() if leaf.is_floating_point()):
+            raise AssertionError(f"{case}: the fixture's leaves are not the scene's float leaves")
+        for n in names:
+            leaves[n].requires_grad_(True)
+        reset_counts(mk)
+        img = mk.render_frame_megakernel(scene, rng.prng_key(3), 64, 48)
+        grads = torch.autograd.grad((img[..., :3] ** 2).mean(), [leaves[n] for n in names], allow_unused=True)
+        counts = read_counts(mk)
+        if counts != expect_counts(launches=1, media_launches=1, bwd_launches=1, media_bwd_launches=1):
+            raise AssertionError(f"{case}: expected 1 K1 MEDIA and 1 K2 MEDIA launch, got {counts}")
+        got_all = {n: np.zeros(want[n].shape) if g is None else g.cpu().numpy() for n, g in zip(names, grads)}
+        n_ok = 0
+        for n in names:
+            got = got_all[n]
+            scale = sum(np.abs(fixture[f"{case}/rows{k}/{n}"]) for k in range(MEDIA_GRAD_BANDS))
+            if media_leaf_close(got, want[n], n, scale):
+                n_ok += 1
+            else:
+                bad.append(f"{case}/{n}")
+                print(f"  {case} {n}: K2 {np.array2string(got.ravel(), precision=6)} "
+                      f"JAX {np.array2string(want[n].ravel(), precision=6)} OUTSIDE")
+        medium = {n: got_all[n].ravel() for n in names if "medium" in n}
+        print(f"  {case}: {n_ok} of {len(names)} leaves within tolerance; launches 1 K1 MEDIA, 1 K2 MEDIA; medium "
+              + ", ".join(f"{n.rsplit('medium.', 1)[1]} {np.array2string(v, precision=6)}" for n, v in medium.items()))
+        if case in ("scatter", "lit") and medium["params.materials.medium.density"][1] != 0.0:
+            raise AssertionError(f"{case}: the Scatter density's gradient is not 0")
+    if bad:
+        raise AssertionError(f"K2 MEDIA gradients outside the fixture's tolerance: {bad}")
+
+    print(f"== 32. media trainer: inverse_render on the Absorb demo, {TRAIN_W}x{TRAIN_H}, depth {MEDIA_DEPTH}, "
+          f"{TRAIN_STEPS} steps")
+    counting_render, real_render, calls = trainer_pieces
+
+    def start_of(family, name):
+        """The family's glass filled with the medium `name`, its density and
+        color at MEDIA_TRAIN_START."""
+        out = media_scene(torch, families, family, dev, name)
+        with torch.no_grad():
+            i = MEDIA_GLASS[family]
+            med = out.params.materials.medium
+            med.density[i] = MEDIA_TRAIN_START[0]
+            med.color.x[i], med.color.y[i], med.color.z[i] = MEDIA_TRAIN_START[1]
+        return out
+
+    true_scene = scenes["absorb"]
+    calls.clear()
+    reset_counts(mk)
+    with torch.no_grad():
+        target = mk.render_frame_megakernel(true_scene, rng.prng_key(17), TRAIN_W, TRAIN_H)
+    inverse.render_frame_megakernel = counting_render
+    try:
+        out = inverse.inverse_render(start_of("analytical", "absorb"), target, rng.prng_key(3), MEDIA_SELECT, TRAIN_W,
+                                     TRAIN_H, steps=TRAIN_STEPS, lr=3e-2, spp=1, kernel="megakernel")
+        counts = read_counts(mk)
+    finally:
+        inverse.render_frame_megakernel = real_render
+    losses = out.losses.cpu().numpy()
+    med = out.scene.params.materials.medium
+    print(f"  launches {counts}; losses {losses[0]:.6e} -> {losses[-1]:.6e}: {np.array2string(losses, precision=6)}")
+    print(f"  density: true {MEDIA['absorb'][1]} start {MEDIA_TRAIN_START[0]} recovered {float(med.density[1]):.4f}; "
+          f"color: true {MEDIA['absorb'][2]} start {MEDIA_TRAIN_START[1]} recovered "
+          f"({float(med.color.x[1]):.4f}, {float(med.color.y[1]):.4f}, {float(med.color.z[1]):.4f})")
+    step_starts = [c[:2] for c in calls if c[2]]
+    want = expect_counts(launches=1 + 2 * TRAIN_STEPS, media_launches=1 + 2 * TRAIN_STEPS, bwd_launches=TRAIN_STEPS,
+                         media_bwd_launches=TRAIN_STEPS)
+    if counts != want or step_starts != [(1 + 2 * i, i) for i in range(TRAIN_STEPS)]:
+        raise AssertionError(f"a media step is not 2 K1 MEDIA + 1 K2 MEDIA launches: {calls} -> {counts}")
+    if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"media trainer losses not finite or not falling: {losses}")
+    launches = {"analytical": counts["media_bwd_launches"]}
+    with torch.no_grad():
+        small_target = mk.render_frame_megakernel(true_scene, rng.prng_key(17), 64, 48)
+    runs = {kern: inverse.inverse_render(start_of("analytical", "absorb"), small_target, rng.prng_key(3), MEDIA_SELECT,
+                                         64, 48, steps=3, lr=3e-2, spp=1, kernel=kern) for kern in inverse.KERNELS}
+    got, want = runs["megakernel"], runs["eager"]
+    loss_rel = np.abs(got.losses.cpu().numpy() / want.losses.cpu().numpy() - 1.0).max()
+    leaves_got, _, leaf_names = inverse.select_leaves(got.scene, MEDIA_SELECT)
+    leaves_want, _, _ = inverse.select_leaves(want.scene, MEDIA_SELECT)
+    leaf_rel = {n: float(((a - b).abs() / b.abs().clamp_min(1e-6)).max().detach())
+                for n, a, b in zip(leaf_names, leaves_got, leaves_want)}
+    print(f"  64x48 losses: kernels {got.losses.cpu().numpy()}, eager {want.losses.cpu().numpy()}; max rel "
+          f"{loss_rel:.3e} (tolerance {SDF_TRAIN_LOSS_RTOL})")
+    print("  leaves after step 3, max rel: " + ", ".join(f"{n} {x:.3e}" for n, x in leaf_rel.items())
+          + f" (tolerance {SDF_TRAIN_LEAF_RTOL})")
+    if not (loss_rel <= SDF_TRAIN_LOSS_RTOL and max(leaf_rel.values()) <= SDF_TRAIN_LEAF_RTOL):
+        raise AssertionError("the media kernel path's losses or leaves differ from the eager path's")
+    for family in ("sdf", "mesh"):
+        scene = scenes[family]
+        reset_counts(mk)
+        with torch.no_grad():
+            target = mk.render_frame_megakernel(scene, rng.prng_key(17), TRAIN_W, TRAIN_H)
+        out = inverse.inverse_render(start_of(family, MEDIA_MAIN), target, rng.prng_key(3), MEDIA_SELECT, TRAIN_W,
+                                     TRAIN_H, steps=MEDIA_TRAIN_FAMILY_STEPS, lr=3e-2, spp=1, kernel="megakernel")
+        counts = read_counts(mk)
+        n = MEDIA_TRAIN_FAMILY_STEPS
+        want = expect_counts(launches=1 + 2 * n, media_launches=1 + 2 * n, bwd_launches=n, media_bwd_launches=n,
+                             **{f"{family}_launches": 1 + 2 * n, f"{family}_bwd_launches": n})
+        losses = out.losses.cpu().numpy()
+        print(f"  {family} glass ({MEDIA_MAIN}, density and color from {MEDIA_TRAIN_START}): {n} steps, launches "
+              f"{counts}; losses {np.array2string(losses, precision=6)}")
+        if counts != want or not np.isfinite(losses).all():
+            raise AssertionError(f"a {family} media step is not 2 K1 MEDIA + 1 K2 MEDIA launches with its backend, "
+                                 f"or its losses are not finite: {counts}")
+        launches[family] = counts["media_bwd_launches"]
+
+    print(f"== 33. times: K2 MEDIA at {MAIN_W}x{MAIN_H}, depth {MEDIA_DEPTH}, spp 1, the Scatter demo")
+    main = scenes[MEDIA_MAIN]
+    key, step_key = rng.prng_key(5), rng.prng_key(7)
+
+    def step(kern, scene, w, h):
+        render = inverse.make_renderer(kern, w, h, 1, VERBATIM)
+        with torch.no_grad():
+            target = render(scene, rng.prng_key(8))
+        train, rebuild, _ = inverse.select_leaves(start_of("analytical", MEDIA_MAIN), ("medium",))
+        opt = inverse.make_adam(train, 3e-2)
+        return lambda: inverse.paired_step(train, rebuild, None, opt, render, target, step_key)
+
+    step_ms = cuda_ms(step("megakernel", main, MAIN_W, MAIN_H), 10, warmup=2)
+    k = mk.prepare_launch(main, key, MAIN_W, MAIN_H, 1, VERBATIM)
+    ct = torch.from_numpy(np.random.default_rng(9).standard_normal((MAIN_H, MAIN_W, 4)).astype(np.float32)).to(dev)
+    bwd_ms = cuda_ms(lambda: mk.launch_backward(k, ct), 10)
+    if (w, h) == (MAIN_W, MAIN_H):
+        plain_bwd_ms = cuda_ms(lambda: mk.render_grad_reference(k.sv, main, key, ct, MAIN_W, MAIN_H), 1, warmup=0)
+        plain_step_ms = cuda_ms(step("eager", main, MAIN_W, MAIN_H), 1, warmup=0)
+        plain_at = ""
+    else:
+        kp = mk.prepare_launch(main, key, w, h, 1, VERBATIM)
+        plain_bwd_ms = cuda_ms(lambda: mk.render_grad_reference(kp.sv, main, key, ct[:h, :w], w, h), 1, warmup=0)
+        plain_step_ms = cuda_ms(step("eager", main, w, h), 1, warmup=0)
+        plain_at = f" at {w}x{h} (it does not fit at {MAIN_W}x{MAIN_H})"
+    work = count_media_work(main, key, MAIN_W, MAIN_H)
+    pix = MAIN_W * MAIN_H
+    bound_ms, bound_by = bound_of(k2_media_ops(work, K2_OPS["f32"]), work["segments"] * K2_OPS["f64"]
+                                  + pix * CAMERA_F64_OPS, k.sv.shape[1] * 8 + 16 + pix * 16)
+    print(f"  media training step: kernels {step_ms:.3f} ms, plain {plain_step_ms:.3f} ms{plain_at} ({card})")
+    print(f"  K2 MEDIA launch alone {bwd_ms:.3f} ms, plain gradient (eager forward + autograd) {plain_bwd_ms:.3f} ms"
+          f"{plain_at}, bound {bound_ms:.4f} ms ({bound_by}; {work['segments']} segments, {work['medium']} inside "
+          f"the medium, {work['scatter']} scatter events) ({card})")
+    rows = [dict(
+        name="megakernel_bwd_media", route="cuda", source="pathtracer_tpu_torch/csrc/tracer_adj.cuh",
+        replaces="pathtracer_tpu/ops/megakernel.py:1771", launches=launches["analytical"], max_abs_err=err,
+        ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    )]
+    # the SDF and mesh instantiations at 320x240, plain version and bound alike
+    w, h = 320, 240
+    pix = w * h
+    ct = torch.from_numpy(np.random.default_rng(9).standard_normal((h, w, 4)).astype(np.float32)).to(dev)
+    for family, replaces, seg_f32 in (
+            ("sdf", "pathtracer_tpu/ops/megakernel_sdf.py:172",
+             SDF_SEGMENT_OPS["f32"] + K2_ADJ_OPS["f32"] - ANALYTICAL_HIT_ADJ_F32 + SDF_ADJ_OPS),
+            ("mesh", "pathtracer_tpu/ops/megakernel_mesh.py:95",
+             MESH_SEGMENT_OPS["f32"] + K2_ADJ_OPS["f32"] - ANALYTICAL_HIT_ADJ_F32 + MESH_HIT_ADJ_OPS)):
+        scene = scenes[family]
+        kf = mk.prepare_launch(scene, key, w, h, 1, VERBATIM)
+        ms = cuda_ms(lambda: mk.launch_backward(kf, ct), 10)
+        plain_ms = cuda_ms(lambda: mk.render_grad_reference(kf.sv, scene, key, ct, w, h), 1, warmup=0)
+        work = count_media_work(scene, key, w, h)
+        f32 = k2_media_ops(work, seg_f32)
+        nbytes = kf.sv.shape[1] * 8 + 16 + pix * 16
+        if family == "sdf":
+            steps = mks.measure_march_steps(scene, w, h)
+            f32 += (int(steps["steps"].sum()) + int(steps["shadow_steps"].sum())) * SDF_STEP_OPS
+            f64 = work["segments"] * SDF_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS
+        else:
+            mw = count_mesh_work(scene, key, w, h)
+            f32 += (mw["closest_tests"] + mw["shadow_tests"]) * MESH_TRI_OPS
+            f64 = work["segments"] * MESH_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS
+            nbytes += kf.extras[0].numel() * 4
+        fb_ms, fb_by = bound_of(f32, f64, nbytes)
+        print(f"  K2 MEDIA {family} at {w}x{h}: launch alone {ms:.3f} ms, plain gradient {plain_ms:.3f} ms, bound "
+              f"{fb_ms:.4f} ms ({fb_by}; {work['segments']} segments, {work['medium']} inside the medium, "
+              f"{work['scatter']} scatter events) ({card})")
+        rows.append(dict(
+            name=f"megakernel_bwd_media_{family}", route="cuda",
+            source=f"pathtracer_tpu_torch/csrc/{family}_adj.cuh", replaces=f"pathtracer_tpu/ops/megakernel.py:1771 + "
+            f"{replaces}", launches=launches[family], max_abs_err=family_err[family], ms=ms, plain_ms=plain_ms,
+            bound_ms=fb_ms, bound_by=fb_by, library_ms=None,
+        ))
+    if other:
+        for r in k2_pair.pair([Path(other)], ("mesh",), log=lambda s: print("  " + s)):
+            if not r["bit_equal"]:
+                raise AssertionError("the mesh K2 of this tree and the other's give other gradients")
+        if not k2_pair.same_resources(Path(other), log=lambda s: print("  " + s)):
+            raise AssertionError("the media-free K2 of this tree and the other's differ in resources or machine code")
+        print("  analytical and SDF K2 of both trees in turns: phase 24")
+    else:
+        print("  media-free K2 against another tree's: not run (no --other DIR given)")
+    return rows
+
+
 def print_registers(_build) -> None:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1060,19 +1405,20 @@ def mesh_near_edge(scene, key, w, h, spp, quirks):
     return near, f"near an edge (margin < {MESH_MARGIN} or |det| < {MESH_DET})", MESH_NEAR_MAX
 
 
-def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, moved=None) -> tuple[float, int]:
+def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, moved=None,
+                   peak_320=None) -> tuple[float, int]:
     """K2 against its plain version (phases 6, 13 and 21) for each case
     (scene, W, H, spp, quirks, seed, note): d(sum(ct * frame))/d(sv) for a
     numpy-seeded cotangent, over all pixels and with the knife-edge pixels
     masked (and those `moved` gives: sdf_grazing, mesh_near_edge, which
     fails past its limit), and K2 run twice for bit-equality. A 1920x1080
     case runs when the plain version's peak memory, measured at 320x240
-    spp 1 VERBATIM (the first case) and scaled, fits in 0.6 of the card;
-    else it prints why it did not. Returns the largest masked max|d| and
-    the 320x240 peak."""
+    spp 1 VERBATIM (the first case, or `peak_320` where given) and scaled,
+    fits in 0.6 of the card; else it prints why it did not. Returns the
+    largest masked max|d| and the 320x240 peak."""
     from pathtracer_tpu_torch.integrator.tracer import VERBATIM
 
-    err, peak_320 = 0.0, None
+    err = 0.0
     for scene, w, h, spp, quirks, seed, note in cases:
         label = f"{w}x{h} spp{spp} {'VERBATIM' if quirks == VERBATIM else 'FIXED'}{note}"
         if w == MAIN_W:
@@ -1154,7 +1500,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one CUDA card.")
     ap.add_argument("--other", default=None, help="root of another checkout: phase 24 times its analytical and "
-                    "SDF K2 against this tree's, phase 28 its media-free K1 and K3 on every backend, in turns")
+                    "SDF K2 against this tree's, phase 28 its media-free K1 and K3 on every backend, phase 33 its "
+                    "mesh K2, in turns, and the media-free K2's machine code")
     args = ap.parse_args(argv)
 
     started = time.perf_counter()
@@ -1563,6 +1910,9 @@ def main(argv=None) -> int:
     t27 = time.perf_counter()
     media_rows = media_phases(torch, mk, _build, rng, cuda_ms, dev, card, args.other)
     t30 = time.perf_counter()
+    media_bwd_rows = media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card, total_bytes,
+                                           (counting_render, real_render, calls), args.other)
+    t34 = time.perf_counter()
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
@@ -1589,9 +1939,9 @@ def main(argv=None) -> int:
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
         max_abs_err=float(k6_err), ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_bound_by,
         library_ms=None,
-    ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row, *media_rows]
+    ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row, *media_rows, *media_bwd_rows]
     print(f"== total {time.perf_counter() - started:.1f} s (phase 25 {t26 - t25:.1f} s, phase 26 {t27 - t26:.1f} s, "
-          f"phases 27-29 {t30 - t27:.1f} s)")
+          f"phases 27-29 {t30 - t27:.1f} s, phases 30-33 {t34 - t30:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

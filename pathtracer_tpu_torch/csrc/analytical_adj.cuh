@@ -12,9 +12,12 @@ namespace pt {
 
 // closest_hit on a ray that hits: cotangents of t, of the geometric normal
 // and of the raw material record (the plane's rgb is its checker albedo).
-// A tie in the closest distance shares ct_t evenly, as jnp.min does.
+// A tie in the closest distance shares ct_t evenly, as jnp.min does. A
+// (MatAdj, or MediaMatAdj in the media instantiation) sets the record's
+// stride.
+template <class A>
 __device__ __forceinline__ void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float ct_t, V3 ct_normal,
-                                                const MatAdj& a, const GradSink& g, V3& c_ro, V3& c_rd) {
+                                                const A& a, const GradSink& g, V3& c_ro, V3& c_rd) {
   float t0, t1, tp;
   primitive_ts(s, ro, rd, t0, t1, tp);
   float t = fminf(fminf(t0, t1), tp);
@@ -50,7 +53,7 @@ __device__ __forceinline__ void closest_hit_adj(const SceneView& s, V3 ro, V3 rd
     g.add3(SV_PLANE_POINT, c_p);
   }
 
-  scatter_material_adj(g, material_offset(s, min(idx, s.n_materials - 1)), a, idx != 2);
+  scatter_material_adj(g, material_offset(s, min(idx, s.n_materials - 1), a), a, idx != 2);
   if (idx == 2) {
     float safe_dy = rd.y != 0.0f ? rd.y : 1.0f;
     float cx = rd.x / safe_dy * s.sv[SV_CHECKER_SCALE] + s.sv[SV_CHECKER_OFFSET];
@@ -64,8 +67,9 @@ __device__ __forceinline__ void closest_hit_adj(const SceneView& s, V3 ro, V3 rd
 // The analytical backend with the adjoint hooks K2 calls; closest_hit_adj
 // recomputes the primitive tests, so it ignores the hit distance t.
 struct AnalyticalAdj : Analytical {
+  template <class A>
   __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, float ct_t,
-                                                         V3 ct_normal, const MatAdj& a, const GradSink& g, V3& c_ro,
+                                                         V3 ct_normal, const A& a, const GradSink& g, V3& c_ro,
                                                          V3& c_rd) {
     pt::closest_hit_adj(s, ro, rd, ct_t, ct_normal, a, g, c_ro, c_rd);
   }

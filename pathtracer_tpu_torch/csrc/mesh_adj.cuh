@@ -24,8 +24,9 @@ namespace pt {
 // a ray that hit: it searches the winner again with K1's unfused tests, so
 // K2 picks K1's triangle, and ignores the hit distance t.
 struct MeshAdj : Mesh {
+  template <class A>
   __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, float ct_t,
-                                                         V3 ct_normal, const MatAdj& a, const GradSink& g, V3& c_ro,
+                                                         V3 ct_normal, const A& a, const GradSink& g, V3& c_ro,
                                                          V3& c_rd) {
     float best = INFINITY;
     int idx = 0;
@@ -37,7 +38,7 @@ struct MeshAdj : Mesh {
       }
     }
     const int* tri = s.topo + 4 * idx;
-    scatter_material_adj(g, material_offset(s, tri[3]), a, true);
+    scatter_material_adj(g, material_offset(s, tri[3], a), a, true);
     const V3 va = mesh_vertex(s, tri[0]), vb = mesh_vertex(s, tri[1]), vc = mesh_vertex(s, tri[2]);
     V3 c_a = splat3(0.0f), c_b = splat3(0.0f), c_c = splat3(0.0f);
     ray_triangle_adj(ro, rd, va, vb, vc, ct_t, c_ro, c_rd, c_a, c_b, c_c);

@@ -108,6 +108,22 @@ __device__ __forceinline__ void gtr2_aniso_adj(float ndoth, float hdotx, float h
   c_ay -= c_b * b / ay;
 }
 
+// hg_phase(cos, g) = (1 - g^2) / (4 pi denom^1.5), denom = 1 + g^2 - 2 g cos,
+// with the forward's unfused products, so denom is the forward's.
+__device__ __forceinline__ void hg_phase_adj(float cos_theta, float g, float ct, float& c_cos, float& c_g) {
+  float g2 = __fmul_rn(g, g);
+  float denom = __fadd_rn(1.0f, g2) - __fmul_rn(__fmul_rn(2.0f, g), cos_theta);
+  float num = INV_PI * 0.25f * (1.0f - g2);
+  float root = safe_sqrt(denom);
+  float den = denom * root;
+  float c_num = ct / den;
+  float c_den = -ct * (num / den) / den;
+  float c_denom = c_den * root + safe_sqrt_adj(denom, c_den * denom);
+  float c_g2 = -c_num * (INV_PI * 0.25f) + c_denom;
+  c_cos += c_denom * (-2.0f * g);
+  c_g += c_denom * (-2.0f * cos_theta) + c_g2 * 2.0f * g;
+}
+
 __device__ __forceinline__ void smithg_aniso_adj(float ndotv, float vdotx, float vdoty, float ax, float ay, float ct,
                                                  float& c_ndotv, float& c_vdotx, float& c_vdoty, float& c_ax,
                                                  float& c_ay) {

@@ -1,7 +1,8 @@
 // The backend-neutral part of K2's adjoint: where a thread adds its
 // cotangents of the packed scene (GradSink), the light and material record
-// offsets of scene.cuh's layout, the material record's scatter, and the
-// sky's adjoint at a backend's sky record.
+// offsets of scene.cuh's layout, the material record's scatter (of 20, or of
+// 26 with the medium's cotangents in the media instantiation: MediaMatAdj),
+// and the sky's adjoint at a backend's sky record.
 #pragma once
 
 #include "bsdf_adj.cuh"
@@ -31,9 +32,39 @@ enum : int {
   MAT_SPEC_TRANS = 15, MAT_IOR = 16,
 };
 
+// The medium's fields of a 26-scalar record; the type (20) takes none.
+enum : int { MAT_MEDIUM_DENSITY = 21, MAT_MEDIUM_COLOR = 22, MAT_MEDIUM_ANISO = 25 };
+
+// The cotangents of a medium's floats.
+struct MediumAdj {
+  float density;
+  V3 color;
+  float aniso;
+};
+
+__device__ __forceinline__ MediumAdj zero_medium_adj() { return {0.0f, splat3(0.0f), 0.0f}; }
+
+// A raw material's cotangent with its medium's, as the media
+// instantiation's closest_hit_adj scatters it into a 26-scalar record.
+struct MediaMatAdj : MatAdj {
+  MediumAdj medium;
+};
+
+__device__ __forceinline__ MediaMatAdj zero_media_mat_adj() {
+  MediaMatAdj a;
+  static_cast<MatAdj&>(a) = zero_mat_adj();
+  a.medium = zero_medium_adj();
+  return a;
+}
+
 __device__ __forceinline__ int light_offset(const SceneView& s, int i) { return s.lights_at + i * LIGHT_STRIDE; }
-__device__ __forceinline__ int material_offset(const SceneView& s, int i) {
+// Where material i's record starts, at the stride the adjoint's type
+// compiles in: 20 for MatAdj, 26 for MediaMatAdj.
+__device__ __forceinline__ int material_offset(const SceneView& s, int i, const MatAdj&) {
   return s.lights_at + s.n_lights * LIGHT_STRIDE + i * MAT_STRIDE;
+}
+__device__ __forceinline__ int material_offset(const SceneView& s, int i, const MediaMatAdj&) {
+  return s.lights_at + s.n_lights * LIGHT_STRIDE + i * MAT_STRIDE_MEDIA;
 }
 
 // The record fields of a raw (un-finalized) material cotangent.
@@ -51,6 +82,15 @@ __device__ __forceinline__ void scatter_material_adj(const GradSink& g, int off,
   g.add(off + MAT_CLEARCOAT_GLOSS, a.clearcoat_gloss);
   g.add(off + MAT_SPEC_TRANS, a.spec_trans);
   g.add(off + MAT_IOR, a.ior);
+}
+
+// The same into a 26-scalar record, with the medium's fields.
+__device__ __forceinline__ void scatter_material_adj(const GradSink& g, int off, const MediaMatAdj& a,
+                                                     bool with_rgb) {
+  scatter_material_adj(g, off, static_cast<const MatAdj&>(a), with_rgb);
+  g.add(off + MAT_MEDIUM_DENSITY, a.medium.density);
+  g.add3(off + MAT_MEDIUM_COLOR, a.medium.color);
+  g.add(off + MAT_MEDIUM_ANISO, a.medium.aniso);
 }
 
 // scene.cuh sky_background with its record at sv[sky_at]: horizon(3)

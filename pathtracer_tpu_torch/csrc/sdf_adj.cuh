@@ -232,14 +232,16 @@ __device__ __forceinline__ void sdf_union_reverse(const SceneView& s, DV3 x, int
 
 // closest_hit on a ray that hit at the marched t: the cotangents of t, of
 // the normal and of the raw material record (the plane's rgb is its
-// checker albedo).
+// checker albedo), whose stride A sets (MatAdj, or MediaMatAdj in the
+// media instantiation).
+template <class A>
 __device__ __forceinline__ void sdf_closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, float ct_t,
-                                                    V3 ct_normal, const MatAdj& a, const GradSink& g, V3& c_ro,
+                                                    V3 ct_normal, const A& a, const GradSink& g, V3& c_ro,
                                                     V3& c_rd) {
   const V3 x = madd3(ro, rd, t);
   const int plane = s.n_materials - 1;
   const int idx = nearest_primitive(s, x);
-  scatter_material_adj(g, material_offset(s, idx), a, idx != plane);
+  scatter_material_adj(g, material_offset(s, idx, a), a, idx != plane);
   if (idx == plane) {
     const int albedo_at = (int)(sdf_plane(s) - s.sv) + 8;
     g.add(albedo_at + sdf_checker_pick(s, x), a.rgb.x + a.rgb.y + a.rgb.z);
@@ -267,8 +269,9 @@ __device__ __forceinline__ void sdf_closest_hit_adj(const SceneView& s, V3 ro, V
 
 // The SDF backend with the adjoint hooks K2 calls.
 struct SdfAdj : Sdf {
+  template <class A>
   __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, float ct_t,
-                                                         V3 ct_normal, const MatAdj& a, const GradSink& g, V3& c_ro,
+                                                         V3 ct_normal, const A& a, const GradSink& g, V3& c_ro,
                                                          V3& c_rd) {
     sdf_closest_hit_adj(s, ro, rd, t, ct_t, ct_normal, a, g, c_ro, c_rd);
   }

@@ -2,7 +2,9 @@
 
 `nvcc` compiles each `csrc/*.cu` into a shared library of its own with a
 plain C interface, which `ctypes` loads; nothing includes PyTorch's
-headers, and the compilers run side by side. The libraries go to
+headers, and the compilers run side by side. A kernel may add flags of its
+own (KERNEL_FLAGS: K2's media instantiation is built without FMA
+contraction). The libraries go to
 `build/torch_kernels/<hash>/` at the repository root, keyed by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one
 is reused. A missing `nvcc` or a failed build raises.
@@ -24,6 +26,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# kernel -> the flags it adds to NVCC_FLAGS: K2's MEDIA instantiation rounds
+# each product and sum apart, as its plain version does (the glass's
+# grazing refractions amplify a contracted rounding; megakernel_bwd_media.cu)
+KERNEL_FLAGS = {"megakernel_bwd_media": ("-fmad=false",)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> its entry points' (argtypes, restype)
 SIGNATURES = {
@@ -57,7 +63,7 @@ SIGNATURES = {
 }
 
 # The media instantiations take the media-free entry points' arguments.
-_FWD = SIGNATURES["megakernel_fwd"]
+_FWD, _BWD = SIGNATURES["megakernel_fwd"], SIGNATURES["megakernel_bwd"]
 _FWD.update({
     "pt_render_forward_media": _FWD["pt_render_forward"],
     "pt_render_forward_media_sdf": _FWD["pt_render_forward_sdf"],
@@ -68,6 +74,11 @@ _FWD.update({
     "pt_render_forward_occupancy_media_mesh": _FWD["pt_render_forward_occupancy_mesh"],
     "pt_render_forward_occupancy_media_bigmesh": _FWD["pt_render_forward_occupancy_bigmesh"],
 })
+SIGNATURES["megakernel_bwd_media"] = {
+    "pt_render_backward_media": _BWD["pt_render_backward"],
+    "pt_render_backward_media_sdf": _BWD["pt_render_backward_sdf"],
+    "pt_render_backward_media_mesh": _BWD["pt_render_backward_mesh"],
+}
 
 
 def find_nvcc() -> str:
@@ -90,7 +101,7 @@ def kernels(csrc: Path = CSRC) -> list[str]:
 
 
 def _digest(flags: tuple, csrc: Path) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join(flags).encode() + repr(sorted(KERNEL_FLAGS.items())).encode())
     for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -111,7 +122,7 @@ def build(flags: tuple = NVCC_FLAGS, csrc: Path = CSRC) -> Path:
     procs = {}
     for stem in todo:
         tmp = out_dir / f"lib{stem}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *flags, "-I", str(csrc), "-o", str(tmp), str(csrc / f"{stem}.cu")]
+        cmd = [nvcc, *flags, *KERNEL_FLAGS.get(stem, ()), "-I", str(csrc), "-o", str(tmp), str(csrc / f"{stem}.cu")]
         log = open(out_dir / f"build_{stem}.log", "w")
         log.write(" ".join(cmd) + "\n")
         log.flush()

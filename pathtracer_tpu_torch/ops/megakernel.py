@@ -29,10 +29,12 @@ raises; nothing falls back to autograd. On a CPU scene it runs the plain
 version, the eager integrator under the detached-sampling estimator, with
 autograd on every backend. A scene whose material table declares a
 medium goes through K1's (and K3's) media instantiation, the port of
-`_tile_bounce(has_media=True)`, on every backend. The kernels take no
-procedural hooks, and K2 no big mesh and no media: a CUDA scene of either
-that requires grad raises (the JAX package differentiates the big mesh
-through its XLA twin; K2's media branch is the next slice).
+`_tile_bounce(has_media=True)`, on every backend, and its gradient
+through K2's (`_make_grad_kernel(has_media=True)`'s counterpart,
+`csrc/megakernel_bwd_media.cu`, built without FMA contraction) on the
+analytical, SDF and mesh ones. The kernels take no procedural hooks, and
+K2 no big mesh: a CUDA big mesh scene that requires grad raises (the JAX
+package differentiates it through its XLA twin).
 
 The instruments: `measure_occupancy_megakernel` (the port of
 `measure_occupancy_pallas`) launches K3, `_pallas_forward_occupancy`'s
@@ -156,8 +158,9 @@ class Backend(NamedTuple):
     fourth argument) and the packer's inverse (for the plain versions), the
     extra ints its entry points take after the flags, K1's, K3's and K2's
     entry points (K2's None where K2 does not take the family), the device
-    tensors its entry points take before those ints, and K1's and K3's
-    media entry points (the same arguments)."""
+    tensors its entry points take before those ints, and K1's, K3's and
+    K2's media entry points (the same arguments; K2's None as its
+    media-free one)."""
 
     pack: Callable[..., torch.Tensor]
     unpack: Callable[[torch.Tensor, Scene], tuple]
@@ -168,28 +171,31 @@ class Backend(NamedTuple):
     extras: Callable[[Scene], tuple]
     media_entry: str
     media_occupancy: str
+    media_backward: str | None
 
 
 BACKENDS = {
     "analytical": Backend(
         pack_scene, unpack_scene, lambda scene: (), "pt_render_forward", "pt_render_forward_occupancy",
         "pt_render_backward", lambda scene: (), "pt_render_forward_media", "pt_render_forward_occupancy_media",
+        "pt_render_backward_media",
     ),
     "sdf": Backend(
         megakernel_sdf.pack_sdf_scene, megakernel_sdf.unpack_sdf_scene, megakernel_sdf.sdf_counts,
         "pt_render_forward_sdf", "pt_render_forward_occupancy_sdf", "pt_render_backward_sdf", lambda scene: (),
-        "pt_render_forward_media_sdf", "pt_render_forward_occupancy_media_sdf",
+        "pt_render_forward_media_sdf", "pt_render_forward_occupancy_media_sdf", "pt_render_backward_media_sdf",
     ),
     "mesh": Backend(
         megakernel_mesh.pack_mesh_scene, megakernel_mesh.unpack_mesh_scene, megakernel_mesh.mesh_counts,
         "pt_render_forward_mesh", "pt_render_forward_occupancy_mesh", "pt_render_backward_mesh",
         megakernel_mesh.mesh_topology, "pt_render_forward_media_mesh", "pt_render_forward_occupancy_media_mesh",
+        "pt_render_backward_media_mesh",
     ),
     "bigmesh": Backend(
         megakernel_bigmesh.pack_bigmesh_scene, megakernel_bigmesh.unpack_bigmesh_scene,
         megakernel_bigmesh.bigmesh_counts, "pt_render_forward_bigmesh", "pt_render_forward_occupancy_bigmesh", None,
         megakernel_bigmesh.bigmesh_tables, "pt_render_forward_media_bigmesh",
-        "pt_render_forward_occupancy_media_bigmesh",
+        "pt_render_forward_occupancy_media_bigmesh", None,
     ),
 }
 
@@ -312,13 +318,12 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
 
 
 def _require_backward(backend: str, media: bool = False) -> None:
-    if BACKENDS[backend].backward is None:
+    """K2 takes the backend (with or without a medium), or this raises."""
+    b = BACKENDS[backend]
+    if (b.media_backward if media else b.backward) is None:
         raise NotImplementedError(f"the {backend} scene's gradient on the card is not ported (ROADMAP item 12: the "
                                   "JAX package differentiates it through its XLA twin, not a kernel); its CPU scene "
                                   "has autograd")
-    if media:
-        raise NotImplementedError("the gradient of a scene with participating media on the card needs K2's media "
-                                  "branch, the next slice of the port; its CPU scene has autograd")
 
 
 def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
@@ -327,7 +332,8 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
     alpha channel gets no gradient). Counted in
     `render_frame_megakernel.bwd_launches`, and those with another backend
     than the analytical one in `render_frame_megakernel.<backend>_bwd_launches`
-    too (sdf_bwd_launches, mesh_bwd_launches). A scene whose packed vector,
+    too (sdf_bwd_launches, mesh_bwd_launches), and a launch of the media
+    instantiation (`k.media`) in `.media_bwd_launches` too. A scene whose packed vector,
     gradient table and topology exceed K2's shared memory per block (the
     card's opt-in maximum, not K1's 48 KB of ops/megakernel_mesh) raises."""
     from . import _build
@@ -336,6 +342,7 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
         raise ValueError("the backward megakernel needs CUDA tensors")
     _require_backward(k.backend, k.media)
     lib = _build.load("megakernel_bwd")
+    entry_lib = _build.load("megakernel_bwd_media") if k.media else lib
     if k.backend == "sdf" and sum(k.counts) + 1 > lib.pt_backward_sdf_max_primitives():
         raise ValueError(f"the backward megakernel holds {lib.pt_backward_sdf_max_primitives()} SDF primitives "
                          f"(the plane included), got {sum(k.counts) + 1}")
@@ -356,17 +363,20 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
     blocks = -(-width * height // lib.pt_backward_threads())
     partial = torch.empty((blocks, n_sv), dtype=torch.float32, device=k.sv.device)
     grad = torch.empty((1, n_sv), dtype=torch.float32, device=k.sv.device)
-    err = getattr(lib, BACKENDS[k.backend].backward)(
+    b = BACKENDS[k.backend]
+    err = getattr(entry_lib, b.media_backward if k.media else b.backward)(
         k.sv.data_ptr(), n_sv, k.keys.data_ptr(), ct.data_ptr(), partial.data_ptr(), grad.data_ptr(),
         width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
         *k.counts, torch.cuda.current_stream(k.sv.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"backward megakernel launch failed: {lib.pt_error_string(err).decode()}")
+        raise RuntimeError(f"backward megakernel launch failed: {entry_lib.pt_error_string(err).decode()}")
     render_frame_megakernel.bwd_launches += 1
     if k.backend != "analytical":
         name = f"{k.backend}_bwd_launches"
         setattr(render_frame_megakernel, name, getattr(render_frame_megakernel, name) + 1)
+    if k.media:
+        render_frame_megakernel.media_bwd_launches += 1
     return grad
 
 
@@ -406,11 +416,11 @@ def render_frame_megakernel(
     `render_frame_megakernel.launches`) with its scene's backend; when a
     scene leaf requires grad, the frame's backward is one launch of K2 with
     the same backend (counted in `render_frame_megakernel.bwd_launches`);
-    K2 takes neither the big mesh nor media, and such a gradient on the
-    card raises NotImplementedError before any launch. A scene with a
-    medium takes K1's media instantiation (also counted in
-    `render_frame_megakernel.media_launches`). A CPU scene goes through the
-    plain version.
+    K2 takes no big mesh, and such a gradient on the card raises
+    NotImplementedError before any launch. A scene with a medium takes K1's
+    and K2's media instantiations (also counted in
+    `render_frame_megakernel.media_launches` and `.media_bwd_launches`). A
+    CPU scene goes through the plain version.
     There is no fallback from one to the other."""
     _check_supported(scene)
     device = scene.device
@@ -432,6 +442,7 @@ render_frame_megakernel.media_launches = 0
 render_frame_megakernel.bwd_launches = 0
 render_frame_megakernel.sdf_bwd_launches = 0
 render_frame_megakernel.mesh_bwd_launches = 0
+render_frame_megakernel.media_bwd_launches = 0
 
 
 # A row of lanes: of JAX's tiles and of debug_uniform_stream's output, and

@@ -100,42 +100,48 @@ def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
 _INSTANCE = re.compile(r"render_forward_kernelINS_\d+(\w+?)ELb([01])E(?:Lb([01])E)?E")
 
 
-def instantiations(csrc: Path) -> dict:
-    """(backend, COUNT, MEDIA) -> ptxas's resource lines of that
-    instantiation of K1's template in `csrc`'s build: its stack and spills,
-    its registers (a tree without the MEDIA parameter has MEDIA false)."""
-    out, key = {}, None
-    for line in registers(csrc):
-        m = _INSTANCE.search(line)
+def k1_key(name: str):
+    """(backend, COUNT, MEDIA) of an instantiation of K1's template named in
+    `name` (a tree without the MEDIA parameter has MEDIA false), or None."""
+    m = _INSTANCE.search(name)
+    return (m.group(1), m.group(2) == "1", m.group(3) == "1") if m else None
+
+
+def instantiations(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key) -> dict:
+    """key(name) -> ptxas's resource lines of that instantiation of the
+    template `key` recognises (K1's by default) in `csrc`'s build of
+    `kernel`: its stack and spills, its registers."""
+    log = (_build.build(csrc=csrc) / f"build_{kernel}.log").read_text().splitlines()
+    out, k = {}, None
+    for line in log:
         if "Compiling entry" in line:
-            key = (m.group(1), m.group(2) == "1", m.group(3) == "1") if m else None
-            if key:
-                out[key] = []
-        elif key and "Function properties" not in line:
-            out[key].append(line.split(":", 1)[-1].strip())
+            k = key(line)
+            if k:
+                out[k] = []
+        elif k and ("registers" in line or "spill" in line):
+            out[k].append(line.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def sass(csrc: Path) -> dict:
-    """(backend, COUNT, MEDIA) -> the machine code of that instantiation of
-    K1's template in `csrc`'s build, as cuobjdump lists it without
-    addresses and encodings; {} where the toolkit has no cuobjdump."""
+def sass(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key) -> dict:
+    """key(name) -> the machine code of that instantiation in `csrc`'s build
+    of `kernel`, as cuobjdump lists it without addresses and encodings; {}
+    where the toolkit has no cuobjdump."""
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
-    lib = _build.build(csrc=csrc) / "libmegakernel_fwd.so"
+    lib = _build.build(csrc=csrc) / f"lib{kernel}.so"
     listing = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-    out, key = {}, None
+    out, k = {}, None
     for line in listing.splitlines():
         if "Function :" in line:
-            m = _INSTANCE.search(line)
-            key = (m.group(1), m.group(2) == "1", m.group(3) == "1") if m else None
-            if key:
-                out[key] = []
-        elif key:
+            k = key(line)
+            if k:
+                out[k] = []
+        elif k:
             code = re.sub(r"/\*[^*]*\*/", "", line).strip()
             if code and not code.startswith("."):
-                out[key].append(code)
+                out[k].append(code)
     return {k: "\n".join(v) for k, v in out.items()}
 
 

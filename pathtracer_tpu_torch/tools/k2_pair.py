@@ -12,7 +12,11 @@ line is the same as one JSON object. With several scenes (`--scene
 analytical sdf mesh`, the demo scenes of the families K2 takes) or several
 other trees, every scene against every other tree, each pair in turns.
 The other tree's entry point of the scene's backend must take this tree's
-arguments (a tree from before a backend's K2 has none to time).
+arguments (a tree from before a backend's K2 has none to time). Last, as
+`k1_pair.same_resources` does for K1, each media-free instantiation of
+K2's template against the other tree's: its registers, stack, spills and
+machine code (this tree's MEDIA instantiations, a library of their own,
+aside).
 
 Usage:
   python -m pathtracer_tpu_torch.tools.k2_pair --other DIR [DIR ...] [--scene analytical sdf]
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -31,10 +36,41 @@ from ..integrator.tracer import VERBATIM
 from ..models import families
 from ..ops import _build, rng
 from ..ops import megakernel as mk
-from .k1_pair import DEPTH, HEIGHT, WIDTH, card_name, in_turns, registers
+from .k1_pair import DEPTH, HEIGHT, WIDTH, card_name, in_turns, instantiations, registers, sass
 
 # the families whose demo scenes K2 takes
 SCENES = tuple(name for name, b in mk.BACKENDS.items() if b.backward is not None)
+
+
+_INSTANCE = re.compile(r"render_backward_kernelINS_\d+(\w+?)E(?:Lb([01])E)?E")
+
+
+def k2_key(name: str):
+    """(backend, MEDIA) of an instantiation of K2's template named in `name`
+    (a tree without the MEDIA parameter has MEDIA false), or None."""
+    m = _INSTANCE.search(name)
+    return (m.group(1), m.group(2) == "1") if m else None
+
+
+def same_resources(other: Path, log=print) -> bool:
+    """Whether each instantiation of `other`'s K2 template has this tree's
+    registers, stack and spills and the same machine code instruction for
+    instruction (where the toolkit lists it; this tree's MEDIA
+    instantiations aside); logs each."""
+    other_csrc = (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
+    mine, theirs = (instantiations(c, "megakernel_bwd", k2_key) for c in (_build.CSRC, other_csrc))
+    my_code, their_code = (sass(c, "megakernel_bwd", k2_key) for c in (_build.CSRC, other_csrc))
+    same = bool(theirs)
+    for k, v in sorted(theirs.items()):
+        code_same = my_code.get(k) == their_code.get(k)
+        same = same and mine.get(k) == v and code_same
+        code = ("machine code not listed (no cuobjdump)" if not their_code else
+                f"machine code {'the same' if code_same else 'DIFFERENT'} "
+                f"({len(their_code.get(k, '').splitlines())} instructions)")
+        log(f"  {k[0]} K2: this {mine.get(k)}; other {v}; {code}")
+    for k, v in sorted(instantiations(_build.CSRC, "megakernel_bwd_media", k2_key).items()):
+        log(f"  {k[0]} K2 MEDIA (this tree only, megakernel_bwd_media.cu): {v}")
+    return same
 
 
 def launcher(csrc: Path, k: mk.KernelLaunch, ct: torch.Tensor):
@@ -92,6 +128,9 @@ def main(argv=None) -> int:
         print(f"K2 build of {csrc}:")
         for line in registers(csrc, "megakernel_bwd", "render_backward_kernel"):
             print("  " + line)
+    for other in args.other:
+        print(f"K2's instantiations against {other}:")
+        same_resources(other)
     print(results[0]["card"])
     print(json.dumps(results if len(results) > 1 else results[0]))
     return 0

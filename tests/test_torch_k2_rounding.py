@@ -45,6 +45,23 @@ two numbers in each mode. The set and the frame's plain gradient come from
     python tests/test_torch_k2_rounding.py --scene sdf --width 1920 --height 1080 --seed 45 --grazing 1e-3 --device cuda
     python tests/test_torch_k2_rounding.py --scene mesh --width 320 --height 240 --seeds 81 82 83 --grazing 3e-5 --device cuda
 
+`--media NAME` rehearses K2's MEDIA instantiation (chip_smoke.py phase
+30) on the analytical glass demo filled with Absorb, Emissive or Scatter
+g 0.4 (`lit`: the Scatter with the light inside it), depth 6, at `--spp`
+(`--fixed` for the FIXED quirks), in both contraction modes: the gap over
+all pixels, with the knife-edge pixels masked, and with them and each
+`--below` set of grazing pixels (a hit at |<rd, n>| < BELOW on the plain
+path) masked too. Inside the glass sphere a
+path that meets its wall near grazing or near the critical angle
+refracts or reflects with a derivative that grows as 1/|<rd, n>|, so such
+a pixel's gradient hangs on the last bits of its ray, and a few such
+pixels carry most of an entry that the others' cancel. With contraction
+the gap exceeds phase 30's rtol and no grazing mask settles it; without,
+it vanishes over every pixel. So the card builds K2 MEDIA without
+contraction (`csrc/megakernel_bwd_media.cu`, `ops/_build.KERNEL_FLAGS`):
+
+    python tests/test_torch_k2_rounding.py --media absorb --spp 2 --seed 405 --below 1e-3 1e-2
+
 `--trainer STEPS` runs the SDF `recover_demo` with the host build in the
 place of K1 and K2, in both modes, against the eager trainer, as phase 15
 does on the card:
@@ -83,6 +100,7 @@ from test_torch_kernel_host import PRELUDE, SHIM as FWD_SHIM, launch_keys  # noq
 from test_torch_mesh_kernel_bwd_host import SHIM as MESH_BWD_SHIM  # noqa: E402
 from test_torch_sdf_kernel_bwd_host import SHIM as SDF_BWD_SHIM  # noqa: E402
 from test_torch_kernel_host import one_torch_thread  # noqa: E402, F401
+from test_torch_media_kernel_host import DEMO, lit_scene, media_scene  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -149,6 +167,53 @@ extern "C" void host_render_mesh(const float* sv, const int* topo, int n_tris, i
 }
 """
 
+# K1's and K2's MEDIA instantiations of the analytical backend (--media).
+MEDIA_SHIM = PRELUDE + r"""
+#include "analytical_adj.cuh"
+#include "tracer_adj.cuh"
+
+extern "C" void host_grad_media(const float* sv, const uint32_t* keys, const float* ct, float* grad, int width,
+                                int height, int spp, int depth, int n_lights, int n_materials, int flags) {
+  const int n = width * height;
+  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
+  for (int p = 0; p < n; ++p) {
+    const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
+    for (int k = 0; k < spp; ++k) {
+      const uint32_t* kk = keys + 4 * k;
+      pt::trace_sample_adj<pt::AnalyticalAdj, true>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3],
+                                                    c, {grad, 1});
+    }
+  }
+}
+
+extern "C" void host_render_media(const float* sv, const uint32_t* keys, float* out, int width, int height, int spp,
+                                  int depth, int n_lights, int n_materials, int flags) {
+  const int n = width * height;
+  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
+  for (int p = 0; p < n; ++p) {
+    pt::V3 sum = pt::splat3(0.0f);
+    for (int k = 0; k < spp; ++k) {
+      const uint32_t* kk = keys + 4 * k;
+      const pt::V3 r = pt::trace_sample<pt::Analytical, false, true>(s, p, n, width, height, depth, flags, kk[0],
+                                                                     kk[1], kk[2], kk[3]);
+      sum = k == 0 ? r : sum + r;
+    }
+    if (spp > 1) sum = sum / (float)spp;
+    out[4 * p + 0] = sum.x;
+    out[4 * p + 1] = sum.y;
+    out[4 * p + 2] = sum.z;
+    out[4 * p + 3] = 1.0f;
+  }
+}
+"""
+# --media's scenes: the analytical glass demo filled with each medium
+MEDIA_CASES = {
+    "absorb": lambda: media_scene("analytical", 1, **DEMO),
+    "emissive": lambda: media_scene("analytical", 3, density=0.5, color=(0.2, 0.8, 0.3)),
+    "scatter": lambda: media_scene("analytical", 2, anisotropy=0.4, **DEMO),
+    "lit": lambda: lit_scene(2, anisotropy=0.4, **DEMO),
+}
+
 EDGE_TOL, GRAD_MAX_TOL, GRAD_RTOL = 1e-3, 1e-2, 2e-2
 # Phase 21's mask of the mesh's near-edge hits (ops/megakernel_mesh.hit_margins).
 MESH_MARGIN, MESH_DET = 3e-5, 1e-5
@@ -200,23 +265,24 @@ def head(scene, sv: torch.Tensor) -> tuple[tuple, tuple]:
     return (sv.data_ptr(), topo.data_ptr(), *mkm.mesh_counts(scene)), (topo,)
 
 
-def hit_cosines(scene, key, width: int, height: int) -> torch.Tensor:
-    """|<rd, n>| where each bounce of the plain version's path (spp 1,
-    VERBATIM) meets the analytical scene, [depth, n], +inf where the path
-    is dead or misses."""
+def hit_cosines(scene, key, width: int, height: int, spp: int = 1, quirks=T.VERBATIM) -> torch.Tensor:
+    """|<rd, n>| where each bounce of the plain version's path meets the
+    analytical scene, [spp * depth, n] (sample by sample), +inf where the
+    path is dead or misses."""
     p, dev = scene.params.unpack(), scene.device
     out = []
     with torch.no_grad():
-        step = T.make_bounce_step(scene, T.VERBATIM, detach=True)
-        cam_u, bounce_u = T.draw_uniforms(key, width * height, scene.recursion_depth, torch.float32, dev)
-        ro, rd = gen_ray(scene.camera.unpack(), pixel_coords(width, height, torch.float64, dev),
-                         V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
-        state = T.init_state(ro, rd, T.VERBATIM)
-        for u in bounce_u:
-            hit = scene.closest_hit_fn(p, state.ro, state.rd)
-            cos = dot(state.rd, hit.normal).abs()
-            out.append(torch.where(state.alive & torch.isfinite(hit.t), cos, torch.inf))
-            state = step(state, u)
+        step = T.make_bounce_step(scene, quirks, detach=True)
+        for k in [key] if spp == 1 else list(rng.split(key, spp)):
+            cam_u, bounce_u = T.draw_uniforms(k, width * height, scene.recursion_depth, torch.float32, dev)
+            ro, rd = gen_ray(scene.camera.unpack(), pixel_coords(width, height, torch.float64, dev),
+                             V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height))
+            state = T.init_state(ro, rd, quirks)
+            for u in bounce_u:
+                hit = scene.closest_hit_fn(p, state.ro, state.rd)
+                cos = dot(state.rd, hit.normal).abs()
+                out.append(torch.where(state.alive & torch.isfinite(hit.t), cos, torch.inf))
+                state = step(state, u)
     return torch.stack(out)
 
 
@@ -313,6 +379,72 @@ def test_contracted_backward_matches_plain(tmp_path):
     max_rel, big_rel = out["masked"]
     assert out["edge"] <= 5, out
     assert max_rel <= GRAD_MAX_TOL and big_rel <= GRAD_RTOL, out
+
+
+def build_media(flags: list[str], directory: Path) -> ctypes.CDLL:
+    """MEDIA_SHIM with `flags`, the unfused intrinsics out of line."""
+    source = MEDIA_SHIM.replace("static inline float __f", "__attribute__((noinline)) static float __f")
+    (directory / "shim.cpp").write_text(source)
+    so = directory / "libshim.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", *flags, "-shared", "-fPIC", "-I", str(_build.CSRC),
+                    "-o", str(so), str(directory / "shim.cpp")], check=True)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.host_grad_media.argtypes = [p, p, p, p, i, i, i, i, i, i, i]
+    lib.host_render_media.argtypes = [p, p, p, i, i, i, i, i, i, i]
+    return lib
+
+
+def media_rehearse(libs: dict, media: str, width: int, height: int, seed: int, spp: int = 1, quirks=T.VERBATIM,
+                   below: tuple = ()) -> dict:
+    """Phase 30's comparison of K2 MEDIA on the host, for each contraction
+    mode of `libs`: (max|d|/max|g|, the largest relative error among
+    entries above 1e-2 max|g|) over all pixels ("all"), with the knife-edge
+    pixels masked ("edge"), and with them and the pixels whose plain path
+    has a hit at |<rd, n>| < b masked too (b of `below`); with the pixel
+    counts ("edge pixels", "grazing b")."""
+    scene, key = MEDIA_CASES[media](), rng.prng_key(seed)
+    sv, keys = mk.pack_scene(scene, width, height, True).contiguous(), launch_keys(key, spp)
+    ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((height, width, 4)).astype(np.float32))
+    shape = (width, height, spp, scene.recursion_depth, scene.num_lights,
+             int(scene.params.materials.roughness.shape[0]), mk.kernel_flags(scene, quirks))
+    frame = mk.render_frame_reference(scene, key, width, height, spp, quirks)[..., :3]
+    cos = hit_cosines(scene, key, width, height, spp, quirks).amin(0).reshape(height, width)
+    plain_grads = {}
+
+    def plain_grad(mask):
+        k = mask.numpy().tobytes()
+        if k not in plain_grads:
+            plain_grads[k] = mk.render_grad_reference(sv, scene, key, ct * (~mask)[..., None], width, height, spp,
+                                                      quirks)[0].double()
+        return plain_grads[k]
+
+    out = {}
+    for contract, lib in libs.items():
+        img = torch.empty((height, width, 4))
+        lib.host_render_media(sv.data_ptr(), keys.data_ptr(), img.data_ptr(), *shape)
+        edge = (img[..., :3] - frame).abs().amax(-1) > EDGE_TOL
+        masks = {"all": torch.zeros_like(edge), "edge": edge}
+        masks.update({f"grazing {b}": edge | (cos < b) for b in below})
+        res = {"edge pixels": int(edge.sum())}
+        res.update({f"pixels grazing {b}": int(((cos < b) & ~edge).sum()) for b in below})
+        for name, mask in masks.items():
+            c, g = (ct * (~mask)[..., None]).contiguous(), torch.zeros(sv.shape[1])  # held: the library reads them
+            lib.host_grad_media(sv.data_ptr(), keys.data_ptr(), c.data_ptr(), g.data_ptr(), *shape)
+            res[name] = grad_gap(g.double(), plain_grad(mask))
+        out[contract] = res
+    return out
+
+
+@pytest.mark.parametrize("media,spp", [("absorb", 2), ("lit", 1)])
+def test_uncontracted_media_backward_matches_plain(tmp_path, media, spp):
+    """64x48 at depth 6: K2 MEDIA built as the card builds it, without
+    contraction, agrees with the plain version over every pixel, no pixel
+    masked, far inside phase 30's tolerance."""
+    out = media_rehearse({"off": build_media(CONTRACT["off"], tmp_path)}, media, 64, 48, 405, spp)
+    assert out["off"]["edge pixels"] == 0, out
+    max_rel, big_rel = out["off"]["all"]
+    assert max_rel < 1e-4 and big_rel < 1e-3, out
 
 
 def pixel_grads(lib, scene, key, sv, ct, width: int, height: int, pixels) -> torch.Tensor:
@@ -433,10 +565,28 @@ def main(argv=None) -> int:
                     help="the pixels with a hit the ray's last bits can move (|<rd, n>| < BELOW; on the mesh a "
                     "barycentric margin < BELOW), alone, in both modes")
     ap.add_argument("--device", default="cpu", help="(--grazing) where to find the pixels and the frame's gradient")
+    ap.add_argument("--media", choices=tuple(MEDIA_CASES), default=None,
+                    help="K2's MEDIA instantiation on the analytical glass filled with this medium")
+    ap.add_argument("--spp", type=int, default=1, help="(--media) samples a pixel")
+    ap.add_argument("--fixed", action="store_true", help="(--media) the FIXED quirks")
+    ap.add_argument("--below", type=float, nargs="*", default=(), help="(--media) grazing thresholds to mask")
     ap.add_argument("--trainer", type=int, default=None, metavar="STEPS",
                     help="(--scene sdf) the SDF trainer through the host build against the eager one")
     args = ap.parse_args(argv)
     torch.set_num_threads(args.threads)
+    if args.media is not None:
+        libs = {contract: build_media(flags, Path(tempfile.mkdtemp(prefix="k2_rounding_")))
+                for contract, flags in CONTRACT.items()}
+        for seed in args.seeds or [args.seed]:
+            out = media_rehearse(libs, args.media, args.width, args.height, seed, args.spp,
+                                 T.FIXED if args.fixed else T.VERBATIM, tuple(args.below))
+            print(f"media {args.media} {args.width}x{args.height}, spp {args.spp}, "
+                  f"{'FIXED' if args.fixed else 'VERBATIM'}, seed {seed}:")
+            for contract, res in out.items():
+                print(f"  -ffp-contract={contract}: " + "; ".join(
+                    f"{k} {v}" if isinstance(v, int) else f"{k}: max|d|/max|g| {v[0]:.3e}, entries > 1e-2 max rel "
+                    f"{v[1]:.3e}" for k, v in res.items()))
+        return 0
     if args.pixel is not None:
         for contract in CONTRACT:
             lib = build(CONTRACT[contract], Path(tempfile.mkdtemp(prefix="k2_rounding_")), "sdf")

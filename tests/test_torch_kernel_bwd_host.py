@@ -254,6 +254,17 @@ def test_cpu_scene_with_grad_takes_the_plain_version():
     assert torch.equal(g, ref) and float(g.abs().sum()) > 0
 
 
+def test_backward_takes_media_but_not_the_big_mesh():
+    """K2 has a media instantiation on the analytical, SDF and mesh
+    backends; the big mesh has no K2, with or without a medium."""
+    for family in ("analytical", "sdf", "mesh"):
+        MK._require_backward(family, media=True)
+        assert MK.BACKENDS[family].media_backward.startswith("pt_render_backward_media")
+    for media in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            MK._require_backward("bigmesh", media=media)
+
+
 def test_backward_wrapper_refuses_cpu_tensors():
     k = MK.KernelLaunch(sv=torch.zeros(1, 112), keys=torch.zeros(1, 4, dtype=torch.int32),
                         out=torch.zeros(8, 8, 4), spp=1, depth=2, n_lights=1, n_materials=3, flags=0)

@@ -1,5 +1,6 @@
 """The CUDA megakernels K1 (with the analytical, SDF, mesh and big mesh
-backends), K2 (analytical, SDF and mesh) and K3 (K1 with the bounces each
+backends), K2 (analytical, SDF and mesh, each with and without media) and
+K3 (K1 with the bounces each
 path entered alive, on every backend), the march-step counter K6 and the
 uniform stream K4, against their plain PyTorch versions, on the card.
 
@@ -23,8 +24,11 @@ glass-and-medium scenes of tests/test_torch_media_kernel_host.py (the
 mesh's pixels whose plain path meets two coplanar triangles at once left
 out of the gate), the committed JAX render
 tests/golden_torch/media_analytical_64x48_d6_k3.npy, K3's media frame
-bit-equal to K1's; a CUDA media scene that requires grad raises (K2 has no
-media branch yet) and launches nothing.
+bit-equal to K1's. K2's media instantiation, as chip_smoke.py phase 30:
+one launch a backward through the autograd Function, against its plain
+version at K2's tolerance (the mesh's coplanar-tie pixels masked too), the
+Scatter density's entry exactly 0; a CUDA big mesh media scene that
+requires grad raises and launches nothing.
 
 K2's tolerance, as chip_smoke.py phase 6: with the cotangent zeroed at the
 knife-edge pixels (the two forward frames differ by more than 1e-3 there:
@@ -442,13 +446,46 @@ def test_media_occupancy_kernel_matches_plain_version(cuda_device, family):
     assert torch.equal(frame, MK.launch(k))
 
 
+@pytest.mark.parametrize("family", ["analytical", "sdf", "mesh"])
+def test_media_backward_kernel_matches_plain_version(cuda_device, family):
+    """K2's MEDIA instantiation at 160x120, depth 6, on each backend's glass
+    Scatter scene: through the autograd Function (one K1 MEDIA and one K2
+    MEDIA launch), then against autograd of the plain version with the
+    knife-edge pixels (and the mesh's coplanar ties) masked."""
+    scene = media_scene(family, MediumType.SCATTER, device=cuda_device, anisotropy=0.4, **DEMO)
+    key, (w, h) = rng.prng_key(121), (160, 120)
+    leaf = scene.params.materials.medium.color.x.requires_grad_(True)
+    names = ("launches", "bwd_launches", "media_launches", "media_bwd_launches")
+    before = {n: getattr(MK.render_frame_megakernel, n) for n in names}
+    (g_leaf,) = torch.autograd.grad((MK.render_frame_megakernel(scene, key, w, h)[..., :3] ** 2).mean(), leaf)
+    assert {n: getattr(MK.render_frame_megakernel, n) - before[n] for n in names} == dict.fromkeys(names, 1)
+    assert torch.isfinite(g_leaf).all() and float(g_leaf.abs().max()) > 0
+    leaf.requires_grad_(False)
+    k = MK.prepare_launch(scene, key, w, h, 1, VERBATIM)
+    assert k.media
+    ct = torch.from_numpy(np.random.default_rng(121).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
+    g0 = MK.launch_backward(k, ct)
+    assert torch.equal(MK.launch_backward(k, ct), g0)  # reproducible bit for bit
+    edge = (MK.launch(k) - MK.render_frame_reference(scene, key, w, h)).abs()[..., :3].amax(-1) > 1e-3
+    if family == "mesh":
+        edge |= (MM.hit_ties(scene, key, w, h) < 1e-6).any(1).any(0).reshape(h, w)
+    ct_m = ct * (~edge)[..., None]
+    g = MK.launch_backward(k, ct_m).cpu().double().numpy().ravel()
+    r = MK.render_grad_reference(k.sv, scene, key, ct_m, w, h).cpu().double().numpy().ravel()
+    assert np.isfinite(g).all() and np.abs(g - r).max() <= 1e-2 * np.abs(r).max()
+    big = np.abs(r) > 1e-2 * np.abs(r).max()
+    np.testing.assert_allclose(g[big], r[big], rtol=2e-2)
+    glass = 0 if family == "sdf" else 1
+    at = k.sv.shape[1] - 26 * (k.n_materials - glass) + 21
+    assert g0[0, at] == 0.0 and float(g0[0, at + 1:at + 4].abs().max()) > 0  # density: the free flight is detached
+
+
 def test_media_gradient_on_the_card_raises(cuda_device):
-    """K2 has no media branch yet: a CUDA media scene whose leaves require
-    grad raises before any launch; the CPU scene keeps its autograd."""
-    scene = media_scene("analytical", MediumType.SCATTER, device=cuda_device, anisotropy=0.4, **DEMO)
+    """K2 takes no big mesh, with or without a medium: a CUDA big mesh media
+    scene whose leaves require grad raises before any launch."""
+    scene = media_scene("bigmesh", MediumType.SCATTER, device=cuda_device, anisotropy=0.4, **DEMO)
     scene.params.materials.medium.density.requires_grad_(True)
     before = (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches)
-    with pytest.raises(NotImplementedError, match="K2's media branch"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         MK.render_frame_megakernel(scene, rng.prng_key(0), 16, 8)
     assert (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches) == before
-

@@ -150,6 +150,23 @@ def media_scene(family, med_type, depth=6, device=None, **medium):
     """The family's demo with its GLASS material glass and filled."""
     scene = families.make_family_scene(family, recursion_depth=depth, device=device)
     return make_glass(scene, GLASS[family], med_type, **medium)
+
+
+# The light of the lit-medium case: inside sphere 1, at its center.
+LIT_LIGHT = dict(position=(1.1, 0.0, 0.0), radius=0.25, emission=(3.0, 3.0, 3.0))
+
+
+def lit_scene(med_type, dtype=torch.float32, depth=6, device=None, **medium):
+    """The analytical glass demo filled with a medium around the light
+    (LIT_LIGHT), with shadow rays that stop at the light, so that a scatter
+    point sees it (in the closed glass demo every shadow ray from inside
+    the sphere meets its wall)."""
+    from pathtracer_tpu_torch.models.analytical import make_scene
+    from pathtracer_tpu_torch.models.light import spherical_light
+
+    scene = make_scene(dtype=dtype, recursion_depth=depth, respect_max_dist=True,
+                       lights=spherical_light(**LIT_LIGHT, dtype=dtype, device=device), device=device)
+    return make_glass(scene, GLASS["analytical"], med_type, **medium)
 # case -> (family, medium type, medium kwargs, spp, quirks, width, height)
 CASES = {
     "absorb": ("analytical", MediumType.ABSORB, DEMO, 1, VERBATIM, 96, 64),
