@@ -14,21 +14,28 @@ which raises on failure (non-zero exit):
    times (CUDA events, after a warm-up) of the kernel's wrapper
    render_frame_megakernel (scene pack, key upload, launch), of the
    launch alone, and of the plain version.
-6. the backward kernel K2 vs its plain version (autograd of the eager
-   frame rendered from the same packed scene) on the card: d(sum(ct *
+6. the backward megakernel K2 (two kernels: the record kernel traces each
+   sample's path once and writes what each bounce decided, the adjoint
+   kernel runs the reverse sweep from those records) vs its plain version
+   (autograd of the eager frame rendered from the same packed scene) on
+   the card: d(sum(ct *
    frame))/d(sv) for a numpy-seeded cotangent at 320x240, depth 4, spp 1
    and 2 VERBATIM and spp 1 FIXED, and at 1920x1080 when the plain
    version's peak memory, measured at 320x240 and scaled, fits;
 7. K2 vs the committed JAX gradient
    tests/golden_torch/grad_analytical_64x48_d4_k3.npz, through the
-   autograd Function and pack_scene to the scene leaves;
+   autograd Function and pack_scene to the scene leaves (one K1 launch, one
+   K2 call: one record and one adjoint kernel launch);
 8. the trainer: the port's invert CLI at 256x192, depth 4, 10 steps, where
-   every step must be 2 launches of K1 and 1 of K2 (the target 4 of K1)
+   every step must be 2 launches of K1 and 1 call of K2, one launch of each
+   of its kernels (the target 4 of K1)
    and the loss must fall; then the kernel path's first 3 losses against
    the eager path's on the card at 64x48;
 9. times (CUDA events, after a warm-up) at 1920x1080, depth 4, spp 1: one
-   training step through the kernels, K2's launch alone, and the plain
-   version's step and gradient;
+   training step through the kernels, K2 alone, its record kernel and its
+   adjoint kernel apart on one record buffer, and the
+   plain version's step and gradient; the record buffer's bytes, and each
+   kernel's registers, stack, spills, shared memory and blocks an SM;
 10. K1 with the SDF backend (K5) vs its plain version on the card, depth 4:
    320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and 1920x1080; a
    smooth union (smooth_k 0.3) at 320x240; then vs the committed JAX
@@ -59,11 +66,13 @@ which raises on failure (non-zero exit):
    leaves after step 3 (rtol 1e-2) against the eager path's on the card
    at 64x48;
 16. times at 1920x1080, depth 4, spp 1: one SDF training step through the
-   kernels, K2-SDF's launch alone, the plain step and the plain gradient;
-   with `--other DIR` (another checkout, e.g. the parent commit unpacked
-   with `git archive`), the analytical K2 of that tree against this one's
-   in turns, whose gradients must be bit-equal: phase 24 runs that pairing
-   (tools/k2_pair.py), with the SDF K2 beside it;
+   kernels, K2-SDF alone and its two kernels apart (as phase 9), the plain
+   step and the plain gradient; with `--other DIR` (another checkout, e.g.
+   the parent commit unpacked with `git archive`), phase 24 times the
+   analytical and SDF K2 of that tree against this one's in turns
+   (tools/k2_pair.py), saying whether their gradients are bit-equal and
+   the largest difference where they are not, which must stay within 1e-5
+   of the other's largest entry (PAIR_MAX_REL);
 17. K1 with the mesh backend (K7, csrc/mesh.cuh) vs its plain version on
    the card, depth 4: 320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and
    1920x1080; then vs the committed JAX render
@@ -100,11 +109,11 @@ which raises on failure (non-zero exit):
    path's first 3 losses and its leaves after step 3 against the eager
    path's on the card at 64x48 (phase 15's tolerances);
 24. times at 1920x1080, depth 4, spp 1: one mesh training step through the
-   kernels, K2-mesh's launch alone, and the plain step and plain gradient,
-   K2-mesh's bound from this frame's triangle tests; with `--other
-   DIR`, the analytical and SDF K2 of that tree against this one's in
-   turns (tools/k2_pair.py --scene analytical sdf), whose gradients must
-   be bit-equal;
+   kernels, K2-mesh alone and its two kernels apart (as phase 9), and the
+   plain step and plain gradient, K2-mesh's bound from this frame's
+   triangle tests; with `--other DIR`, the analytical and SDF K2 of that
+   tree against this one's in turns (tools/k2_pair.py --scene analytical
+   sdf);
 25. K3, the occupancy kernel (K1 that also writes the bounces each
    sample's path entered alive), on each of the four backends: against its
    plain version (integrator/tracer.bounces_entered), per lane and in its
@@ -185,21 +194,33 @@ which raises on failure (non-zero exit):
    Scatter demo's density, color and anisotropy), K2 MEDIA's launch alone,
    the plain gradient and the plain step, and K2 MEDIA's bound from this
    frame's segments, those inside the medium and the scatter events; the
-   SDF and mesh K2 MEDIA at 320x240 likewise. With `--other DIR`, the mesh
-   K2 of that tree against this one's in turns (phase 24 pairs the
-   analytical and SDF ones) and the media-free K2 instantiations'
-   registers, stack, spills and machine code against that tree's
-   (tools/k2_pair.same_resources).
+   SDF and mesh K2 MEDIA at 320x240 likewise, each with its two kernels
+   apart (as phase 9). With `--other DIR`, the mesh and MEDIA K2 of that
+   tree against this one's in turns (phase 24 pairs the analytical and SDF
+   ones; the mesh within 1e-5 of the other's largest entry, MEDIA, built
+   without contraction, bit-equal) and both trees' K2 registers, stack and
+   spills (tools/k2_pair.resources);
+34. K2 at depth 20 (the records hold any depth) vs its plain version at
+   320x240, spp 1 VERBATIM and spp 2 FIXED, on the demo scene inside
+   sphere 1 grown to radius 20 (paths end only on the light or at depth
+   20), as phase 6; one K1 launch and one K2 call through the autograd
+   Function; the record buffer capped so that the frame takes 7 chunks of
+   whole blocks of pixels (bit-equal to one chunk) and, at spp 2, chunks
+   of samples (within 1e-5 of the largest entry), one record kernel and
+   one adjoint kernel launch a chunk, as the wrapper counts them.
 
-The total seconds, with phase 25's, phase 26's, phases 27-29's and phases
-30-33's, are printed before the kernels line.
+The total seconds, with phase 25's, phase 26's, phases 27-29's, phases
+30-33's and phase 34's, are printed before the kernels line. Each K2 row
+of the kernels line lists its two kernels under "stages" (the record
+kernel and the adjoint kernel: their launches on the main path and their
+times apart).
 
 Image tolerance (phases 3, 4, 10, 17, 19 and 27): quantile(|diff|, 0.999) < 1e-4 and
 mean(|diff|) < 1e-5, all values finite. The two sides draw the same
 threefry numbers, so they differ only by float rounding (FMA contraction,
 libm ulps), which can flip a rare knife-edge branch in a few pixels.
 
-Gradient tolerance (phases 6, 13, 21 and 30), at every size: with the cotangent
+Gradient tolerance (phases 6, 13, 21, 30 and 34), at every size: with the cotangent
 zeroed at the knife-edge pixels (where the two forward frames differ by
 more than 1e-3: a branch taken the other way, so K2 differentiates K1's
 path and the plain version another), max|g_k - g_p| <= 1e-2 max|g_p|, and
@@ -290,9 +311,10 @@ PEAK_I32 = 64 * 132 * 1.98e9
 # float32: disney_eval's ~1000, disney_sample's ~500, the light sample and
 # shadow ray ~260, geometry and the rest ~800, of which the analytical
 # closest hit's adjoint, its normal, plane test, material scatter and
-# checker, is ~100; ~45 float64 in the hit sphere's adjoint), not the
-# replays this design adds. Each camera ray takes ~30 float64 operations
-# more per pixel.
+# checker, is ~100; ~45 float64 in the hit sphere's adjoint), once: K2's
+# record kernel traces the path K1 traced, and its adjoint kernel
+# re-evaluates each bounce's BSDF inside its adjoint; neither is counted.
+# Each camera ray takes ~30 float64 operations more per pixel.
 K1_OPS = dict(f32=1430, f64=100)
 K2_ADJ_OPS = dict(f32=2560, f64=45)
 K2_OPS = dict(f32=K1_OPS["f32"] + K2_ADJ_OPS["f32"], f64=K1_OPS["f64"] + K2_ADJ_OPS["f64"])
@@ -354,8 +376,7 @@ MESH_MARGIN, MESH_DET, MESH_NEAR_MAX = 3e-5, 1e-5, 1e-3
 # bound counts, as K2's does, what the gradient needs: K1-mesh's forward
 # (per segment MESH_SEGMENT_OPS, and the triangle tests of K1's walk from
 # tools/work), and per segment K2's adjoint of the shading without the
-# analytical hit's and this; not the replays this design adds (the
-# forward sweep, the re-run of each bounce, the adjoint's winner search).
+# analytical hit's and this; not the record kernel's second walk.
 MESH_HIT_ADJ_OPS = 70 + 60 + 15
 # Phase 15, the kernel path against the eager one at 64x48: the first 3
 # losses within rtol 1e-4 (3.0e-6 measured on the H100) and the leaves after
@@ -434,6 +455,8 @@ MEDIA_TRAIN_FAMILY_STEPS = 3
 # scale and MIS adjoint (~35).
 MEDIUM_SEGMENT_ADJ_OPS = 30
 SCATTER_SAVED_ADJ_OPS = 1000 + 500 - 25 - 35
+# Phase 34: K2 at this depth, past the 16 bounces the adjoint once held.
+DEEP_DEPTH = 20
 
 
 def image_diff(a, b) -> dict:
@@ -502,10 +525,12 @@ def bound(segments: int, pixels: int, nbytes: int, ops: dict) -> tuple[float, st
     return bound_of(segments * ops["f32"], segments * ops["f64"] + pixels * CAMERA_F64_OPS, nbytes)
 
 
-# render_frame_megakernel's counts of K1 and K2 launches, then K3's
+# render_frame_megakernel's counts of K1 launches and K2 calls (and K2's
+# record and adjoint kernel launches, one each a chunk), then K3's
 # (measure_occupancy_megakernel's, prefixed occupancy_) and K4's
 K1_K2_COUNTERS = ("launches", "bwd_launches", "sdf_launches", "sdf_bwd_launches", "mesh_launches",
-                  "mesh_bwd_launches", "bigmesh_launches", "media_launches", "media_bwd_launches")
+                  "mesh_bwd_launches", "bigmesh_launches", "media_launches", "media_bwd_launches", "record_launches",
+                  "adjoint_launches")
 K3_COUNTERS = ("launches", "sdf_launches", "mesh_launches", "bigmesh_launches", "media_launches")
 COUNTERS = K1_K2_COUNTERS + tuple(f"occupancy_{name}" for name in K3_COUNTERS) + ("stream_launches",)
 
@@ -529,7 +554,12 @@ def read_counts(mk) -> dict:
 
 
 def expect_counts(**nonzero) -> dict:
-    """Every launch count: those given, the others 0."""
+    """Every launch count: those given, the others 0; record_launches and
+    adjoint_launches, unless given, as many as bwd_launches (each K2 call of
+    these phases is one chunk: one record kernel and one adjoint kernel
+    launch)."""
+    nonzero.setdefault("record_launches", nonzero.get("bwd_launches", 0))
+    nonzero.setdefault("adjoint_launches", nonzero["record_launches"])
     return {name: nonzero.get(name, 0) for name in COUNTERS}
 
 
@@ -645,6 +675,7 @@ def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total
     the kernels line."""
     from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
     from pathtracer_tpu_torch.models import mesh
+    from pathtracer_tpu_torch.ops import _build
     from pathtracer_tpu_torch.tools.work import count_mesh_work
 
     print("== 21. K2 with the mesh backend (K7's adjoint) vs its plain version on the card (depth 4)")
@@ -699,7 +730,7 @@ def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total
         raise AssertionError(f"a mesh step is not 2 K1-mesh + 1 K2-mesh launches: {calls} -> {counts}")
     if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"mesh trainer losses not finite or not falling: {losses}")
-    train_bwd_launches = counts["mesh_bwd_launches"]
+    train_bwd_launches, train_stages = counts["mesh_bwd_launches"], stage_counts(counts)
     small_true = mesh.make_scene(recursion_depth=MAIN_DEPTH, device=dev)
     with torch.no_grad():
         small_target = mk.render_frame_megakernel(small_true, rng.prng_key(17), 64, 48)
@@ -734,6 +765,7 @@ def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total
     k = mk.prepare_launch(true_scene, key, MAIN_W, MAIN_H, 1, VERBATIM)
     ct = torch.from_numpy(np.random.default_rng(9).standard_normal((MAIN_H, MAIN_W, 4)).astype(np.float32)).to(dev)
     bwd_ms = cuda_ms(lambda: mk.launch_backward(k, ct), 10)
+    split = k2_stages(mk, _build, cuda_ms, k, ct, card, f"K2-mesh at {MAIN_W}x{MAIN_H}")
     need = peak_320 * (MAIN_W * MAIN_H) / (320 * 240)
     if need > 0.6 * total_bytes:
         raise AssertionError(f"the plain mesh gradient needs ~{need / 2**30:.1f} GiB at {MAIN_W}x{MAIN_H}")
@@ -754,16 +786,14 @@ def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total
     if other:
         from pathtracer_tpu_torch.tools import k2_pair
 
-        for r in k2_pair.pair([Path(other)], ("analytical", "sdf"), log=lambda s: print("  " + s)):
-            if not r["bit_equal"]:
-                raise AssertionError(f"the {r['scene']} K2 of this tree and the other's give other gradients")
+        check_pairing(k2_pair.pair([Path(other)], ("analytical", "sdf"), log=lambda s: print("  " + s)))
     else:
         print("  analytical and SDF K2 against another tree's: not run (no --other DIR given)")
     return dict(
         name="megakernel_bwd_mesh", route="cuda", source="pathtracer_tpu_torch/csrc/mesh_adj.cuh",
         replaces="pathtracer_tpu/ops/megakernel.py:1771 + pathtracer_tpu/ops/megakernel_mesh.py:95",
         launches=train_bwd_launches, max_abs_err=err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None,
+        bound_by=bound_by, library_ms=None, stages=stage_rows(split, train_stages),
     )
 
 
@@ -1139,9 +1169,9 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
                           trainer_pieces, other) -> list[dict]:
     """Phases 30-33, K2's MEDIA instantiation: against its plain version and
     the JAX gradients, the media trainer (the main path) with the SDF and
-    mesh ones, the times, and with `other` the media-free K2 of another tree
-    in turns and its machine code. Returns its rows of the kernels line, one
-    a backend."""
+    mesh ones, the times, and with `other` the mesh and MEDIA K2 of
+    another tree in turns and both trees' resources. Returns its rows of the
+    kernels line, one a backend."""
     from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
     from pathtracer_tpu_torch.models import families
     from pathtracer_tpu_torch.ops import megakernel_sdf as mks
@@ -1152,7 +1182,7 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
     lib = _build.load("megakernel_bwd")
     for kernel in ("megakernel_bwd", "megakernel_bwd_media"):
         for key_, line in sorted(k1_pair.instantiations(_build.CSRC, kernel, k2_pair.k2_key).items()):
-            print(f"  {key_[0]} K2{' MEDIA' if key_[1] else ''}: {line}")
+            print(f"  {key_[1]} K2{' MEDIA' if key_[2] else ''} {key_[0]}: {line}")
     scenes = {name: media_scene(torch, families, "analytical", dev, name) for name in ("absorb", "emissive", MEDIA_MAIN)}
     scenes["lit"] = media_scene(torch, families, "analytical", dev, MEDIA_MAIN, lit=True)
     for family in ("sdf", "mesh"):
@@ -1258,7 +1288,7 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
         raise AssertionError(f"a media step is not 2 K1 MEDIA + 1 K2 MEDIA launches: {calls} -> {counts}")
     if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"media trainer losses not finite or not falling: {losses}")
-    launches = {"analytical": counts["media_bwd_launches"]}
+    launches = {"analytical": (counts["media_bwd_launches"], stage_counts(counts))}
     with torch.no_grad():
         small_target = mk.render_frame_megakernel(true_scene, rng.prng_key(17), 64, 48)
     runs = {kern: inverse.inverse_render(start_of("analytical", "absorb"), small_target, rng.prng_key(3), MEDIA_SELECT,
@@ -1292,7 +1322,7 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
         if counts != want or not np.isfinite(losses).all():
             raise AssertionError(f"a {family} media step is not 2 K1 MEDIA + 1 K2 MEDIA launches with its backend, "
                                  f"or its losses are not finite: {counts}")
-        launches[family] = counts["media_bwd_launches"]
+        launches[family] = (counts["media_bwd_launches"], stage_counts(counts))
 
     print(f"== 33. times: K2 MEDIA at {MAIN_W}x{MAIN_H}, depth {MEDIA_DEPTH}, spp 1, the Scatter demo")
     main = scenes[MEDIA_MAIN]
@@ -1310,6 +1340,7 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
     k = mk.prepare_launch(main, key, MAIN_W, MAIN_H, 1, VERBATIM)
     ct = torch.from_numpy(np.random.default_rng(9).standard_normal((MAIN_H, MAIN_W, 4)).astype(np.float32)).to(dev)
     bwd_ms = cuda_ms(lambda: mk.launch_backward(k, ct), 10)
+    split = k2_stages(mk, _build, cuda_ms, k, ct, card, f"K2 MEDIA at {MAIN_W}x{MAIN_H}")
     if (w, h) == (MAIN_W, MAIN_H):
         plain_bwd_ms = cuda_ms(lambda: mk.render_grad_reference(k.sv, main, key, ct, MAIN_W, MAIN_H), 1, warmup=0)
         plain_step_ms = cuda_ms(step("eager", main, MAIN_W, MAIN_H), 1, warmup=0)
@@ -1329,8 +1360,9 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
           f"the medium, {work['scatter']} scatter events) ({card})")
     rows = [dict(
         name="megakernel_bwd_media", route="cuda", source="pathtracer_tpu_torch/csrc/tracer_adj.cuh",
-        replaces="pathtracer_tpu/ops/megakernel.py:1771", launches=launches["analytical"], max_abs_err=err,
+        replaces="pathtracer_tpu/ops/megakernel.py:1771", launches=launches["analytical"][0], max_abs_err=err,
         ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        stages=stage_rows(split, launches["analytical"][1]),
     )]
     # the SDF and mesh instantiations at 320x240, plain version and bound alike
     w, h = 320, 240
@@ -1344,6 +1376,7 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
         scene = scenes[family]
         kf = mk.prepare_launch(scene, key, w, h, 1, VERBATIM)
         ms = cuda_ms(lambda: mk.launch_backward(kf, ct), 10)
+        family_split = k2_stages(mk, _build, cuda_ms, kf, ct, card, f"K2 MEDIA {family} at {w}x{h}")
         plain_ms = cuda_ms(lambda: mk.render_grad_reference(kf.sv, scene, key, ct, w, h), 1, warmup=0)
         work = count_media_work(scene, key, w, h)
         f32 = k2_media_ops(work, seg_f32)
@@ -1364,19 +1397,83 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
         rows.append(dict(
             name=f"megakernel_bwd_media_{family}", route="cuda",
             source=f"pathtracer_tpu_torch/csrc/{family}_adj.cuh", replaces=f"pathtracer_tpu/ops/megakernel.py:1771 + "
-            f"{replaces}", launches=launches[family], max_abs_err=family_err[family], ms=ms, plain_ms=plain_ms,
-            bound_ms=fb_ms, bound_by=fb_by, library_ms=None,
+            f"{replaces}", launches=launches[family][0], max_abs_err=family_err[family], ms=ms, plain_ms=plain_ms,
+            bound_ms=fb_ms, bound_by=fb_by, library_ms=None, stages=stage_rows(family_split, launches[family][1]),
         ))
     if other:
-        for r in k2_pair.pair([Path(other)], ("mesh",), log=lambda s: print("  " + s)):
-            if not r["bit_equal"]:
-                raise AssertionError("the mesh K2 of this tree and the other's give other gradients")
-        if not k2_pair.same_resources(Path(other), log=lambda s: print("  " + s)):
-            raise AssertionError("the media-free K2 of this tree and the other's differ in resources or machine code")
+        check_pairing(k2_pair.pair([Path(other)], ("mesh", "media"), log=lambda s: print("  " + s)))
+        k2_pair.resources(Path(other), log=lambda s: print("  " + s))
         print("  analytical and SDF K2 of both trees in turns: phase 24")
     else:
-        print("  media-free K2 against another tree's: not run (no --other DIR given)")
+        print("  K2 against another tree's: not run (no --other DIR given)")
     return rows
+
+
+def enclosed_scene(torch, make_scene, dev, depth: int = DEEP_DEPTH):
+    """The demo scene inside sphere 1, grown to radius 20 about the origin
+    (tests/test_torch_kernel_bwd_host.py's enclosed_scene): the camera,
+    sphere 0, the light and the floor lie within it, so a path ends only on
+    the light or at `depth`."""
+    scene = make_scene(recursion_depth=depth, device=dev)
+    with torch.no_grad():
+        scene.params.sphere_center.x[1], scene.params.sphere_radius[1] = 0.0, 20.0
+    return scene
+
+
+def deep_phase(torch, mk, rng, dev, total_bytes: int) -> None:
+    """Phase 34: K2 at depth 20 (its records hold any depth; the adjoint
+    once held 16 bounces a thread) against its plain version at 320x240,
+    through the autograd Function (one K1 launch, one K2 call, one record
+    kernel launch), and the record buffer's chunks: capped so that the frame
+    takes several launches of each kernel, whole blocks of pixels must give
+    the one-chunk gradient bit for bit and chunks of samples within 1e-5 of
+    the largest entry (a float32 sum in another order)."""
+    from pathtracer_tpu_torch.integrator import inverse
+    from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM, bounces_entered
+    from pathtracer_tpu_torch.models.analytical import make_scene
+
+    print(f"== 34. K2 at depth {DEEP_DEPTH} vs its plain version on the card, and the record buffer's chunks")
+    scene = enclosed_scene(torch, make_scene, dev)
+    w, h = 320, 240
+    for seed, quirks in ((141, VERBATIM), (142, FIXED)):
+        entered = bounces_entered(scene, rng.prng_key(seed), w, h, 1, quirks)
+        print(f"  seed {seed}: {float((entered > 16).double().mean()):.4f} of the paths enter more than 16 bounces, "
+              f"{float((entered == DEEP_DEPTH).double().mean()):.4f} all {DEEP_DEPTH}")
+        if int(entered.max()) != DEEP_DEPTH:
+            raise AssertionError(f"no path enters {DEEP_DEPTH} bounces")
+    check_backward(torch, mk, rng, dev, total_bytes, [(scene, w, h, 1, VERBATIM, 141, f", depth {DEEP_DEPTH}"),
+                                                      (scene, w, h, 2, FIXED, 142, f", depth {DEEP_DEPTH}")])
+    grad_scene = enclosed_scene(torch, make_scene, dev)
+    leaf = dict(inverse.named_leaves(grad_scene))["lights.emission.x"].requires_grad_(True)
+    reset_counts(mk)
+    (g,) = torch.autograd.grad(mk.render_frame_megakernel(grad_scene, rng.prng_key(143), w, h)[..., :3].mean(), leaf)
+    counts = read_counts(mk)
+    print(f"  through the autograd Function: launches {counts}, d/d emission.x {float(g):.6e}")
+    if counts != expect_counts(launches=1, bwd_launches=1) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"depth {DEEP_DEPTH}: not one K1 launch and one K2 call, or not finite: {counts}")
+    ct = torch.from_numpy(np.random.default_rng(144).standard_normal((h, w, 4)).astype(np.float32)).to(dev)
+    for spp in (1, 2):
+        k = mk.prepare_launch(scene, rng.prng_key(144), w, h, spp, VERBATIM)
+        whole = mk.record_plan(k)[0]
+        g = mk.launch_backward(k, ct)
+        per = whole // (w * h * spp)  # one pixel's sample
+        # 7 chunks of whole blocks of pixels; at spp 2 also 2 chunks of samples
+        for cap in (per * 128 * 97,) + ((per * w * h,) if spp > 1 else ()):
+            nbytes, pixels, samples = mk.record_plan(k, cap)
+            chunks = -(-w * h // pixels) * -(-spp // samples)
+            reset_counts(mk)
+            g_cap = mk.launch_backward(k, ct, cap=cap)
+            launched = stage_counts(read_counts(mk))
+            rel = float((g_cap - g).abs().max() / g.abs().max())
+            same = bool(torch.equal(g_cap, g))
+            print(f"  spp {spp}, cap {cap} bytes: {chunks} chunks of {pixels} pixels x {samples} samples "
+                  f"({nbytes} bytes), {launched} record and adjoint kernel launches; against one chunk: bit-equal "
+                  f"{same}, "
+                  f"max|d|/max|g| {rel:.3e}")
+            if launched != (chunks, chunks) or nbytes > cap or chunks < 2:
+                raise AssertionError(f"spp {spp}, cap {cap}: {chunks} chunks, {launched} launches, {nbytes} bytes")
+            if (samples == spp and not same) or rel > 1e-5:
+                raise AssertionError(f"spp {spp}, cap {cap}: the chunked gradient differs from the one-chunk one")
 
 
 def print_registers(_build) -> None:
@@ -1476,6 +1573,70 @@ def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, moved=Non
     return err, peak_320
 
 
+def k2_stages(mk, _build, cuda_ms, k, ct, card: str, label: str) -> dict:
+    """K2's two kernels of launch `k` (a frame of one chunk) timed apart on
+    one record buffer (the record kernel's launch, then the adjoint
+    kernel's; CUDA events, 10 calls each after a warm-up), the record
+    buffer's bytes, and each kernel's registers, stack and spills (ptxas),
+    dynamic shared memory and blocks of 128 an SM (the CUDA runtime's
+    occupancy calculator)."""
+    import torch
+
+    from pathtracer_tpu_torch.tools import k1_pair, k2_pair
+
+    rec = mk.record_buffer(k)
+    nbytes, pixels, samples = mk.record_plan(k)
+    (chunk,) = mk.record_chunks(k)
+    height, width = k.out.shape[:2]
+    partial = torch.empty((-(-width * height // 128), k.sv.shape[1]), device=k.sv.device)
+    record_ms = cuda_ms(lambda: mk.launch_record(k, rec, chunk), 10)
+    adjoint_ms = cuda_ms(lambda: mk.launch_adjoint(k, ct, rec, partial, chunk), 10)
+    res = mk.backward_resources(k)
+    ptxas = k1_pair.instantiations(_build.CSRC, "megakernel_bwd_media" if k.media else "megakernel_bwd",
+                                   k2_pair.k2_key)
+    backend = {"analytical": "AnalyticalAdj", "sdf": "SdfAdj", "mesh": "MeshAdj"}[k.backend]
+    print(f"  {label}: record kernel {record_ms:.3f} ms, adjoint kernel {adjoint_ms:.3f} ms ({card}); record buffer "
+          f"{nbytes} bytes ({nbytes / 2**20:.1f} MiB; chunks of {pixels} pixels x {samples} samples)")
+    for name in ("record", "adjoint"):
+        r = res[name]
+        print(f"    {name}_kernel: {r['registers']} registers, {r['stack_bytes']} B stack, {r['shared_bytes']} B of "
+              f"dynamic shared memory a block, {r['blocks_per_sm']} blocks of 128 an SM; ptxas: "
+              f"{ptxas.get((f'{name}_kernel', backend, k.media))}")
+    del rec, partial
+    return dict(record_ms=record_ms, adjoint_ms=adjoint_ms, record_bytes=nbytes)
+
+
+def stage_counts(counts: dict) -> tuple[int, int]:
+    """The record and adjoint kernels' launches in a run's counts."""
+    return counts["record_launches"], counts["adjoint_launches"]
+
+
+def stage_rows(split: dict, launches: tuple[int, int]) -> list[dict]:
+    """The K2 row's two kernels: each one's launches on the main path (the
+    record and adjoint counts of stage_counts) and time."""
+    return [dict(name="record_kernel", launches=launches[0], ms=split["record_ms"]),
+            dict(name="adjoint_kernel", launches=launches[1], ms=split["adjoint_ms"])]
+
+
+# How far another tree's K2 may sit from this one's (tools/k2_pair.pair's
+# max_rel: the largest difference over the other's largest entry) in
+# phases 24 and 33: the two designs sum the same float32 terms in other
+# orders (1.2e-7 to 6.1e-7 against the one-kernel K2 on the H100); the
+# MEDIA instantiation, built without contraction, was bit-equal.
+PAIR_MAX_REL = 1e-5
+
+
+def check_pairing(results: list[dict]) -> None:
+    """Each of k2_pair.pair's results within PAIR_MAX_REL of the other
+    tree's gradient, and MEDIA's bit-equal."""
+    for r in results:
+        if r["scene"] == "media" and not r["bit_equal"]:
+            raise AssertionError(f"K2 MEDIA differs from {r['other']}'s: max_rel {r['max_rel']:.3e}")
+        if r["max_rel"] > PAIR_MAX_REL:
+            raise AssertionError(f"K2 {r['scene']} differs from {r['other']}'s by {r['max_rel']:.3e} of its largest "
+                                 f"entry (limit {PAIR_MAX_REL})")
+
+
 def check_leaf_grads(grads: dict, fixture: str, close) -> None:
     """Every leaf of `fixture` against `grads` (name -> numpy array; a
     leaf K2 leaves untouched is zeros) with close(got, want, name)."""
@@ -1501,7 +1662,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one CUDA card.")
     ap.add_argument("--other", default=None, help="root of another checkout: phase 24 times its analytical and "
                     "SDF K2 against this tree's, phase 28 its media-free K1 and K3 on every backend, phase 33 its "
-                    "mesh K2, in turns, and the media-free K2's machine code")
+                    "mesh and MEDIA K2, in turns, and both trees' K2 resources")
     args = ap.parse_args(argv)
 
     started = time.perf_counter()
@@ -1616,12 +1777,12 @@ def main(argv=None) -> int:
     leaves = dict(inverse.named_leaves(grad_scene))
     for name in FIXTURE_LEAVES:
         leaves[name].requires_grad_(True)
-    mk.render_frame_megakernel.launches = mk.render_frame_megakernel.bwd_launches = 0
+    reset_counts(mk)
     img = mk.render_frame_megakernel(grad_scene, rng.prng_key(3), 64, 48)
     grads = torch.autograd.grad((img[..., :3] ** 2).mean(), [leaves[n] for n in FIXTURE_LEAVES])
-    counts = (mk.render_frame_megakernel.launches, mk.render_frame_megakernel.bwd_launches)
-    if counts != (1, 1):
-        raise AssertionError(f"expected 1 K1 and 1 K2 launch, got {counts}")
+    counts = read_counts(mk)
+    if counts != expect_counts(launches=1, bwd_launches=1):
+        raise AssertionError(f"expected 1 K1 launch and 1 K2 call (one record and one adjoint launch), got {counts}")
     with np.load(GRAD_FIXTURE) as want:
         for name, got in zip(FIXTURE_LEAVES, grads):
             got = got.cpu().numpy()
@@ -1650,12 +1811,15 @@ def main(argv=None) -> int:
                 "--depth", str(MAIN_DEPTH), "--steps", str(TRAIN_STEPS), "--json-out", report_path,
             ], log=lambda s: print("  " + s))
             counts = read_counts(mk)
-            train_launches = (counts["launches"], counts["bwd_launches"])
+            train_launches = (counts["launches"], counts["bwd_launches"], counts["record_launches"],
+                              counts["adjoint_launches"])
             with open(report_path) as f:
                 losses = json.load(f)["losses"]
     finally:
         inverse.render_frame_megakernel = real_render
-    print(f"  launches K1={train_launches[0]} K2={train_launches[1]}; losses {losses[0]:.6e} -> {losses[-1]:.6e}")
+    print(f"  launches K1={train_launches[0]} K2={train_launches[1]} (record kernel {train_launches[2]}, adjoint "
+          f"kernel {train_launches[3]}); losses "
+          f"{losses[0]:.6e} -> {losses[-1]:.6e}")
     step_starts = [c[:2] for c in calls if c[2]]  # the render with grad opens each step
     want_starts = [(4 + 2 * i, i) for i in range(TRAIN_STEPS)]
     if counts != expect_counts(launches=4 + 2 * TRAIN_STEPS, bwd_launches=TRAIN_STEPS) or step_starts != want_starts:
@@ -1687,6 +1851,7 @@ def main(argv=None) -> int:
     bwd_launch = mk.prepare_launch(main_scene, key, MAIN_W, MAIN_H, 1, VERBATIM)
     ct = torch.from_numpy(np.random.default_rng(9).standard_normal((MAIN_H, MAIN_W, 4)).astype(np.float32)).to(dev)
     bwd_ms = cuda_ms(lambda: mk.launch_backward(bwd_launch, ct), 10)
+    bwd_split = k2_stages(mk, _build, cuda_ms, bwd_launch, ct, card, f"K2 at {MAIN_W}x{MAIN_H}")
     need = peak_320 * (MAIN_W * MAIN_H) / (320 * 240)
     if need > 0.6 * total_bytes:
         raise AssertionError(f"the plain version needs ~{need / 2**30:.1f} GiB at {MAIN_W}x{MAIN_H}")
@@ -1821,13 +1986,13 @@ def main(argv=None) -> int:
         leaves = dict(inverse.named_leaves(grad_scene))
         for name in names:
             leaves[name].requires_grad_(True)
-        mk.render_frame_megakernel.sdf_launches = mk.render_frame_megakernel.sdf_bwd_launches = 0
+        reset_counts(mk)
         img = mk.render_frame_megakernel(grad_scene, rng.prng_key(3), w, h)
         grads = torch.autograd.grad((img[..., :3] ** 2).mean(), [leaves[n] for n in names], allow_unused=True)
-        counts = (mk.render_frame_megakernel.sdf_launches, mk.render_frame_megakernel.sdf_bwd_launches)
-        print(f"  {os.path.basename(fixture)} ({w}x{h}, depth {depth}): K1-SDF {counts[0]}, "
-              f"K2-SDF {counts[1]} launches")
-        if counts != (1, 1):
+        counts = read_counts(mk)
+        print(f"  {os.path.basename(fixture)} ({w}x{h}, depth {depth}): K1-SDF {counts['sdf_launches']}, "
+              f"K2-SDF {counts['sdf_bwd_launches']} calls, record and adjoint kernels {stage_counts(counts)} launches")
+        if counts != expect_counts(launches=1, sdf_launches=1, bwd_launches=1, sdf_bwd_launches=1):
             raise AssertionError(f"expected 1 K1 and 1 K2 launch with the SDF backend, got {counts}")
         check_leaf_grads({n: np.zeros(tuple(leaves[n].shape)) if g is None else g.cpu().numpy()
                           for n, g in zip(names, grads)}, fixture, close)
@@ -1845,14 +2010,14 @@ def main(argv=None) -> int:
             ], log=lambda s: print("  " + s))
             counts = read_counts(mk)
             sdf_train = (counts["launches"], counts["bwd_launches"], counts["sdf_launches"],
-                         counts["sdf_bwd_launches"])
+                         counts["sdf_bwd_launches"], stage_counts(counts))
             with open(report_path) as f:
                 report = json.load(f)
     finally:
         inverse.render_frame_megakernel = real_render
     losses = report["losses"]
-    print(f"  launches K1={sdf_train[0]} (SDF {sdf_train[2]}) K2={sdf_train[1]} (SDF {sdf_train[3]}); "
-          f"losses {losses[0]:.6e} -> {losses[-1]:.6e}")
+    print(f"  launches K1={sdf_train[0]} (SDF {sdf_train[2]}) K2={sdf_train[1]} (SDF {sdf_train[3]}; record and "
+          f"adjoint kernels {sdf_train[4]}); losses {losses[0]:.6e} -> {losses[-1]:.6e}")
     for r in report["rows"]:
         print(f"  {r['name']}: true {r['true_value']:.4f} start {r['start_value']:.4f} "
               f"recovered {r['recovered']:.4f}")
@@ -1880,6 +2045,7 @@ def main(argv=None) -> int:
     sdf_step_ms = cuda_ms(trainer("megakernel", sdf_true, sdf_start, "sdf"), 10, warmup=2)
     sdf_bwd_launch = mk.prepare_launch(main_sdf, key, MAIN_W, MAIN_H, 1, VERBATIM)
     sdf_bwd_ms = cuda_ms(lambda: mk.launch_backward(sdf_bwd_launch, ct), 10)
+    sdf_split = k2_stages(mk, _build, cuda_ms, sdf_bwd_launch, ct, card, f"K2-SDF at {MAIN_W}x{MAIN_H}")
     need = sdf_peak_320 * (MAIN_W * MAIN_H) / (320 * 240)
     if need > 0.6 * total_bytes:
         raise AssertionError(f"the plain SDF gradient needs ~{need / 2**30:.1f} GiB at {MAIN_W}x{MAIN_H}")
@@ -1913,6 +2079,8 @@ def main(argv=None) -> int:
     media_bwd_rows = media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card, total_bytes,
                                            (counting_render, real_render, calls), args.other)
     t34 = time.perf_counter()
+    deep_phase(torch, mk, rng, dev, total_bytes)
+    t35 = time.perf_counter()
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
@@ -1923,7 +2091,7 @@ def main(argv=None) -> int:
         name="megakernel_bwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_bwd.cu",
         replaces="pathtracer_tpu/ops/megakernel.py:1771", launches=train_launches[1],
         max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_bound_by,
-        library_ms=None,
+        library_ms=None, stages=stage_rows(bwd_split, train_launches[2:]),
     ), dict(
         name="megakernel_fwd_sdf", route="cuda", source="pathtracer_tpu_torch/csrc/sdf.cuh",
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:172", launches=sdf_counts[1],
@@ -1933,7 +2101,7 @@ def main(argv=None) -> int:
         name="megakernel_bwd_sdf", route="cuda", source="pathtracer_tpu_torch/csrc/sdf_adj.cuh",
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:172", launches=sdf_train[3],
         max_abs_err=sdf_bwd_err, ms=sdf_bwd_ms, plain_ms=sdf_plain_bwd_ms, bound_ms=sdf_bwd_bound_ms,
-        bound_by=sdf_bwd_bound_by, library_ms=None,
+        bound_by=sdf_bwd_bound_by, library_ms=None, stages=stage_rows(sdf_split, sdf_train[4]),
     ), dict(
         name="march_steps", route="cuda", source="pathtracer_tpu_torch/csrc/march_steps.cu",
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
@@ -1941,7 +2109,7 @@ def main(argv=None) -> int:
         library_ms=None,
     ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row, *media_rows, *media_bwd_rows]
     print(f"== total {time.perf_counter() - started:.1f} s (phase 25 {t26 - t25:.1f} s, phase 26 {t27 - t26:.1f} s, "
-          f"phases 27-29 {t30 - t27:.1f} s, phases 30-33 {t34 - t30:.1f} s)")
+          f"phases 27-29 {t30 - t27:.1f} s, phases 30-33 {t34 - t30:.1f} s, phase 34 {t35 - t34:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

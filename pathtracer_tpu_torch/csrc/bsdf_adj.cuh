@@ -382,10 +382,14 @@ __device__ __forceinline__ void eval_clearcoat_adj(const Material& m, V3 v, V3 l
 }
 
 // The NEE side: cotangents (ct_f of f = |l.z| bsdf, ct_pdf) -> material,
-// eta, v_world and n_world; l_world is a constant.
-__device__ __forceinline__ void disney_eval_adj(const Material& m, float eta, V3 v_world, V3 n_world, V3 l_world,
-                                                V3 ct_f, float ct_pdf, MatAdj& a, float& c_eta, V3& c_vw,
-                                                V3& c_nw) {
+// eta, v_world and n_world; l_world is a constant. The forward runs once:
+// cot(f, pdf, ct_f&, ct_pdf&) sees what disney_eval returns (f and its
+// pdf, in its arithmetic) and sets the cotangents, or returns false for
+// none (the adjoint is then skipped).
+template <class Cot>
+__device__ __forceinline__ void disney_eval_with_adj(const Material& m, float eta, V3 v_world, V3 n_world,
+                                                     V3 l_world, Cot cot, MatAdj& a, float& c_eta, V3& c_vw,
+                                                     V3& c_nw) {
   V3 t, b;
   onb(n_world, t, b);
   V3 v = to_local(t, b, n_world, v_world);
@@ -408,12 +412,27 @@ __device__ __forceinline__ void disney_eval_adj(const Material& m, float eta, V3
   bool on_r = w.spec_reflect > 0.0f && l.z > 0.0f && v.z > 0.0f;
   bool on_t = w.spec_refract > 0.0f && l.z < 0.0f;
   bool on_c = w.clearcoat > 0.0f && l.z > 0.0f && v.z > 0.0f;
-  float pd = 0.0f, pr = 0.0f, pt_ = 0.0f, pc = 0.0f;
-  if (on_d) f = f + eval_diffuse(m, sheen_col, v, l, h, pd);
-  if (on_r) f = f + eval_spec_reflection(m, eta, spec_col, v, l, h, pr);
-  if (on_t) f = f + eval_spec_refraction(m, eta, v, l, h, pt_);
-  if (on_c) f = f + eval_clearcoat(m, v, l, h, pc);
+  float pd = 0.0f, pr = 0.0f, pt_ = 0.0f, pc = 0.0f, bsdf_pdf = 0.0f;
+  if (on_d) {
+    f = f + eval_diffuse(m, sheen_col, v, l, h, pd);
+    bsdf_pdf = bsdf_pdf + pd * w.diffuse;
+  }
+  if (on_r) {
+    f = f + eval_spec_reflection(m, eta, spec_col, v, l, h, pr);
+    bsdf_pdf = bsdf_pdf + pr * w.spec_reflect;
+  }
+  if (on_t) {
+    f = f + eval_spec_refraction(m, eta, v, l, h, pt_);
+    bsdf_pdf = bsdf_pdf + pt_ * w.spec_refract;
+  }
+  if (on_c) {
+    f = f + eval_clearcoat(m, v, l, h, pc);
+    bsdf_pdf = bsdf_pdf + pc * w.clearcoat;
+  }
   (void)p;
+  V3 ct_f;
+  float ct_pdf;
+  if (!cot(f * fabsf(l.z), bsdf_pdf, ct_f, ct_pdf)) return;
 
   LobeAdj la = zero_lobe_adj();
   V3 c_fsum = ct_f * fabsf(l.z);
@@ -461,10 +480,14 @@ __device__ __forceinline__ void disney_eval_adj(const Material& m, float eta, V3
 
 // The sampled side: cotangents of the world direction bs.l (c_lw) and of
 // bs.f (ct_f) -> material, eta, v_world and n_world. Replays disney_sample
-// to find the lobe, the local direction and the half vector (constants).
-__device__ __forceinline__ void disney_sample_adj(const Material& m, float eta, V3 v_world, V3 n_world, V3 prev_l,
-                                                  float r1, float r2, float u_coin, V3 c_lw, V3 ct_f, MatAdj& a,
-                                                  float& c_eta, V3& c_vw, V3& c_nw) {
+// to find the lobe, the local direction and the half vector (constants),
+// once: cot(bs, c_lw&, ct_f&) sees the sample disney_sample returns (in its
+// arithmetic) and sets the cotangents, or returns false for none (the
+// adjoint is then skipped).
+template <class Cot>
+__device__ __forceinline__ void disney_sample_with_adj(const Material& m, float eta, V3 v_world, V3 n_world,
+                                                       V3 prev_l, float r1, float r2, float u_coin, Cot cot,
+                                                       MatAdj& a, float& c_eta, V3& c_vw, V3& c_nw) {
   V3 t, b;
   onb(n_world, t, b);
   V3 v = to_local(t, b, n_world, v_world);
@@ -483,6 +506,7 @@ __device__ __forceinline__ void disney_sample_adj(const Material& m, float eta, 
     l = cosine_sample_hemisphere(r1_d, r2);
     h = safe_normalize(l + v);
     f = eval_diffuse(m, sheen_col, v, l, h, pdf);
+    pdf = pdf * w.diffuse;
   } else if (r1 < cdf1) {
     lobe = 1;
     float span_c = cdf1 - cdf0;
@@ -491,6 +515,7 @@ __device__ __forceinline__ void disney_sample_adj(const Material& m, float eta, 
     if (h.z < 0.0f) h = -h;
     l = safe_normalize(reflect(-v, h));
     f = eval_clearcoat(m, v, l, h, pdf);
+    pdf = pdf * w.clearcoat;
   } else {
     float span_s = 1.0f - cdf1;
     float r1_s = clampf(guard_div(r1 - cdf1, span_s, span_s > 0.0f), 0.0f, 1.0f);
@@ -502,14 +527,23 @@ __device__ __forceinline__ void disney_sample_adj(const Material& m, float eta, 
       lobe = 2;
       l = safe_normalize(reflect(-v, h));
       f = eval_spec_reflection(m, eta, spec_col, v, l, h, pdf);
+      pdf = pdf * ff;
     } else {
       lobe = 3;
       l = safe_normalize(refract(-v, h, eta));
       f = eval_spec_refraction(m, eta, v, l, h, pdf);
+      pdf = pdf * (1.0f - ff);
     }
+    pdf = pdf * (w.spec_reflect + w.spec_refract);
   }
   V3 lw = to_world(t, b, n_world, l);
   float cosw = dot(n_world, lw);
+  BsdfSample bs;
+  bs.l = lw;
+  bs.f = f * fabsf(cosw);
+  bs.pdf = pdf;
+  V3 c_lw, ct_f;
+  if (!cot(bs, c_lw, ct_f)) return;
 
   // f_out = f |n.lw|; lw = to_world(t, b, n, l) with l constant.
   V3 c_f = ct_f * fabsf(cosw);

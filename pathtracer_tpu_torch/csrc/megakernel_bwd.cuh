@@ -15,40 +15,72 @@
 // reverse, raygen VJP). It computes d(loss)/d(packed scene) [P] from the
 // cotangent of the frame K1 renders, under the detached-sampling estimator
 // of integrator/tracer.render_frame(detach=True); csrc/tracer_adj.cuh holds
-// the per-thread adjoint.
+// the per-thread code. The cotangent is grad_out[..., :3] / spp; the alpha
+// channel gets none.
 //
-// One thread per pixel loops over the spp samples. Each sample replays the
-// path with K1's in-kernel threefry counters (the same numbers for the same
-// keys), storing the carry that enters each bounce (14 floats per bounce in
-// local memory, 20 with the medium in the MEDIA instantiation, depth <=
-// MAX_DEPTH), then walks the bounces in reverse. The
-// cotangent is grad_out[..., :3] / spp; the alpha channel gets none.
+// Two kernels and a reduction, launched in turn on one stream:
 //
-// Reduction: each thread adds into its own column of a [P][THREADS+1]
-// shared-memory table (padded against bank conflicts), so no atomics; the
-// small mesh's [T, 4] topology follows the table (75,720 bytes a block for
-// the demo mesh, P = 145, over 48 KB: the launch opts in to more); the
-// block then sums each row in thread order into partial[block][P], and a
-// second kernel sums the blocks of each entry in a fixed order (in double).
-// The gradient is the same bit for bit from run to run.
+// 1. record_kernel has K1's shape: one thread a pixel loops over its
+//    samples and traces each path once with K1's in-kernel threefry
+//    counters (the same numbers for the same keys), through tracer_adj.cuh's
+//    record_sample, which is K1's bounce without the radiance. Per sample
+//    and bounce it writes a record of Record<MEDIA>::WORDS words (18, 24
+//    with the medium: the carry entering the bounce, the closest hit's t
+//    and winner, the light the emitter pass hit and its distance, the NEE's
+//    light and shadow verdict, and with MEDIA the medium and whether it
+//    scattered) to device memory as [sample][bounce][word][pixel], so a
+//    warp's stores and loads are coalesced, and the bounces each path
+//    entered as [sample][pixel].
+// 2. adjoint_kernel: one thread a pixel reads its records and runs each
+//    sample's bounce adjoints in reverse, then the camera ray's
+//    (adjoint_sample). It intersects nothing: no closest hit, no march, no
+//    triangle loop, no emitter search, no shadow ray. Each thread adds into
+//    its own column of a [P][THREADS+1] shared-memory table (padded against
+//    bank conflicts), so no atomics; the small mesh's [T, 4] topology
+//    follows the table (75,720 bytes a block for the demo mesh, P = 145,
+//    over 48 KB: the launch opts in to more). The block then sums each row
+//    in thread order into partial[block][P].
+// 3. reduce_blocks_kernel sums the blocks of each entry in a fixed order
+//    (in double). The gradient is the same bit for bit from run to run.
 //
-// What bounds it on this card: arithmetic, divergence and register
-// pressure. The adjoint of a bounce re-runs its forward and then several
-// hundred more flops per lane with data-dependent branches; the stored
-// carries live in a per-thread stack frame in local memory and the live
-// state needs about twice K1's registers (ptxas -v prints both). With the
-// SDF backend each bounce's closest hit and shadow ray are marched twice,
-// in the forward sweep and in the re-run, K1's march each time, and each
-// hit adds the SDF adjoint's two forward-mode passes over the primitives.
-// With the mesh backend each closest hit tests every triangle three times
-// (the forward sweep, the re-run and the adjoint's winner search).
-// This first version does nothing about that beyond __launch_bounds__.
+// Each is an entry point of its own (launch_record, launch_adjoint and the
+// reduction), and ops/megakernel.launch_backward runs the chunk loop. The
+// record buffer never exceeds REC_CAP_BYTES: record_plan takes the
+// samples, and where one sample of the frame does not fit the pixels (in
+// whole blocks), in chunks; each chunk is one launch of each kernel, and
+// a later sample chunk adds its block sums to the earlier ones'. At
+// 1920x1080 one sample's records take 73 words a pixel at depth 4 (0.61 GB)
+// and 145 with the medium at depth 6 (1.20 GB), so the frame is one chunk
+// of each kernel; depth has no limit but the cap (one block's pixels of one
+// sample must fit: about 230,000 bounces, 170,000 with the medium).
+//
+// What bounds it on this card: operations and divergence in the adjoint
+// kernel. The adjoint of a bounce is several thousand float32 operations a
+// lane with data-dependent branches (the adjoints of disney_sample and
+// disney_eval are most of them; bsdf_adj.cuh runs each BSDF forward once,
+// inside its adjoint), and its live state needs far more registers than
+// K1's: __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS) holds it to 3
+// blocks of 128 an SM (168 registers, some spilled), the most the gradient
+// table allows at P = 112; on the H100 that takes 0.96-1.01 of the time
+// of 2 blocks without spills (tools/k2_pair.py against a tree built with
+// __launch_bounds__(BWD_THREADS) alone), so occupancy is not what bounds
+// it either. The record kernel is K1
+// without the radiance and the NEE's BSDF evaluation, at K1's occupancy;
+// its bytes (the records written once and read once) take well under a
+// millisecond at 3.35 TB/s. What this design does against the one it
+// replaces (which replayed the path in the adjoint's own thread and re-ran
+// each bounce's forward, its intersections included, before its adjoint):
+// every intersection of the path is traced once, in a kernel with K1's
+// registers; the stored carries leave the thread's stack for coalesced
+// device memory, which also lifts the old limit of 16 bounces; and the
+// adjoint's registers no longer hold a forward sweep beside it.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "analytical_adj.cuh"
@@ -58,54 +90,120 @@
 
 namespace pt {
 
-constexpr int BWD_THREADS = 128;
+constexpr int BWD_THREADS = 128;  // both kernels' threads a block: a record chunk is whole adjoint blocks
+constexpr int BWD_MIN_BLOCKS = 3;  // the adjoint kernel's blocks an SM (<= 168 registers)
 constexpr int ACC_STRIDE = BWD_THREADS + 1;
 constexpr int REDUCE_THREADS = 256;
+constexpr size_t REC_CAP_BYTES = size_t(1) << 31;  // the record buffer's cap, 2 GiB
 // Whether K2 copies the backend's topology to shared memory (mesh_adj.cuh),
 // as K1 does for Mesh: the other instantiations compile no copy.
 template <class B>
 constexpr bool SHARED_TOPOLOGY = std::is_same_v<B, MeshAdj>;
 
-// Dynamic shared memory of one block: the packed vector, the gradient table
-// and the topology of n_tris triangles.
+// Dynamic shared memory of one block: the packed vector and the topology of
+// n_tris triangles (the record kernel), with the gradient table between
+// them (the adjoint kernel).
+inline size_t record_smem_bytes(int n_sv, int n_tris) {
+  return (size_t)n_sv * sizeof(float) + 4 * (size_t)n_tris * sizeof(int);
+}
 inline size_t backward_smem_bytes(int n_sv, int n_tris) {
   return (size_t)n_sv * (1 + ACC_STRIDE) * sizeof(float) + 4 * (size_t)n_tris * sizeof(int);
 }
 
-template <class B, bool MEDIA = false>
-__global__ void __launch_bounds__(BWD_THREADS)
-    render_backward_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
-                           const float* __restrict__ ct, float* __restrict__ partial, int width, int height,
-                           int spp, int depth, int flags, SceneView s) {
-  extern __shared__ float smem[];
-  float* sv = smem;           // [n_sv] packed scene
-  float* acc = smem + n_sv;   // [n_sv][ACC_STRIDE]: column threadIdx.x is this thread's gradient
-  int* topo = reinterpret_cast<int*>(acc + n_sv * ACC_STRIDE);  // [n_tris][4]
+// How a record buffer of at most `cap` bytes (REC_CAP_BYTES at most; a
+// test passes less to make chunks of a small frame) takes
+// a frame of n pixels and spp samples: chunks of `pixels` pixels (a
+// multiple of BWD_THREADS, or all n) and `samples` samples; samples 0
+// where not even one block's pixels of one sample fit.
+struct RecordPlan {
+  int pixels, samples;
+};
+
+inline RecordPlan record_plan(int n, int spp, int depth, int words, size_t cap) {
+  cap = std::min(cap, REC_CAP_BYTES);
+  const size_t per = ((size_t)depth * words + 1) * sizeof(float);  // one pixel's sample: records and length
+  if (per * n <= cap) return {n, (int)std::min((size_t)spp, cap / (per * n))};
+  const size_t pixels = cap / per / BWD_THREADS * BWD_THREADS;
+  return {(int)pixels, pixels > 0 ? 1 : 0};
+}
+
+// The bytes of the record buffer for plan `pl`.
+inline size_t record_bytes(const RecordPlan& pl, int depth, int words) {
+  return (size_t)pl.pixels * pl.samples * ((size_t)depth * words + 1) * sizeof(float);
+}
+
+// Copies the packed vector (and the mesh's topology) to shared memory and
+// points `s` at the copies.
+template <class B>
+__device__ __forceinline__ void stage_scene(const float* __restrict__ sv_global, int n_sv, float* sv, int* topo,
+                                            SceneView& s) {
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
   if constexpr (SHARED_TOPOLOGY<B>) {
     for (int i = threadIdx.x; i < 4 * s.n_tris; i += blockDim.x) topo[i] = s.topo[i];
+    s.topo = topo;
   }
+  s.sv = sv;
+}
+
+// The records of samples [k0, k0 + samples) of pixels [p0, p0 + pixels):
+// sample k's words at rec[k][bounce][word][pixel - p0], the bounces its
+// path entered at lens[k][pixel - p0].
+template <class B, bool MEDIA>
+__global__ void __launch_bounds__(BWD_THREADS)
+    record_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
+                  float* __restrict__ rec, int* __restrict__ lens, int width, int height, int depth, int flags,
+                  int p0, int pixels, int k0, int samples, SceneView s) {
+  extern __shared__ float smem[];
+  stage_scene<B>(sv_global, n_sv, smem, reinterpret_cast<int*>(smem + n_sv), s);
+  __syncthreads();
+
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= pixels) return;
+  const int n = width * height;
+  const size_t sample_words = (size_t)depth * Record<MEDIA>::WORDS * pixels;
+  for (int k = 0; k < samples; ++k) {
+    const uint32_t* kk = keys + 4 * (k0 + k);  // (kc0, kc1, kb0, kb1) of the sample
+    const Record<MEDIA> r = {rec + k * sample_words + q, pixels};
+    lens[(size_t)k * pixels + q] =
+        record_sample<B, MEDIA>(s, p0 + q, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], r);
+  }
+}
+
+// The adjoint of the same chunk from its records, into partial[block][P]
+// (the chunk's first block is p0 / BWD_THREADS); a chunk of later samples
+// (k0 > 0) adds to the earlier chunks' sums.
+template <class B, bool MEDIA>
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
+    adjoint_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
+                   const float* __restrict__ ct, float* __restrict__ rec, const int* __restrict__ lens,
+                   float* __restrict__ partial, int width, int height, int spp, int depth, int flags, int p0,
+                   int pixels, int k0, int samples, SceneView s) {
+  extern __shared__ float smem[];
+  float* acc = smem + n_sv;  // [n_sv][ACC_STRIDE]: column threadIdx.x is this thread's gradient
+  stage_scene<B>(sv_global, n_sv, smem, reinterpret_cast<int*>(acc + n_sv * ACC_STRIDE), s);
   for (int j = 0; j < n_sv; ++j) acc[j * ACC_STRIDE + threadIdx.x] = 0.0f;
   __syncthreads();
 
-  const int n = width * height;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < n) {
-    s.sv = sv;
-    if constexpr (SHARED_TOPOLOGY<B>) s.topo = topo;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < pixels) {
+    const int n = width * height, p = p0 + q;
     const GradSink g = {acc + threadIdx.x, ACC_STRIDE};
     const float4 c = reinterpret_cast<const float4*>(ct)[p];
     const V3 ct_rad = v3(c.x / (float)spp, c.y / (float)spp, c.z / (float)spp);
-    for (int k = 0; k < spp; ++k) {
-      const uint32_t* kk = keys + 4 * k;  // (kc0, kc1, kb0, kb1) of sample k
-      trace_sample_adj<B, MEDIA>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], ct_rad, g);
+    const size_t sample_words = (size_t)depth * Record<MEDIA>::WORDS * pixels;
+    for (int k = 0; k < samples; ++k) {
+      const uint32_t* kk = keys + 4 * (k0 + k);
+      const Record<MEDIA> r = {rec + k * sample_words + q, pixels};
+      adjoint_sample<B, MEDIA>(s, p, n, width, height, flags, kk[0], kk[1], kk[2], kk[3], ct_rad, r,
+                               lens[(size_t)k * pixels + q], g);
     }
   }
   __syncthreads();
+  float* row = partial + (size_t)(p0 / BWD_THREADS + blockIdx.x) * n_sv;
   for (int j = threadIdx.x; j < n_sv; j += blockDim.x) {
     float sum = 0.0f;
     for (int t = 0; t < BWD_THREADS; ++t) sum += acc[j * ACC_STRIDE + t];
-    partial[(size_t)blockIdx.x * n_sv + j] = sum;
+    row[j] = k0 == 0 ? sum : row[j] + sum;
   }
 }
 
@@ -125,25 +223,84 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
   if (threadIdx.x == 0) out[j] = (float)s[0];
 }
 
-// d(<ct, frame>)/d(sv) into grad[n_sv], using partial[ceil(W*H/THREADS)][n_sv]
-// as scratch, on `stream`; `s` is the scene's structure (its sv is set to
-// the shared copies in the kernel). Returns a cudaError_t (0 = success).
+// One chunk of record_plan: pixels [p0, p0 + pixels) (p0 a multiple of
+// BWD_THREADS) and samples [k0, k0 + samples).
+struct Chunk {
+  int p0, pixels, k0, samples;
+};
+
+inline bool chunk_ok(const Chunk& c, int n, int spp) {
+  return c.p0 >= 0 && c.p0 % BWD_THREADS == 0 && c.pixels > 0 && c.p0 + c.pixels <= n && c.k0 >= 0 &&
+         c.samples > 0 && c.k0 + c.samples <= spp;
+}
+
+// One launch of record_kernel on `stream` for chunk `c` into rec, which
+// holds record_bytes of the chunk (its lengths after its records). `s` is
+// the scene's structure (its sv and topology are set to the shared copies
+// in the kernel). Returns a cudaError_t (0 = success).
 template <class B, bool MEDIA = false>
-int launch_backward(const float* sv, int n_sv, const uint32_t* keys, const float* ct, float* partial, float* grad,
-                    int width, int height, int spp, int depth, int flags, SceneView s, void* stream) {
-  if (depth > MAX_DEPTH) return (int)cudaErrorInvalidValue;
-  const int n = width * height;
-  const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
-  const size_t smem = backward_smem_bytes(n_sv, s.n_tris);
-  cudaError_t err = cudaFuncSetAttribute(render_backward_kernel<B, MEDIA>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch_record(const float* sv, int n_sv, const uint32_t* keys, float* rec, int width, int height, int spp,
+                  int depth, int flags, SceneView s, Chunk c, void* stream) {
+  if (s.n_lights > REC_MAX_LIGHTS || !chunk_ok(c, width * height, spp)) return (int)cudaErrorInvalidValue;
+  const size_t smem = record_smem_bytes(n_sv, s.n_tris);
+  cudaError_t err = cudaFuncSetAttribute(record_kernel<B, MEDIA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  render_backward_kernel<B, MEDIA><<<blocks, BWD_THREADS, smem, (cudaStream_t)stream>>>(
-      sv, n_sv, keys, ct, partial, width, height, spp, depth, flags, s);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_blocks_kernel<<<n_sv, REDUCE_THREADS, 0, (cudaStream_t)stream>>>(partial, blocks, n_sv, grad);
+  int* lens = reinterpret_cast<int*>(rec + (size_t)c.samples * depth * Record<MEDIA>::WORDS * c.pixels);
+  record_kernel<B, MEDIA><<<(c.pixels + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, smem, (cudaStream_t)stream>>>(
+      sv, n_sv, keys, rec, lens, width, height, depth, flags, c.p0, c.pixels, c.k0, c.samples, s);
   return (int)cudaGetLastError();
+}
+
+// One launch of adjoint_kernel on `stream` for chunk `c` from the records
+// launch_record wrote into rec, into partial[ceil(W*H/THREADS)][n_sv] (the
+// chunk's blocks; a chunk with k0 > 0 adds to them). Returns a cudaError_t.
+template <class B, bool MEDIA = false>
+int launch_adjoint(const float* sv, int n_sv, const uint32_t* keys, const float* ct, float* rec, float* partial,
+                   int width, int height, int spp, int depth, int flags, SceneView s, Chunk c, void* stream) {
+  if (s.n_lights > REC_MAX_LIGHTS || !chunk_ok(c, width * height, spp)) return (int)cudaErrorInvalidValue;
+  const size_t smem = backward_smem_bytes(n_sv, s.n_tris);
+  cudaError_t err = cudaFuncSetAttribute(adjoint_kernel<B, MEDIA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int* lens = reinterpret_cast<const int*>(rec + (size_t)c.samples * depth * Record<MEDIA>::WORDS * c.pixels);
+  adjoint_kernel<B, MEDIA><<<(c.pixels + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, smem, (cudaStream_t)stream>>>(
+      sv, n_sv, keys, ct, rec, lens, partial, width, height, spp, depth, flags, c.p0, c.pixels, c.k0, c.samples, s);
+  return (int)cudaGetLastError();
+}
+
+// Each kernel's resources for a scene of n_sv scalars and n_tris triangles:
+// out[0..3] the record kernel's registers, stack bytes a thread, dynamic
+// shared bytes a block and blocks an SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor), out[4..7] the adjoint kernel's. Returns a cudaError_t.
+template <class B, bool MEDIA = false>
+int backward_resources(int n_sv, int n_tris, int* out) {
+  const void* fns[2] = {(const void*)record_kernel<B, MEDIA>, (const void*)adjoint_kernel<B, MEDIA>};
+  const size_t smem[2] = {record_smem_bytes(n_sv, n_tris), backward_smem_bytes(n_sv, n_tris)};
+  for (int i = 0; i < 2; ++i) {
+    cudaError_t err = cudaFuncSetAttribute(fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem[i]);
+    cudaFuncAttributes a;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fns[i]);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 4 * i + 3, fns[i], BWD_THREADS,
+                                                                                 smem[i]);
+    if (err != cudaSuccess) return (int)err;
+    out[4 * i] = a.numRegs;
+    out[4 * i + 1] = (int)a.localSizeBytes;
+    out[4 * i + 2] = (int)smem[i];
+  }
+  return 0;
+}
+
+// backward_resources of the backend named by `backend` (0 analytical, 1
+// SDF, 2 small mesh).
+template <bool MEDIA>
+int backward_resources_of(int backend, int n_sv, int n_tris, int* out) {
+  switch (backend) {
+    case 0: return backward_resources<AnalyticalAdj, MEDIA>(n_sv, n_tris, out);
+    case 1: return backward_resources<SdfAdj, MEDIA>(n_sv, n_tris, out);
+    case 2: return backward_resources<MeshAdj, MEDIA>(n_sv, n_tris, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace pt

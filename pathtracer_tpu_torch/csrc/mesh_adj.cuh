@@ -9,9 +9,11 @@
 // is piecewise constant. The tie rule is K1's and JAX's: the first minimum
 // (strict <) wins, and at a tie in t (an edge two triangles share) the
 // whole cotangent goes to the first triangle, not shared as jnp.min shares
-// it (analytical_adj.cuh). The hit test, the winner search and the shadow
-// ray's any hit are boolean and carry none; the topology comes with the
-// launch, which K2 copies to shared memory as K1 does.
+// it (analytical_adj.cuh). The winner is the triangle's index, which K2's
+// record kernel finds with K1's unfused tests and its tie rule and the
+// adjoint reads back; the hit test, the winner search and the shadow ray's
+// any hit are boolean and carry none. The topology comes with the launch,
+// which both of K2's kernels copy to shared memory as K1 does.
 #pragma once
 
 #include "intersect_adj.cuh"
@@ -20,23 +22,38 @@
 
 namespace pt {
 
-// The mesh backend with the adjoint hooks K2 calls. closest_hit_adj runs on
-// a ray that hit: it searches the winner again with K1's unfused tests, so
-// K2 picks K1's triangle, and ignores the hit distance t.
+// The mesh backend with the hooks K2's two kernels call.
 struct MeshAdj : Mesh {
-  template <class A>
-  __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, float ct_t,
-                                                         V3 ct_normal, const A& a, const GradSink& g, V3& c_ro,
-                                                         V3& c_rd) {
+  // Mesh::closest_hit's search: t (+inf on a miss) and the winning triangle.
+  __device__ __forceinline__ static float closest_hit_rec(const SceneView& s, V3 ro, V3 rd, int& win) {
     float best = INFINITY;
-    int idx = 0;
+    win = 0;
     for (int i = 0; i < s.n_tris; ++i) {
-      const float ti = mesh_triangle(s, i, ro, rd);
-      if (ti < best) {
-        best = ti;
-        idx = i;
+      const float t = mesh_triangle(s, i, ro, rd);
+      if (t < best) {
+        best = t;
+        win = i;
       }
     }
+    return isfinite(best) ? best : INFINITY;
+  }
+  // Mesh::closest_hit's normal and raw material on a ray that hit triangle
+  // `win`, in its arithmetic.
+  template <class M>
+  __device__ __forceinline__ static void surface(const SceneView& s, V3 ro, V3 rd, float t, int win, V3& normal,
+                                                 M& mat) {
+    const int* tri = s.topo + 4 * win;
+    const V3 a = mesh_vertex(s, tri[0]);
+    const V3 n = safe_normalize_rn(cross_rn(mesh_vertex(s, tri[1]) - a, mesh_vertex(s, tri[2]) - a));
+    normal = dot_rn(n, rd) > 0.0f ? -n : n;
+    load_material(s, tri[3], mat);
+  }
+  // On a ray that hit triangle `idx`: the cotangents of t, the normal and
+  // the raw material record.
+  template <class A>
+  __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, int idx,
+                                                         float ct_t, V3 ct_normal, const A& a, const GradSink& g,
+                                                         V3& c_ro, V3& c_rd) {
     const int* tri = s.topo + 4 * idx;
     scatter_material_adj(g, material_offset(s, tri[3], a), a, true);
     const V3 va = mesh_vertex(s, tri[0]), vb = mesh_vertex(s, tri[1]), vc = mesh_vertex(s, tri[2]);

@@ -25,8 +25,9 @@
 //
 // No gradient flows through the march, the hit test, the material argmin
 // or the checker's floor; _any_hit_sdf is boolean and has no adjoint. This
-// code may round freely (only the march must replay K1's steps, and it runs
-// sdf.cuh's sdf_march as K1 does).
+// code may round freely: only the march must replay K1's steps, and K2's
+// record kernel runs sdf.cuh's sdf_march as K1 does; the adjoint reads the
+// marched t and the nearest primitive from its record and marches nothing.
 #pragma once
 
 #include "scene_adj.cuh"
@@ -230,17 +231,16 @@ __device__ __forceinline__ void sdf_union_reverse(const SceneView& s, DV3 x, int
   g.add(k_at, c_f * dk.v + dk.t);
 }
 
-// closest_hit on a ray that hit at the marched t: the cotangents of t, of
-// the normal and of the raw material record (the plane's rgb is its
-// checker albedo), whose stride A sets (MatAdj, or MediaMatAdj in the
-// media instantiation).
+// closest_hit on a ray that hit at the marched t, the nearest primitive
+// there `idx` (the record's winner): the cotangents of t, of the normal and
+// of the raw material record (the plane's rgb is its checker albedo), whose
+// stride A sets (MatAdj, or MediaMatAdj in the media instantiation).
 template <class A>
-__device__ __forceinline__ void sdf_closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, float ct_t,
+__device__ __forceinline__ void sdf_closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, int idx, float ct_t,
                                                     V3 ct_normal, const A& a, const GradSink& g, V3& c_ro,
                                                     V3& c_rd) {
   const V3 x = madd3(ro, rd, t);
   const int plane = s.n_materials - 1;
-  const int idx = nearest_primitive(s, x);
   scatter_material_adj(g, material_offset(s, idx, a), a, idx != plane);
   if (idx == plane) {
     const int albedo_at = (int)(sdf_plane(s) - s.sv) + 8;
@@ -267,13 +267,34 @@ __device__ __forceinline__ void sdf_closest_hit_adj(const SceneView& s, V3 ro, V
   sdf_union_reverse(s, xd, n, w, kd, c_f, g);
 }
 
-// The SDF backend with the adjoint hooks K2 calls.
+// The SDF backend with the hooks K2's two kernels call: the record kernel
+// marches (sdf.cuh) and takes the nearest primitive at the hit as the
+// winner; the adjoint marches nothing.
 struct SdfAdj : Sdf {
+  // sdf_closest_hit's march and hit test: t (+inf on a miss) and the
+  // nearest primitive at the hit point.
+  __device__ __forceinline__ static float closest_hit_rec(const SceneView& s, V3 ro, V3 rd, int& win) {
+    const float t = sdf_march(s, ro, rd, SDF_T_MAX).t;
+    win = 0;
+    if (!sdf_converged(s, ro, rd, t)) return INFINITY;
+    win = nearest_primitive(s, madd3(ro, rd, t));
+    return t;
+  }
+  // sdf_closest_hit's normal and raw material at t, primitive `win`, in its
+  // arithmetic.
+  template <class M>
+  __device__ __forceinline__ static void surface(const SceneView& s, V3 ro, V3 rd, float t, int win, V3& normal,
+                                                 M& mat) {
+    const V3 x = madd3(ro, rd, t);
+    normal = sdf_normal(s, x);
+    load_material(s, win, mat);
+    if (win == s.n_materials - 1) mat.rgb = splat3(sdf_checker(s, x));
+  }
   template <class A>
-  __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, float ct_t,
-                                                         V3 ct_normal, const A& a, const GradSink& g, V3& c_ro,
-                                                         V3& c_rd) {
-    sdf_closest_hit_adj(s, ro, rd, t, ct_t, ct_normal, a, g, c_ro, c_rd);
+  __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, int win,
+                                                         float ct_t, V3 ct_normal, const A& a, const GradSink& g,
+                                                         V3& c_ro, V3& c_rd) {
+    sdf_closest_hit_adj(s, ro, rd, t, win, ct_t, ct_normal, a, g, c_ro, c_rd);
   }
   __device__ __forceinline__ static void background_adj(const SceneView& s, V3 rd, V3 ct, const GradSink& g,
                                                         V3& c_rd) {

@@ -26,11 +26,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# kernel -> the flags it adds to NVCC_FLAGS: K2's MEDIA instantiation rounds
-# each product and sum apart, as its plain version does (the glass's
-# grazing refractions amplify a contracted rounding; megakernel_bwd_media.cu)
+# kernel -> the flags it adds to NVCC_FLAGS: K2's MEDIA instantiation (its
+# record kernel and its adjoint) rounds each product and sum apart, as its
+# plain version does (the glass's grazing refractions amplify a contracted
+# rounding; megakernel_bwd_media.cu)
 KERNEL_FLAGS = {"megakernel_bwd_media": ("-fmad=false",)}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 # kernel -> its entry points' (argtypes, restype)
 SIGNATURES = {
     "megakernel_fwd": {
@@ -50,15 +51,25 @@ SIGNATURES = {
     "march_steps": {
         "pt_march_steps": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     },
+    # K2's two kernels of each backend: the record kernel (sv, n_sv, keys,
+    # the record buffer) and the adjoint kernel (sv, n_sv, keys, ct, the
+    # record buffer, partial), then the frame's ints and flags, the
+    # backend's, the chunk (p0, pixels, k0, samples), the stream
     "megakernel_bwd": {
-        "pt_render_backward": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "pt_render_backward_sdf": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "pt_render_backward_mesh": (
-            [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
+        "pt_render_backward_record": ([_P, _I, _P, _P] + [_I] * 11 + [_P], _I),
+        "pt_render_backward_adjoint": ([_P, _I, _P, _P, _P, _P] + [_I] * 11 + [_P], _I),
+        "pt_render_backward_sdf_record": ([_P, _I, _P, _P] + [_I] * 14 + [_P], _I),
+        "pt_render_backward_sdf_adjoint": ([_P, _I, _P, _P, _P, _P] + [_I] * 14 + [_P], _I),
+        "pt_render_backward_mesh_record": ([_P, _I, _P, _P] + [_I] * 7 + [_P] + [_I] * 6 + [_P], _I),
+        "pt_render_backward_mesh_adjoint": ([_P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P] + [_I] * 6 + [_P], _I),
+        "pt_backward_reduce": ([_P, _I, _I, _P, _P], _I),
         "pt_backward_sdf_max_primitives": ([], _I),
-        "pt_backward_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "pt_backward_smem_bytes": ([_I, _I], _S),
         "pt_backward_threads": ([], _I),
-        "pt_backward_max_depth": ([], _I),
+        "pt_backward_max_lights": ([], _I),
+        "pt_backward_record_cap": ([], _S),
+        "pt_backward_record_bytes": ([_I, _I, _I, _I, _S, _P], _S),
+        "pt_backward_resources": ([_I, _I, _I, _P], _I),
     },
 }
 
@@ -75,9 +86,9 @@ _FWD.update({
     "pt_render_forward_occupancy_media_bigmesh": _FWD["pt_render_forward_occupancy_bigmesh"],
 })
 SIGNATURES["megakernel_bwd_media"] = {
-    "pt_render_backward_media": _BWD["pt_render_backward"],
-    "pt_render_backward_media_sdf": _BWD["pt_render_backward_sdf"],
-    "pt_render_backward_media_mesh": _BWD["pt_render_backward_mesh"],
+    **{f"pt_render_backward_media{backend}_{kernel}": _BWD[f"pt_render_backward{backend}_{kernel}"]
+       for backend in ("", "_sdf", "_mesh") for kernel in ("record", "adjoint")},
+    "pt_backward_resources": _BWD["pt_backward_resources"],
 }
 
 

@@ -1,5 +1,5 @@
-"""The megakernels: one CUDA launch renders a frame, one more gives its
-gradient.
+"""The megakernels: one CUDA launch renders a frame, two more (K2's record
+and adjoint kernels) give its gradient.
 
 Port of `pathtracer_tpu/ops/megakernel.py`. The TPU kernels
 `_pallas_forward` (K1) and `_pallas_backward` (K2) become
@@ -23,7 +23,10 @@ replays exactly K1's paths.
 
 `render_frame_megakernel` is the wrapper. On a CUDA scene it launches K1,
 through `MegakernelRender` (the port of `_diff_render`) when a scene leaf
-requires grad, whose backward launches K2; `pack_scene` is ordinary torch
+requires grad, whose backward launches K2 (`launch_backward`: a record
+kernel that traces each sample's path once and writes what each bounce
+decided, then an adjoint kernel that runs the reverse sweep from those
+records, and a reduction); `pack_scene` is ordinary torch
 ops, so autograd carries d/d(sv) on to the scene leaves. A failed launch
 raises; nothing falls back to autograd. On a CPU scene it runs the plain
 version, the eager integrator under the detached-sampling estimator, with
@@ -46,6 +49,7 @@ K4 (`csrc/uniform_stream.cu`), which writes the uniforms K1's threads draw.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple
 
 import torch
@@ -156,11 +160,11 @@ def unpack_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
 class Backend(NamedTuple):
     """How the kernels take a scene family: its packer (with_medium as its
     fourth argument) and the packer's inverse (for the plain versions), the
-    extra ints its entry points take after the flags, K1's, K3's and K2's
-    entry points (K2's None where K2 does not take the family), the device
-    tensors its entry points take before those ints, and K1's, K3's and
-    K2's media entry points (the same arguments; K2's None as its
-    media-free one)."""
+    extra ints its entry points take after the flags, K1's and K3's entry
+    points and the stem of K2's (`<stem>_record` and `<stem>_adjoint`; None
+    where K2 does not take the family), the device tensors its entry points
+    take before those ints, and K1's, K3's and K2's media entry points (the
+    same arguments; K2's None as its media-free one)."""
 
     pack: Callable[..., torch.Tensor]
     unpack: Callable[[torch.Tensor, Scene], tuple]
@@ -326,30 +330,129 @@ def _require_backward(backend: str, media: bool = False) -> None:
                                   "has autograd")
 
 
-def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
-    """One launch of K2 on PyTorch's current stream: d(sum(ct * frame))/d(sv)
-    [1, P] for the frame K1 renders from `k`; ct [H, W, 4] float32 (its
-    alpha channel gets no gradient). Counted in
-    `render_frame_megakernel.bwd_launches`, and those with another backend
-    than the analytical one in `render_frame_megakernel.<backend>_bwd_launches`
-    too (sdf_bwd_launches, mesh_bwd_launches), and a launch of the media
-    instantiation (`k.media`) in `.media_bwd_launches` too. A scene whose packed vector,
-    gradient table and topology exceed K2's shared memory per block (the
-    card's opt-in maximum, not K1's 48 KB of ops/megakernel_mesh) raises."""
+def record_plan(k: KernelLaunch, cap: int | None = None) -> tuple[int, int, int]:
+    """How K2's record buffer takes launch `k`'s frame
+    (csrc/megakernel_bwd.cuh record_plan) within `cap` bytes (None: the
+    source's cap, `pt_backward_record_cap()`, which also bounds any other):
+    (its bytes, the pixels and the samples a chunk)."""
+    from . import _build
+
+    lib = _build.load("megakernel_bwd")
+    cap = lib.pt_backward_record_cap() if cap is None else cap
+    height, width = k.out.shape[:2]
+    plan = (ctypes.c_int * 2)()
+    nbytes = lib.pt_backward_record_bytes(width * height, k.spp, k.depth, int(k.media), cap, plan)
+    if nbytes == 0:
+        raise ValueError(f"one block's records at depth {k.depth} exceed the backward megakernel's record buffer "
+                         f"of {min(cap, lib.pt_backward_record_cap())} bytes")
+    return nbytes, plan[0], plan[1]
+
+
+def record_chunks(k: KernelLaunch, cap: int | None = None) -> list[tuple[int, int, int, int]]:
+    """record_plan's chunks of launch `k`'s frame, in launch order: (p0,
+    pixels, k0, samples), samples [k0, k0 + samples) of pixels [p0, p0 +
+    pixels)."""
+    _, pixels, samples = record_plan(k, cap)
+    height, width = k.out.shape[:2]
+    n = width * height
+    return [(p0, min(pixels, n - p0), k0, min(samples, k.spp - k0))
+            for p0 in range(0, n, pixels) for k0 in range(0, k.spp, samples)]
+
+
+def record_buffer(k: KernelLaunch, cap: int | None = None) -> torch.Tensor:
+    """An uninitialised record buffer for launch `k` (record_plan's bytes,
+    float32 words) on its device."""
+    return torch.empty(record_plan(k, cap)[0] // 4, dtype=torch.float32, device=k.sv.device)
+
+
+def record_args(k: KernelLaunch, rec: torch.Tensor, chunk: tuple) -> tuple:
+    """The arguments of K2's record entry point of `k`'s backend for one
+    chunk (record_chunks) into `rec`."""
+    height, width = k.out.shape[:2]
+    return (k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), rec.data_ptr(), width, height, k.spp, k.depth,
+            k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras), *k.counts, *chunk,
+            torch.cuda.current_stream(k.sv.device).cuda_stream)
+
+
+def adjoint_args(k: KernelLaunch, ct: torch.Tensor, rec: torch.Tensor, partial: torch.Tensor, chunk: tuple) -> tuple:
+    """The arguments of K2's adjoint entry point of `k`'s backend for one
+    chunk from `rec` into `partial`; ct contiguous float32 [H, W, 4]."""
+    height, width = k.out.shape[:2]
+    return (k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), ct.data_ptr(), rec.data_ptr(), partial.data_ptr(),
+            width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
+            *k.counts, *chunk, torch.cuda.current_stream(k.sv.device).cuda_stream)
+
+
+def backward_entries(k: KernelLaunch, csrc=None) -> tuple:
+    """The record and adjoint entry points of `k`'s backend and
+    instantiation, in this checkout's build or in that of the sources
+    `csrc` (tools/k2_pair)."""
+    from . import _build
+
+    lib = _build.load("megakernel_bwd_media" if k.media else "megakernel_bwd", csrc=csrc or _build.CSRC)
+    b = BACKENDS[k.backend]
+    stem = b.media_backward if k.media else b.backward
+    return getattr(lib, f"{stem}_record"), getattr(lib, f"{stem}_adjoint"), lib
+
+
+def _check(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"backward megakernel {what} launch failed: {lib.pt_error_string(err).decode()}")
+
+
+def launch_record(k: KernelLaunch, rec: torch.Tensor, chunk: tuple) -> None:
+    """One launch of K2's record kernel for one chunk of launch `k`'s frame
+    (record_chunks) into `rec` (record_plan's bytes), on PyTorch's current
+    stream; counted in `render_frame_megakernel.record_launches`."""
+    record, _, lib = backward_entries(k)
+    _check(record(*record_args(k, rec, chunk)), lib, "record kernel")
+    render_frame_megakernel.record_launches += 1
+
+
+def launch_adjoint(k: KernelLaunch, ct: torch.Tensor, rec: torch.Tensor, partial: torch.Tensor, chunk: tuple) -> None:
+    """One launch of K2's adjoint kernel for the same chunk from the records
+    launch_record wrote into `rec`, into partial [ceil(W*H/128), P] (a
+    chunk of later samples adds to the earlier ones' block sums), on
+    PyTorch's current stream; counted in
+    `render_frame_megakernel.adjoint_launches`."""
+    _, adjoint, lib = backward_entries(k)
+    _check(adjoint(*adjoint_args(k, ct, rec, partial, chunk)), lib, "adjoint kernel")
+    render_frame_megakernel.adjoint_launches += 1
+
+
+def launch_backward(k: KernelLaunch, ct: torch.Tensor, cap: int | None = None) -> torch.Tensor:
+    """K2 on PyTorch's current stream: d(sum(ct * frame))/d(sv) [1, P] for
+    the frame K1 renders from `k`; ct [H, W, 4] float32 (its alpha channel
+    gets no gradient). K2 is two kernels: for each chunk of record_chunks
+    (the record buffer allocated here holds at most
+    `pt_backward_record_cap()` bytes, or `cap` where that is less, which
+    makes chunks of a small frame) the record kernel traces each sample's
+    path once and writes what each bounce decided (launch_record), and the
+    adjoint kernel runs the reverse sweep from those records
+    (launch_adjoint); then a reduction sums the blocks, one launch a call,
+    counted in `render_frame_megakernel.bwd_launches`, and those with
+    another backend than the analytical one in
+    `render_frame_megakernel.<backend>_bwd_launches` too (sdf_bwd_launches,
+    mesh_bwd_launches), a launch of the media instantiation (`k.media`) in
+    `.media_bwd_launches` too.
+    A scene whose packed vector, gradient table and topology exceed K2's
+    shared memory per block (the card's opt-in maximum, not K1's 48 KB of
+    ops/megakernel_mesh), or with more lights than its records index,
+    raises."""
     from . import _build
 
     if k.sv.device.type != "cuda":
         raise ValueError("the backward megakernel needs CUDA tensors")
     _require_backward(k.backend, k.media)
     lib = _build.load("megakernel_bwd")
-    entry_lib = _build.load("megakernel_bwd_media") if k.media else lib
     if k.backend == "sdf" and sum(k.counts) + 1 > lib.pt_backward_sdf_max_primitives():
         raise ValueError(f"the backward megakernel holds {lib.pt_backward_sdf_max_primitives()} SDF primitives "
                          f"(the plane included), got {sum(k.counts) + 1}")
+    if k.n_lights > lib.pt_backward_max_lights():
+        raise ValueError(f"the backward megakernel's records index {lib.pt_backward_max_lights()} lights, got "
+                         f"{k.n_lights}")
     height, width = k.out.shape[:2]
     n_sv = k.sv.shape[1]
-    if k.depth > lib.pt_backward_max_depth():
-        raise ValueError(f"the backward megakernel holds {lib.pt_backward_max_depth()} bounces, got depth {k.depth}")
     n_tris = k.counts[0] if k.backend == "mesh" else 0
     smem = lib.pt_backward_smem_bytes(n_sv, n_tris)
     budget = torch.cuda.get_device_properties(k.sv.device).shared_memory_per_block_optin
@@ -360,24 +463,40 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor) -> torch.Tensor:
     if ct.shape != k.out.shape or ct.device != k.sv.device:
         raise ValueError(f"cotangent {tuple(ct.shape)} on {ct.device}, frame {tuple(k.out.shape)} on {k.sv.device}")
     ct = ct.to(torch.float32).contiguous()
+    rec = record_buffer(k, cap)
     blocks = -(-width * height // lib.pt_backward_threads())
     partial = torch.empty((blocks, n_sv), dtype=torch.float32, device=k.sv.device)
     grad = torch.empty((1, n_sv), dtype=torch.float32, device=k.sv.device)
-    b = BACKENDS[k.backend]
-    err = getattr(entry_lib, b.media_backward if k.media else b.backward)(
-        k.sv.data_ptr(), n_sv, k.keys.data_ptr(), ct.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
-        *k.counts, torch.cuda.current_stream(k.sv.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"backward megakernel launch failed: {entry_lib.pt_error_string(err).decode()}")
-    render_frame_megakernel.bwd_launches += 1
+    for chunk in record_chunks(k, cap):
+        launch_record(k, rec, chunk)
+        launch_adjoint(k, ct, rec, partial, chunk)
+    stream = torch.cuda.current_stream(k.sv.device).cuda_stream
+    _check(lib.pt_backward_reduce(partial.data_ptr(), blocks, n_sv, grad.data_ptr(), stream), lib, "reduction")
+    counter = render_frame_megakernel
+    counter.bwd_launches += 1
     if k.backend != "analytical":
         name = f"{k.backend}_bwd_launches"
-        setattr(render_frame_megakernel, name, getattr(render_frame_megakernel, name) + 1)
+        setattr(counter, name, getattr(counter, name) + 1)
     if k.media:
-        render_frame_megakernel.media_bwd_launches += 1
+        counter.media_bwd_launches += 1
     return grad
+
+
+def backward_resources(k: KernelLaunch) -> dict:
+    """K2's two kernels of launch `k`'s backend and instantiation on the
+    card: {"record": ..., "adjoint": ...}, each its registers, stack bytes a
+    thread, dynamic shared bytes a block and blocks an SM (the CUDA
+    runtime's occupancy calculator)."""
+    from . import _build
+
+    lib = _build.load("megakernel_bwd_media" if k.media else "megakernel_bwd")
+    out = (ctypes.c_int * 8)()
+    n_tris = k.counts[0] if k.backend == "mesh" else 0
+    err = lib.pt_backward_resources(("analytical", "sdf", "mesh").index(k.backend), k.sv.shape[1], n_tris, out)
+    if err != 0:
+        raise RuntimeError(f"backward megakernel resources: {lib.pt_error_string(err).decode()}")
+    names = ("registers", "stack_bytes", "shared_bytes", "blocks_per_sm")
+    return {kernel: dict(zip(names, out[4 * i:4 * i + 4])) for i, kernel in enumerate(("record", "adjoint"))}
 
 
 class MegakernelRender(torch.autograd.Function):
@@ -414,8 +533,10 @@ def render_frame_megakernel(
 
     A CUDA scene goes through K1 (one launch, counted in
     `render_frame_megakernel.launches`) with its scene's backend; when a
-    scene leaf requires grad, the frame's backward is one launch of K2 with
-    the same backend (counted in `render_frame_megakernel.bwd_launches`);
+    scene leaf requires grad, the frame's backward is one call of K2 with
+    the same backend (counted in `render_frame_megakernel.bwd_launches`;
+    its record and adjoint kernels' launches, one each a chunk, in
+    `.record_launches` and `.adjoint_launches`);
     K2 takes no big mesh, and such a gradient on the card raises
     NotImplementedError before any launch. A scene with a medium takes K1's
     and K2's media instantiations (also counted in
@@ -443,6 +564,8 @@ render_frame_megakernel.bwd_launches = 0
 render_frame_megakernel.sdf_bwd_launches = 0
 render_frame_megakernel.mesh_bwd_launches = 0
 render_frame_megakernel.media_bwd_launches = 0
+render_frame_megakernel.record_launches = 0
+render_frame_megakernel.adjoint_launches = 0
 
 
 # A row of lanes: of JAX's tiles and of debug_uniform_stream's output, and

@@ -95,7 +95,7 @@ from pathtracer_tpu_torch.ops import megakernel as mk  # noqa: E402
 from pathtracer_tpu_torch.ops import megakernel_mesh as mkm  # noqa: E402
 from pathtracer_tpu_torch.ops import megakernel_sdf as mks  # noqa: E402
 from pathtracer_tpu_torch.ops.vecmath import V2, dot  # noqa: E402
-from test_torch_kernel_bwd_host import SHIM as BWD_SHIM  # noqa: E402
+from test_torch_kernel_bwd_host import HOST_BACKWARD, SHIM as BWD_SHIM  # noqa: E402
 from test_torch_kernel_host import PRELUDE, SHIM as FWD_SHIM, launch_keys  # noqa: E402
 from test_torch_mesh_kernel_bwd_host import SHIM as MESH_BWD_SHIM  # noqa: E402
 from test_torch_sdf_kernel_bwd_host import SHIM as SDF_BWD_SHIM  # noqa: E402
@@ -109,9 +109,8 @@ SDF_RENDER = r"""
 extern "C" void host_grad_pixel_sdf(const float* sv, const int* counts, const uint32_t* keys, const float* ct,
                                     float* grad, int p, int width, int height, int depth, int n_lights,
                                     int n_materials, int flags) {
-  const pt::SceneView s = view(sv, counts, n_lights, n_materials);
-  pt::trace_sample_adj<pt::SdfAdj>(s, p, width * height, width, height, depth, flags, keys[0], keys[1], keys[2],
-                                   keys[3], pt::v3(ct[0], ct[1], ct[2]), {grad, 1});
+  host_backward_pixel<pt::SdfAdj, false>(view(sv, counts, n_lights, n_materials), keys, pt::v3(ct[0], ct[1], ct[2]),
+                                         grad, p, width, height, depth, flags);
 }
 
 extern "C" void host_render_sdf(const float* sv, const int* counts, const uint32_t* keys, float* out, int width,
@@ -134,9 +133,9 @@ extern "C" void host_render_sdf(const float* sv, const int* counts, const uint32
 ANALYTICAL_PIXEL = r"""
 extern "C" void host_grad_pixel(const float* sv, const uint32_t* keys, const float* ct, float* grad, int p, int width,
                                 int height, int depth, int n_lights, int n_materials, int flags) {
-  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
-  pt::trace_sample_adj<pt::AnalyticalAdj>(s, p, width * height, width, height, depth, flags, keys[0], keys[1],
-                                          keys[2], keys[3], pt::v3(ct[0], ct[1], ct[2]), {grad, 1});
+  host_backward_pixel<pt::AnalyticalAdj, false>(
+      pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0), keys,
+      pt::v3(ct[0], ct[1], ct[2]), grad, p, width, height, depth, flags);
 }
 """
 
@@ -146,9 +145,8 @@ MESH_RENDER = r"""
 extern "C" void host_grad_pixel_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
                                      const float* ct, float* grad, int p, int width, int height, int depth,
                                      int n_lights, int n_materials, int flags) {
-  const pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
-  pt::trace_sample_adj<pt::MeshAdj>(s, p, width * height, width, height, depth, flags, keys[0], keys[1], keys[2],
-                                    keys[3], pt::v3(ct[0], ct[1], ct[2]), {grad, 1});
+  host_backward_pixel<pt::MeshAdj, false>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys,
+                                          pt::v3(ct[0], ct[1], ct[2]), grad, p, width, height, depth, flags);
 }
 
 extern "C" void host_render_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
@@ -171,19 +169,13 @@ extern "C" void host_render_mesh(const float* sv, const int* topo, int n_tris, i
 MEDIA_SHIM = PRELUDE + r"""
 #include "analytical_adj.cuh"
 #include "tracer_adj.cuh"
+""" + HOST_BACKWARD + r"""
 
 extern "C" void host_grad_media(const float* sv, const uint32_t* keys, const float* ct, float* grad, int width,
                                 int height, int spp, int depth, int n_lights, int n_materials, int flags) {
-  const int n = width * height;
-  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
-  for (int p = 0; p < n; ++p) {
-    const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
-    for (int k = 0; k < spp; ++k) {
-      const uint32_t* kk = keys + 4 * k;
-      pt::trace_sample_adj<pt::AnalyticalAdj, true>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3],
-                                                    c, {grad, 1});
-    }
-  }
+  host_backward<pt::AnalyticalAdj, true>(
+      pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0), keys, ct, grad, width,
+      height, spp, depth, flags);
 }
 
 extern "C" void host_render_media(const float* sv, const uint32_t* keys, float* out, int width, int height, int spp,

@@ -1,15 +1,19 @@
 """The backward megakernel's per-thread code, compiled for the host and held
 to the autograd of its plain PyTorch version.
 
-`csrc/tracer_adj.cuh` (the hand-written adjoint of one sample of one pixel)
-and the adjoint headers under it are plain C++ apart from the CUDA
-qualifiers, so g++ builds them behind the shim of test_torch_kernel_host.py.
-A host loop runs `trace_sample_adj` for every pixel and sample exactly as
-the kernel's threads do and sums d(<ct, frame>)/d(sv); the plain version is
+`csrc/tracer_adj.cuh` (the hand-written record and adjoint steps of one
+sample of one pixel) and the adjoint headers under it are plain C++ apart
+from the CUDA qualifiers, so g++ builds them behind the shim of
+test_torch_kernel_host.py. A host loop runs K2's two kernels as their
+threads do (HOST_BACKWARD): `record_sample` for every pixel and sample,
+writing the records in the kernels' [sample][bounce][word][pixel] layout,
+then `adjoint_sample` for every pixel and sample from those records, summing
+d(<ct, frame>)/d(sv); the plain version is
 `ops/megakernel.render_grad_reference`, torch autograd of the eager frame
 rendered from the same packed scene vector sv under the detached-sampling
-estimator. The BSDF adjoints, the most intricate pieces, are also held to
-autograd of `ops/bsdf` on their own, lane by lane.
+estimator. The records' carries are held bit for bit to what tracer.cuh's
+bounce hands on. The BSDF adjoints, the most intricate pieces, are also
+held to autograd of `ops/bsdf` on their own, lane by lane.
 
 Tolerance (gradients): entries above 1e-3 max|ref| within rtol 5e-3, the
 others within 1e-3 max|ref|. Both sides are float32 and sum over pixels in
@@ -25,7 +29,7 @@ import pytest
 import torch
 
 from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
-from pathtracer_tpu_torch.models.analytical import make_scene
+from pathtracer_tpu_torch.models.analytical import default_params, make_scene
 from pathtracer_tpu_torch.models.material import finalize_material, make_material, stack_materials
 from pathtracer_tpu_torch.ops import bsdf, rng
 from pathtracer_tpu_torch.ops import megakernel as MK
@@ -42,23 +46,137 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 # of that time; keyed "<case>_<W>x<H>".
 UNCHANGED = os.path.join(os.path.dirname(__file__), "golden_torch", "k2_host_analytical.npz")
 
+# K2's two kernels on the host, after tracer_adj.cuh and the backend's
+# adjoint header: host_backward runs the record step of every pixel and
+# sample of a chunk of pixels, then the adjoint step of each pixel, its
+# samples in order, as record_kernel's and adjoint_kernel's threads do;
+# host_backward_pixel one sample of one pixel; host_carries the carries the
+# record step writes beside those tracer.cuh's bounce (media_bounce with
+# MEDIA) hands on, each path's bounces in both.
+HOST_BACKWARD = r"""
+#include <vector>
+
+template <class B, bool MEDIA>
+static void host_backward(const pt::SceneView& s, const uint32_t* keys, const float* ct, float* grad, int width,
+                          int height, int spp, int depth, int flags) {
+  constexpr int W = pt::Record<MEDIA>::WORDS;
+  const int n = width * height, chunk = std::min(n, 1 << 16);
+  std::vector<float> rec((size_t)spp * depth * W * chunk);
+  std::vector<int> lens((size_t)spp * chunk);
+  const pt::GradSink g = {grad, 1};
+  for (int p0 = 0; p0 < n; p0 += chunk) {
+    const int pixels = std::min(chunk, n - p0);
+    auto record = [&](int k, int q) { return pt::Record<MEDIA>{rec.data() + (size_t)k * depth * W * pixels + q, pixels}; };
+    for (int k = 0; k < spp; ++k) {
+      const uint32_t* kk = keys + 4 * k;
+      for (int q = 0; q < pixels; ++q) {
+        lens[(size_t)k * pixels + q] = pt::record_sample<B, MEDIA>(s, p0 + q, n, width, height, depth, flags, kk[0],
+                                                                   kk[1], kk[2], kk[3], record(k, q));
+      }
+    }
+    for (int q = 0; q < pixels; ++q) {
+      const int p = p0 + q;
+      const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
+      for (int k = 0; k < spp; ++k) {
+        const uint32_t* kk = keys + 4 * k;
+        pt::adjoint_sample<B, MEDIA>(s, p, n, width, height, flags, kk[0], kk[1], kk[2], kk[3], c, record(k, q),
+                                     lens[(size_t)k * pixels + q], g);
+      }
+    }
+  }
+}
+
+template <class B, bool MEDIA>
+static void host_backward_pixel(const pt::SceneView& s, const uint32_t* kk, pt::V3 ct, float* grad, int p, int width,
+                                int height, int depth, int flags) {
+  std::vector<float> rec((size_t)depth * pt::Record<MEDIA>::WORDS + 1);
+  const pt::Record<MEDIA> r = {rec.data(), 1};
+  const int n = width * height;
+  const int bounces = pt::record_sample<B, MEDIA>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], r);
+  pt::adjoint_sample<B, MEDIA>(s, p, n, width, height, flags, kk[0], kk[1], kk[2], kk[3], ct, r, bounces, {grad, 1});
+}
+
+// For sample k of pixel p, out[((k n + p) depth + d) words + j]: word j of the
+// carry entering bounce d (words = 14, 20 with the medium), first as
+// record_sample writes it (rec_carry), then as bounce hands it on
+// (ref_carry); rec_len and ref_len the bounces each entered.
+template <class B, bool MEDIA>
+static void host_carries(const pt::SceneView& s, const uint32_t* keys, int width, int height, int spp, int depth,
+                         int flags, float* rec_carry, float* ref_carry, int* rec_len, int* ref_len) {
+  constexpr int words = MEDIA ? 20 : 14;
+  const int n = width * height;
+  std::vector<float> rec((size_t)depth * pt::Record<MEDIA>::WORDS + 1);
+  const pt::Record<MEDIA> r = {rec.data(), 1};
+  auto put = [&](float* out, int k, int p, int d, const pt::PathCarry& c, const pt::Medium* m) {
+    float* o = out + (((size_t)k * n + p) * depth + d) * words;
+    const float w[14] = {c.ro.x, c.ro.y, c.ro.z, c.rd.x, c.rd.y, c.rd.z, c.throughput.x, c.throughput.y,
+                         c.throughput.z, c.prev_pdf, c.prev_l.x, c.prev_l.y, c.prev_l.z, c.prev_hit_dist};
+    for (int j = 0; j < 14; ++j) o[j] = w[j];
+    if (m) {
+      const float mw[6] = {(float)m->type, m->density, m->color.x, m->color.y, m->color.z, m->aniso};
+      for (int j = 0; j < 6; ++j) o[14 + j] = mw[j];
+    }
+  };
+  for (int k = 0; k < spp; ++k) {
+    const uint32_t* kk = keys + 4 * k;
+    for (int p = 0; p < n; ++p) {
+      const int len = pt::record_sample<B, MEDIA>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], r);
+      rec_len[k * n + p] = len;
+      for (int d = 0; d < len; ++d) {
+        const pt::PathCarry c = pt::get_carry(r, d);
+        if constexpr (MEDIA) {
+          const pt::Medium m = pt::get_medium(r, d);
+          put(rec_carry, k, p, d, c, &m);
+        } else {
+          put(rec_carry, k, p, d, c, nullptr);
+        }
+      }
+      pt::V3 q;
+      float sx, sy;
+      const pt::V3 rd = pt::camera_ray(s, p, width, height, pt::uniform_at(kk[0], kk[1], pt::camera_counter(p, 0)),
+                                       pt::uniform_at(kk[0], kk[1], pt::camera_counter(p, 1)), q, sx, sy);
+      pt::V3 radiance = pt::splat3(0.0f);
+      int entered = 0;
+      if constexpr (MEDIA) {
+        pt::MediaCarry c;
+        static_cast<pt::PathCarry&>(c) = pt::init_carry(s, rd, flags);
+        c.med = pt::vacuum();
+        for (int d = 0; d < depth; ++d) {
+          put(ref_carry, k, p, d, c, &c.med);
+          entered = d + 1;
+          if (!pt::media_bounce<B>(s, c, radiance, n, p, d, flags, kk[2], kk[3])) break;
+        }
+      } else {
+        pt::PathCarry c = pt::init_carry(s, rd, flags);
+        for (int d = 0; d < depth; ++d) {
+          put(ref_carry, k, p, d, c, nullptr);
+          entered = d + 1;
+          if (!pt::bounce<B>(s, c, radiance, n, p, d, flags, kk[2], kk[3])) break;
+        }
+      }
+      ref_len[k * n + p] = entered;
+    }
+  }
+}
+"""
+
 SHIM = PRELUDE + r"""
 #include "analytical_adj.cuh"
 #include "tracer_adj.cuh"
-
+""" + HOST_BACKWARD + r"""
 extern "C" void host_grad(const float* sv, const uint32_t* keys, const float* ct, float* grad, int width, int height,
                           int spp, int depth, int n_lights, int n_materials, int flags) {
-  const int n = width * height;
-  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
-  const pt::GradSink g = {grad, 1};
-  for (int p = 0; p < n; ++p) {
-    const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
-    for (int k = 0; k < spp; ++k) {
-      const uint32_t* kk = keys + 4 * k;
-      pt::trace_sample_adj<pt::AnalyticalAdj>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], c,
-                                              g);
-    }
-  }
+  host_backward<pt::AnalyticalAdj, false>(
+      pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0), keys, ct, grad, width,
+      height, spp, depth, flags);
+}
+
+extern "C" void host_carries_analytical(const float* sv, const uint32_t* keys, int width, int height, int spp,
+                                        int depth, int n_lights, int n_materials, int flags, float* rec_carry,
+                                        float* ref_carry, int* rec_len, int* ref_len) {
+  host_carries<pt::AnalyticalAdj, false>(
+      pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0), keys, width, height,
+      spp, depth, flags, rec_carry, ref_carry, rec_len, ref_len);
 }
 
 static pt::V3 at3(const float* a, int i) { return pt::v3(a[3 * i], a[3 * i + 1], a[3 * i + 2]); }
@@ -66,7 +184,8 @@ static void put3(float* a, int i, pt::V3 v) { a[3 * i] = v.x; a[3 * i + 1] = v.y
 
 // Lane i: material record rec[20 i], eta, v_world, n_world and a third
 // direction (the light direction of disney_eval, prev_l of disney_sample).
-// Writes the cotangents of the raw record, eta, v_world and n_world.
+// Writes the cotangents of the raw record, eta, v_world and n_world for
+// the given cotangents (of f and the pdf, or of the direction and f).
 extern "C" void host_bsdf_adj(int sample, int n, const float* rec, const float* eta, const float* vw, const float* nw,
                               const float* dir, const float* u, const float* ct_a, const float* ct_b, float* c_rec,
                               float* c_eta, float* c_vw, float* c_nw) {
@@ -78,10 +197,23 @@ extern "C" void host_bsdf_adj(int sample, int n, const float* rec, const float* 
     float ce = 0.0f;
     pt::V3 cv = pt::splat3(0.0f), cn = pt::splat3(0.0f);
     if (sample) {
-      pt::disney_sample_adj(m, eta[i], at3(vw, i), at3(nw, i), at3(dir, i), u[3 * i], u[3 * i + 1], u[3 * i + 2],
-                            at3(ct_a, i), at3(ct_b, i), a, ce, cv, cn);
+      pt::disney_sample_with_adj(
+          m, eta[i], at3(vw, i), at3(nw, i), at3(dir, i), u[3 * i], u[3 * i + 1], u[3 * i + 2],
+          [&](const pt::BsdfSample&, pt::V3& c_l, pt::V3& c_f) {
+            c_l = at3(ct_a, i);
+            c_f = at3(ct_b, i);
+            return true;
+          },
+          a, ce, cv, cn);
     } else {
-      pt::disney_eval_adj(m, eta[i], at3(vw, i), at3(nw, i), at3(dir, i), at3(ct_a, i), ct_b[3 * i], a, ce, cv, cn);
+      pt::disney_eval_with_adj(
+          m, eta[i], at3(vw, i), at3(nw, i), at3(dir, i),
+          [&](pt::V3, float, pt::V3& c_f, float& c_pdf) {
+            c_f = at3(ct_a, i);
+            c_pdf = ct_b[3 * i];
+            return true;
+          },
+          a, ce, cv, cn);
     }
     pt::finalize_material_adj(raw, a);
     const pt::GradSink g = {c_rec + 20 * i, 1};
@@ -99,6 +231,7 @@ def bwd_lib(tmp_path_factory):
     lib = build_shim(tmp_path_factory.mktemp("kernel_bwd_host"), SHIM)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_grad.argtypes = [p, p, p, p, i, i, i, i, i, i, i]
+    lib.host_carries_analytical.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p]
     lib.host_bsdf_adj.argtypes = [i, i] + [p] * 12
     return lib
 
@@ -148,6 +281,71 @@ def test_backward_code_matches_autograd(bwd_lib, case):
     sv, grad = host_grad(bwd_lib, scene, key, ct, w, h, spp, quirks)
     ref = MK.render_grad_reference(sv, scene, key, ct, w, h, spp, quirks)
     assert_grad_close(grad, ref)
+
+
+def record_carries(entry, head, w, h, spp, depth, words):
+    """entry(*head, rec_carry, ref_carry, rec_len, ref_len) of HOST_BACKWARD's
+    host_carries: the carries the record step writes and those bounce hands
+    on, [spp, H*W, depth, words] float32, and the bounces each path entered
+    in both, [spp, H*W] int32."""
+    rec = torch.zeros((spp, h * w, depth, words), dtype=torch.float32)
+    ref = torch.zeros_like(rec)
+    rec_len = torch.zeros((spp, h * w), dtype=torch.int32)
+    ref_len = torch.zeros_like(rec_len)
+    entry(*head, rec.data_ptr(), ref.data_ptr(), rec_len.data_ptr(), ref_len.data_ptr())
+    return rec, ref, rec_len, ref_len
+
+
+def assert_carries_equal(rec, ref, rec_len, ref_len, min_bounces=2):
+    """The records' carries bit for bit those bounce hands on, on paths of
+    the same length, some of them at least min_bounces long."""
+    assert torch.equal(rec_len, ref_len)
+    assert int(rec_len.max()) >= min_bounces
+    assert torch.equal(rec.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["alpha_and_transmission", "d4_spp2_fixed", "depth8_respect_max_dist",
+                                  "three_light_types"])
+def test_records_carry_what_bounce_hands_on(bwd_lib, case):
+    """K2's record step writes, bounce by bounce, the carry tracer.cuh's
+    bounce hands on (the one K1 traces), bit for bit."""
+    make, spp, quirks = CASES[case]
+    scene = make()
+    w, h = 32, 16
+    sv = MK.pack_scene(scene, w, h).contiguous()
+    keys = launch_keys(rng.prng_key(sorted(CASES).index(case) + 21), spp)
+    head = (sv.data_ptr(), keys.data_ptr(), w, h, spp, scene.recursion_depth, scene.num_lights,
+            int(scene.params.materials.roughness.shape[0]), MK.kernel_flags(scene, quirks))
+    assert_carries_equal(*record_carries(bwd_lib.host_carries_analytical, head, w, h, spp, scene.recursion_depth, 14))
+
+
+def enclosed_scene(depth: int = 20):
+    """The demo scene inside sphere 1, grown to radius 20 about the origin:
+    the camera, sphere 0, the light and the floor all lie within it, so a
+    path ends only on the light or at `depth` (at 16x8, seed 7, a third of
+    the paths enter more than 16 bounces)."""
+    p = default_params()
+    p = p._replace(sphere_center=V3(torch.tensor([-1.1, 0.0]), torch.tensor([0.0, 0.0]), torch.tensor([0.0, 0.0])),
+                   sphere_radius=torch.tensor([1.0, 20.0]))
+    return make_scene(recursion_depth=depth, params=p)
+
+
+@pytest.mark.parametrize("quirks", [VERBATIM, FIXED], ids=["verbatim", "fixed"])
+def test_deep_paths_match_autograd(bwd_lib, quirks):
+    """Depth 20, past the 16 bounces the adjoint once held per thread: the
+    records carry what bounce hands on, and the gradient matches autograd
+    of the plain version."""
+    scene = enclosed_scene()
+    w, h, seed = 16, 8, 7
+    key = rng.prng_key(seed)
+    sv = MK.pack_scene(scene, w, h).contiguous()
+    keys = launch_keys(key, 1)
+    head = (sv.data_ptr(), keys.data_ptr(), w, h, 1, 20, scene.num_lights,
+            int(scene.params.materials.roughness.shape[0]), MK.kernel_flags(scene, quirks))
+    assert_carries_equal(*record_carries(bwd_lib.host_carries_analytical, head, w, h, 1, 20, 14), min_bounces=20)
+    ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((h, w, 4)).astype(np.float32))
+    sv, grad = host_grad(bwd_lib, scene, key, ct, w, h, 1, quirks)
+    assert_grad_close(grad, MK.render_grad_reference(sv, scene, key, ct, w, h, 1, quirks))
 
 
 def _unchanged_keys():

@@ -52,7 +52,7 @@ from pathtracer_tpu_torch.models.analytical import make_scene
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import megakernel_mesh as MM
 from pathtracer_tpu_torch.ops import megakernel_sdf as MS
-from pathtracer_tpu_torch.ops import rng
+from pathtracer_tpu_torch.ops import _build, rng
 from pathtracer_tpu_torch.models.material import MediumType
 from pathtracer_tpu_torch.tools import validate_rng
 from test_torch_media_kernel_host import DEMO, media_scene
@@ -114,9 +114,11 @@ def test_backward_kernel_matches_plain_version(cuda_device, spp, quirks, seed):
     key, (w, h) = rng.prng_key(seed), (320, 240)
     k = MK.prepare_launch(scene, key, w, h, spp, quirks)
     ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
-    launches = MK.render_frame_megakernel.bwd_launches
+    fn = MK.render_frame_megakernel
+    launches = (fn.bwd_launches, fn.record_launches, fn.adjoint_launches)
     g = MK.launch_backward(k, ct)
-    assert MK.render_frame_megakernel.bwd_launches == launches + 1 and g.shape == (1, k.sv.shape[1])
+    assert (fn.bwd_launches, fn.record_launches, fn.adjoint_launches) == (
+        launches[0] + 1, launches[1] + 1, launches[2] + 1) and g.shape == (1, k.sv.shape[1])
     assert torch.equal(MK.launch_backward(k, ct), g)  # reproducible bit for bit
     assert torch.isfinite(g).all()
     edge = (MK.launch(k) - MK.render_frame_reference(scene, key, w, h, spp, quirks)).abs()[..., :3].amax(-1) > 1e-3
@@ -157,10 +159,76 @@ def test_training_step_is_two_forward_and_one_backward_launch(cuda_device):
     assert np.isfinite(report.losses.numpy()).all()
 
 
-def test_backward_kernel_refuses_deep_paths(cuda_device):
-    k = MK.prepare_launch(make_scene(recursion_depth=17, device=cuda_device), rng.prng_key(0), 8, 8, 1, VERBATIM)
-    with pytest.raises(ValueError, match="depth"):
-        MK.launch_backward(k, torch.zeros((8, 8, 4), device=cuda_device))
+def enclosed_scene(depth, device):
+    """The demo scene inside sphere 1 grown to radius 20 about the origin
+    (tests/test_torch_kernel_bwd_host.enclosed_scene): paths end only on the
+    light or at `depth`."""
+    scene = make_scene(recursion_depth=depth, device=device)
+    with torch.no_grad():
+        p = scene.params
+        p.sphere_center.x[1], p.sphere_radius[1] = 0.0, 20.0
+    return scene
+
+
+def test_backward_kernel_takes_deep_paths(cuda_device):
+    """Depth 20 (the records hold any depth; the adjoint once held 16
+    bounces a thread): K2 against its plain version at 64x48, the
+    knife-edge pixels masked."""
+    scene = enclosed_scene(20, cuda_device)
+    key, (w, h) = rng.prng_key(7), (64, 48)
+    assert int(bounces_entered(scene, key, w, h).max()) == 20
+    k = MK.prepare_launch(scene, key, w, h, 1, FIXED)
+    ct = torch.from_numpy(np.random.default_rng(7).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
+    edge = (MK.launch(k) - MK.render_frame_reference(scene, key, w, h, 1, FIXED)).abs()[..., :3].amax(-1) > 1e-3
+    ct_m = ct * (~edge)[..., None]
+    g = MK.launch_backward(k, ct_m).cpu().double().numpy().ravel()
+    r = MK.render_grad_reference(k.sv, scene, key, ct_m, w, h, 1, FIXED).cpu().double().numpy().ravel()
+    assert np.isfinite(g).all() and np.abs(g - r).max() <= 1e-2 * np.abs(r).max()
+    big = np.abs(r) > 1e-2 * np.abs(r).max()
+    np.testing.assert_allclose(g[big], r[big], rtol=2e-2)
+
+
+def test_backward_record_chunks(cuda_device):
+    """A record buffer capped below one frame's records: the frame in
+    chunks of whole blocks of pixels gives the one-chunk gradient bit for
+    bit (each block sums as before); chunks of samples add the later
+    samples' block sums to the earlier ones', a float32 sum in another
+    order. Each chunk is one record kernel and one adjoint kernel launch,
+    and the call one reduction. The two kernels launched apart on one
+    record buffer, chunk by chunk, and the reduction give the gradient of
+    the whole."""
+    scene = make_scene(recursion_depth=3, device=cuda_device)
+    key, (w, h) = rng.prng_key(31), (200, 150)
+    ct = torch.from_numpy(np.random.default_rng(31).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
+    for spp in (1, 3):
+        k = MK.prepare_launch(scene, key, w, h, spp, VERBATIM)
+        whole, pixels, samples = MK.record_plan(k)
+        assert (pixels, samples) == (w * h, spp)
+        g = MK.launch_backward(k, ct)
+        per = whole // (w * h * spp)  # one pixel's sample
+        for cap, chunks in ((per * 6400, 5 * spp), (per * w * h * 2, 2 if spp == 3 else 1)):
+            nbytes, pixels, samples = MK.record_plan(k, cap)
+            assert nbytes <= cap and -(-w * h // pixels) * -(-spp // samples) == chunks
+            fn = MK.render_frame_megakernel
+            before = (fn.bwd_launches, fn.record_launches, fn.adjoint_launches)
+            g_cap = MK.launch_backward(k, ct, cap=cap)
+            assert (fn.bwd_launches, fn.record_launches, fn.adjoint_launches) == (
+                before[0] + 1, before[1] + chunks, before[2] + chunks)
+            assert len(MK.record_chunks(k, cap)) == chunks
+            if spp == 1:
+                assert torch.equal(g_cap, g)
+            else:
+                assert float((g_cap - g).abs().max()) <= 1e-5 * float(g.abs().max())
+        rec = MK.record_buffer(k)
+        partial = torch.empty((-(-w * h // 128), k.sv.shape[1]), device=cuda_device)
+        for chunk in MK.record_chunks(k):
+            MK.launch_record(k, rec, chunk)
+            MK.launch_adjoint(k, ct, rec, partial, chunk)
+        grad = torch.empty_like(g)
+        lib = _build.load("megakernel_bwd")
+        assert lib.pt_backward_reduce(partial.data_ptr(), partial.shape[0], partial.shape[1], grad.data_ptr(),
+                                      torch.cuda.current_stream(cuda_device).cuda_stream) == 0
+        assert torch.equal(grad, g)
 
 
 @pytest.mark.parametrize(

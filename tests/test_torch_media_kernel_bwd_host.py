@@ -1,15 +1,20 @@
 """The media instantiation of the backward megakernel's per-thread code,
 compiled for the host and held to the autograd of its plain PyTorch version.
 
-`trace_sample_adj<B, MEDIA = true>` (csrc/tracer_adj.cuh: media_bounce's
-replay and media_bounce_adj, the segment's Absorb and Emissive terms, the
-Scatter event with its HG-phase NEE, the medium's cotangent carried through
-the reverse sweep and landing on the hit material's 26-scalar record on a
-transmission) is plain C++ behind the shim of
-tests/test_torch_kernel_host.py, so g++ builds it for the analytical, SDF
-and mesh backends, and a host loop runs it for every pixel and sample as
-K2's threads do, on the packed vector with 26-scalar material records that
-ops/megakernel hands the kernel. The plain version is
+`record_sample<B, MEDIA = true>` and `adjoint_sample<B, true>`
+(csrc/tracer_adj.cuh: media_bounce's path recorded with the carried medium
+and whether each bounce scattered, then media_bounce_adj from the records:
+the segment's Absorb and Emissive terms, the Scatter event with its
+HG-phase NEE, the medium's cotangent carried through the reverse sweep and
+landing on the hit material's 26-scalar record on a transmission) are plain
+C++ behind the shim of tests/test_torch_kernel_host.py, so g++ builds them
+for the analytical, SDF and mesh backends, and a host loop runs the record
+step and then the adjoint step for every pixel and sample as K2's two
+kernels' threads do (HOST_BACKWARD), on the packed vector with 26-scalar
+material records that ops/megakernel hands the kernel. The records' carries
+and media are held bit for bit to what tracer.cuh's media_bounce hands on
+(on the mesh's coplanar faces too: the record's winner is K1's triangle).
+The plain version is
 `ops/megakernel.render_grad_reference`, autograd of the eager frame rendered
 from the same packed vector under the detached-sampling estimator.
 
@@ -45,7 +50,7 @@ from pathtracer_tpu_torch.models.material import MediumType
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng, sampling
 from pathtracer_tpu_torch.ops.vecmath import V3
-from test_torch_kernel_bwd_host import assert_grad_close
+from test_torch_kernel_bwd_host import HOST_BACKWARD, assert_carries_equal, assert_grad_close, record_carries
 from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
 from test_torch_media_kernel_host import DEMO, coplanar_ties, lit_scene, media_scene
 from test_torch_sdf_kernel_bwd_host import assert_lanes_close, f32
@@ -57,20 +62,13 @@ SHIM = PRELUDE + r"""
 #include "mesh_adj.cuh"
 #include "sdf_adj.cuh"
 #include "tracer_adj.cuh"
+""" + HOST_BACKWARD + r"""
 
-// K2's threads of the media instantiation, in turn.
+// K2's two kernels of the media instantiation, in turn.
 template <class B>
 static void grad(const pt::SceneView& s, const uint32_t* keys, const float* ct, float* out, int width, int height,
                  int spp, int depth, int flags) {
-  const int n = width * height;
-  const pt::GradSink g = {out, 1};
-  for (int p = 0; p < n; ++p) {
-    const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
-    for (int k = 0; k < spp; ++k) {
-      const uint32_t* kk = keys + 4 * k;
-      pt::trace_sample_adj<B, true>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], c, g);
-    }
-  }
+  host_backward<B, true>(s, keys, ct, out, width, height, spp, depth, flags);
 }
 
 #define HEAD const float *sv, const uint32_t *keys, const float *ct, float *out, int width, int height, int spp, \
@@ -90,6 +88,23 @@ extern "C" void host_grad_media_mesh(HEAD, const int* topo, int n_tris, int n_ve
   grad<pt::MeshAdj>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), ARGS);
 }
 
+#define CARRIES_HEAD const float *sv, const uint32_t *keys, int width, int height, int spp, int depth, int n_lights, \
+                     int n_materials, int flags, float *rec_carry, float *ref_carry, int *rec_len, int *ref_len
+#define CARRIES_ARGS keys, width, height, spp, depth, flags, rec_carry, ref_carry, rec_len, ref_len
+
+extern "C" void host_carries_media(CARRIES_HEAD) {
+  host_carries<pt::AnalyticalAdj, true>(
+      pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0), CARRIES_ARGS);
+}
+
+extern "C" void host_carries_media_sdf(CARRIES_HEAD, int n_spheres, int n_boxes, int n_tori) {
+  host_carries<pt::SdfAdj, true>(pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori), CARRIES_ARGS);
+}
+
+extern "C" void host_carries_media_mesh(CARRIES_HEAD, const int* topo, int n_tris, int n_verts) {
+  host_carries<pt::MeshAdj, true>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), CARRIES_ARGS);
+}
+
 // Lane i: hg_phase_adj at (cos[i], g[i]) for the cotangent ct[i].
 extern "C" void host_hg_phase_adj(int n, const float* cos, const float* g, const float* ct, float* c_cos,
                                   float* c_g) {
@@ -100,8 +115,9 @@ extern "C" void host_hg_phase_adj(int n, const float* cos, const float* g, const
   }
 }
 
-// Lane i: the scatter point's NEE (media_direct_light_adj with `phase`) at
-// pos[i] along rd[i] with anisotropy g[i] and uniforms u[3 i..]; writes
+// Lane i: the scatter point's NEE (its record, nee_record, then
+// media_direct_light_adj with `phase`) at pos[i] along rd[i] with
+// anisotropy g[i] and uniforms u[3 i..]; writes
 // ld[i], the cotangents of rd and g for ct[i], and adds the packed scene's
 // into grad.
 extern "C" void host_phase_nee_adj(const float* sv, int n_lights, int n_materials, int flags, int n, const float* pos,
@@ -114,10 +130,12 @@ extern "C" void host_phase_nee_adj(const float* sv, int n_lights, int n_material
     float c_eta = 0.0f, cg = 0.0f;
     pt::V3 crd = pt::splat3(0.0f), cn = pt::splat3(0.0f);
     const pt::V3 r = pt::v3(rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]);
-    const pt::V3 l = pt::media_direct_light_adj<pt::AnalyticalAdj>(
-        s, r, pt::v3(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]), pt::splat3(0.0f), pt::default_material(), 1.0f,
-        true, g[i], u[3 * i], u[3 * i + 1], u[3 * i + 2], pt::v3(ct[3 * i], ct[3 * i + 1], ct[3 * i + 2]), a, c_eta,
-        crd, cn, cg, sink);
+    const pt::V3 x = pt::v3(pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]);
+    const pt::BounceHit h = {0.0f, 0.0f, 0, pt::nee_record<pt::AnalyticalAdj>(s, x, u[3 * i], u[3 * i + 1], u[3 * i + 2])};
+    const pt::V3 l = pt::media_direct_light_adj(s, r, x, pt::splat3(0.0f), pt::default_material(), 1.0f, true, g[i],
+                                                h, u[3 * i + 1], u[3 * i + 2],
+                                                pt::v3(ct[3 * i], ct[3 * i + 1], ct[3 * i + 2]), a, c_eta, crd, cn, cg,
+                                                sink);
     ld[3 * i] = l.x;
     ld[3 * i + 1] = l.y;
     ld[3 * i + 2] = l.z;
@@ -140,6 +158,10 @@ def host_lib(tmp_path_factory):
     lib.host_grad_media.argtypes = head
     lib.host_grad_media_sdf.argtypes = head + [i, i, i]
     lib.host_grad_media_mesh.argtypes = head + [p, i, i]
+    carries = [p, p, i, i, i, i, i, i, i, p, p, p, p]
+    lib.host_carries_media.argtypes = carries
+    lib.host_carries_media_sdf.argtypes = carries + [i, i, i]
+    lib.host_carries_media_mesh.argtypes = carries + [p, i, i]
     lib.host_hg_phase_adj.argtypes = [i] + [p] * 5
     lib.host_phase_nee_adj.argtypes = [p, i, i, i, i] + [p] * 9
     return lib
@@ -217,6 +239,28 @@ def test_media_backward_code_matches_autograd(host_lib, case):
             assert g[at] == 0.0
     glass_at = medium_at(scene, W, H, {"sdf": 0}.get(families.family_of(scene), 1))
     assert float(g[glass_at + 1:glass_at + 4].abs().max()) > 0  # the color reaches the medium's record
+
+
+@pytest.mark.parametrize("case", ["absorb_spp1_verbatim", "emissive_spp2_fixed", "lit", "mesh_scatter",
+                                  "scatter_spp2_verbatim", "sdf_scatter"])
+def test_media_records_carry_what_media_bounce_hands_on(host_lib, case):
+    """K2 MEDIA's record step writes, bounce by bounce, the carry and the
+    medium tracer.cuh's media_bounce hands on, bit for bit (the mesh's
+    coplanar faces included: the winner is K1's first minimum)."""
+    make, spp, quirks = CASES[case]
+    scene = make()
+    family = families.family_of(scene)
+    b = MK.BACKENDS[family]
+    sv, keys, extras = b.pack(scene, W, H, True).contiguous(), launch_keys(rng.prng_key(sorted(CASES).index(case) + 71),
+                                                                            spp), b.extras(scene)
+    head = (sv.data_ptr(), keys.data_ptr(), W, H, spp, scene.recursion_depth, scene.num_lights,
+            int(scene.params.materials.roughness.shape[0]), MK.kernel_flags(scene, quirks))
+    tail = (*(t.data_ptr() for t in extras), *b.counts(scene))
+    entry = getattr(host_lib, ENTRY[family].replace("grad", "carries"))
+    rec, ref, rec_len, ref_len = record_carries(lambda *a: entry(*a, *tail), head, W, H, spp, scene.recursion_depth,
+                                                20)
+    assert_carries_equal(rec, ref, rec_len, ref_len, min_bounces=4)
+    assert bool((rec[..., 14] > 0).any())  # some bounces travel inside the medium
 
 
 @pytest.mark.parametrize("med_type", [MediumType.ABSORB, MediumType.EMISSIVE])

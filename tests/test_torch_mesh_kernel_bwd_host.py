@@ -3,10 +3,13 @@ compiled for the host and held to torch autograd of its plain version.
 
 As in tests/test_torch_sdf_kernel_bwd_host.py, g++ builds the per-thread
 headers behind the shim's qualifiers (-ffp-contract=off, like the plain
-version's separate tensor ops) and a host loop runs
-`trace_sample_adj<MeshAdj>` for every pixel and sample exactly as K2's
-threads do, on the packed vector and the topology that ops/megakernel
-hands the kernel; the summed d(<ct, frame>)/d(sv) is held to
+version's separate tensor ops) and a host loop runs K2's record step and
+then its adjoint step with `MeshAdj` for every pixel and sample as K2's two
+kernels' threads do (HOST_BACKWARD), on the packed vector and the topology
+that ops/megakernel hands the kernel; the records' carries (and so the
+recorded winners: K1's first minimum, strict `<`) are held bit for bit to
+what tracer.cuh's bounce with Mesh hands on, and the summed
+d(<ct, frame>)/d(sv) to
 `ops/megakernel.render_grad_reference` (autograd of the eager frame of the
 scene `megakernel_mesh.unpack_mesh_scene` reads from the same vector) with
 `assert_grad_close` (entries above 1e-3 max|ref| within rtol 5e-3, the
@@ -39,7 +42,7 @@ from pathtracer_tpu_torch.ops import megakernel_mesh as MM
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.intersect import ray_triangle
 from pathtracer_tpu_torch.ops.vecmath import V3, v3
-from test_torch_kernel_bwd_host import assert_grad_close
+from test_torch_kernel_bwd_host import HOST_BACKWARD, assert_carries_equal, assert_grad_close, record_carries
 from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
 from test_torch_sdf_kernel_bwd_host import assert_lanes_close, f32
 
@@ -48,6 +51,7 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 SHIM = PRELUDE + r"""
 #include "mesh_adj.cuh"
 #include "tracer_adj.cuh"
+""" + HOST_BACKWARD + r"""
 
 static pt::V3 at3(const float* a, int i) { return pt::v3(a[3 * i], a[3 * i + 1], a[3 * i + 2]); }
 static void put3(float* a, int i, pt::V3 v) { a[3 * i] = v.x; a[3 * i + 1] = v.y; a[3 * i + 2] = v.z; }
@@ -55,16 +59,15 @@ static void put3(float* a, int i, pt::V3 v) { a[3 * i] = v.x; a[3 * i + 1] = v.y
 extern "C" void host_grad_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
                                const float* ct, float* grad, int width, int height, int spp, int depth, int n_lights,
                                int n_materials, int flags) {
-  const int n = width * height;
-  const pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
-  const pt::GradSink g = {grad, 1};
-  for (int p = 0; p < n; ++p) {
-    const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
-    for (int k = 0; k < spp; ++k) {
-      const uint32_t* kk = keys + 4 * k;
-      pt::trace_sample_adj<pt::MeshAdj>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], c, g);
-    }
-  }
+  host_backward<pt::MeshAdj, false>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys, ct, grad,
+                                    width, height, spp, depth, flags);
+}
+
+extern "C" void host_carries_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
+                                  int width, int height, int spp, int depth, int n_lights, int n_materials, int flags,
+                                  float* rec_carry, float* ref_carry, int* rec_len, int* ref_len) {
+  host_carries<pt::MeshAdj, false>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys, width,
+                                   height, spp, depth, flags, rec_carry, ref_carry, rec_len, ref_len);
 }
 
 // Ray i against triangle i: t[i], and for ct_t = 1 on a hit the cotangents
@@ -82,9 +85,9 @@ extern "C" void host_ray_triangle_adj(int n, const float* ro, const float* rd, c
   }
 }
 
-// Ray i: on a hit, the closest hit's adjoint for the cotangents of t, the
-// normal and the material's rgb: c_ro, c_rd and the row grad[n_sv i].
-// hit[i] says whether the ray hit.
+// Ray i: the record step's winner; on a hit, the closest hit's adjoint for
+// the cotangents of t, the normal and the material's rgb: c_ro, c_rd and
+// the row grad[n_sv i]. hit[i] says whether the ray hit.
 extern "C" void host_closest_hit_adj(const float* sv, const int* topo, int n_tris, int n_verts, int n_lights,
                                      int n_materials, int n_sv, int n, const float* ro, const float* rd,
                                      const float* ct_t, const float* ct_n, const float* ct_rgb, float* c_ro,
@@ -92,15 +95,14 @@ extern "C" void host_closest_hit_adj(const float* sv, const int* topo, int n_tri
   const pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
   for (int i = 0; i < n; ++i) {
     const pt::V3 o = at3(ro, i), d = at3(rd, i);
-    pt::V3 normal;
-    pt::Material m;
-    const float t = pt::MeshAdj::closest_hit(s, o, d, normal, m);
+    int win;
+    const float t = pt::MeshAdj::closest_hit_rec(s, o, d, win);
     hit[i] = std::isfinite(t);
     pt::V3 co = pt::splat3(0.0f), cd = pt::splat3(0.0f);
     if (hit[i]) {
       pt::MatAdj a = pt::zero_mat_adj();
       a.rgb = at3(ct_rgb, i);
-      pt::MeshAdj::closest_hit_adj(s, o, d, t, ct_t[i], at3(ct_n, i), a, {grad + (size_t)n_sv * i, 1}, co, cd);
+      pt::MeshAdj::closest_hit_adj(s, o, d, t, win, ct_t[i], at3(ct_n, i), a, {grad + (size_t)n_sv * i, 1}, co, cd);
     }
     put3(c_ro, i, co);
     put3(c_rd, i, cd);
@@ -144,6 +146,14 @@ class HostMeshAdj:
                                 MK.kernel_flags(scene, quirks))
         return sv, grad[None]
 
+    def carries(self, scene, key, w, h, spp, quirks):
+        """record_carries of the shim's host_carries_mesh."""
+        sv, topo, n_tris, n_verts, n_lights, n_mat = self._scene(scene, w, h)
+        keys = launch_keys(key, spp)
+        head = (sv.data_ptr(), topo.data_ptr(), n_tris, n_verts, keys.data_ptr(), w, h, spp, scene.recursion_depth,
+                n_lights, n_mat, MK.kernel_flags(scene, quirks))
+        return record_carries(self.lib.host_carries_mesh, head, w, h, spp, scene.recursion_depth, 14)
+
     def ray_triangle_adj(self, ro, rd, v0, v1, v2):
         arrays = [f32(a) for a in (ro, rd, v0, v1, v2)]
         n = arrays[0].shape[0]
@@ -179,6 +189,7 @@ def host(tmp_path_factory):
     lib = build_shim(tmp_path_factory.mktemp("mesh_kernel_bwd_host"), SHIM)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_grad_mesh.argtypes = [p, p, i, i, p, p, p, i, i, i, i, i, i, i]
+    lib.host_carries_mesh.argtypes = [p, p, i, i, p, i, i, i, i, i, i, i, p, p, p, p]
     lib.host_ray_triangle_adj.argtypes = [i] + [p] * 7
     lib.host_closest_hit_adj.argtypes = [p, p, i, i, i, i, i, i] + [p] * 9
     lib.host_sky_adj.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p]
@@ -346,6 +357,14 @@ def test_mesh_backward_code_matches_autograd(host, case):
     ref = MK.render_grad_reference(sv, scene, key, ct, w, h, spp, quirks)
     assert_grad_close(grad, ref)
     assert np.abs(grad.numpy()[0, 12:12 + 51]).max() > 0  # the vertices carry gradient
+
+
+@pytest.mark.parametrize("case", ["d2_spp2_fixed", "d3_spp1_moved_apex_two_lights"])
+def test_mesh_records_carry_what_bounce_hands_on(host, case):
+    """K2's record step with MeshAdj writes the carry tracer.cuh's bounce
+    with Mesh hands on: its winner is K1's triangle."""
+    make, spp, quirks = CASES[case]
+    assert_carries_equal(*host.carries(make(), rng.prng_key(sorted(CASES).index(case) + 61), 24, 16, spp, quirks))
 
 
 def _looking_at_light(light_at, camera_from, radius, depth=2):

@@ -3,9 +3,10 @@ for the host and held to torch autograd of its plain version.
 
 As in tests/test_torch_kernel_bwd_host.py, g++ builds the per-thread
 headers behind the shim's qualifiers (-ffp-contract=off, like the plain
-version's separate tensor ops) and a host loop runs
-`trace_sample_adj<SdfAdj>` for every pixel and sample exactly as K2's
-threads do; the summed d(<ct, frame>)/d(sv) is held to
+version's separate tensor ops) and a host loop runs K2's record step and
+then its adjoint step with `SdfAdj` for every pixel and sample as K2's two
+kernels' threads do (HOST_BACKWARD); the records' carries are held bit for
+bit to what tracer.cuh's bounce hands on, and the summed d(<ct, frame>)/d(sv) to
 `ops/megakernel.render_grad_reference`, autograd of the eager frame of the
 scene `megakernel_sdf.unpack_sdf_scene` reads from the same packed vector,
 at that module's tolerances (entries above 1e-3 max|ref| within rtol 5e-3,
@@ -35,7 +36,7 @@ from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import megakernel_sdf as MS
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.vecmath import V3
-from test_torch_kernel_bwd_host import assert_grad_close
+from test_torch_kernel_bwd_host import HOST_BACKWARD, assert_carries_equal, assert_grad_close, record_carries
 from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -43,6 +44,7 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 SHIM = PRELUDE + r"""
 #include "sdf_adj.cuh"
 #include "tracer_adj.cuh"
+""" + HOST_BACKWARD + r"""
 
 static pt::SceneView view(const float* sv, const int* counts, int n_lights, int n_materials) {
   return pt::sdf_view(sv, n_lights, n_materials, counts[0], counts[1], counts[2]);
@@ -52,16 +54,15 @@ static void put3(float* a, int i, pt::V3 v) { a[3 * i] = v.x; a[3 * i + 1] = v.y
 
 extern "C" void host_grad_sdf(const float* sv, const int* counts, const uint32_t* keys, const float* ct, float* grad,
                               int width, int height, int spp, int depth, int n_lights, int n_materials, int flags) {
-  const int n = width * height;
-  const pt::SceneView s = view(sv, counts, n_lights, n_materials);
-  const pt::GradSink g = {grad, 1};
-  for (int p = 0; p < n; ++p) {
-    const pt::V3 c = pt::v3(ct[4 * p] / (float)spp, ct[4 * p + 1] / (float)spp, ct[4 * p + 2] / (float)spp);
-    for (int k = 0; k < spp; ++k) {
-      const uint32_t* kk = keys + 4 * k;
-      pt::trace_sample_adj<pt::SdfAdj>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3], c, g);
-    }
-  }
+  host_backward<pt::SdfAdj, false>(view(sv, counts, n_lights, n_materials), keys, ct, grad, width, height, spp, depth,
+                                   flags);
+}
+
+extern "C" void host_carries_sdf(const float* sv, const int* counts, const uint32_t* keys, int width, int height,
+                                 int spp, int depth, int n_lights, int n_materials, int flags, float* rec_carry,
+                                 float* ref_carry, int* rec_len, int* ref_len) {
+  host_carries<pt::SdfAdj, false>(view(sv, counts, n_lights, n_materials), keys, width, height, spp, depth, flags,
+                                  rec_carry, ref_carry, rec_len, ref_len);
 }
 
 // Point i: the field's first derivatives (c_f = 1 along no direction):
@@ -93,24 +94,23 @@ extern "C" void host_normal_vjp(const float* sv, const int* counts, int n_lights
   }
 }
 
-// Ray i: march; on a hit, the closest hit's adjoint for the cotangents of
-// t, the normal and the material's rgb: c_ro, c_rd and the row
-// grad[n_sv i]. hit[i] says whether the ray hit.
+// Ray i: the record step's march and winner; on a hit, the closest hit's
+// adjoint for the cotangents of t, the normal and the material's rgb: c_ro,
+// c_rd and the row grad[n_sv i]. hit[i] says whether the ray hit.
 extern "C" void host_closest_hit_adj(const float* sv, const int* counts, int n_lights, int n_materials, int n_sv,
                                      int n, const float* ro, const float* rd, const float* ct_t, const float* ct_n,
                                      const float* ct_rgb, float* c_ro, float* c_rd, float* grad, uint8_t* hit) {
   const pt::SceneView s = view(sv, counts, n_lights, n_materials);
   for (int i = 0; i < n; ++i) {
     const pt::V3 o = at3(ro, i), d = at3(rd, i);
-    pt::V3 normal;
-    pt::Material m;
-    const float t = pt::SdfAdj::closest_hit(s, o, d, normal, m);
+    int win;
+    const float t = pt::SdfAdj::closest_hit_rec(s, o, d, win);
     hit[i] = std::isfinite(t);
     pt::V3 co = pt::splat3(0.0f), cd = pt::splat3(0.0f);
     if (hit[i]) {
       pt::MatAdj a = pt::zero_mat_adj();
       a.rgb = at3(ct_rgb, i);
-      pt::SdfAdj::closest_hit_adj(s, o, d, t, ct_t[i], at3(ct_n, i), a, {grad + (size_t)n_sv * i, 1}, co, cd);
+      pt::SdfAdj::closest_hit_adj(s, o, d, t, win, ct_t[i], at3(ct_n, i), a, {grad + (size_t)n_sv * i, 1}, co, cd);
     }
     put3(c_ro, i, co);
     put3(c_rd, i, cd);
@@ -155,6 +155,14 @@ class HostSdfAdj:
                                w, h, spp, scene.recursion_depth, n_lights, n_mat, MK.kernel_flags(scene, quirks))
         return sv, grad[None]
 
+    def carries(self, scene, key, w, h, spp, quirks):
+        """record_carries of the shim's host_carries_sdf."""
+        sv, counts, n_lights, n_mat = self._scene(scene, w, h)
+        keys = launch_keys(key, spp)
+        head = (sv.data_ptr(), counts.data_ptr(), keys.data_ptr(), w, h, spp, scene.recursion_depth, n_lights, n_mat,
+                MK.kernel_flags(scene, quirks))
+        return record_carries(self.lib.host_carries_sdf, head, w, h, spp, scene.recursion_depth, 14)
+
     def per_point(self, entry, scene, *arrays):
         """entry(sv, counts, n_lights, n_materials, n_sv, n, *arrays, out,
         grad rows) -> (out [n, 3], rows [n, n_sv])."""
@@ -186,6 +194,7 @@ def host(tmp_path_factory):
     lib = build_shim(tmp_path_factory.mktemp("sdf_kernel_bwd_host"), SHIM)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_grad_sdf.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i]
+    lib.host_carries_sdf.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, p, p]
     lib.host_field_grad.argtypes = [p, p, i, i, i, i, p, p, p]
     lib.host_normal_vjp.argtypes = [p, p, i, i, i, i, p, p, p, p]
     lib.host_closest_hit_adj.argtypes = [p, p, i, i, i, i] + [p] * 9
@@ -389,3 +398,12 @@ def test_sdf_backward_code_matches_autograd(host, case):
     sv, grad = host.grad(scene, key, ct, w, h, spp, quirks)
     ref = MK.render_grad_reference(sv, scene, key, ct, w, h, spp, quirks)
     assert_grad_close(grad, ref)
+
+
+@pytest.mark.parametrize("case", ["d2_spp2_fixed", "d3_spp1_smooth"])
+def test_sdf_records_carry_what_bounce_hands_on(host, case):
+    """K2's record step with SdfAdj (the march, the winner, the shadow
+    march) writes the carry tracer.cuh's bounce with Sdf hands on."""
+    depth, spp, quirks, smooth_k = CASES[case]
+    assert_carries_equal(*host.carries(sdf_scene(smooth_k, depth), rng.prng_key(sorted(CASES).index(case) + 51), 24,
+                                       16, spp, quirks))
