@@ -5,7 +5,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases, each of
 which raises on failure (non-zero exit):
 
 1. card: name and power limit (nvidia-smi), torch and nvcc versions;
-2. build: the CUDA kernels of pathtracer_tpu_torch/csrc, timed;
+2. build: the CUDA kernels of pathtracer_tpu_torch/csrc, timed, the SDF
+   backend's libraries (megakernel_sdf.cu, megakernel_sdf_bwd_media.cu)
+   for the demo scene's primitive counts (1, 1, 1) among them, all side by
+   side; the seconds each library took;
 3. kernel vs its plain PyTorch version on the card, depth 4: 320x240 at
    spp 1 and 2 VERBATIM and spp 1 FIXED, and the main path's 1920x1080;
 4. kernel vs the committed JAX render tests/golden_torch/analytical_64x48_d4_k3.npy;
@@ -42,14 +45,18 @@ which raises on failure (non-zero exit):
    render tests/golden_torch/sdf_64x48_d4_k3.npy;
 11. the SDF main path: the render CLI with --scene sdf renders 8
    progressive 1920x1080 depth-4 frames; every frame must be one launch of
-   K1 with the SDF backend. Then per-frame times of the wrapper, the
-   launch alone and the plain version, and ray segments per second;
+   K1 with the SDF backend (the library built for the scene's counts).
+   Then per-frame times of the wrapper, the launch alone and the plain
+   version, and ray segments per second;
 12. the march-step counter K6 vs its plain version at 320x240 and
    1920x1080 (center rays, no random numbers): per-pixel trip counts of
    the primary and the NEE shadow march, per pixel and per warp, and the
    times of K6's wrapper measure_march_steps (pack, launch, per-warp
-   reductions, host reads) and of its pack and launch alone. Its 1080p
-   counts give the SDF frame's bound.
+   reductions, host reads) and of its pack and launch alone. The SDF
+   frame's bound counts every march of the 1080p frame (every segment's
+   closest hit and every shadow ray K1 casts; tools/work.count_sdf_work),
+   and prints beside it what the warps issue (each march until its
+   slowest lane stops).
 13. K2 with the SDF backend (the adjoint of K5, csrc/sdf_adj.cuh) vs its
    plain version (autograd of the eager frame of unpack_sdf_scene's
    scene), as phase 6: 320x240 depth 4 at spp 1 and 2 VERBATIM, spp 1
@@ -72,7 +79,8 @@ which raises on failure (non-zero exit):
    analytical and SDF K2 of that tree against this one's in turns
    (tools/k2_pair.py), saying whether their gradients are bit-equal and
    the largest difference where they are not, which must stay within 1e-5
-   of the other's largest entry (PAIR_MAX_REL);
+   of the other's largest entry (PAIR_MAX_REL), and the record kernels
+   alone in turns, their records bit-equal;
 17. K1 with the mesh backend (K7, csrc/mesh.cuh) vs its plain version on
    the card, depth 4: 320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and
    1920x1080; then vs the committed JAX render
@@ -88,7 +96,10 @@ which raises on failure (non-zero exit):
    --scene bigmesh, against tests/golden_torch/bigmesh_64x48_d4_k3.npy; the
    plain version walks blocks of rays at 1920x1080, and the bound counts
    the box tests and the (ray, triangle) pairs of K8's walks, each pair up
-   to the guard at which mt_hit returns. A CUDA big mesh scene whose
+   to the guard at which mt_hit returns, with the pairs the warps run for
+   the union of their lanes' chunks printed beside it. The render CLI's 8
+   frames must build the big mesh's tables once
+   (ops/megakernel_bigmesh.bigmesh_tables.builds). A CUDA big mesh scene whose
    vertices require grad must raise NotImplementedError (K2 takes no big
    mesh; the JAX package differentiates it through its XLA twin), and
    launch nothing;
@@ -156,8 +167,11 @@ which raises on failure (non-zero exit):
    media scene whose leaves require grad renders with one K1 MEDIA launch,
    and its backward is one K2 MEDIA launch and nothing else. With `--other
    DIR`, the media-free K1 and K3 of both trees on each backend in turns
-   (tools/k1_pair.pair), frames and counts bit-equal, and each media-free
-   instantiation's registers, stack and spills the other tree's;
+   (tools/k1_pair.pair), frames and counts bit-equal; the analytical and
+   mesh instantiations' registers, stack, spills and machine code the
+   other tree's (k1_pair.same_resources), the redesigned SDF and big mesh
+   ones' (each tree's, k1_pair.redesigned) printed with the pair's time
+   ratio;
 29. K3's MEDIA instantiation vs its plain version (bounces_entered), per
    lane and in its alive fractions, its frame bit-equal to K1's MEDIA
    frame, on each backend's glass Scatter scene at 320x240 (the analytical
@@ -327,8 +341,11 @@ CAMERA_F64_OPS = 30
 # shading without the analytical hit (~1370), the normal (~130: the four
 # gradients and their union) and the hit tests, the argmin and the checker
 # (~190), with the float64 light-sphere test of the emitter pass (~20).
-# The march work is what K6 counts: trips x SDF_STEP_OPS. K6 itself adds,
-# per pixel, the normal, the light sample (~60) and the camera ray.
+# The march work is every march of the frame's steps
+# (tools/work.count_sdf_work: each segment's closest hit and each shadow
+# ray K1 casts) x SDF_STEP_OPS. K6 (its center rays' primary and first
+# shadow march) adds, per pixel, the normal, the light sample (~60) and
+# the camera ray.
 SDF_STEP_OPS = 75
 SDF_SEGMENT_OPS = dict(f32=1370 + 130 + 190, f64=20)
 # The SDF adjoint of one hit (csrc/sdf_adj.cuh), read the same way: the
@@ -337,8 +354,8 @@ SDF_SEGMENT_OPS = dict(f32=1370 + 130 + 190, f64=20)
 # three float32 ones), the reverse pass with the records' scatter (~250),
 # the Newton step, the argmin and the checker (~110). K2-SDF's bound counts,
 # as K2's does, what the gradient needs and not the replays this design
-# adds: the march once (K6's trips, of the first segment only, so it is
-# low), and per segment the SDF forward, K2's adjoint without the
+# adds: the march once (every march of K1's frame, count_sdf_work), and
+# per segment the SDF forward, K2's adjoint without the
 # analytical hit's and this; in float64 only the SDF forward's light test
 # and the camera ray.
 SDF_ADJ_OPS = 130 + 330 + 250 + 110
@@ -571,6 +588,7 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
     its work at 1080p, (float32 operations, float64 ones, bytes)."""
     from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
     from pathtracer_tpu_torch.models import families
+    from pathtracer_tpu_torch.ops import megakernel_bigmesh
     from pathtracer_tpu_torch.tools.work import count_mesh_work
 
     what = {"mesh": "the mesh backend (K7)", "bigmesh": "the big mesh backend (K8)"}[family]
@@ -612,12 +630,17 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
             "--depth", str(MAIN_DEPTH), "--spp", "1", "--frames", str(MAIN_FRAMES), "-o", png,
         ])
         reset_counts(mk)
+        builds = megakernel_bigmesh.bigmesh_tables.builds
         buf = cli.render(cfg, png, log=lambda s: print("  " + s))
         counts = read_counts(mk)
+        builds = megakernel_bigmesh.bigmesh_tables.builds - builds
         pixels = buf.pixels.cpu().numpy()
         if not os.path.getsize(png) > 0:
             raise AssertionError("no PNG written")
-    print(f"  launches {counts}  mean rgb={pixels[..., :3].mean():.4f}")
+    print(f"  launches {counts}  mean rgb={pixels[..., :3].mean():.4f}"
+          + (f"; the big mesh's tables built {builds} time(s) for {MAIN_FRAMES} frames" if family == "bigmesh" else ""))
+    if family == "bigmesh" and builds != 1:
+        raise AssertionError(f"the big mesh's tables were built {builds} times for one scene's {MAIN_FRAMES} frames")
     want = {name: 0 for name in COUNTERS}
     want.update(launches=MAIN_FRAMES, **{f"{family}_launches": MAIN_FRAMES})
     if counts != want:
@@ -631,7 +654,7 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
     ms = cuda_ms(lambda: mk.render_frame_megakernel(main, key, MAIN_W, MAIN_H), 20)
     prepared = mk.prepare_launch(main, key, MAIN_W, MAIN_H, 1, VERBATIM)
     launch_ms = cuda_ms(lambda: mk.launch(prepared), 20)
-    plain_ms = cuda_ms(lambda: mk.render_frame_reference(main, key, MAIN_W, MAIN_H), 2)
+    plain_ms = cuda_ms(lambda: mk.render_frame_reference(main, key, MAIN_W, MAIN_H), 1, warmup=0)
     tests = count_mesh_work(main, key, MAIN_W, MAIN_H)
     segments = tests["segments"]
     pix = MAIN_W * MAIN_H
@@ -645,15 +668,18 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
         test_ops = sum(tests[f"{w}_pairs"] * BIGMESH_DET_OPS + tests[f"{w}_det_ok"] * BIGMESH_U_OPS
                        + tests[f"{w}_u_ok"] * BIGMESH_REST_OPS + tests[f"{w}_boxes"] * BIGMESH_SLAB_OPS
                        for w in ("closest", "shadow"))
+        warp = {w: tests[f"{w}_warp_pairs"] for w in ("closest", "shadow")}
         walk = (f"pairs {pairs['closest']} in closest hits ({pairs['closest'] / segments:.2f} per segment; "
                 f"{tests['closest_det_ok']} past the determinant's guard, {tests['closest_u_ok']} past u's), "
                 f"{pairs['shadow']} in shadow rays ({tests['shadow_det_ok']}, {tests['shadow_u_ok']}); box tests "
-                f"{tests['closest_boxes']} and {tests['shadow_boxes']}")
+                f"{tests['closest_boxes']} and {tests['shadow_boxes']}; the warps run the union of their lanes' "
+                f"chunks: {warp['closest']} and {warp['shadow']} lane-pairs ({warp['closest'] / pairs['closest']:.3f}x "
+                f"and {warp['shadow'] / pairs['shadow']:.3f}x the lanes' own; beside the bound, not in it)")
     work = (segments * MESH_SEGMENT_OPS["f32"] + test_ops, segments * MESH_SEGMENT_OPS["f64"] + pix * CAMERA_F64_OPS,
             nbytes)
     bound_ms, bound_by = bound_of(*work)
-    print(f"  wrapper {ms:.3f} ms/frame (kernel launch alone {launch_ms:.3f} ms), plain {plain_ms:.3f} ms/frame "
-          f"({card})")
+    print(f"  wrapper {ms:.3f} ms/frame (kernel launch alone {launch_ms:.3f} ms; the wrapper's own "
+          f"{ms - launch_ms:.3f} ms), plain {plain_ms:.3f} ms/frame ({card})")
     print(f"  ray segments {segments} ({segments / pix:.3f} per pixel); ray segments/s: kernel "
           f"{segments / ms * 1e3:.4e}, plain {segments / plain_ms * 1e3:.4e} ({card})")
     print(f"  shadow rays cast {tests['shadow_rays']} ({tests['shadow_rays'] / segments:.3f} per segment); {walk}; "
@@ -980,7 +1006,8 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
     from pathtracer_tpu_torch.utils.image import save_render
 
     print(f"== 27. K1's media instantiation vs its plain version on the card (depth {MEDIA_DEPTH})")
-    for key_, line in sorted(k1_pair.instantiations(_build.CSRC).items()):
+    for key_, line in sorted({**k1_pair.instantiations(_build.CSRC),
+                              **k1_pair.instantiations(_build.CSRC, "megakernel_sdf", counts=(1, 1, 1))}.items()):
         if key_[2]:
             print(f"  {key_[0]} {'K3' if key_[1] else 'K1'} MEDIA: {line}")
     err = 0.0
@@ -1076,8 +1103,14 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
     if other:
         results = k1_pair.pair([Path(other)], families.FAMILIES, log=lambda s: print("  " + s))
         same = k1_pair.same_resources(Path(other), log=lambda s: print("  " + s))
+        k1_pair.redesigned(Path(other), log=lambda s: print("  " + s))
+        for r in results:
+            if r["scene"] in k1_pair.REDESIGNED:
+                print(f"  {r['kernel']} {r['scene']} (redesigned): this / other {r['ratio']:.4f}, "
+                      f"{'frames' if r['kernel'] == 'K1' else 'frames and counts'} bit-equal {r['bit_equal']}")
         if not (same and all(r["bit_equal"] for r in results)):
-            raise AssertionError("the media-free K1 or K3 of this tree and the other's differ in output or resources")
+            raise AssertionError("the media-free K1 or K3 of this tree and the other's differ in output, or the "
+                                 "analytical and mesh ones in resources or machine code")
     else:
         print("  media-free K1 and K3 against another tree's: not run (no --other DIR given)")
 
@@ -1180,8 +1213,9 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
 
     print(f"== 30. K2's media instantiation vs its plain version on the card (depth {MEDIA_DEPTH})")
     lib = _build.load("megakernel_bwd")
-    for kernel in ("megakernel_bwd", "megakernel_bwd_media"):
-        for key_, line in sorted(k1_pair.instantiations(_build.CSRC, kernel, k2_pair.k2_key).items()):
+    for kernel, counts in (("megakernel_bwd", None), ("megakernel_bwd_media", None),
+                           ("megakernel_sdf", (1, 1, 1)), ("megakernel_sdf_bwd_media", (1, 1, 1))):
+        for key_, line in sorted(k1_pair.instantiations(_build.CSRC, kernel, k2_pair.k2_key, counts=counts).items()):
             print(f"  {key_[1]} K2{' MEDIA' if key_[2] else ''} {key_[0]}: {line}")
     scenes = {name: media_scene(torch, families, "analytical", dev, name) for name in ("absorb", "emissive", MEDIA_MAIN)}
     scenes["lit"] = media_scene(torch, families, "analytical", dev, MEDIA_MAIN, lit=True)
@@ -1477,8 +1511,9 @@ def deep_phase(torch, mk, rng, dev, total_bytes: int) -> None:
 
 
 def print_registers(_build) -> None:
+    """ptxas's lines of each library's build, and the seconds it took."""
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line or line.startswith(("built in", "== ")):
             print("  " + line.strip())
 
 
@@ -1592,8 +1627,12 @@ def k2_stages(mk, _build, cuda_ms, k, ct, card: str, label: str) -> dict:
     record_ms = cuda_ms(lambda: mk.launch_record(k, rec, chunk), 10)
     adjoint_ms = cuda_ms(lambda: mk.launch_adjoint(k, ct, rec, partial, chunk), 10)
     res = mk.backward_resources(k)
-    ptxas = k1_pair.instantiations(_build.CSRC, "megakernel_bwd_media" if k.media else "megakernel_bwd",
-                                   k2_pair.k2_key)
+    if k.backend == "sdf":
+        ptxas = k1_pair.instantiations(_build.CSRC, "megakernel_sdf_bwd_media" if k.media else "megakernel_sdf",
+                                       k2_pair.k2_key, counts=k.counts)
+    else:
+        ptxas = k1_pair.instantiations(_build.CSRC, "megakernel_bwd_media" if k.media else "megakernel_bwd",
+                                       k2_pair.k2_key)
     backend = {"analytical": "AnalyticalAdj", "sdf": "SdfAdj", "mesh": "MeshAdj"}[k.backend]
     print(f"  {label}: record kernel {record_ms:.3f} ms, adjoint kernel {adjoint_ms:.3f} ms ({card}); record buffer "
           f"{nbytes} bytes ({nbytes / 2**20:.1f} MiB; chunks of {pixels} pixels x {samples} samples)")
@@ -1628,8 +1667,14 @@ PAIR_MAX_REL = 1e-5
 
 def check_pairing(results: list[dict]) -> None:
     """Each of k2_pair.pair's results within PAIR_MAX_REL of the other
-    tree's gradient, and MEDIA's bit-equal."""
+    tree's gradient, MEDIA's bit-equal, and the record kernels' records
+    bit-equal (each is K1's bounce, whose frames are the other tree's)."""
     for r in results:
+        rec = r["record"]
+        print(f"  K2 {r['scene']}'s record kernel: this / other {rec['ratio']:.4f} ({rec['this_ms']:.4f} against "
+              f"{rec['other_ms']:.4f} ms), records bit-equal {rec['bit_equal']}")
+        if not rec["bit_equal"]:
+            raise AssertionError(f"K2 {r['scene']}'s records differ from {r['other']}'s")
         if r["scene"] == "media" and not r["bit_equal"]:
             raise AssertionError(f"K2 MEDIA differs from {r['other']}'s: max_rel {r['max_rel']:.3e}")
         if r["max_rel"] > PAIR_MAX_REL:
@@ -1679,7 +1724,7 @@ def main(argv=None) -> int:
     from pathtracer_tpu_torch.ops import _build, rng
     from pathtracer_tpu_torch.ops import megakernel as mk
     from pathtracer_tpu_torch.ops import megakernel_sdf as mks
-    from pathtracer_tpu_torch.tools.work import count_segments
+    from pathtracer_tpu_torch.tools.work import count_sdf_work, count_segments
     from pathtracer_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda", 0)
@@ -1697,9 +1742,14 @@ def main(argv=None) -> int:
 
     print("== 2. build")
     t0 = time.perf_counter()
+    demo_counts = mks.sdf_counts(make_sdf_scene())
+    _build.build(sdf_counts=(demo_counts,))
     for kernel in _build.kernels():
         _build.load(kernel)
-    print(f"  built (one nvcc per kernel, side by side) and loaded in {time.perf_counter() - t0:.1f} s")
+    for kernel in _build.PER_COUNT:
+        _build.load(kernel, counts=demo_counts)
+    print(f"  built (one nvcc per kernel, side by side; the SDF backend's for the demo's counts {demo_counts}) and "
+          f"loaded in {time.perf_counter() - t0:.1f} s")
     print_registers(_build)
 
     scene = make_scene(device=dev)
@@ -1913,7 +1963,7 @@ def main(argv=None) -> int:
     sdf_ms = cuda_ms(lambda: mk.render_frame_megakernel(main_sdf, key, MAIN_W, MAIN_H), 20)
     sdf_prepared = mk.prepare_launch(main_sdf, key, MAIN_W, MAIN_H, 1, VERBATIM)
     sdf_launch_ms = cuda_ms(lambda: mk.launch(sdf_prepared), 20)
-    sdf_plain_ms = cuda_ms(lambda: mk.render_frame_reference(main_sdf, key, MAIN_W, MAIN_H), 2)
+    sdf_plain_ms = cuda_ms(lambda: mk.render_frame_reference(main_sdf, key, MAIN_W, MAIN_H), 1, warmup=0)
     sdf_segments = count_segments(main_sdf, key, MAIN_W, MAIN_H)
     print(f"  wrapper {sdf_ms:.3f} ms/frame (kernel launch alone {sdf_launch_ms:.3f} ms), "
           f"plain {sdf_plain_ms:.3f} ms/frame ({card})")
@@ -1945,9 +1995,14 @@ def main(argv=None) -> int:
     k6_ms = cuda_ms(lambda: mks.measure_march_steps(main_sdf, MAIN_W, MAIN_H), 20)
     k6_launch_ms = cuda_ms(lambda: mks.launch_march_steps(main_sdf, MAIN_W, MAIN_H), 20)
     k6_plain_ms = cuda_ms(lambda: mks.march_steps_reference(main_sdf, MAIN_W, MAIN_H), 2)
+    sdf_work_counts = count_sdf_work(main_sdf, key, MAIN_W, MAIN_H)
     pix = MAIN_W * MAIN_H
-    trips = int(got["steps"].sum()) + int(got["shadow_steps"].sum())
-    warp_trips = 32 * (int(got["warp_steps"].sum()) + int(got["shadow_warp_steps"].sum()))
+    k6_trips = int(got["steps"].sum()) + int(got["shadow_steps"].sum())
+    k6_warp_trips = 32 * (int(got["warp_steps"].sum()) + int(got["shadow_warp_steps"].sum()))
+    # every march of the frame (tools/work.count_sdf_work): the lanes' steps
+    # give the bound, the warps' slowest lanes what the card issues
+    trips = sdf_work_counts["closest_trips"] + sdf_work_counts["shadow_trips"]
+    warp_trips = sdf_work_counts["closest_warp_trips"] + sdf_work_counts["shadow_warp_trips"]
     sdf_n_sv = sdf_prepared.sv.shape[1]
     sdf_bytes = sdf_n_sv * 4 + 16 + pix * 16
 
@@ -1958,14 +2013,19 @@ def main(argv=None) -> int:
     k1_work["sdf"] = sdf_work(trips)
     sdf_bound_ms, sdf_bound_by = bound_of(*k1_work["sdf"])
     sdf_warp_bound_ms, _ = bound_of(*sdf_work(warp_trips))
-    k6_bound_ms, k6_bound_by = bound_of(trips * SDF_STEP_OPS + pix * K6_PIXEL_OPS["f32"], pix * CAMERA_F64_OPS,
+    k6_bound_ms, k6_bound_by = bound_of(k6_trips * SDF_STEP_OPS + pix * K6_PIXEL_OPS["f32"], pix * CAMERA_F64_OPS,
                                         sdf_n_sv * 4 + pix * 8)
     print(f"  K6 wrapper {k6_ms:.3f} ms (pack and launch alone {k6_launch_ms:.3f} ms), plain {k6_plain_ms:.3f} ms, "
           f"bound {k6_bound_ms:.4f} ms ({k6_bound_by}) ({card})")
-    print(f"  1080p march trips (primary + shadow of the first segment): {trips} summed over the pixels, {warp_trips} as the "
-          f"warps issue them ({warp_trips / trips:.3f}x)")
-    print(f"  SDF frame bound {sdf_bound_ms:.4f} ms ({sdf_bound_by}) from the pixels' trips, "
-          f"{sdf_warp_bound_ms:.4f} ms from the warps' ({card})")
+    print(f"  K6's 1080p march trips (center rays: primary + shadow of the first segment): {k6_trips} summed over the "
+          f"pixels, {k6_warp_trips} as the warps issue them ({k6_warp_trips / k6_trips:.3f}x)")
+    print(f"  every march of the 1080p frame (tools/work.count_sdf_work, {sdf_work_counts['segments']} segments, "
+          f"{sdf_work_counts['shadow_rays']} shadow rays): closest hits {sdf_work_counts['closest_trips']} steps, "
+          f"shadow rays {sdf_work_counts['shadow_trips']}, {trips} in all ({trips / pix:.3f} a pixel); as the warps "
+          f"issue them {sdf_work_counts['closest_warp_trips']} + {sdf_work_counts['shadow_warp_trips']} = {warp_trips} "
+          f"lane slots ({warp_trips / trips:.3f}x); the longest march {sdf_work_counts['max_trips']} steps")
+    print(f"  SDF frame bound {sdf_bound_ms:.4f} ms ({sdf_bound_by}) from the lanes' steps; from the warps' "
+          f"{sdf_warp_bound_ms:.4f} ms, beside it, not the bound ({card})")
 
 
     print("== 13. K2 with the SDF backend vs its plain version on the card (depth 4)")
@@ -2103,7 +2163,7 @@ def main(argv=None) -> int:
         max_abs_err=sdf_bwd_err, ms=sdf_bwd_ms, plain_ms=sdf_plain_bwd_ms, bound_ms=sdf_bwd_bound_ms,
         bound_by=sdf_bwd_bound_by, library_ms=None, stages=stage_rows(sdf_split, sdf_train[4]),
     ), dict(
-        name="march_steps", route="cuda", source="pathtracer_tpu_torch/csrc/march_steps.cu",
+        name="march_steps", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_sdf.cu",
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
         max_abs_err=float(k6_err), ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_bound_by,
         library_ms=None,

@@ -1,7 +1,9 @@
-// K2's media-free entry points (the analytical, SDF and mesh instantiations
-// of megakernel_bwd.cuh's template: its record kernel and adjoint kernel),
+// K2's media-free entry points (the analytical and mesh instantiations of
+// megakernel_bwd.cuh's template: its record kernel and adjoint kernel),
 // its reduction and its helpers. The MEDIA instantiations are
-// megakernel_bwd_media.cu, a library of their own.
+// megakernel_bwd_media.cu, a library of their own; the SDF scene's are
+// megakernel_sdf.cu's and megakernel_sdf_bwd_media.cu's, built for its
+// primitive counts.
 
 #include "megakernel_bwd.cuh"
 
@@ -52,29 +54,6 @@ extern "C" int pt_render_backward_adjoint(const float* sv, int n_sv, const uint3
                                                s, {p0, pixels, k0, samples}, stream);
 }
 
-// The SDF scene's, with its primitive counts (more than
-// pt_backward_sdf_max_primitives() primitives, the plane included, is
-// cudaErrorInvalidValue).
-extern "C" int pt_render_backward_sdf_record(const float* sv, int n_sv, const uint32_t* keys, float* rec, int width,
-                                             int height, int spp, int depth, int n_lights, int n_materials,
-                                             int flags, int n_spheres, int n_boxes, int n_tori, int p0, int pixels,
-                                             int k0, int samples, void* stream) {
-  if (n_spheres + n_boxes + n_tori + 1 > pt::SDF_MAX_PRIMS) return (int)cudaErrorInvalidValue;
-  const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
-  return pt::launch_record<pt::SdfAdj>(sv, n_sv, keys, rec, width, height, spp, depth, flags, s,
-                                       {p0, pixels, k0, samples}, stream);
-}
-
-extern "C" int pt_render_backward_sdf_adjoint(const float* sv, int n_sv, const uint32_t* keys, const float* ct,
-                                              float* rec, float* partial, int width, int height, int spp, int depth,
-                                              int n_lights, int n_materials, int flags, int n_spheres, int n_boxes,
-                                              int n_tori, int p0, int pixels, int k0, int samples, void* stream) {
-  if (n_spheres + n_boxes + n_tori + 1 > pt::SDF_MAX_PRIMS) return (int)cudaErrorInvalidValue;
-  const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
-  return pt::launch_adjoint<pt::SdfAdj>(sv, n_sv, keys, ct, rec, partial, width, height, spp, depth, flags, s,
-                                        {p0, pixels, k0, samples}, stream);
-}
-
 // The small mesh scene's, with its topology [n_tris, 4] int32 (a, b, c,
 // material) on the card.
 extern "C" int pt_render_backward_mesh_record(const float* sv, int n_sv, const uint32_t* keys, float* rec, int width,
@@ -102,9 +81,9 @@ extern "C" int pt_backward_reduce(const float* partial, int num_blocks, int n_sv
   return (int)cudaGetLastError();
 }
 
-// The record and adjoint kernels' resources of backend 0 (analytical), 1
-// (SDF) or 2 (mesh) for n_sv scalars and n_tris triangles, into out[8]
-// (megakernel_bwd.cuh backward_resources).
+// The record and adjoint kernels' resources of backend 0 (analytical) or 2
+// (mesh; the SDF scene's, 1, are megakernel_sdf.cu's) for n_sv scalars and
+// n_tris triangles, into out[8] (megakernel_bwd.cuh backward_resources).
 extern "C" int pt_backward_resources(int backend, int n_sv, int n_tris, int* out) {
   return pt::backward_resources_of<false>(backend, n_sv, n_tris, out);
 }

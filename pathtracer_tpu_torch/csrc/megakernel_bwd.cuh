@@ -1,7 +1,9 @@
 // Backward path-tracing megakernel (K2) on Hopper, generic over the scene
 // backend as K1 is: the analytical scene (analytical_adj.cuh), the
-// sphere-traced SDF scene (sdf_adj.cuh, the adjoint of K5) and the small
-// triangle mesh (mesh_adj.cuh, the adjoint of K7). The big mesh (K8) has
+// sphere-traced SDF scene (sdf_adj.cuh, the adjoint of K5, built for the
+// scene's primitive counts in megakernel_sdf.cu and
+// megakernel_sdf_bwd_media.cu) and the small triangle mesh (mesh_adj.cuh,
+// the adjoint of K7). The big mesh (K8) has
 // none: the JAX package differentiates it through its XLA twin. A scene
 // whose material table declares a medium takes the MEDIA instantiation
 // (`_make_grad_kernel(has_media=True)`'s counterpart: tracer_adj.cuh's
@@ -98,7 +100,7 @@ constexpr size_t REC_CAP_BYTES = size_t(1) << 31;  // the record buffer's cap, 2
 // Whether K2 copies the backend's topology to shared memory (mesh_adj.cuh),
 // as K1 does for Mesh: the other instantiations compile no copy.
 template <class B>
-constexpr bool SHARED_TOPOLOGY = std::is_same_v<B, MeshAdj>;
+constexpr bool BWD_SHARED_TOPOLOGY = std::is_same_v<B, MeshAdj>;
 
 // Dynamic shared memory of one block: the packed vector and the topology of
 // n_tris triangles (the record kernel), with the gradient table between
@@ -138,7 +140,7 @@ template <class B>
 __device__ __forceinline__ void stage_scene(const float* __restrict__ sv_global, int n_sv, float* sv, int* topo,
                                             SceneView& s) {
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
-  if constexpr (SHARED_TOPOLOGY<B>) {
+  if constexpr (BWD_SHARED_TOPOLOGY<B>) {
     for (int i = threadIdx.x; i < 4 * s.n_tris; i += blockDim.x) topo[i] = s.topo[i];
     s.topo = topo;
   }
@@ -291,13 +293,13 @@ int backward_resources(int n_sv, int n_tris, int* out) {
   return 0;
 }
 
-// backward_resources of the backend named by `backend` (0 analytical, 1
-// SDF, 2 small mesh).
+// backward_resources of the backend named by `backend` (0 analytical, 2
+// small mesh; 1, the SDF scene, is megakernel_sdf.cu's, built for its
+// counts).
 template <bool MEDIA>
 int backward_resources_of(int backend, int n_sv, int n_tris, int* out) {
   switch (backend) {
     case 0: return backward_resources<AnalyticalAdj, MEDIA>(n_sv, n_tris, out);
-    case 1: return backward_resources<SdfAdj, MEDIA>(n_sv, n_tris, out);
     case 2: return backward_resources<MeshAdj, MEDIA>(n_sv, n_tris, out);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
 // K2's MEDIA instantiations (megakernel_bwd.cuh's template with MEDIA on
-// the analytical, SDF and mesh backends: the record kernel and the adjoint
-// kernel), a library of their own because ops/_build.py
+// the analytical and mesh backends, the SDF one's in
+// megakernel_sdf_bwd_media.cu: the record kernel and the adjoint kernel),
+// a library of their own because ops/_build.py
 // compiles it without FMA contraction (-fmad=false), the record kernel as
 // well as the adjoint, so that the records' carries round as the values
 // the adjoint differentiates did. Inside a glass sphere at depth 6 a path
@@ -34,28 +35,6 @@ extern "C" int pt_render_backward_media_adjoint(const float* sv, int n_sv, const
   const pt::SceneView s = pt::analytical_view(nullptr, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
   return pt::launch_adjoint<pt::AnalyticalAdj, true>(sv, n_sv, keys, ct, rec, partial, width, height, spp, depth,
                                                      flags, s, {p0, pixels, k0, samples}, stream);
-}
-
-extern "C" int pt_render_backward_media_sdf_record(const float* sv, int n_sv, const uint32_t* keys, float* rec,
-                                                   int width, int height, int spp, int depth, int n_lights,
-                                                   int n_materials, int flags, int n_spheres, int n_boxes,
-                                                   int n_tori, int p0, int pixels, int k0, int samples,
-                                                   void* stream) {
-  if (n_spheres + n_boxes + n_tori + 1 > pt::SDF_MAX_PRIMS) return (int)cudaErrorInvalidValue;
-  const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
-  return pt::launch_record<pt::SdfAdj, true>(sv, n_sv, keys, rec, width, height, spp, depth, flags, s,
-                                             {p0, pixels, k0, samples}, stream);
-}
-
-extern "C" int pt_render_backward_media_sdf_adjoint(const float* sv, int n_sv, const uint32_t* keys, const float* ct,
-                                                    float* rec, float* partial, int width, int height, int spp,
-                                                    int depth, int n_lights, int n_materials, int flags,
-                                                    int n_spheres, int n_boxes, int n_tori, int p0, int pixels,
-                                                    int k0, int samples, void* stream) {
-  if (n_spheres + n_boxes + n_tori + 1 > pt::SDF_MAX_PRIMS) return (int)cudaErrorInvalidValue;
-  const pt::SceneView s = pt::sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
-  return pt::launch_adjoint<pt::SdfAdj, true>(sv, n_sv, keys, ct, rec, partial, width, height, spp, depth, flags, s,
-                                              {p0, pixels, k0, samples}, stream);
 }
 
 extern "C" int pt_render_backward_media_mesh_record(const float* sv, int n_sv, const uint32_t* keys, float* rec,

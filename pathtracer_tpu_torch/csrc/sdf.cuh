@@ -1,6 +1,6 @@
 // Scalar per-thread twin of models/sdf.py: the SDF backend of the generic
-// tracer (K5 inside K1), and the per-pixel march counts of K6
-// (march_steps.cu).
+// tracer (K5 inside K1 and K3), and the per-pixel march counts of K6
+// (megakernel_sdf.cu).
 //
 // Replaces the TPU backend pathtracer_tpu/ops/megakernel_sdf.py
 // (_distances, _sdf, _normal, _sphere_trace, _closest_hit_sdf,
@@ -14,6 +14,14 @@
 //   17        plane point(3) normal(3), smooth_k, checker scale, checker
 //             albedo(2), sky horizon(3) zenith(3) scale
 //   L x 15, M x 20   lights and materials, M = S + B + T + 1 (plane last)
+//
+// The primitive counts are compile-time values, as the JAX kernel's
+// _sdf_meta makes them static: the backend is a template over SdfCounts<S,
+// B, T>, and megakernel_sdf.cu is built once for each count triple
+// (ops/_build). So the distance field, its gradient and the union fold
+// unroll over the primitives, every record sits at a fixed offset, and the
+// compiler can interleave the primitives' square roots. The records are
+// read from the packed vector that the kernels copy to shared memory.
 //
 // Rounding. The march decides at every step (|d| < HIT_EPS, the overstep
 // test), so the last bit of d moves where a lane stops, by about HIT_EPS in
@@ -50,10 +58,32 @@ inline SceneView sdf_view(const float* sv, int n_lights, int n_materials, int n_
   return {sv, n_lights, n_materials, false, sdf_lights_at(n_spheres, n_boxes, n_tori), n_spheres, n_boxes, n_tori};
 }
 
-// The plane record: point(3) normal(3), then smooth_k (+6), checker scale
-// (+7), albedo (+8, +9) and the sky (+10).
-__device__ __forceinline__ const float* sdf_plane(const SceneView& s) {
-  return s.sv + SDF_PRIMS + 4 * s.n_spheres + 7 * s.n_boxes + 5 * s.n_tori;
+// The scene's primitive counts, fixed when the backend is compiled, and the
+// records' offsets in the packed vector.
+template <int S, int B, int T>
+struct SdfCounts {
+  static constexpr int SPHERES = S, BOXES = B, TORI = T;
+  static constexpr int PRIMS = S + B + T + 1;  // the plane included: the material table's records
+  static constexpr int PLANE = SDF_PRIMS + 4 * S + 7 * B + 5 * T;  // the plane record
+  static constexpr int END = PLANE + SDF_TAIL;  // the first light record
+  // Whether a launch's counts are these.
+  static bool matches(int n_spheres, int n_boxes, int n_tori) {
+    return n_spheres == S && n_boxes == B && n_tori == T;
+  }
+};
+
+// Calls f(C{}) for the first C of Cs whose counts are the scene's; false
+// where none is (host code: a shim built for a few scenes).
+template <class... Cs, class F>
+bool with_sdf_counts(int n_spheres, int n_boxes, int n_tori, F&& f) {
+  return ((Cs::matches(n_spheres, n_boxes, n_tori) ? (f(Cs{}), true) : false) || ...);
+}
+
+// The plane record of packed vector `sv`: point(3) normal(3), then
+// smooth_k (+6), checker scale (+7), albedo (+8, +9) and the sky (+10).
+template <class C>
+__device__ __forceinline__ const float* sdf_plane(const float* sv) {
+  return sv + C::PLANE;
 }
 
 __device__ __forceinline__ V3 abs3(V3 a) { return v3(fabsf(a.x), fabsf(a.y), fabsf(a.z)); }
@@ -63,7 +93,8 @@ __device__ __forceinline__ V3 abs3(V3 a) { return v3(fabsf(a.x), fabsf(a.y), fab
 __device__ __forceinline__ float share(bool wins, bool tie) { return wins ? 1.0f : (tie ? 0.5f : 0.0f); }
 __device__ __forceinline__ float safe_inv(float s) { return s > 0.0f ? 1.0f / s : 0.0f; }
 
-// A primitive's distance and its gradient in x.
+// A primitive's distance and its gradient in x. gradient(x, r).d is
+// distance(x, r) bit for bit: the same operations in the same order.
 struct DistGrad {
   float d;
   V3 g;
@@ -135,15 +166,18 @@ struct Plane {
   __device__ __forceinline__ static DistGrad gradient(V3 x, const float* r) { return {distance(x, r), load3(r + 3)}; }
 };
 
-// f(Primitive{}, record) for every primitive in material-table order:
-// spheres, boxes, tori, the plane.
-template <class F>
-__device__ __forceinline__ void for_each_primitive(const SceneView& s, F f) {
-  const float* r = s.sv + SDF_PRIMS;
-  for (int i = 0; i < s.n_spheres; ++i, r += Sphere::STRIDE) f(Sphere{}, r);
-  for (int i = 0; i < s.n_boxes; ++i, r += RoundBox::STRIDE) f(RoundBox{}, r);
-  for (int i = 0; i < s.n_tori; ++i, r += Torus::STRIDE) f(Torus{}, r);
-  f(Plane{}, r);
+// f(Primitive{}, record) for every primitive in material-table order
+// (spheres, boxes, tori, the plane), each record at its fixed offset in
+// packed vector `sv`; every loop's trip count is a constant.
+template <class C, class F>
+__device__ __forceinline__ void for_each_primitive(const float* sv, F f) {
+#pragma unroll
+  for (int i = 0; i < C::SPHERES; ++i) f(Sphere{}, sv + SDF_PRIMS + Sphere::STRIDE * i);
+#pragma unroll
+  for (int i = 0; i < C::BOXES; ++i) f(RoundBox{}, sv + SDF_PRIMS + Sphere::STRIDE * C::SPHERES + RoundBox::STRIDE * i);
+#pragma unroll
+  for (int i = 0; i < C::TORI; ++i) f(Torus{}, sdf_plane<C>(sv) - Torus::STRIDE * (C::TORI - i));
+  f(Plane{}, sdf_plane<C>(sv));
 }
 
 // Polynomial smooth union, as models/sdf.smooth_min: the blend h and
@@ -164,11 +198,12 @@ __device__ __forceinline__ float union_share(float a, float b, float k) {
 }
 
 // The scene's distance: the smooth union of the primitives, in order.
-__device__ __forceinline__ float scene_sdf(const SceneView& s, V3 x) {
-  const float k = sdf_plane(s)[6];
+template <class C>
+__device__ __forceinline__ float scene_sdf(const float* sv, V3 x) {
+  const float k = sdf_plane<C>(sv)[6];
   float d = 0.0f;
   bool first = true;
-  for_each_primitive(s, [&](auto prim, const float* r) {
+  for_each_primitive<C>(sv, [&](auto prim, const float* r) {
     float di = prim.distance(x, r);
     d = first ? di : smooth_min(d, di, k);
     first = false;
@@ -177,34 +212,55 @@ __device__ __forceinline__ float scene_sdf(const SceneView& s, V3 x) {
 }
 
 // grad_x scene_sdf, models/sdf.sdf_gradient: each primitive's gradient
-// folded through the union with its shares.
-__device__ __forceinline__ V3 sdf_gradient(const SceneView& s, V3 x) {
-  const float k = sdf_plane(s)[6];
+// folded through the union with its shares. `nearest` is set to the
+// nearest primitive at x (nearest_primitive's, the first minimum of the
+// distances each gradient returns), so the closest hit needs no second
+// pass over the field.
+template <class C>
+__device__ __forceinline__ V3 sdf_gradient(const float* sv, V3 x, int& nearest) {
+  const float k = sdf_plane<C>(sv)[6];
   DistGrad u = {0.0f, splat3(0.0f)};
-  bool first = true;
-  for_each_primitive(s, [&](auto prim, const float* r) {
+  float best = 0.0f;
+  int i = 0;
+  nearest = 0;
+  for_each_primitive<C>(sv, [&](auto prim, const float* r) {
     DistGrad b = prim.gradient(x, r);
-    if (first) {
+    if (i == 0) {
       u = b;
-      first = false;
-      return;
+      best = b.d;
+    } else {
+      if (b.d < best) {
+        best = b.d;
+        nearest = i;
+      }
+      float w = union_share(u.d, b.d, k);
+      u.g = v3(mul_rn(u.g.x, w) + mul_rn(b.g.x, 1.0f - w), mul_rn(u.g.y, w) + mul_rn(b.g.y, 1.0f - w),
+               mul_rn(u.g.z, w) + mul_rn(b.g.z, 1.0f - w));
+      u.d = smooth_min(u.d, b.d, k);
     }
-    float w = union_share(u.d, b.d, k);
-    u.g = v3(mul_rn(u.g.x, w) + mul_rn(b.g.x, 1.0f - w), mul_rn(u.g.y, w) + mul_rn(b.g.y, 1.0f - w),
-             mul_rn(u.g.z, w) + mul_rn(b.g.z, 1.0f - w));
-    u.d = smooth_min(u.d, b.d, k);
+    ++i;
   });
   return u.g;
 }
 
+template <class C>
+__device__ __forceinline__ V3 sdf_gradient(const float* sv, V3 x) {
+  int nearest;
+  return sdf_gradient<C>(sv, x, nearest);
+}
+
 // normalize(grad_x scene_sdf), models/sdf.sdf_normal.
-__device__ __forceinline__ V3 sdf_normal(const SceneView& s, V3 x) { return safe_normalize(sdf_gradient(s, x)); }
+template <class C>
+__device__ __forceinline__ V3 sdf_normal(const float* sv, V3 x) {
+  return safe_normalize(sdf_gradient<C>(sv, x));
+}
 
 // Material id at x: the nearest primitive, the first minimum winning.
-__device__ __forceinline__ int nearest_primitive(const SceneView& s, V3 x) {
+template <class C>
+__device__ __forceinline__ int nearest_primitive(const float* sv, V3 x) {
   int idx = 0, i = 0;
   float best = 0.0f;
-  for_each_primitive(s, [&](auto prim, const float* r) {
+  for_each_primitive<C>(sv, [&](auto prim, const float* r) {
     float d = prim.distance(x, r);
     if (i == 0 || d < best) {
       best = d;
@@ -218,6 +274,7 @@ __device__ __forceinline__ int nearest_primitive(const SceneView& s, V3 x) {
 struct MarchResult {
   float t;    // where the lane stopped
   int steps;  // the step (1-based) at which it stopped; SDF_MAX_STEPS if never
+  float d;    // scene_sdf at t
 };
 
 // The over-relaxed march of models/sdf.march from ro along rd: step
@@ -226,83 +283,92 @@ struct MarchResult {
 // after. A lane stops when |d| < HIT_EPS on a step that did not fail, when
 // t > SDF_T_MAX, or when t > cap on a step that did not fail (no backtrack
 // pending, so no occluder before t is left unseen). cap >= SDF_T_MAX is the
-// uncapped march.
-__device__ __forceinline__ MarchResult sdf_march(const SceneView& s, V3 ro, V3 rd, float cap) {
+// uncapped march. The distance at the returned t is the last step's where
+// the march stops inside its loop, and is evaluated once more only after
+// the last step.
+template <class C>
+__device__ __forceinline__ MarchResult sdf_march(const float* sv, V3 ro, V3 rd, float cap) {
   float t = 0.0f, prev_r = 0.0f, step_len = 0.0f, omega = OMEGA;
 #pragma unroll 1
   for (int k = 1; k <= SDF_MAX_STEPS; ++k) {
-    float d = scene_sdf(s, madd3(ro, rd, t));
+    float d = scene_sdf<C>(sv, madd3(ro, rd, t));
     float r = fabsf(d);
     bool fail = omega > 1.0f && r + prev_r < step_len;
-    if ((!fail && r < HIT_EPS) || t > SDF_T_MAX || (t > cap && !fail)) return {t, k};
+    if ((!fail && r < HIT_EPS) || t > SDF_T_MAX || (t > cap && !fail)) return {t, k, d};
     float new_step = fail ? -mul_rn(omega - 1.0f, step_len) : mul_rn(d, omega);
     t = t + new_step;
     prev_r = r;
     step_len = new_step;
     if (fail) omega = 1.0f;
   }
-  return {t, SDF_MAX_STEPS};
+  return {t, SDF_MAX_STEPS, scene_sdf<C>(sv, madd3(ro, rd, t))};
 }
 
-// The hit test at the marched t: |sdf| < 2 HIT_EPS and t <= SDF_T_MAX.
-__device__ __forceinline__ bool sdf_converged(const SceneView& s, V3 ro, V3 rd, float t) {
-  return fabsf(scene_sdf(s, madd3(ro, rd, t))) < 2.0f * HIT_EPS && t <= SDF_T_MAX;
+// The hit test at the marched t: |sdf(ro + rd t)| < 2 HIT_EPS and t <=
+// SDF_T_MAX, from the distance the march returns with t.
+__device__ __forceinline__ bool sdf_converged(const MarchResult& m) {
+  return fabsf(m.d) < 2.0f * HIT_EPS && m.t <= SDF_T_MAX;
 }
 
 // Which checker albedo the hit point x takes (0 or 1): fmod(|x1 + z1|, 2)
 // < 1 picks the first (not the analytical checker, which reads the ray
 // direction).
-__device__ __forceinline__ int sdf_checker_pick(const SceneView& s, V3 x) {
-  const float* pl = sdf_plane(s);
+template <class C>
+__device__ __forceinline__ int sdf_checker_pick(const float* sv, V3 x) {
+  const float* pl = sdf_plane<C>(sv);
   float x1 = fmodf(floorf(x.x * pl[7]), 2.0f);
   float z1 = fmodf(floorf(x.z * pl[7]), 2.0f);
   return fmodf(fabsf(x1 + z1), 2.0f) < 1.0f ? 0 : 1;
 }
 
-__device__ __forceinline__ float sdf_checker(const SceneView& s, V3 x) {
-  return sdf_plane(s)[8 + sdf_checker_pick(s, x)];
+template <class C>
+__device__ __forceinline__ float sdf_checker(const float* sv, V3 x) {
+  return sdf_plane<C>(sv)[8 + sdf_checker_pick<C>(sv, x)];
 }
 
 // Sphere-traced closest hit: t (+inf on a miss), the normal (at ro on a
 // miss: never used, but finite) and the un-finalized material (the default
 // one on a miss; the checker's albedo on the plane).
-template <class M = Material>
+template <class C, class M = Material>
 __device__ __forceinline__ float sdf_closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, M& mat) {
-  const float t = sdf_march(s, ro, rd, SDF_T_MAX).t;
-  const bool hit = sdf_converged(s, ro, rd, t);
-  const V3 x = madd3(ro, rd, hit ? t : 0.0f);
-  normal = sdf_normal(s, x);
+  const MarchResult m = sdf_march<C>(s.sv, ro, rd, SDF_T_MAX);
+  const bool hit = sdf_converged(m);
+  const V3 x = madd3(ro, rd, hit ? m.t : 0.0f);
+  int idx;
+  normal = safe_normalize(sdf_gradient<C>(s.sv, x, idx));
   if (!hit) {
     mat = default_material();
     return INFINITY;
   }
-  const int idx = nearest_primitive(s, x);
   load_material(s, idx, mat);
-  if (idx == s.n_materials - 1) mat.rgb = splat3(sdf_checker(s, x));
-  return t;
+  if (idx == C::PRIMS - 1) mat.rgb = splat3(sdf_checker<C>(s.sv, x));
+  return m.t;
 }
 
 // Shadow occlusion closer than max_dist. The march is capped at max_dist:
 // a lane past the cap with no backtrack pending has no surface before it,
 // and t never falls back below it, so the uncapped march of the plain
 // version (models/sdf.any_hit) decides the same.
+template <class C>
 __device__ __forceinline__ bool sdf_any_hit(const SceneView& s, V3 ro, V3 rd, float max_dist) {
-  const float t = sdf_march(s, ro, rd, fminf(max_dist, SDF_T_MAX)).t;
-  return sdf_converged(s, ro, rd, t) && t < max_dist;
+  const MarchResult m = sdf_march<C>(s.sv, ro, rd, fminf(max_dist, SDF_T_MAX));
+  return sdf_converged(m) && m.t < max_dist;
 }
 
-__device__ __forceinline__ V3 sdf_background(const SceneView& s, V3 rd) { return sky_background(sdf_plane(s) + 10, rd); }
-
-// The SDF backend of the generic tracer.
+// The SDF backend of the generic tracer for the counts C.
+template <class C>
 struct Sdf {
+  using Counts = C;
   template <class M = Material>
   __device__ __forceinline__ static float closest_hit(const SceneView& s, V3 ro, V3 rd, V3& normal, M& mat) {
-    return sdf_closest_hit(s, ro, rd, normal, mat);
+    return sdf_closest_hit<C>(s, ro, rd, normal, mat);
   }
   __device__ __forceinline__ static bool any_hit(const SceneView& s, V3 ro, V3 rd, float max_dist) {
-    return sdf_any_hit(s, ro, rd, max_dist);
+    return sdf_any_hit<C>(s, ro, rd, max_dist);
   }
-  __device__ __forceinline__ static V3 background(const SceneView& s, V3 rd) { return sdf_background(s, rd); }
+  __device__ __forceinline__ static V3 background(const SceneView& s, V3 rd) {
+    return sky_background(sdf_plane<C>(s.sv) + 10, rd);
+  }
 };
 
 // K6 at pixel p (ops/megakernel_sdf.march_steps_reference): the trips of
@@ -311,22 +377,23 @@ struct Sdf {
 // (the face-forward normal times EPS off the surface, the center-of-light
 // sample, capped at the light's distance; a cap of 0 on a miss or a lane
 // that does not face the light).
+template <class C>
 __device__ __forceinline__ void march_steps_pixel(const SceneView& s, int p, int width, int height, int& steps,
                                                   int& shadow_steps) {
   V3 q;
   float sx, sy;
   const V3 ro = load3(s.sv + SV_CAM_ORIGIN);
   const V3 rd = camera_ray(s, p, width, height, 0.5f, 0.5f, q, sx, sy);
-  const MarchResult m = sdf_march(s, ro, rd, SDF_T_MAX);
-  const bool hit = sdf_converged(s, ro, rd, m.t);
+  const MarchResult m = sdf_march<C>(s.sv, ro, rd, SDF_T_MAX);
+  const bool hit = sdf_converged(m);
   const V3 x = madd3(ro, rd, hit ? m.t : 0.0f);
-  const V3 n = sdf_normal(s, x);
+  const V3 n = sdf_normal<C>(s.sv, x);
   const V3 scatter = madd3(x, dot_rn(n, rd) > 0.0f ? -n : n, EPS);
   const int idx = min(max((int)(0.5f * (float)s.n_lights), 0), s.n_lights - 1);
   const LightSample ls = sample_light(s, idx, scatter, 0.5f, 0.5f);
   const float cap = dot_rn(ls.direction, ls.normal) < 0.0f && hit ? ls.dist - EPS : 0.0f;
   steps = m.steps;
-  shadow_steps = sdf_march(s, scatter, ls.direction, fminf(cap, SDF_T_MAX)).steps;
+  shadow_steps = sdf_march<C>(s.sv, scatter, ls.direction, fminf(cap, SDF_T_MAX)).steps;
 }
 
 }  // namespace pt

@@ -35,7 +35,7 @@
 
 namespace pt {
 
-constexpr int SDF_MAX_PRIMS = 16;  // primitives (plane included) the adjoint's union holds
+constexpr int SDF_MAX_PRIMS = 16;  // primitives (plane included) K2's entry points take
 constexpr float NEWTON_GATE = 1e-4f;
 
 // A value and its tangent along the direction x carries.
@@ -153,42 +153,47 @@ __device__ __forceinline__ void plane_grad(DV3 x, const float* r, PrimGrad& o) {
   o.rec[3] = rel.x, o.rec[4] = rel.y, o.rec[5] = rel.z;
 }
 
-// Primitive i in material-table order (spheres, boxes, tori, the plane).
-__device__ __forceinline__ PrimGrad prim_grad(const SceneView& s, int i, DV3 x) {
+// Primitive i in material-table order (spheres, boxes, tori, the plane)
+// of packed vector sv; i is a constant once the union's loops unroll.
+template <class C>
+__device__ __forceinline__ PrimGrad prim_grad(const float* sv, int i, DV3 x) {
   PrimGrad o;
   int off = SDF_PRIMS;
-  if (i < s.n_spheres) {
+  if (i < C::SPHERES) {
     o.off = off + Sphere::STRIDE * i, o.stride = Sphere::STRIDE;
-    sphere_grad(x, s.sv + o.off, o);
+    sphere_grad(x, sv + o.off, o);
     return o;
   }
-  off += Sphere::STRIDE * s.n_spheres, i -= s.n_spheres;
-  if (i < s.n_boxes) {
+  off += Sphere::STRIDE * C::SPHERES, i -= C::SPHERES;
+  if (i < C::BOXES) {
     o.off = off + RoundBox::STRIDE * i, o.stride = RoundBox::STRIDE;
-    round_box_grad(x, s.sv + o.off, o);
+    round_box_grad(x, sv + o.off, o);
     return o;
   }
-  off += RoundBox::STRIDE * s.n_boxes, i -= s.n_boxes;
-  if (i < s.n_tori) {
+  off += RoundBox::STRIDE * C::BOXES, i -= C::BOXES;
+  if (i < C::TORI) {
     o.off = off + Torus::STRIDE * i, o.stride = Torus::STRIDE;
-    torus_grad(x, s.sv + o.off, o);
+    torus_grad(x, sv + o.off, o);
     return o;
   }
-  o.off = off + Torus::STRIDE * s.n_tori, o.stride = 6;
-  plane_grad(x, s.sv + o.off, o);
+  o.off = C::PLANE, o.stride = 6;
+  plane_grad(x, sv + o.off, o);
   return o;
 }
 
-// Forward fold: returns grad_x f with H c; w[i] is union step i's share of
-// the running union (d union_i / d union_{i-1}; 1 - w[i] is primitive i's),
-// kd[i] its derivative in smooth_k.
-__device__ __forceinline__ DV3 sdf_union_forward(const SceneView& s, DV3 x, int n, Dual* w, Dual* kd) {
-  const float k = sdf_plane(s)[6];
-  PrimGrad p = prim_grad(s, 0, x);
+// Forward fold over the C::PRIMS primitives: returns grad_x f with H c;
+// w[i] is union step i's share of the running union (d union_i / d
+// union_{i-1}; 1 - w[i] is primitive i's), kd[i] its derivative in
+// smooth_k.
+template <class C>
+__device__ __forceinline__ DV3 sdf_union_forward(const float* sv, DV3 x, Dual* w, Dual* kd) {
+  const float k = sdf_plane<C>(sv)[6];
+  PrimGrad p = prim_grad<C>(sv, 0, x);
   Dual u = p.d;
   DV3 grad = p.g;
-  for (int i = 1; i < n; ++i) {
-    p = prim_grad(s, i, x);
+#pragma unroll
+  for (int i = 1; i < C::PRIMS; ++i) {
+    p = prim_grad<C>(sv, i, x);
     Dual wi, kdi;
     if (k > 0.0f) {  // h = clip(0.5 + 0.5 (b - a) / k, 0, 1); smin's d/dh is 0 where h moves
       float z = 0.5f + 0.5f * (p.d.v - u.v) / k;
@@ -213,48 +218,46 @@ __device__ __forceinline__ DV3 sdf_union_forward(const SceneView& s, DV3 x, int 
 // Reverse pass: adds c_f d f / d theta + (d f / d theta)' to the sink, the
 // prime the tangent along x's direction. Primitive i's weight in the union
 // is (1 - w[i]) times the later steps' w (w[0] := 0).
-__device__ __forceinline__ void sdf_union_reverse(const SceneView& s, DV3 x, int n, const Dual* w, const Dual* kd,
-                                                  float c_f, const GradSink& g) {
+template <class C>
+__device__ __forceinline__ void sdf_union_reverse(const float* sv, DV3 x, const Dual* w, const Dual* kd, float c_f,
+                                                  const GradSink& g) {
   Dual later = dconst(1.0f), dk = dconst(0.0f);
-  for (int i = n - 1; i >= 0; --i) {
+#pragma unroll
+  for (int i = C::PRIMS - 1; i >= 0; --i) {
     Dual weight = i > 0 ? (1.0f - w[i]) * later : later;
     if (i > 0) {
       dk = dk + kd[i] * later;
       later = later * w[i];
     }
     if (weight.v == 0.0f && weight.t == 0.0f) continue;
-    const PrimGrad p = prim_grad(s, i, x);
+    const PrimGrad p = prim_grad<C>(sv, i, x);
     const float alpha = c_f * weight.v + weight.t, beta = weight.v;
     for (int j = 0; j < p.stride; ++j) g.add(p.off + j, alpha * p.rec[j].v + beta * p.rec[j].t);
   }
-  const int k_at = (int)(sdf_plane(s) - s.sv) + 6;
-  g.add(k_at, c_f * dk.v + dk.t);
+  g.add(C::PLANE + 6, c_f * dk.v + dk.t);
 }
 
 // closest_hit on a ray that hit at the marched t, the nearest primitive
 // there `idx` (the record's winner): the cotangents of t, of the normal and
 // of the raw material record (the plane's rgb is its checker albedo), whose
-// stride A sets (MatAdj, or MediaMatAdj in the media instantiation).
-template <class A>
+// stride A sets (MatAdj, or MediaMatAdj in the media instantiation). Reads
+// the records from the packed vector in shared memory.
+template <class C, class A>
 __device__ __forceinline__ void sdf_closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, int idx, float ct_t,
                                                     V3 ct_normal, const A& a, const GradSink& g, V3& c_ro,
                                                     V3& c_rd) {
   const V3 x = madd3(ro, rd, t);
-  const int plane = s.n_materials - 1;
+  const int plane = C::PRIMS - 1;
   scatter_material_adj(g, material_offset(s, idx, a), a, idx != plane);
-  if (idx == plane) {
-    const int albedo_at = (int)(sdf_plane(s) - s.sv) + 8;
-    g.add(albedo_at + sdf_checker_pick(s, x), a.rgb.x + a.rgb.y + a.rgb.z);
-  }
+  if (idx == plane) g.add(C::PLANE + 8 + sdf_checker_pick<C>(s.sv, x), a.rgb.x + a.rgb.y + a.rgb.z);
   if (ct_t == 0.0f && ct_normal.x == 0.0f && ct_normal.y == 0.0f && ct_normal.z == 0.0f) return;
 
   // normal = safe_normalize(grad): the cotangent of grad is the direction
-  const V3 grad0 = sdf_gradient(s, x);
+  const V3 grad0 = sdf_gradient<C>(s.sv, x);
   const V3 c_grad = safe_normalize_adj(grad0, ct_normal);
-  const int n = s.n_spheres + s.n_boxes + s.n_tori + 1;
-  Dual w[SDF_MAX_PRIMS], kd[SDF_MAX_PRIMS];
+  Dual w[C::PRIMS], kd[C::PRIMS];
   const DV3 xd = dv3(x, c_grad);
-  const DV3 grad = sdf_union_forward(s, xd, n, w, kd);
+  const DV3 grad = sdf_union_forward<C>(s.sv, xd, w, kd);
   const V3 c_x = tangent(grad);  // H c_grad
   c_ro += c_x;
   c_rd += c_x * t;
@@ -264,21 +267,23 @@ __device__ __forceinline__ void sdf_closest_hit_adj(const SceneView& s, V3 ro, V
   const V3 grad_f = value(grad);
   c_ro += grad_f * c_f;
   c_rd += grad_f * (c_f * t);
-  sdf_union_reverse(s, xd, n, w, kd, c_f, g);
+  sdf_union_reverse<C>(s.sv, xd, w, kd, c_f, g);
 }
 
-// The SDF backend with the hooks K2's two kernels call: the record kernel
-// marches (sdf.cuh) and takes the nearest primitive at the hit as the
-// winner; the adjoint marches nothing.
-struct SdfAdj : Sdf {
+// The SDF backend of the counts C with the hooks K2's two kernels call: the
+// record kernel marches (sdf.cuh) and takes the nearest primitive at the
+// hit as the winner, as K1's closest hit does (the hit test from the
+// march's last distance); the adjoint marches nothing.
+template <class C>
+struct SdfAdj : Sdf<C> {
   // sdf_closest_hit's march and hit test: t (+inf on a miss) and the
   // nearest primitive at the hit point.
   __device__ __forceinline__ static float closest_hit_rec(const SceneView& s, V3 ro, V3 rd, int& win) {
-    const float t = sdf_march(s, ro, rd, SDF_T_MAX).t;
+    const MarchResult m = sdf_march<C>(s.sv, ro, rd, SDF_T_MAX);
     win = 0;
-    if (!sdf_converged(s, ro, rd, t)) return INFINITY;
-    win = nearest_primitive(s, madd3(ro, rd, t));
-    return t;
+    if (!sdf_converged(m)) return INFINITY;
+    win = nearest_primitive<C>(s.sv, madd3(ro, rd, m.t));
+    return m.t;
   }
   // sdf_closest_hit's normal and raw material at t, primitive `win`, in its
   // arithmetic.
@@ -286,19 +291,19 @@ struct SdfAdj : Sdf {
   __device__ __forceinline__ static void surface(const SceneView& s, V3 ro, V3 rd, float t, int win, V3& normal,
                                                  M& mat) {
     const V3 x = madd3(ro, rd, t);
-    normal = sdf_normal(s, x);
+    normal = sdf_normal<C>(s.sv, x);
     load_material(s, win, mat);
-    if (win == s.n_materials - 1) mat.rgb = splat3(sdf_checker(s, x));
+    if (win == C::PRIMS - 1) mat.rgb = splat3(sdf_checker<C>(s.sv, x));
   }
   template <class A>
   __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, int win,
                                                          float ct_t, V3 ct_normal, const A& a, const GradSink& g,
                                                          V3& c_ro, V3& c_rd) {
-    sdf_closest_hit_adj(s, ro, rd, t, win, ct_t, ct_normal, a, g, c_ro, c_rd);
+    sdf_closest_hit_adj<C>(s, ro, rd, t, win, ct_t, ct_normal, a, g, c_ro, c_rd);
   }
   __device__ __forceinline__ static void background_adj(const SceneView& s, V3 rd, V3 ct, const GradSink& g,
                                                         V3& c_rd) {
-    sky_background_adj(s, (int)(sdf_plane(s) - s.sv) + 10, rd, ct, g, c_rd);
+    sky_background_adj(s, C::PLANE + 10, rd, ct, g, c_rd);
   }
 };
 

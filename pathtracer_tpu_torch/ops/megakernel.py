@@ -11,8 +11,12 @@ sphere-traced SDF scene (`csrc/sdf.cuh`, the port of the SDF backend K5,
 `ops/megakernel_sdf.py`; its adjoint `sdf_adj.cuh`), the small triangle
 mesh (`csrc/mesh.cuh`, K7, `ops/megakernel_mesh.py`; its adjoint
 `mesh_adj.cuh`) and, in K1 only, the big one (`csrc/bigmesh.cuh`, K8,
-`ops/megakernel_bigmesh.py`). The scene reaches them packed into one
-float32 vector in the JAX package's layout (`pack_scene`: camera basis,
+`ops/megakernel_bigmesh.py`). The SDF backend is built for each scene's
+primitive counts, as the JAX kernel is traced for them: its K1, K3, K6 and
+K2 are `csrc/megakernel_sdf.cu` (and `megakernel_sdf_bwd_media.cu`), one
+library for each count triple (`forward_library`, `backward_library`).
+The scene reaches them packed into one float32 vector in the JAX
+package's layout (`pack_scene`: camera basis,
 analytical params, L light records of 15, M material records of 20, or 26
 with the medium's six when a material declares one; each family's packer
 in its module), with the tensors a backend takes beside it
@@ -280,6 +284,34 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     )
 
 
+def forward_library(k: KernelLaunch, csrc=None):
+    """The library of K1's and K3's entry points for launch `k`'s backend,
+    in this checkout's build or in that of the sources `csrc`
+    (tools/k1_pair): the SDF scene's built for its primitive counts
+    (`megakernel_sdf.cu`, where the tree has it), the others'
+    `megakernel_fwd`."""
+    from . import _build
+
+    csrc = csrc or _build.CSRC
+    if k.backend == "sdf" and "megakernel_sdf" in _build.per_count_kernels(csrc):
+        return _build.load("megakernel_sdf", csrc=csrc, counts=k.counts)
+    return _build.load("megakernel_fwd", csrc=csrc)
+
+
+def backward_library(k: KernelLaunch, csrc=None):
+    """The library of K2's record and adjoint entry points for launch `k`'s
+    backend and instantiation, in this checkout's build or in that of the
+    sources `csrc` (tools/k2_pair): the SDF scene's built for its counts
+    (`megakernel_sdf.cu`, `megakernel_sdf_bwd_media.cu`), where the tree
+    has them."""
+    from . import _build
+
+    csrc = csrc or _build.CSRC
+    if k.backend == "sdf" and "megakernel_sdf" in _build.per_count_kernels(csrc):
+        return _build.load("megakernel_sdf_bwd_media" if k.media else "megakernel_sdf", csrc=csrc, counts=k.counts)
+    return _build.load("megakernel_bwd_media" if k.media else "megakernel_bwd", csrc=csrc)
+
+
 def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of K1 on PyTorch's current stream; returns `k.out`.
     Counted in `render_frame_megakernel.launches`, and those with another
@@ -292,9 +324,7 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     launch of K3 instead: the same frame, and the bounces each sample's
     path entered alive written to `entered`; counted alike in
     `measure_occupancy_megakernel.launches` and `.<backend>_launches`."""
-    from . import _build
-
-    lib = _build.load("megakernel_fwd")
+    lib = forward_library(k)
     height, width = k.out.shape[:2]
     b, counter = BACKENDS[k.backend], render_frame_megakernel
     entry, head = getattr(lib, b.media_entry if k.media else b.entry), ()
@@ -387,9 +417,7 @@ def backward_entries(k: KernelLaunch, csrc=None) -> tuple:
     """The record and adjoint entry points of `k`'s backend and
     instantiation, in this checkout's build or in that of the sources
     `csrc` (tools/k2_pair)."""
-    from . import _build
-
-    lib = _build.load("megakernel_bwd_media" if k.media else "megakernel_bwd", csrc=csrc or _build.CSRC)
+    lib = backward_library(k, csrc)
     b = BACKENDS[k.backend]
     stem = b.media_backward if k.media else b.backward
     return getattr(lib, f"{stem}_record"), getattr(lib, f"{stem}_adjoint"), lib
@@ -487,9 +515,7 @@ def backward_resources(k: KernelLaunch) -> dict:
     card: {"record": ..., "adjoint": ...}, each its registers, stack bytes a
     thread, dynamic shared bytes a block and blocks an SM (the CUDA
     runtime's occupancy calculator)."""
-    from . import _build
-
-    lib = _build.load("megakernel_bwd_media" if k.media else "megakernel_bwd")
+    lib = backward_library(k)
     out = (ctypes.c_int * 8)()
     n_tris = k.counts[0] if k.backend == "mesh" else 0
     err = lib.pt_backward_resources(("analytical", "sdf", "mesh").index(k.backend), k.sv.shape[1], n_tris, out)
@@ -569,7 +595,7 @@ render_frame_megakernel.adjoint_launches = 0
 
 
 # A row of lanes: of JAX's tiles and of debug_uniform_stream's output, and
-# K1's and K3's threads a block (csrc/megakernel_fwd.cu THREADS)
+# K1's and K3's threads a block (csrc/megakernel_fwd.cuh THREADS)
 LANES = 128
 WARP = megakernel_sdf.WARP
 

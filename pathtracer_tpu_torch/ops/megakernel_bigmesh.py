@@ -8,8 +8,9 @@ K1 (`csrc/megakernel_fwd.cu`) instantiates; `ops/megakernel` launches it
 for a big mesh scene. Its plain version is the eager integrator on
 `models/bigmesh`. As in the JAX package, the triangles do not ride in the
 packed vector: the three tables of `models/bigmesh.coef_tables`, built on
-the scene's device for each call, go beside it. The kernel is forward-only
-here as the Pallas one is.
+the scene's device, go beside it. The tables are built once for a scene
+and kept with it until a tensor they are made from is edited or replaced
+(`bigmesh_tables`). The kernel is forward-only here as the Pallas one is.
 """
 
 from __future__ import annotations
@@ -57,7 +58,34 @@ def bigmesh_counts(scene: Scene) -> tuple[int]:
     return (bigmesh.tpad(scene.params) // bigmesh.CHUNK,)
 
 
+def _table_sources(p) -> tuple[torch.Tensor, ...]:
+    """The tensors models/bigmesh.coef_tables reads."""
+    return (*p.vertices, p.tri_a, p.tri_b, p.tri_c, p.tri_mat)
+
+
 def bigmesh_tables(scene: Scene) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """coef [Tpad, 16], attrT [8, Tpad] and aabb [nchunk, 8], float32 and
-    contiguous on the scene's device."""
-    return tuple(t.contiguous() for t in bigmesh.coef_tables(scene.params.unpack()))
+    """coef [Tpad, 16] (16-byte aligned rows, which K8 reads as float4),
+    attrT [8, Tpad] and aabb [nchunk, 8], float32 and contiguous on the
+    scene's device. Building them costs about half a millisecond at 1080p on
+    the card for a scene whose triangles did not move, so a scene keeps its
+    tables with the tensors they were built from, their versions and
+    whether they require grad; an in-place edit or a replaced tensor builds
+    them again. An edit through `.data` (or `.detach()`) is not seen: that
+    alias has a version counter of its own, so such an edit keeps the old
+    tables; edit the tensor itself under `torch.no_grad()` instead. Each
+    build is counted in `bigmesh_tables.builds`."""
+    p = scene.params.unpack()
+    key = tuple((t, t._version, t.requires_grad) for t in _table_sources(p))
+    seen = getattr(scene, "_bigmesh_tables", None)
+    if seen is None or len(seen[0]) != len(key) or any(
+            a is not b or va != vb or ga != gb for (a, va, ga), (b, vb, gb) in zip(seen[0], key)):
+        tables = tuple(t.contiguous() for t in bigmesh.coef_tables(p))
+        if tables[0].data_ptr() % 16:
+            tables = (tables[0].clone(),) + tables[1:]
+        seen = (key, tables)
+        scene._bigmesh_tables = seen
+        bigmesh_tables.builds += 1
+    return seen[1]
+
+
+bigmesh_tables.builds = 0

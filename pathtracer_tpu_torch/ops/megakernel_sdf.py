@@ -3,13 +3,16 @@ layout's inverse for the plain versions, and the march-step counter K6.
 
 Port of `pathtracer_tpu/ops/megakernel_sdf.py`. The SDF backend K5 (the
 over-relaxed sphere trace, the analytic normal, the material argmin, the
-checker and the sky) is `csrc/sdf.cuh`, which K1 (`csrc/megakernel_fwd.cu`)
-instantiates beside the analytical backend, and its adjoint
-`csrc/sdf_adj.cuh`, which K2 (`csrc/megakernel_bwd.cu`) does;
-`ops/megakernel` launches them for an SDF scene. Their plain versions are
-the eager integrator on `models/sdf` and its autograd.
+checker and the sky) is `csrc/sdf.cuh`, and its adjoint
+`csrc/sdf_adj.cuh`; both are templates over the scene's primitive counts,
+and `csrc/megakernel_sdf.cu` instantiates K1's and K3's template
+(`megakernel_fwd.cuh`), K6 and K2's (`megakernel_bwd.cuh`) with them, a
+library built for each count triple (`sdf_counts`; `ops/_build`), as the
+JAX kernel is traced for them; `ops/megakernel` launches them for an SDF
+scene. Their plain versions are the eager integrator on `models/sdf` and
+its autograd.
 
-`measure_march_steps` is K6 (`csrc/march_steps.cu`): for the center ray
+`measure_march_steps` is K6 (`csrc/megakernel_sdf.cu`): for the center ray
 of every pixel, the trips of the primary march and of the NEE shadow march
 as `measure_march_steps` of the JAX package rebuilds it (hit point plus
 the face-forward normal times EPS, the center-of-light sample, the march
@@ -39,8 +42,9 @@ WARP = 32
 
 
 def sdf_counts(scene: Scene) -> tuple[int, int, int]:
-    """(spheres, boxes, tori) of an SDF scene; its material table must hold
-    one record per primitive and the plane's."""
+    """(spheres, boxes, tori) of an SDF scene, the counts its kernels are
+    built for; its material table must hold one record per primitive and
+    the plane's."""
     p = scene.params
     counts = (int(p.sphere_radius.shape[0]), int(p.box_round.shape[0]), int(p.torus_major.shape[0]))
     n_mat = int(p.materials.roughness.shape[0])
@@ -178,7 +182,7 @@ def launch_march_steps(scene: Scene, width: int, height: int) -> tuple[torch.Ten
     sv = pack_sdf_scene(scene, width, height).contiguous()
     steps = torch.empty((height, width), dtype=torch.int32, device=sv.device)
     shadow = torch.empty_like(steps)
-    lib = _build.load("march_steps")
+    lib = _build.load("megakernel_sdf", counts=counts)
     err = lib.pt_march_steps(
         sv.data_ptr(), sv.shape[1], steps.data_ptr(), shadow.data_ptr(), width, height,
         scene.num_lights, int(scene.params.materials.roughness.shape[0]), *counts,

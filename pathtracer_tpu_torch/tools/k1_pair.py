@@ -11,10 +11,14 @@ last line is the same as one JSON object. With several scenes (`--scene
 analytical sdf`, the backends' demo scenes) or several other trees, every
 scene against every other tree, each pair in turns; then K3's launch (K1
 that also writes the bounces each path entered alive) of the two trees
-alike, counts and frames compared. Last, each instantiation's registers,
-stack, spills and machine code against the other tree's. The other tree's
-entry point of the scene's backend must take this tree's arguments.
-`k2_pair` does the same for K2's analytical launch.
+alike, counts and frames compared. Each tree's SDF launch goes through its
+own library: this tree's is built for the scene's primitive counts
+(`megakernel_sdf.cu`), an older tree's is its `megakernel_fwd`. Last, each
+instantiation's registers, stack, spills and machine code against the
+other tree's: the analytical and mesh ones must be the other's
+(`same_resources`), the SDF and big mesh ones, redesigned, are printed
+beside each other (`redesigned`); the toolkit's cu++filt names each
+instantiation. `k2_pair` does the same for K2.
 
 Usage:
   python -m pathtracer_tpu_torch.tools.k1_pair --other DIR [DIR ...] [--scene analytical sdf]
@@ -44,7 +48,7 @@ def launcher(csrc: Path, k: mk.KernelLaunch, occupancy: bool = False):
     """A call of `csrc`'s K1 with launch `k`'s backend, into a frame of its
     own; with `occupancy`, of its K3, returning the frame and the counts
     (int32 [spp, H, W]) as one tensor of int32 bits."""
-    lib = _build.load("megakernel_fwd", csrc=csrc)
+    lib = mk.forward_library(k, csrc)
     b = mk.BACKENDS[k.backend]
     entry = getattr(lib, b.occupancy if occupancy else b.entry)
     out = torch.empty_like(k.out)
@@ -64,12 +68,26 @@ def launcher(csrc: Path, k: mk.KernelLaunch, occupancy: bool = False):
     return run
 
 
-def registers(csrc: Path, kernel: str = "megakernel_fwd", entry: str = "render_forward_kernel") -> list[str]:
-    """ptxas's lines for each instantiation of `entry` in `csrc`'s build of
-    `kernel` (K1's by default): its registers, stack and spills."""
-    log = (_build.build(csrc=csrc) / f"build_{kernel}.log").read_text().splitlines()
-    return [line.strip() for line in log if "registers" in line or "spill" in line
-            or ("Compiling entry" in line and entry in line)]
+def k6_launcher(csrc: Path, k: mk.KernelLaunch):
+    """A call of `csrc`'s march-step counter K6 on launch `k`'s SDF scene,
+    into counts of their own: this tree's library of the scene's counts, or
+    an older tree's `march_steps`; returns the primary and shadow trips as
+    one tensor."""
+    if "megakernel_sdf" in _build.per_count_kernels(csrc):
+        lib = _build.load("megakernel_sdf", csrc=csrc, counts=k.counts)
+    else:
+        lib = _build.load("march_steps", csrc=csrc)
+    steps = torch.empty((2, HEIGHT, WIDTH), dtype=torch.int32, device=k.out.device)
+    stream = torch.cuda.current_stream(steps.device).cuda_stream
+
+    def run() -> torch.Tensor:
+        err = lib.pt_march_steps(k.sv.data_ptr(), k.sv.shape[1], steps[0].data_ptr(), steps[1].data_ptr(), WIDTH,
+                                 HEIGHT, k.n_lights, k.n_materials, *k.counts, stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: {lib.pt_error_string(err).decode()}")
+        return steps
+
+    return run
 
 
 def card_name() -> str:
@@ -97,25 +115,69 @@ def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
             "bit_equal": bit_equal, "times": times}
 
 
-_INSTANCE = re.compile(r"render_forward_kernelINS_\d+(\w+?)ELb([01])E(?:Lb([01])E)?E")
+_MANGLED = re.compile(r"_Z\w+")
 
 
-def k1_key(name: str):
+def demangle(names) -> dict:
+    """Each mangled name of `names` -> its readable text, as the toolkit's
+    cu++filt gives it."""
+    names = sorted(set(names))
+    tool = Path(_build.find_nvcc()).with_name("cu++filt")
+    text = subprocess.run([str(tool)], input="\n".join(names) + "\n", capture_output=True, text=True,
+                          check=True).stdout
+    return dict(zip(names, text.splitlines()))
+
+
+def instance(text: str, template: str, n_flags: int):
+    """(backend, flag, ...) of the instantiation of `template` named in the
+    demangled `text`: its backend type's name without pt:: or its counts
+    (pt::Sdf<pt::SdfCounts<1, 1, 1>> -> Sdf), then its last `n_flags` bool
+    arguments; None where `text` names none."""
+    m = re.search(template + r"<pt::(\w+).*?" + r", ([^,<>]+)" * n_flags + r">(?:\(|\s*$)", text)
+    return (m.group(1), *(g.strip() in ("true", "1", "(bool)1") for g in m.groups()[1:])) if m else None
+
+
+def k1_key(text: str):
     """(backend, COUNT, MEDIA) of an instantiation of K1's template named in
-    `name` (a tree without the MEDIA parameter has MEDIA false), or None."""
-    m = _INSTANCE.search(name)
-    return (m.group(1), m.group(2) == "1", m.group(3) == "1") if m else None
+    the demangled `text`, or None."""
+    return instance(text, "render_forward_kernel", 2)
 
 
-def instantiations(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key) -> dict:
-    """key(name) -> ptxas's resource lines of that instantiation of the
+def family_of(backend: str) -> str:
+    """The scene family of a K1 or K2 backend type's name."""
+    for prefix, family in (("Analytical", "analytical"), ("Sdf", "sdf"), ("BigMesh", "bigmesh"), ("Mesh", "mesh")):
+        if backend.startswith(prefix):
+            return family
+    raise ValueError(f"unknown backend {backend}")
+
+
+def _by_instance(lines: list[str], marker: str, key) -> dict:
+    """{i: key(its demangled name)} for each line i of `lines` that holds
+    `marker` (None where that line names no instantiation `key` knows)."""
+    heads = {i: _MANGLED.search(line) for i, line in enumerate(lines) if marker in line}
+    readable = demangle(m.group() for m in heads.values() if m)
+    return {i: key(readable[m.group()]) if m else None for i, m in heads.items()}
+
+
+def _library(csrc: Path, kernel: str, counts) -> Path:
+    """The build directory of `csrc` holding `kernel`'s library (for the SDF
+    scene's `counts` where the kernel is built for them), built if need be."""
+    return _build.build(csrc=csrc, sdf_counts=() if counts is None else (counts,),
+                        stems=None if counts is None else (kernel,))
+
+
+def instantiations(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key, counts=None) -> dict:
+    """key(demangled name) -> ptxas's resource lines of that instantiation of the
     template `key` recognises (K1's by default) in `csrc`'s build of
-    `kernel`: its stack and spills, its registers."""
-    log = (_build.build(csrc=csrc) / f"build_{kernel}.log").read_text().splitlines()
+    `kernel` (for the SDF scene's `counts`, a PER_COUNT kernel): its stack
+    and spills, its registers."""
+    log = _library(csrc, kernel, counts) / f"build_{_build.library_name(kernel, counts)}.log"
+    lines = log.read_text().splitlines()
+    heads = _by_instance(lines, "Compiling entry", key)
     out, k = {}, None
-    for line in log:
-        if "Compiling entry" in line:
-            k = key(line)
+    for i, line in enumerate(lines):
+        if i in heads:
+            k = heads[i]
             if k:
                 out[k] = []
         elif k and ("registers" in line or "spill" in line):
@@ -123,19 +185,21 @@ def instantiations(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key) -> di
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def sass(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key) -> dict:
-    """key(name) -> the machine code of that instantiation in `csrc`'s build
+def sass(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key, counts=None) -> dict:
+    """key(demangled name) -> the machine code of that instantiation in `csrc`'s build
     of `kernel`, as cuobjdump lists it without addresses and encodings; {}
     where the toolkit has no cuobjdump."""
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
-    lib = _build.build(csrc=csrc) / f"lib{kernel}.so"
-    listing = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    lib = _library(csrc, kernel, counts) / f"lib{_build.library_name(kernel, counts)}.so"
+    lines = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    heads = _by_instance(lines, "Function :", key)
     out, k = {}, None
-    for line in listing.splitlines():
-        if "Function :" in line:
-            k = key(line)
+    for i, line in enumerate(lines):
+        if i in heads:
+            k = heads[i]
             if k:
                 out[k] = []
         elif k:
@@ -145,21 +209,50 @@ def sass(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key) -> dict:
     return {k: "\n".join(v) for k, v in out.items()}
 
 
+KEPT = ("analytical", "mesh")  # the backends whose K1 and K3 keep the parent's machine code
+REDESIGNED = ("sdf", "bigmesh")
+
+
+def _csrc(other: Path) -> Path:
+    return (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
+
+
 def same_resources(other: Path, log=print) -> bool:
-    """Whether each instantiation of `other`'s K1 template has this tree's
-    registers, stack and spills (this tree's media instantiations aside);
-    logs them, and whether their machine code is the same instruction for
-    instruction."""
-    other_csrc = (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
-    mine, theirs = instantiations(_build.CSRC), instantiations(other_csrc)
-    same = bool(theirs) and all(mine.get(k) == v for k, v in theirs.items())
-    my_code, their_code = sass(_build.CSRC), sass(other_csrc)
+    """Whether each instantiation of `other`'s K1 template with the
+    analytical and mesh backends (KEPT) has this tree's registers, stack,
+    spills and, where cuobjdump lists it, machine code (this tree's media
+    instantiations aside); logs them."""
+    mine, theirs = instantiations(_build.CSRC), instantiations(_csrc(other))
+    theirs = {k: v for k, v in theirs.items() if family_of(k[0]) in KEPT}
+    my_code, their_code = sass(_build.CSRC), sass(_csrc(other))
+    same = bool(theirs)
     for k, v in sorted(theirs.items()):
+        code_same = my_code.get(k) == their_code.get(k)
         code = ("machine code not listed (no cuobjdump)" if not their_code else
-                f"machine code {'the same' if my_code.get(k) == their_code.get(k) else 'DIFFERENT'} "
+                f"machine code {'the same' if code_same else 'DIFFERENT'} "
                 f"({len(their_code.get(k, '').splitlines())} instructions)")
-        log(f"  {k[0]} {'K3' if k[1] else 'K1'}: this {mine.get(k)}; other {v}; {code}")
+        log(f"  {k[0]} {'K3' if k[1] else 'K1'}{' MEDIA' if k[2] else ''}: this {mine.get(k)}; other {v}; {code}")
+        same = same and mine.get(k) == v and (not their_code or code_same)
     return same
+
+
+def redesigned(other: Path, counts=(1, 1, 1), log=print) -> dict:
+    """The SDF and big mesh instantiations of K1's template in this tree
+    (the SDF scene's library for `counts`) and in `other`, each with its
+    registers, stack and spills: {(family, COUNT, MEDIA): (this, other)}."""
+    mine = {**instantiations(_build.CSRC), **instantiations(_build.CSRC, "megakernel_sdf", counts=counts)}
+    theirs = instantiations(_csrc(other))
+    if "megakernel_sdf" in _build.per_count_kernels(_csrc(other)):
+        theirs.update(instantiations(_csrc(other), "megakernel_sdf", counts=counts))
+    out = {}
+    for tree, table in (("this", mine), ("other", theirs)):
+        for k, v in sorted(table.items()):
+            if family_of(k[0]) in REDESIGNED:
+                out.setdefault((family_of(k[0]), k[1], k[2]), {}).setdefault(tree, []).append(f"{k[0]}: {v}")
+    for (family, count, media), trees in sorted(out.items()):
+        log(f"  {family} {'K3' if count else 'K1'}{' MEDIA' if media else ''}: this "
+            f"{' | '.join(trees.get('this', []))}; other {' | '.join(trees.get('other', []))}")
+    return out
 
 
 def pair(others: list[Path], scenes=("analytical",), log=print) -> list[dict]:
@@ -171,12 +264,17 @@ def pair(others: list[Path], scenes=("analytical",), log=print) -> list[dict]:
         scene = families.make_family_scene(family, recursion_depth=DEPTH, device=torch.device("cuda", 0))
         k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
         for other in others:
-            other_csrc = (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
+            other_csrc = _csrc(other)
             for occ in (False, True):
                 runs = {"other": launcher(other_csrc, k, occ), "this": launcher(_build.CSRC, k, occ)}
                 name = "K3" if occ else "K1"
                 label = f"{name} {family} launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1, against {other}"
                 results.append({"kernel": name, "scene": family, "other": str(other),
+                                **in_turns(runs, label, card, log)})
+            if family == "sdf":
+                runs = {"other": k6_launcher(other_csrc, k), "this": k6_launcher(_build.CSRC, k)}
+                label = f"K6 sdf launch at {WIDTH}x{HEIGHT} against {other} (outputs: the trips)"
+                results.append({"kernel": "K6", "scene": family, "other": str(other),
                                 **in_turns(runs, label, card, log)})
     return results
 
@@ -194,6 +292,7 @@ def main(argv=None) -> int:
     for other in args.other:
         print(f"K1's and K3's instantiations against {other}:")
         same_resources(other)
+        redesigned(other)
     print(card)
     print(json.dumps(results if len(results) > 1 else results[0]))
     return 0

@@ -7,12 +7,13 @@ with `git archive` into a directory that `.gitignore` lists) through
 and numpy-seeded cotangent at 1920x1080, depth 4, spp 1, in the order
 other, this, this, other, three times. This tree's K2 goes through
 `ops/megakernel.launch_backward` (its record kernel, adjoint kernel and
-reduction); the other tree's the same way with its own kernels, or, in a
-tree from before K2 became two kernels, through its one entry point with
-that tree's arguments. Prints the mean time of each (CUDA events, 20 calls
-after a warm-up), their ratio, whether the two gradients are bit-equal and,
-where they are not, the largest difference over the largest entry, and the
-card's name and power limit; the last line is the same as one JSON object.
+reduction); the other tree's the same way with its own kernels (the SDF
+scene's from its library for the scene's counts where the tree builds one).
+Prints the mean time of each (CUDA events, 20 calls after a warm-up),
+their ratio, whether the two gradients are bit-equal and, where they are
+not, the largest difference over the largest entry; the same for the
+record kernels alone, their records compared bit for bit; and the card's
+name and power limit. The last line is the same as one JSON object.
 With several scenes (`--scene analytical sdf mesh media`: the demo scenes
 of the families K2 takes, and `media`, the analytical glass filled with the
 Scatter demo's medium at depth 6, K2's MEDIA instantiation) or several
@@ -33,7 +34,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 from pathlib import Path
 
 import numpy as np
@@ -45,42 +45,52 @@ from ..models.material import MediumType
 from ..models.scene import Scene
 from ..ops import _build, rng
 from ..ops import megakernel as mk
-from .k1_pair import DEPTH, HEIGHT, WIDTH, card_name, in_turns, instantiations
+from .k1_pair import DEPTH, HEIGHT, WIDTH, card_name, in_turns, instance, instantiations, sass
 
 # the families whose demo scenes K2 takes, and the media demo
 SCENES = tuple(name for name, b in mk.BACKENDS.items() if b.backward is not None) + ("media",)
 # the media demo: the analytical glass (material 1: spec_trans 1, metallic 0,
 # roughness 0.05, ior 1.5) filled with the Scatter demo's medium, depth 6
 MEDIA_DEPTH = 6
-# A tree's K2 entry point before K2 became two kernels: sv, n_sv, keys, ct, partial, grad, the
-# frame's ints and flags, the backend's, the stream.
-_P, _I = ctypes.c_void_p, ctypes.c_int
-ONE_KERNEL_ARGS = {
-    "analytical": [_P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P],
-    "sdf": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
-    "mesh": [_P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P, _I, _I, _P],
-}
-
-_INSTANCE = re.compile(r"(render_backward_kernel|record_kernel|adjoint_kernel)INS_\d+(\w+?)E(?:Lb([01])E)?E")
-
-
-def k2_key(name: str):
+def k2_key(text: str):
     """(kernel, backend, MEDIA) of an instantiation of one of K2's kernel
-    templates named in `name` (the one-kernel design's
-    render_backward_kernel, or record_kernel and adjoint_kernel; a tree
-    without the MEDIA parameter has MEDIA false), or None."""
-    m = _INSTANCE.search(name)
-    return (m.group(1), m.group(2), m.group(3) == "1") if m else None
+    templates (record_kernel or adjoint_kernel) named in the demangled
+    `text`, the backend without its counts (SdfAdj<SdfCounts<1, 1, 1>> ->
+    SdfAdj), or None."""
+    for kernel in ("record_kernel", "adjoint_kernel"):
+        m = instance(text, kernel, 1)
+        if m:
+            return (kernel, *m)
+    return None
 
 
-def resources(other: Path, log=print) -> None:
-    """Each instantiation of K2's kernels in this tree and in `other`: its
-    registers, stack and spills as ptxas printed them."""
+def same_code(other: Path, log=print) -> bool:
+    """Whether the analytical and mesh instantiations of K2's kernels
+    (`megakernel_bwd`, `megakernel_bwd_media`) have `other`'s machine code,
+    instruction for instruction, where cuobjdump lists it; logs each."""
+    other_csrc = (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
+    same = True
+    for kernel in ("megakernel_bwd", "megakernel_bwd_media"):
+        mine, theirs = sass(_build.CSRC, kernel, k2_key), sass(other_csrc, kernel, k2_key)
+        for k in sorted(key for key in theirs if key[1] in ("AnalyticalAdj", "MeshAdj")):
+            equal = mine.get(k) == theirs[k]
+            same = same and equal
+            log(f"  {k[1]} {k[0]}{' MEDIA' if k[2] else ''}: machine code {'the same' if equal else 'DIFFERENT'} "
+                f"({len(theirs[k].splitlines())} instructions)")
+    return same
+
+
+def resources(other: Path, counts=(1, 1, 1), log=print) -> None:
+    """Each instantiation of K2's kernels in this tree and in `other` (the
+    SDF scene's in its library for `counts`, where the tree builds one):
+    its registers, stack and spills as ptxas printed them."""
     for label, csrc in (("this", _build.CSRC), ("other", (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve())):
-        for kernel in ("megakernel_bwd", "megakernel_bwd_media"):
+        libs = [(kernel, None) for kernel in ("megakernel_bwd", "megakernel_bwd_media")]
+        libs += [(kernel, counts) for kernel in _build.per_count_kernels(csrc)]
+        for kernel, c in libs:
             if not (csrc / f"{kernel}.cu").exists():
                 continue
-            for k, v in sorted(instantiations(csrc, kernel, k2_key).items()):
+            for k, v in sorted(instantiations(csrc, kernel, k2_key, counts=c).items()):
                 log(f"  {label}: {k[1]} {k[0]}{' MEDIA' if k[2] else ''}: {v}")
 
 
@@ -102,10 +112,8 @@ def _ok(err: int, lib) -> None:
 
 def other_launcher(csrc: Path, k: mk.KernelLaunch, ct: torch.Tensor):
     """A call of `csrc`'s K2 with launch `k`'s backend and instantiation on
-    cotangent `ct`, into a gradient of its own: a tree with this one's entry
-    points runs the same chunks (ops/megakernel.launch_backward) with its
-    own kernels, uncounted; a tree from before K2 became two kernels is
-    called with its own arguments."""
+    cotangent `ct`, into a gradient of its own: the same chunks as
+    ops/megakernel.launch_backward with that tree's kernels, uncounted."""
     lib = _build.load("megakernel_bwd", csrc=csrc)
     height, width = k.out.shape[:2]
     n_sv = k.sv.shape[1]
@@ -113,19 +121,6 @@ def other_launcher(csrc: Path, k: mk.KernelLaunch, ct: torch.Tensor):
     partial = torch.empty((blocks, n_sv), device=k.sv.device)
     grad = torch.empty((1, n_sv), device=k.sv.device)
     stream = torch.cuda.current_stream(grad.device).cuda_stream
-    if not hasattr(lib, "pt_backward_reduce"):
-        b = mk.BACKENDS[k.backend]
-        entry_lib = _build.load("megakernel_bwd_media", csrc=csrc) if k.media else lib
-        entry = getattr(entry_lib, b.media_backward if k.media else b.backward)
-        entry.argtypes = ONE_KERNEL_ARGS[k.backend]
-
-        def run_one() -> torch.Tensor:
-            _ok(entry(k.sv.data_ptr(), n_sv, k.keys.data_ptr(), ct.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-                      width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags,
-                      *(t.data_ptr() for t in k.extras), *k.counts, stream), entry_lib)
-            return grad
-
-        return run_one
     record, adjoint, entry_lib = mk.backward_entries(k, csrc)
     rec, chunks = mk.record_buffer(k), mk.record_chunks(k)
 
@@ -163,8 +158,27 @@ def pair(others: list[Path], scenes=("analytical",), log=print) -> list[dict]:
             r = in_turns(runs, label, card, log)
             if not r["bit_equal"]:
                 log(f"  largest difference {max_rel:.3e} of the other's largest entry")
-            results.append({"scene": family, "other": str(other), "max_rel": max_rel, **r})
+            records = in_turns({"other": record_launcher(k, other_csrc), "this": record_launcher(k)},
+                               f"K2 {family}'s record kernel alone, against {other} (outputs: the records)", card,
+                               log)
+            results.append({"scene": family, "other": str(other), "max_rel": max_rel, **r, "record": records})
     return results
+
+
+def record_launcher(k: mk.KernelLaunch, csrc: Path | None = None):
+    """A call of K2's record kernel of `csrc`'s tree (this one's by
+    default) for launch `k`, every chunk, into a record buffer of its own,
+    uncounted; returns the buffer (zeroed first, so that the words past a
+    path's end compare too)."""
+    record, _, lib = mk.backward_entries(k, csrc)
+    rec, chunks = mk.record_buffer(k).zero_(), mk.record_chunks(k)
+
+    def run() -> torch.Tensor:
+        for chunk in chunks:
+            _ok(record(*mk.record_args(k, rec, chunk)), lib)
+        return rec
+
+    return run
 
 
 def contracted(log=print) -> list[dict]:
@@ -240,6 +254,7 @@ def main(argv=None) -> int:
     for other in args.other:
         print(f"K2's kernels in this tree and in {other}:")
         resources(other)
+        same_code(other)
     print(results[0]["card"])
     print(json.dumps(results if len(results) > 1 else results[0]))
     return 0

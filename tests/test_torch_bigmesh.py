@@ -297,6 +297,46 @@ def test_megakernel_cpu_path_is_the_plain_version_with_autograd():
         MK._require_backward("bigmesh")
 
 
+def test_tables_are_built_once_per_scene():
+    """bigmesh_tables keeps a scene's tables while their sources are
+    unchanged (one build for many frames), builds them again after an
+    in-place edit of a vertex and for a replaced vertex tensor, and then
+    returns what coef_tables computes now, coef 16-byte aligned. An edit
+    through `.data` is not seen, as its docstring says, until the next
+    edit that is."""
+    scene = TB.make_scene()
+    start = bigmesh_tables.builds
+    first = bigmesh_tables(scene)
+    for _ in range(3):
+        again = bigmesh_tables(scene)
+        assert all(a is b for a, b in zip(first, again))
+    assert bigmesh_tables.builds == start + 1
+    assert first[0].data_ptr() % 16 == 0
+    with torch.no_grad():
+        scene.params.vertices.y[5] += 0.25
+    edited = bigmesh_tables(scene)
+    assert bigmesh_tables.builds == start + 2
+    fresh = TB.coef_tables(scene.params.unpack())
+    assert all(torch.equal(a, b) for a, b in zip(edited, fresh))
+    assert not torch.equal(edited[0], first[0])
+    scene.params.vertices.x = scene.params.vertices.x.clone()
+    bigmesh_tables(scene)
+    bigmesh_tables(scene)
+    assert bigmesh_tables.builds == start + 3
+    scene.params.vertices.z.requires_grad_(True)
+    assert bigmesh_tables(scene)[0].requires_grad
+    assert bigmesh_tables.builds == start + 4
+    kept = bigmesh_tables(scene)
+    scene.params.vertices.y.data[7] += 0.5
+    assert all(a is b for a, b in zip(bigmesh_tables(scene), kept))
+    assert bigmesh_tables.builds == start + 4
+    with torch.no_grad():
+        scene.params.vertices.y[6] -= 0.125
+    caught_up = bigmesh_tables(scene)
+    assert bigmesh_tables.builds == start + 5
+    assert all(torch.equal(a, b) for a, b in zip(caught_up, TB.coef_tables(scene.params.unpack())))
+
+
 if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     for path, frame in jax_frames().items():

@@ -109,22 +109,26 @@ SDF_RENDER = r"""
 extern "C" void host_grad_pixel_sdf(const float* sv, const int* counts, const uint32_t* keys, const float* ct,
                                     float* grad, int p, int width, int height, int depth, int n_lights,
                                     int n_materials, int flags) {
-  host_backward_pixel<pt::SdfAdj, false>(view(sv, counts, n_lights, n_materials), keys, pt::v3(ct[0], ct[1], ct[2]),
-                                         grad, p, width, height, depth, flags);
+  WITH_SDF_COUNTS(counts[0], counts[1], counts[2],
+                  host_backward_pixel<pt::SdfAdj<C>, false>(view(sv, counts, n_lights, n_materials), keys,
+                                                            pt::v3(ct[0], ct[1], ct[2]), grad, p, width, height, depth,
+                                                            flags));
 }
 
 extern "C" void host_render_sdf(const float* sv, const int* counts, const uint32_t* keys, float* out, int width,
                                 int height, int spp, int depth, int n_lights, int n_materials, int flags) {
   const int n = width * height;
   const pt::SceneView s = view(sv, counts, n_lights, n_materials);
-  for (int p = 0; p < n; ++p) {
-    const pt::V3 r = pt::trace_sample<pt::Sdf>(s, p, n, width, height, depth, flags, keys[0], keys[1], keys[2],
-                                               keys[3]);
-    out[4 * p + 0] = r.x;
-    out[4 * p + 1] = r.y;
-    out[4 * p + 2] = r.z;
-    out[4 * p + 3] = 1.0f;
-  }
+  WITH_SDF_COUNTS(counts[0], counts[1], counts[2], {
+    for (int p = 0; p < n; ++p) {
+      const pt::V3 r = pt::trace_sample<pt::Sdf<C>>(s, p, n, width, height, depth, flags, keys[0], keys[1], keys[2],
+                                                    keys[3]);
+      out[4 * p + 0] = r.x;
+      out[4 * p + 1] = r.y;
+      out[4 * p + 2] = r.z;
+      out[4 * p + 3] = 1.0f;
+    }
+  });
 }
 """
 

@@ -253,6 +253,57 @@ def test_sdf_kernel_matches_jax_fixture(cuda_device):
     assert_image_close(img.cpu(), np.load(SDF_FIXTURE))
 
 
+def test_sdf_library_takes_only_its_counts(cuda_device):
+    """The SDF backend is built for each scene's counts: the twin-sphere
+    scene (2, 1, 1) renders through a library of its own within the image
+    gate, and the demo's library refuses its counts."""
+    from test_torch_sdf_kernel_bwd_host import sdf_scene
+
+    twin = sdf_scene(twin=True).to(cuda_device)
+    key = rng.prng_key(45)
+    img = MK.render_frame_megakernel(twin, key, 160, 120)
+    assert_image_close(img.cpu(), MK.render_frame_reference(twin, key, 160, 120).cpu())
+    k = MK.prepare_launch(twin, key, 160, 120, 1, VERBATIM)
+    demo_lib = _build.load("megakernel_sdf", counts=(1, 1, 1))
+    assert demo_lib.pt_render_forward_sdf(
+        k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(), 160, 120, 1, k.depth, k.n_lights,
+        k.n_materials, k.flags, *k.counts, torch.cuda.current_stream(cuda_device).cuda_stream) != 0
+
+
+def test_sdf_launches_on_two_streams(cuda_device):
+    """Two scenes of the same counts share one SDF library: launched on two
+    streams at once, each renders its own frame, as it does alone."""
+    a, b = sdf.make_scene(device=cuda_device), sdf.make_scene(device=cuda_device)
+    with torch.no_grad():
+        b.params.sphere_radius.mul_(0.7)
+    key = rng.prng_key(46)
+    want = [MK.render_frame_megakernel(scene, key, 320, 240).clone() for scene in (a, b)]
+    assert not torch.equal(*want)
+    streams = torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device)
+    torch.cuda.synchronize()
+    frames = []
+    for _ in range(4):
+        for scene, stream in zip((a, b), streams):
+            with torch.cuda.stream(stream):
+                frames.append(MK.render_frame_megakernel(scene, key, 320, 240))
+    torch.cuda.synchronize()
+    assert all(torch.equal(f, want[i % 2]) for i, f in enumerate(frames))
+
+
+def test_bigmesh_tables_built_once(cuda_device):
+    """Frames of one big mesh scene share its tables: one build, the same
+    frame as a scene whose tables are built anew."""
+    from pathtracer_tpu_torch.ops import megakernel_bigmesh as MB
+
+    scene = families.make_family_scene("bigmesh", device=cuda_device)
+    builds = MB.bigmesh_tables.builds
+    frames = [MK.render_frame_megakernel(scene, rng.prng_key(71), 128, 96) for _ in range(3)]
+    assert MB.bigmesh_tables.builds == builds + 1
+    fresh = MK.render_frame_megakernel(families.make_family_scene("bigmesh", device=cuda_device), rng.prng_key(71),
+                                       128, 96)
+    assert all(torch.equal(f, fresh) for f in frames)
+
+
 def test_march_step_kernel_matches_plain_version(cuda_device):
     scene = sdf.make_scene(device=cuda_device)
     launches = MS.measure_march_steps.launches

@@ -31,6 +31,7 @@ PRELUDE = r"""
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #define __device__
 #define __forceinline__ inline
 using std::isfinite;
@@ -42,6 +43,20 @@ static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, int s) {
 }
 static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __fadd_rn(float a, float b) { return a + b; }
+struct float4 {
+  float x, y, z, w;
+};
+// The SDF backend is a template over the scene's primitive counts; a shim is
+// built for these (the demo scene's, and the scene with a twin sphere of
+// tests/test_torch_sdf_kernel_bwd_host.py) and runs its body with C the
+// scene's counts, or aborts.
+#define SDF_SHIM_COUNTS pt::SdfCounts<1, 1, 1>, pt::SdfCounts<2, 1, 1>
+#define WITH_SDF_COUNTS(n_s, n_b, n_t, ...)                                                     \
+  if (!pt::with_sdf_counts<SDF_SHIM_COUNTS>(n_s, n_b, n_t, [&](auto counts_) {                 \
+        using C = decltype(counts_);                                                            \
+        __VA_ARGS__;                                                                            \
+      }))                                                                                       \
+  std::abort()
 """
 
 SHIM = PRELUDE + r"""

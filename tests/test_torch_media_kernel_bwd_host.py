@@ -81,7 +81,8 @@ extern "C" void host_grad_media(HEAD) {
 }
 
 extern "C" void host_grad_media_sdf(HEAD, int n_spheres, int n_boxes, int n_tori) {
-  grad<pt::SdfAdj>(pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori), ARGS);
+  WITH_SDF_COUNTS(n_spheres, n_boxes, n_tori,
+                  grad<pt::SdfAdj<C>>(pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori), ARGS));
 }
 
 extern "C" void host_grad_media_mesh(HEAD, const int* topo, int n_tris, int n_verts) {
@@ -98,7 +99,9 @@ extern "C" void host_carries_media(CARRIES_HEAD) {
 }
 
 extern "C" void host_carries_media_sdf(CARRIES_HEAD, int n_spheres, int n_boxes, int n_tori) {
-  host_carries<pt::SdfAdj, true>(pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori), CARRIES_ARGS);
+  WITH_SDF_COUNTS(n_spheres, n_boxes, n_tori,
+                  host_carries<pt::SdfAdj<C>, true>(pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori),
+                                                    CARRIES_ARGS));
 }
 
 extern "C" void host_carries_media_mesh(CARRIES_HEAD, const int* topo, int n_tris, int n_verts) {

@@ -82,7 +82,8 @@ extern "C" void host_media(HEAD) {
 }
 
 extern "C" void host_media_sdf(HEAD, int n_spheres, int n_boxes, int n_tori) {
-  frame<pt::Sdf>(pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori), ARGS);
+  WITH_SDF_COUNTS(n_spheres, n_boxes, n_tori,
+                  frame<pt::Sdf<C>>(pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori), ARGS));
 }
 
 extern "C" void host_media_mesh(HEAD, const int* topo, int n_tris, int n_verts) {

@@ -64,6 +64,72 @@ extern "C" void host_render_bigmesh(const float* sv, const uint32_t* keys, float
   frame<pt::BigMesh>(pt::bigmesh_view(sv, n_lights, n_materials, coef, attr, aabb, n_chunks), keys, out, width,
                      height, spp, depth, flags);
 }
+
+// K8's walk before its rows were read as float4 (all 16 coefficients read
+// one by one, then the guards), the reference of host_walks.
+static float old_mt_hit(const float* c, pt::V3 d, pt::V3 m, pt::V3 o) {
+  float k[16];
+  for (int i = 0; i < 16; ++i) k[i] = c[i];
+  const float det = -((pt::mul_rn(k[0], d.x) + pt::mul_rn(k[1], d.y)) + pt::mul_rn(k[2], d.z));
+  if (!(std::fabs(det) > pt::BIGMESH_EPS)) return INFINITY;
+  const float inv = 1.0f / det;
+  const float u_num = ((pt::mul_rn(k[3], d.x) + pt::mul_rn(k[4], d.y)) + pt::mul_rn(k[5], d.z)) +
+                      ((pt::mul_rn(k[6], m.x) + pt::mul_rn(k[7], m.y)) + pt::mul_rn(k[8], m.z));
+  const float u = u_num * inv;
+  if (!(u >= 0.0f)) return INFINITY;
+  const float v_num = ((pt::mul_rn(k[9], d.x) + pt::mul_rn(k[10], d.y)) + pt::mul_rn(k[11], d.z)) +
+                      ((pt::mul_rn(k[12], m.x) + pt::mul_rn(k[13], m.y)) + pt::mul_rn(k[14], m.z));
+  const float v = v_num * inv;
+  const float t = (((pt::mul_rn(k[0], o.x) + pt::mul_rn(k[1], o.y)) + pt::mul_rn(k[2], o.z)) + k[15]) * inv;
+  return v >= 0.0f && u + v <= 1.0f && t > pt::BIGMESH_EPS ? t : INFINITY;
+}
+
+// Pair i: mt_hit of row i (16 floats, 16-byte aligned) against ray i (d,
+// m, o: 9 floats), K8's (t_new, its row read as float4 as its guards pass)
+// and the old walk's (t_old).
+extern "C" void host_mt_hit(const float* rows, const float* rays, int n, float* t_new, float* t_old) {
+  for (int i = 0; i < n; ++i) {
+    const float* r = rays + 9 * i;
+    const pt::V3 d = pt::v3(r[0], r[1], r[2]), m = pt::v3(r[3], r[4], r[5]), o = pt::v3(r[6], r[7], r[8]);
+    t_new[i] = pt::mt_hit(reinterpret_cast<const float4*>(rows + 16 * (size_t)i), d, m, o);
+    t_old[i] = old_mt_hit(rows + 16 * (size_t)i, d, m, o);
+  }
+}
+
+// Ray i: the closest hit's (t, winner) of the old walk (t_out[2i],
+// win_out[2i]) and of K8's walk as the kernel runs it (t_out[2i + 1],
+// win_out[2i + 1]), and the shadow ray's verdict at max_dist[i] of each
+// (occluded[2i + 0..1]).
+extern "C" void host_walks(const float* coef, const float* aabb, int n_chunks, int n, const float* ro, const float* rd,
+                           const float* max_dist, float* t_out, int* win_out, uint8_t* occluded) {
+  pt::SceneView s = pt::bigmesh_view(nullptr, 0, 0, coef, nullptr, aabb, n_chunks);
+  for (int i = 0; i < n; ++i) {
+    const pt::V3 o = pt::v3(ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]);
+    const pt::V3 d = pt::v3(rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]);
+    const pt::V3 m = pt::cross_rn(o, d);
+    const pt::V3 invd = pt::v3(pt::safe_inv_dir(d.x), pt::safe_inv_dir(d.y), pt::safe_inv_dir(d.z));
+    float best = INFINITY;
+    int win = -1;
+    bool occ = false;
+    for (int c = 0; c < n_chunks; ++c) {
+      const bool closest = pt::chunk_admits(aabb + 8 * c, o, invd, best);
+      const bool shadow = pt::chunk_admits(aabb + 8 * c, o, invd, max_dist[i]);
+      for (int j = 0; j < pt::BIGMESH_CHUNK && (closest || shadow); ++j) {
+        const float t = old_mt_hit(coef + (size_t)(c * pt::BIGMESH_CHUNK + j) * 16, d, m, o);
+        if (closest && t < best) {
+          best = t;
+          win = c * pt::BIGMESH_CHUNK + j;
+        }
+        occ = occ || (shadow && t < max_dist[i]);
+      }
+    }
+    t_out[2 * i] = best;
+    win_out[2 * i] = win;
+    occluded[2 * i] = occ;
+    t_out[2 * i + 1] = pt::bigmesh_walk(s, o, d, win_out[2 * i + 1]);
+    occluded[2 * i + 1] = pt::BigMesh::any_hit(s, o, d, max_dist[i]);
+  }
+}
 """
 
 
@@ -74,6 +140,8 @@ def host_lib(tmp_path_factory):
     head = [p, p, p, i, i, i, i, i, i, i]
     lib.host_render_mesh.argtypes = head + [p, i, i]
     lib.host_render_bigmesh.argtypes = head + [p, p, p, i]
+    lib.host_walks.argtypes = [p, p, i, i, p, p, p, p, p, p]
+    lib.host_mt_hit.argtypes = [p, p, i, p, p]
     return lib
 
 
@@ -129,3 +197,63 @@ def test_mesh_kernel_code_matches_plain_version(host_lib, case):
     diff = np.abs(img.astype(np.float64) - ref)
     assert np.quantile(diff, 0.999) < 1e-4
     assert diff.mean() < 1e-5
+
+
+@pytest.mark.parametrize("ground_grid", [0, 4], ids=["demo", "ground_grid"])
+def test_bigmesh_walk_matches_old_walk(host_lib, ground_grid):
+    """K8's walk over float4 rows gives the scalar walk's winner and t on
+    every ray, bit for bit, and its shadow verdict: camera-like rays toward the mesh, rays from inside its box,
+    grazing rays along the ground, with max_dist short of and past the
+    hit."""
+    scene = bigmesh.make_scene(params=bigmesh.default_params(ground_grid=ground_grid))
+    coef, _, aabb = (t.contiguous() for t in bigmesh.coef_tables(scene.params.unpack()))
+    rs = np.random.default_rng(41 + ground_grid)
+    n = 6000
+    ro = np.concatenate([rs.uniform([-4, -0.5, 3], [4, 3, 6], (n // 3, 3)),
+                         rs.uniform([-1.5, -1.0, -1.5], [1.5, 1.5, 1.5], (n // 3, 3)),
+                         np.stack([rs.uniform(-3, 3, n // 3), np.full(n // 3, -0.999), rs.uniform(-3, 3, n // 3)], 1)])
+    target = np.concatenate([rs.uniform([-1.5, -1.0, -1.5], [1.5, 1.5, 1.5], (2 * (n // 3), 3)),
+                             ro[2 * (n // 3):] + np.stack([rs.uniform(-1, 1, n // 3), rs.uniform(-1e-3, 1e-3, n // 3),
+                                                           rs.uniform(-1, 1, n // 3)], 1)])
+    rd = target - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    max_dist = rs.uniform(0.0, 8.0, n)
+    ro, rd, max_dist = (torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in (ro, rd, max_dist))
+    t, win, occ = torch.empty((n, 2)), torch.empty((n, 2), dtype=torch.int32), torch.empty((n, 2), dtype=torch.uint8)
+    host_lib.host_walks(coef.data_ptr(), aabb.data_ptr(), aabb.shape[0], n, ro.data_ptr(), rd.data_ptr(),
+                        max_dist.data_ptr(), t.data_ptr(), win.data_ptr(), occ.data_ptr())
+    assert torch.equal(t[:, 1].view(torch.int32), t[:, 0].view(torch.int32))
+    assert torch.equal(win[:, 1], win[:, 0])
+    assert torch.equal(occ[:, 1], occ[:, 0])
+    hits = win[:, 0] >= 0
+    assert 0.2 < float(hits.double().mean()) < 0.95
+    assert 0.05 < float(occ[:, 0].double().mean()) < 0.95
+
+
+def test_mt_hit_matches_old_walk_at_every_magnitude():
+    """K8's mt_hit (a row read as four float4, each once the guard before
+    it passed) on synthetic rows and rays of every magnitude (tiny and
+    subnormal u numerators, determinants up to 1e30, both signs): its t is
+    the old walk's bit for bit, products that round to zero included."""
+    import tempfile
+    from pathlib import Path
+
+    lib = build_shim(Path(tempfile.mkdtemp()), SHIM)
+    lib.host_mt_hit.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    rs = np.random.default_rng(43)
+    n = 60_000
+    mag = lambda size, lo, hi: np.sign(rs.standard_normal(size)) * 10.0 ** rs.uniform(lo, hi, size)
+    rows = np.concatenate([rs.uniform(-2, 2, (n // 3, 16)), mag((n // 3, 16), -40, 30),
+                           np.concatenate([mag((n // 3, 3), 6, 30), mag((n // 3, 13), -44, -20)], axis=1)])
+    rays = np.concatenate([rs.uniform(-2, 2, (n // 3, 9)), mag((n // 3, 9), -20, 10),
+                           np.concatenate([rs.uniform(-1, 1, (n // 3, 3)), mag((n // 3, 6), -44, -30)], axis=1)])
+    rows, rays = (torch.from_numpy(a.astype(np.float32)).contiguous() for a in (rows, rays))
+    t_new, t_old = torch.empty(n), torch.empty(n)
+    lib.host_mt_hit(rows.data_ptr(), rays.data_ptr(), n, t_new.data_ptr(), t_old.data_ptr())
+    assert torch.equal(t_new.view(torch.int32), t_old.view(torch.int32))
+    assert int(torch.isfinite(t_old).sum()) > 300  # hits, beside the pairs each guard rejects
+    k, d, m = rows.double(), rays[:, :3].double(), rays[:, 3:6].double()
+    det = -(k[:, :3] * d).sum(1)
+    u_num = (k[:, 3:6] * d).sum(1) + (k[:, 6:9] * m).sum(1)
+    tiny = (det.abs() > 1e-7) & (torch.sign(u_num) * torch.sign(det) < 0) & ((u_num / det).abs() < 1e-40)
+    assert int(tiny.sum()) > 100

@@ -188,7 +188,7 @@ extern "C" void host_analytical(HEAD) {
   RUN(pt::Analytical, pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0));
 }
 extern "C" void host_sdf(HEAD, int n_spheres, int n_boxes, int n_tori) {
-  RUN(pt::Sdf, pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori));
+  WITH_SDF_COUNTS(n_spheres, n_boxes, n_tori, RUN(pt::Sdf<C>, pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori)));
 }
 extern "C" void host_mesh(HEAD, const int* topo, int n_tris, int n_verts) {
   RUN(pt::Mesh, pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts));
@@ -203,7 +203,8 @@ extern "C" void host_bigmesh(HEAD, const float* coef, const float* attr, const f
 def host_lib(tmp_path_factory):
     lib = build_shim(tmp_path_factory.mktemp("occupancy_host"), SHIM)
     for family in FAMILIES:
-        argtypes, _ = _build.SIGNATURES["megakernel_fwd"][MK.BACKENDS[family].occupancy]
+        argtypes, _ = _build.SIGNATURES["megakernel_sdf" if family == "sdf" else "megakernel_fwd"][
+            MK.BACKENDS[family].occupancy]
         getattr(lib, f"host_{family}").argtypes = argtypes[:-1]  # no stream
     return lib
 

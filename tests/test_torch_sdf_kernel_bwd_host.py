@@ -54,44 +54,46 @@ static void put3(float* a, int i, pt::V3 v) { a[3 * i] = v.x; a[3 * i + 1] = v.y
 
 extern "C" void host_grad_sdf(const float* sv, const int* counts, const uint32_t* keys, const float* ct, float* grad,
                               int width, int height, int spp, int depth, int n_lights, int n_materials, int flags) {
-  host_backward<pt::SdfAdj, false>(view(sv, counts, n_lights, n_materials), keys, ct, grad, width, height, spp, depth,
-                                   flags);
+  WITH_SDF_COUNTS(counts[0], counts[1], counts[2],
+                  host_backward<pt::SdfAdj<C>, false>(view(sv, counts, n_lights, n_materials), keys, ct, grad, width,
+                                                      height, spp, depth, flags));
 }
 
 extern "C" void host_carries_sdf(const float* sv, const int* counts, const uint32_t* keys, int width, int height,
                                  int spp, int depth, int n_lights, int n_materials, int flags, float* rec_carry,
                                  float* ref_carry, int* rec_len, int* ref_len) {
-  host_carries<pt::SdfAdj, false>(view(sv, counts, n_lights, n_materials), keys, width, height, spp, depth, flags,
-                                  rec_carry, ref_carry, rec_len, ref_len);
+  WITH_SDF_COUNTS(counts[0], counts[1], counts[2],
+                  host_carries<pt::SdfAdj<C>, false>(view(sv, counts, n_lights, n_materials), keys, width, height, spp,
+                                                     depth, flags, rec_carry, ref_carry, rec_len, ref_len));
 }
 
 // Point i: the field's first derivatives (c_f = 1 along no direction):
 // grad_x f into c_x[3i], d f / d sv into the row grad[n_sv i].
 extern "C" void host_field_grad(const float* sv, const int* counts, int n_lights, int n_materials, int n_sv, int n,
                                 const float* x, float* c_x, float* grad) {
-  const pt::SceneView s = view(sv, counts, n_lights, n_materials);
-  const int prims = counts[0] + counts[1] + counts[2] + 1;
-  pt::Dual w[pt::SDF_MAX_PRIMS], kd[pt::SDF_MAX_PRIMS];
-  for (int i = 0; i < n; ++i) {
-    const pt::DV3 xd = pt::dv3(at3(x, i), pt::splat3(0.0f));
-    put3(c_x, i, pt::value(pt::sdf_union_forward(s, xd, prims, w, kd)));
-    pt::sdf_union_reverse(s, xd, prims, w, kd, 1.0f, {grad + (size_t)n_sv * i, 1});
-  }
+  WITH_SDF_COUNTS(counts[0], counts[1], counts[2], {
+    pt::Dual w[C::PRIMS], kd[C::PRIMS];
+    for (int i = 0; i < n; ++i) {
+      const pt::DV3 xd = pt::dv3(at3(x, i), pt::splat3(0.0f));
+      put3(c_x, i, pt::value(pt::sdf_union_forward<C>(sv, xd, w, kd)));
+      pt::sdf_union_reverse<C>(sv, xd, w, kd, 1.0f, {grad + (size_t)n_sv * i, 1});
+    }
+  });
 }
 
 // Point i: the VJP of normal = safe_normalize(grad_x f) for the cotangent
 // ct[3i], into c_x[3i] (the point) and the row grad[n_sv i] (the record).
 extern "C" void host_normal_vjp(const float* sv, const int* counts, int n_lights, int n_materials, int n_sv, int n,
                                 const float* x, const float* ct, float* c_x, float* grad) {
-  const pt::SceneView s = view(sv, counts, n_lights, n_materials);
-  const int prims = counts[0] + counts[1] + counts[2] + 1;
-  pt::Dual w[pt::SDF_MAX_PRIMS], kd[pt::SDF_MAX_PRIMS];
-  for (int i = 0; i < n; ++i) {
-    const pt::V3 xi = at3(x, i);
-    const pt::DV3 xd = pt::dv3(xi, pt::safe_normalize_adj(pt::sdf_gradient(s, xi), at3(ct, i)));
-    put3(c_x, i, pt::tangent(pt::sdf_union_forward(s, xd, prims, w, kd)));
-    pt::sdf_union_reverse(s, xd, prims, w, kd, 0.0f, {grad + (size_t)n_sv * i, 1});
-  }
+  WITH_SDF_COUNTS(counts[0], counts[1], counts[2], {
+    pt::Dual w[C::PRIMS], kd[C::PRIMS];
+    for (int i = 0; i < n; ++i) {
+      const pt::V3 xi = at3(x, i);
+      const pt::DV3 xd = pt::dv3(xi, pt::safe_normalize_adj(pt::sdf_gradient<C>(sv, xi), at3(ct, i)));
+      put3(c_x, i, pt::tangent(pt::sdf_union_forward<C>(sv, xd, w, kd)));
+      pt::sdf_union_reverse<C>(sv, xd, w, kd, 0.0f, {grad + (size_t)n_sv * i, 1});
+    }
+  });
 }
 
 // Ray i: the record step's march and winner; on a hit, the closest hit's
@@ -101,31 +103,36 @@ extern "C" void host_closest_hit_adj(const float* sv, const int* counts, int n_l
                                      int n, const float* ro, const float* rd, const float* ct_t, const float* ct_n,
                                      const float* ct_rgb, float* c_ro, float* c_rd, float* grad, uint8_t* hit) {
   const pt::SceneView s = view(sv, counts, n_lights, n_materials);
-  for (int i = 0; i < n; ++i) {
-    const pt::V3 o = at3(ro, i), d = at3(rd, i);
-    int win;
-    const float t = pt::SdfAdj::closest_hit_rec(s, o, d, win);
-    hit[i] = std::isfinite(t);
-    pt::V3 co = pt::splat3(0.0f), cd = pt::splat3(0.0f);
-    if (hit[i]) {
-      pt::MatAdj a = pt::zero_mat_adj();
-      a.rgb = at3(ct_rgb, i);
-      pt::SdfAdj::closest_hit_adj(s, o, d, t, win, ct_t[i], at3(ct_n, i), a, {grad + (size_t)n_sv * i, 1}, co, cd);
+  WITH_SDF_COUNTS(counts[0], counts[1], counts[2], {
+    for (int i = 0; i < n; ++i) {
+      const pt::V3 o = at3(ro, i), d = at3(rd, i);
+      int win;
+      const float t = pt::SdfAdj<C>::closest_hit_rec(s, o, d, win);
+      hit[i] = std::isfinite(t);
+      pt::V3 co = pt::splat3(0.0f), cd = pt::splat3(0.0f);
+      if (hit[i]) {
+        pt::MatAdj a = pt::zero_mat_adj();
+        a.rgb = at3(ct_rgb, i);
+        pt::SdfAdj<C>::closest_hit_adj(s, o, d, t, win, ct_t[i], at3(ct_n, i), a, {grad + (size_t)n_sv * i, 1}, co,
+                                       cd);
+      }
+      put3(c_ro, i, co);
+      put3(c_rd, i, cd);
     }
-    put3(c_ro, i, co);
-    put3(c_rd, i, cd);
-  }
+  });
 }
 
 // Direction i: the sky's adjoint for the cotangent ct[3i]: c_rd and the row.
 extern "C" void host_sky_adj(const float* sv, const int* counts, int n_lights, int n_materials, int n_sv, int n,
                              const float* rd, const float* ct, float* c_rd, float* grad) {
   const pt::SceneView s = view(sv, counts, n_lights, n_materials);
-  for (int i = 0; i < n; ++i) {
-    pt::V3 cd = pt::splat3(0.0f);
-    pt::SdfAdj::background_adj(s, at3(rd, i), at3(ct, i), {grad + (size_t)n_sv * i, 1}, cd);
-    put3(c_rd, i, cd);
-  }
+  WITH_SDF_COUNTS(counts[0], counts[1], counts[2], {
+    for (int i = 0; i < n; ++i) {
+      pt::V3 cd = pt::splat3(0.0f);
+      pt::SdfAdj<C>::background_adj(s, at3(rd, i), at3(ct, i), {grad + (size_t)n_sv * i, 1}, cd);
+      put3(c_rd, i, cd);
+    }
+  });
 }
 """
 
@@ -407,3 +414,16 @@ def test_sdf_records_carry_what_bounce_hands_on(host, case):
     depth, spp, quirks, smooth_k = CASES[case]
     assert_carries_equal(*host.carries(sdf_scene(smooth_k, depth), rng.prng_key(sorted(CASES).index(case) + 51), 24,
                                        16, spp, quirks))
+
+
+def test_sdf_backward_and_records_twin_sphere(host):
+    """The backend built for the counts (2, 1, 1), the twin sphere a tie at
+    every point: K2's gradient against autograd, and its records' carries
+    bit for bit what tracer.cuh's bounce hands on."""
+    scene = sdf_scene(0.0, 2, twin=True)
+    assert MS.sdf_counts(scene) == (2, 1, 1)
+    w, h, key = 24, 16, rng.prng_key(61)
+    ct = torch.from_numpy(np.random.default_rng(61).standard_normal((h, w, 4)).astype(np.float32))
+    sv, grad = host.grad(scene, key, ct, w, h, 1, VERBATIM)
+    assert_grad_close(grad, MK.render_grad_reference(sv, scene, key, ct, w, h, 1, VERBATIM))
+    assert_carries_equal(*host.carries(sdf_scene(0.0, 3, twin=True), key, w, h, 2, FIXED))

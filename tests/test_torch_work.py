@@ -1,13 +1,18 @@
-"""`tools/work.py`, the counts behind the mesh kernels' bounds.
+"""`tools/work.py`, the counts behind the mesh and SDF kernels' bounds.
 
 `bigmesh_walk` replays K8's walks over its chunks with tensor ops; here a
 loop that follows `csrc/bigmesh.cuh` statement by statement (chunk by
 chunk, the box test against the best t so far or max_dist, `mt_hit`'s
 early returns, the shadow ray's return at its first occluder) must count
-the same box tests and pairs on seeded rays. `count_mesh_work` on a small
-frame of each mesh scene: its counts must fit each other (every shadow ray
-on a segment, no more tests than the walks allow).
+the same box tests and pairs on seeded rays, and the pairs its warps run.
+`count_mesh_work` on a small frame of each mesh scene: its counts must fit
+each other (every shadow ray on a segment, no more tests than the walks
+allow). `count_sdf_work`: the primary marches' steps against the march of
+`csrc/sdf.cuh` built for the host, and every march of a frame fitting
+together.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -17,7 +22,7 @@ from pathtracer_tpu_torch.models import bigmesh as TB
 from pathtracer_tpu_torch.models import families
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.vecmath import V3
-from pathtracer_tpu_torch.tools.work import bigmesh_walk, chunk_cull, count_mesh_work
+from pathtracer_tpu_torch.tools.work import WARP, bigmesh_walk, chunk_cull, count_mesh_work, count_sdf_work, warp_cost
 from test_torch_kernel_host import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -78,6 +83,13 @@ def test_bigmesh_walk_counts_what_the_kernel_tests(walk):
     want = _kernel_walk(p, ro, rd, md)
     counted = np.stack([got.boxes.numpy(), got.pairs.numpy(), got.det_ok.numpy(), got.u_ok.numpy()], axis=1)
     np.testing.assert_array_equal(counted, want)
+    np.testing.assert_array_equal(got.chunk_pairs.sum(dim=1).numpy(), want[:, 1])
+    # a warp runs each chunk as far as its slowest lane goes in it
+    lanes = np.zeros(120, bool)
+    lanes[::3] = lanes[1::7] = True
+    chunk = got.chunk_pairs.numpy() * lanes[:, None]
+    by_loop = sum(WARP * chunk[w:w + WARP].max(axis=0).sum() for w in range(0, 120, WARP))
+    assert warp_cost(got.chunk_pairs, torch.from_numpy(lanes)) == by_loop > want[lanes, 1].sum()
     # the rays reach both kinds of walk: some skip chunks, some stop early
     assert (want[:, 1] < 9 * TB.CHUNK).any() and (want[:, 1] > TB.CHUNK).any()
     if walk == "shadow":
@@ -100,3 +112,50 @@ def test_count_mesh_work_fits_together(family):
         assert shadow <= work["shadow_boxes"] <= 9 * shadow
         for w, rays in (("closest", segments), ("shadow", shadow)):
             assert 0 < work[f"{w}_u_ok"] < work[f"{w}_det_ok"] <= work[f"{w}_pairs"] <= 9 * TB.CHUNK * rays
+
+
+def test_warp_cost():
+    work = torch.tensor([3, 1, 0, 7] + [2] * 30 + [5])
+    mask = torch.ones(35, dtype=torch.bool)
+    assert warp_cost(work, mask) == WARP * (7 + 5)
+    mask[3] = False
+    assert warp_cost(work, mask) == WARP * (3 + 5)
+    assert warp_cost(torch.stack([work, 10 - work], 1), mask) == WARP * (3 + 10 + 5 + 8)
+
+
+def test_count_sdf_work_primary_marches_match_the_kernel_march(tmp_path):
+    """At depth 1 every segment is a primary ray: count_sdf_work's steps are
+    the march of csrc/sdf.cuh (built for the host) on the same camera rays
+    on at least 99.9% of the lanes, and its warp count the warps' slowest
+    lanes'."""
+    from pathtracer_tpu_torch.integrator import tracer as T
+    from pathtracer_tpu_torch.models.camera import gen_ray, pixel_coords
+    from pathtracer_tpu_torch.ops.vecmath import V2
+    from test_torch_kernel_host import build_shim
+    from test_torch_sdf_kernel_host import SHIM, HostSdf
+
+    host = HostSdf(build_shim(tmp_path, SHIM))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    host.lib.host_folds.argtypes = [p, p, i, p, p, p, p, p, p, p]
+    scene, key, w, h = families.make_family_scene("sdf", recursion_depth=1), rng.prng_key(12), 48, 32
+    work = count_sdf_work(scene, key, w, h)
+    cam_u, _ = T.draw_uniforms(key, w * h, 1, torch.float32, None)
+    ro, rd = gen_ray(scene.camera.unpack(), pixel_coords(w, h, torch.float64, None), V2(cam_u[:, 0], cam_u[:, 1]),
+                     float(w), float(h))
+    ro = np.broadcast_to(np.stack([np.asarray(c, np.float32) for c in ro], -1), (w * h, 3))
+    _, _, steps = host.folds(scene, ro, np.stack([np.asarray(c, np.float32) for c in rd], -1))
+    assert work["segments"] == w * h and work["shadow_rays"] > 0
+    assert abs(work["closest_trips"] - int(steps.sum())) <= 1e-3 * int(steps.sum())
+    assert abs(work["closest_warp_trips"] - warp_cost(steps.long(), torch.ones(w * h, dtype=torch.bool))) <= (
+        1e-2 * work["closest_warp_trips"])
+    assert work["max_trips"] == int(steps.max()) == 96
+
+
+def test_count_sdf_work_fits_together():
+    scene = families.make_family_scene("sdf", recursion_depth=3)
+    work = count_sdf_work(scene, rng.prng_key(7), 32, 24)
+    segments, shadow = work["segments"], work["shadow_rays"]
+    assert 32 * 24 <= segments <= 3 * 32 * 24 and 0 < shadow < segments
+    assert segments <= work["closest_trips"] <= work["closest_warp_trips"] <= 96 * WARP * -(-segments // 1)
+    assert shadow <= work["shadow_trips"] <= work["shadow_warp_trips"]
+    assert work["max_trips"] == 96
