@@ -10,7 +10,8 @@ which raises on failure (non-zero exit):
    for the demo scene's primitive counts (1, 1, 1) among them, all side by
    side; the seconds each library took;
 3. kernel vs its plain PyTorch version on the card, depth 4: 320x240 at
-   spp 1 and 2 VERBATIM and spp 1 FIXED, and the main path's 1920x1080;
+   spp 1 and 2 VERBATIM and spp 1 FIXED, 1100x3 at spp 2 FIXED (its last
+   tile of paths part empty), and the main path's 1920x1080;
 4. kernel vs the committed JAX render tests/golden_torch/analytical_64x48_d4_k3.npy;
 5. main path: the port's CLI renders 8 progressive 1920x1080 depth-4
    frames to a PNG; every frame must be one kernel launch. Then per-frame
@@ -134,8 +135,11 @@ which raises on failure (non-zero exit):
    K1 once a frame, with the scene's backend, and nothing else; the K3 and
    K1 launches in turns (tools/k1_pair.in_turns), frames bit-equal; the
    1080p frame's alive fractions entering each bounce per lane, per block
-   and per warp, and the idle lanes of the live warps; K3's bound is K1's
-   (phases 5, 12, 18, 20) plus the counts' bytes;
+   and per warp, the idle lanes of the live warps (the per-thread loop's
+   share) and, on a backend that runs the compacted loop, the idle lane
+   slots its tiles leave (occupancy_stats' compacted_wasted_fraction, for
+   the tile that ops/megakernel.forward_layout reads from the library);
+   K3's bound is K1's (phases 5, 12, 18, 20) plus the counts' bytes;
 26. K4, the uniform stream (ops/megakernel.debug_uniform_stream): bit-equal
    to its plain version at the size of a 1080p depth-4 frame's stream
    (2025 tiles x 34 draws x 8 x 128 lanes), its statistics there
@@ -151,13 +155,16 @@ which raises on failure (non-zero exit):
    Absorb, Emissive, Scatter g 0 and Scatter g 0.4 (the demo: density 0.8,
    color (0.9, 0.2, 0.1)): 320x240 at spp 1 and 2 VERBATIM and spp 1
    FIXED, and 1920x1080 spp 1; the SDF, mesh and big mesh demos with a
-   glass Scatter material at 320x240; then vs the committed JAX render
+   glass Scatter material at 320x240; the Scatter demo at 1100x3 spp 2
+   FIXED (a part-empty tile); then vs the committed JAX render
    tests/golden_torch/media_analytical_64x48_d6_k3.npy. The pixels that
    took another branch (|diff| > 1e-3) are counted; on the mesh, the
    pixels whose plain path meets two coplanar triangles at once (the
    cube's bottom face lies on the floor; ops/megakernel_mesh.hit_ties)
    are left out and counted. The MEDIA instantiations' registers and
-   spills are printed;
+   spills are printed, and the analytical K1's and K1 MEDIA's registers,
+   stack, shared memory a block and blocks an SM (with `--other DIR`, the
+   other tree's registers and spills beside them);
 28. the media main path: 8 progressive 1920x1080 depth-6 frames of the
    Scatter demo through render_frame_megakernel and accumulate, written to
    a PNG, every frame exactly one launch of K1's MEDIA instantiation and
@@ -166,18 +173,18 @@ which raises on failure (non-zero exit):
    medium and the scatter events (tools/work.count_media_work); a CUDA
    media scene whose leaves require grad renders with one K1 MEDIA launch,
    and its backward is one K2 MEDIA launch and nothing else. With `--other
-   DIR`, the media-free K1 and K3 of both trees on each backend in turns
-   (tools/k1_pair.pair), frames and counts bit-equal; the analytical and
-   mesh instantiations' registers, stack, spills and machine code the
-   other tree's (k1_pair.same_resources), the redesigned SDF and big mesh
-   ones' (each tree's, k1_pair.redesigned) printed with the pair's time
-   ratio;
+   DIR`, K1 and K3 of both trees on each backend's demo and on each
+   backend's glass Scatter scene (k1_pair.MEDIA_SCENES: K1 MEDIA) in turns
+   (tools/k1_pair.pair), frames and counts bit-equal, and
+   each instantiation's registers, stack and spills in both trees
+   (k1_pair.resources), printed with the pair's time ratio;
 29. K3's MEDIA instantiation vs its plain version (bounces_entered), per
    lane and in its alive fractions, its frame bit-equal to K1's MEDIA
    frame, on each backend's glass Scatter scene at 320x240 (the analytical
    one also at spp 2, FIXED and 1920x1080; the mesh's coplanar ties left
    out); then one measure_occupancy_megakernel call at 1920x1080 (one K3
-   MEDIA launch) and K3 against K1 in turns there.
+   MEDIA launch), its idle lane slots per-thread and compacted, and K3
+   against K1 in turns there.
 30. K2's MEDIA instantiation (tracer_adj.cuh media_bounce_adj: the
    segment's Absorb and Emissive terms, the Scatter event with its HG-phase
    NEE, the medium's cotangent carried through the reverse sweep) vs its
@@ -221,7 +228,12 @@ which raises on failure (non-zero exit):
    Function; the record buffer capped so that the frame takes 7 chunks of
    whole blocks of pixels (bit-equal to one chunk) and, at spp 2, chunks
    of samples (within 1e-5 of the largest entry), one record kernel and
-   one adjoint kernel launch a chunk, as the wrapper counts them.
+   one adjoint kernel launch a chunk, as the wrapper counts them;
+35. with `--other DIR`: one training step at 1920x1080, spp 1, of the
+   analytical trainer (depth 4) and of the media trainer (the Scatter
+   demo's medium, depth 6), through this tree's kernels and through the
+   other tree's (tools/k1_pair.kernels_of), in turns, their first losses
+   bit-equal.
 
 The total seconds, with phase 25's, phase 26's, phases 27-29's, phases
 30-33's and phase 34's, are printed before the kernels line. Each K2 row
@@ -280,6 +292,7 @@ kernels as JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -895,12 +908,15 @@ def occupancy_phase(torch, mk, cli, rng, cuda_ms, dev, card: str, k1_work: dict)
         if not pair["bit_equal"]:
             raise AssertionError(f"K3 {family}: its 1080p frame is not K1's")
         wrapper_ms = cuda_ms(lambda: mk.measure_occupancy_megakernel(main, key, MAIN_W, MAIN_H), 10)
-        st = mk.occupancy_stats(entered, MAIN_DEPTH)
+        tile = mk.forward_layout(k1)["tile_paths"]
+        st = mk.occupancy_stats(entered, MAIN_DEPTH, tile)
         print(f"  {family} 1080p frame, entering bounces 0-{MAIN_DEPTH - 1}: lanes alive "
               f"{fmt_fractions(st['alive_fraction'])} (wasted {st['wasted_fraction']:.5f}); blocks with a live "
               f"lane {fmt_fractions(st['block_alive_fraction'])}; warps with a live lane "
               f"{fmt_fractions(st['warp_alive_fraction'])}, live lanes per live warp "
-              f"{fmt_fractions(st['warp_lanes'])}; idle lanes of live warps {st['warp_wasted_fraction']:.5f}")
+              f"{fmt_fractions(st['warp_lanes'])}; idle lanes of live warps {st['warp_wasted_fraction']:.5f} "
+              "(per-thread loop)" + (f", {st['compacted_wasted_fraction']:.5f} (the compacted loop's {tile}-path "
+                                     "tiles)" if tile else "; the backend runs the per-thread loop"))
         f32, f64, nbytes = k1_work[family]
         bound_ms, bound_by = bound_of(f32, f64, nbytes + 4 * MAIN_W * MAIN_H)
         print(f"  K3 {family}: launch {pair['this_ms']:.4f} ms, K1's {pair['other_ms']:.4f} ms in turns "
@@ -995,9 +1011,9 @@ def coplanar_ties(torch, scene, key, w, h, spp, quirks):
 def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list[dict]:
     """Phases 27-29: K1's and K3's MEDIA instantiations against their plain
     versions and the JAX render, the media main path with its times and
-    bound, the refused gradient, with `other` the media-free K1 and K3 of
-    another tree in turns, and K3 MEDIA. Returns the two rows of the
-    kernels line."""
+    bound, the refused gradient, with `other` K1 and K3 of another tree in
+    turns on each backend's demo and the media demo, and K3 MEDIA. Returns
+    the two rows of the kernels line."""
     from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM, accumulate, bounces_entered
     from pathtracer_tpu_torch.models import families
     from pathtracer_tpu_torch.tools import k1_pair
@@ -1010,11 +1026,25 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
                               **k1_pair.instantiations(_build.CSRC, "megakernel_sdf", counts=(1, 1, 1))}.items()):
         if key_[2]:
             print(f"  {key_[0]} {'K3' if key_[1] else 'K1'} MEDIA: {line}")
+    demo = mk.prepare_launch(media_scene(torch, families, "analytical", dev, MEDIA_MAIN), rng.prng_key(0), MAIN_W,
+                             MAIN_H, 1, VERBATIM)
+    theirs = k1_pair.instantiations(k1_pair.tree_csrc(other)) if other else {}
+    for media in (False, True):
+        k = demo._replace(media=media, sv=mk.pack_scene(media_scene(torch, families, "analytical", dev, MEDIA_MAIN),
+                                                           MAIN_W, MAIN_H, media).contiguous())
+        res = mk.forward_resources(k)
+        label = f"K1{' MEDIA' if media else ''} analytical"
+        print(f"  {label}: this tree {res['registers']} registers, {res['stack_bytes']} B stack, "
+              f"{res['shared_bytes']} B shared memory a block of {mk.forward_layout(k)['tile_paths']} paths, "
+              f"{res['blocks_per_sm']} block(s) an SM"
+              + (f"; the other tree: {theirs.get(('Analytical', False, media))}, {4 * k.sv.shape[1]} B shared "
+                 "memory a block of 128 pixels" if other else ""))
     err = 0.0
     cases = [("analytical", name, w, h, spp, quirks) for name in MEDIA
              for w, h, spp, quirks in ((320, 240, 1, VERBATIM), (320, 240, 2, VERBATIM), (320, 240, 1, FIXED),
                                        (MAIN_W, MAIN_H, 1, VERBATIM))]
     cases += [(family, MEDIA_MAIN, 320, 240, 1, VERBATIM) for family in ("sdf", "mesh", "bigmesh")]
+    cases += [("analytical", MEDIA_MAIN, 1100, 3, 2, FIXED)]  # the last tile of paths part empty
     for i, (family, name, w, h, spp, quirks) in enumerate(cases):
         scene = media_scene(torch, families, family, dev, name)
         key = rng.prng_key(201 + i)
@@ -1101,18 +1131,16 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
                              f"nothing else: {fwd_counts}, {read_counts(mk)}")
     print("  a CUDA media scene with grad: one K1 MEDIA launch, its backward one K2 MEDIA launch and nothing else")
     if other:
-        results = k1_pair.pair([Path(other)], families.FAMILIES, log=lambda s: print("  " + s))
-        same = k1_pair.same_resources(Path(other), log=lambda s: print("  " + s))
-        k1_pair.redesigned(Path(other), log=lambda s: print("  " + s))
+        results = k1_pair.pair([Path(other)], (*families.FAMILIES, *k1_pair.MEDIA_SCENES),
+                               log=lambda s: print("  " + s))
+        k1_pair.resources(Path(other), log=lambda s: print("  " + s))
         for r in results:
-            if r["scene"] in k1_pair.REDESIGNED:
-                print(f"  {r['kernel']} {r['scene']} (redesigned): this / other {r['ratio']:.4f}, "
-                      f"{'frames' if r['kernel'] == 'K1' else 'frames and counts'} bit-equal {r['bit_equal']}")
-        if not (same and all(r["bit_equal"] for r in results)):
-            raise AssertionError("the media-free K1 or K3 of this tree and the other's differ in output, or the "
-                                 "analytical and mesh ones in resources or machine code")
+            print(f"  {r['kernel']} {r['scene']}: this / other {r['ratio']:.4f}, "
+                  f"{'frames and counts' if r['kernel'].startswith('K3') else 'output'} bit-equal {r['bit_equal']}")
+        if not all(r["bit_equal"] for r in results):
+            raise AssertionError("K1 or K3 of this tree and the other's differ in output")
     else:
-        print("  media-free K1 and K3 against another tree's: not run (no --other DIR given)")
+        print("  K1 and K3 against another tree's: not run (no --other DIR given)")
 
     print("== 29. K3's media instantiation vs its plain version (bounces_entered), frame bit-equal to K1's")
     k3_err = 0.0
@@ -1146,7 +1174,8 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
     if counts != expect_counts(occupancy_launches=1, occupancy_media_launches=1):
         raise AssertionError(f"measure_occupancy_megakernel on the media scene: not one K3 MEDIA launch: {counts}")
     print(f"  measure_occupancy_megakernel at {MAIN_W}x{MAIN_H}: launches {counts}; alive fractions "
-          f"{fmt_fractions(occ['alive_fraction'])}, idle lanes of live warps {occ['warp_wasted_fraction']:.5f}")
+          f"{fmt_fractions(occ['alive_fraction'])}, idle lanes of live warps {occ['warp_wasted_fraction']:.5f} "
+          f"(per-thread loop), {occ['compacted_wasted_fraction']:.5f} (compacted loop)")
     k3 = k1._replace(out=torch.empty_like(k1.out))
     entered = torch.empty((1, MAIN_H, MAIN_W), dtype=torch.int32, device=dev)
     pair = k1_pair.in_turns({"other": lambda: mk.launch(k1), "this": lambda: mk.launch(k3, entered)},
@@ -1169,6 +1198,56 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
         max_abs_err=k3_err, ms=pair["this_ms"], plain_ms=k3_plain_ms, bound_ms=k3_bound_ms, bound_by=k3_bound_by,
         library_ms=None,
     )]
+
+
+def step_pair_phase(torch, inverse, rng, dev, card: str, other) -> None:
+    """Phase 35, with `other`: a training step at 1920x1080, spp 1, of the
+    analytical trainer (recover_demo's leaves, depth 4) and of the media
+    trainer (the Scatter demo's medium, depth 6), each through this tree's
+    kernels and through the other tree's (tools/k1_pair.kernels_of), in
+    turns (k1_pair.in_turns), each side's trainer from the same start, its
+    first loss bit-equal to the other side's."""
+    from pathtracer_tpu_torch.integrator.tracer import VERBATIM
+    from pathtracer_tpu_torch.tools import k1_pair
+
+    print(f"== 35. training steps at {MAIN_W}x{MAIN_H}, spp 1, against another tree's kernels, in turns")
+    if not other:
+        print("  not run (no --other DIR given)")
+        return
+
+    def analytical():
+        true_scene, start_scene = inverse.demo_scenes(MAIN_DEPTH, dev)
+        return true_scene, start_scene, inverse.DEMO_SELECTS["analytical"], inverse.PROJECTIONS["analytical"]
+
+    def media():
+        true_scene, start_scene = k1_pair.media_demo(dev), k1_pair.media_demo(dev)
+        with torch.no_grad():
+            med = start_scene.params.materials.medium
+            med.density[1] = MEDIA_TRAIN_START[0]
+            med.color.x[1], med.color.y[1], med.color.z[1] = MEDIA_TRAIN_START[1]
+        return true_scene, start_scene, ("medium",), None
+
+    def step(scenes, tree=None):
+        """One trainer's step as a call, through `tree`'s kernels (this
+        tree's by default)."""
+        true_scene, start_scene, select, projection = scenes()
+        render = inverse.make_renderer("megakernel", MAIN_W, MAIN_H, 1, VERBATIM)
+        with torch.no_grad():
+            target = render(true_scene, rng.prng_key(8))
+        train, rebuild, _ = inverse.select_leaves(start_scene, select)
+        opt = inverse.make_adam(train, 3e-2)
+
+        def run():
+            with k1_pair.kernels_of(tree) if tree else contextlib.nullcontext():
+                return inverse.paired_step(train, rebuild, projection, opt, render, target, rng.prng_key(7))
+        return run
+
+    for name, scenes in (("analytical", analytical), ("media", media)):
+        r = k1_pair.in_turns({"other": step(scenes, Path(other)), "this": step(scenes)},
+                             f"{name} training step (2 K1 + 1 K2) against {other}'s kernels", card,
+                             log=lambda s: print("  " + s))
+        if not r["bit_equal"]:
+            raise AssertionError(f"the {name} step's first loss differs from the other tree's")
 
 
 def media_moved(scene, key, w, h, spp, quirks):
@@ -1706,8 +1785,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one CUDA card.")
     ap.add_argument("--other", default=None, help="root of another checkout: phase 24 times its analytical and "
-                    "SDF K2 against this tree's, phase 28 its media-free K1 and K3 on every backend, phase 33 its "
-                    "mesh and MEDIA K2, in turns, and both trees' K2 resources")
+                    "SDF K2 against this tree's, phase 28 its K1 and K3 on every backend and the media demo, phase 33 "
+                    "its mesh and MEDIA K2, phase 35 the analytical and media training steps through its kernels, in "
+                    "turns, and both trees' K1 and K2 resources")
     args = ap.parse_args(argv)
 
     started = time.perf_counter()
@@ -1757,7 +1837,7 @@ def main(argv=None) -> int:
 
     print("== 3. kernel vs plain version on the card (depth 4)")
     for w, h, spp, quirks, seed in ((320, 240, 1, VERBATIM, 11), (320, 240, 2, VERBATIM, 12),
-                                    (320, 240, 1, FIXED, 13), (MAIN_W, MAIN_H, 1, VERBATIM, 14)):
+                                    (320, 240, 1, FIXED, 13), (1100, 3, 2, FIXED, 15), (MAIN_W, MAIN_H, 1, VERBATIM, 14)):
         label = f"{w}x{h} spp{spp} {'VERBATIM' if quirks == VERBATIM else 'FIXED'}"
         key = rng.prng_key(seed)
         img = mk.render_frame_megakernel(scene, key, w, h, spp, quirks)
@@ -2141,6 +2221,7 @@ def main(argv=None) -> int:
     t34 = time.perf_counter()
     deep_phase(torch, mk, rng, dev, total_bytes)
     t35 = time.perf_counter()
+    step_pair_phase(torch, inverse, rng, dev, card, args.other)
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",

@@ -83,7 +83,9 @@ def log_occupancy(cfg: RenderConfig, scene: Scene, key, log=print) -> None:
     log(f"  wasted-lane fraction (compaction ceiling): {stats['wasted_fraction']:.3f}")
     log("  warps with a live lane:" + bounces(stats["warp_alive_fraction"]))
     log("  live lanes per live warp:" + bounces(stats["warp_lanes"], ".2f"))
-    log(f"  idle lanes of live warps: {stats['warp_wasted_fraction']:.3f}")
+    compacted = stats["compacted_wasted_fraction"]
+    log(f"  idle lanes of live warps: {stats['warp_wasted_fraction']:.3f} (per-thread loop)"
+        + ("" if compacted is None else f", {compacted:.3f} (this backend's compacted loop)"))
 
 
 def render(cfg: RenderConfig, output: str, log=print) -> ColorBuffer:

@@ -108,4 +108,40 @@ extern "C" int pt_render_forward_media_bigmesh(const float* sv, int n_sv, const 
                                                    n_materials, flags, coef, attr, aabb, n_chunks, stream);
 }
 
+// The resources of K1's instantiation (K3's with `count`, MEDIA with
+// `media`) of backend 0 (analytical), 2 (small mesh) or 3 (big mesh; the SDF
+// scene's, 1, are megakernel_sdf.cu's) for n_sv scalars and n_tris
+// triangles, into out[4] (megakernel_fwd.cuh forward_resources).
+extern "C" int pt_forward_resources(int backend, int media, int count, int n_sv, int n_tris, int* out) {
+  const int which = 4 * backend + 2 * (media != 0) + (count != 0);
+  switch (which) {
+#define PT_RESOURCES(b, B)                                                         \
+  case 4 * b: return pt::forward_resources<B, false, false>(n_sv, n_tris, out);    \
+  case 4 * b + 1: return pt::forward_resources<B, false, true>(n_sv, n_tris, out); \
+  case 4 * b + 2: return pt::forward_resources<B, true, false>(n_sv, n_tris, out); \
+  case 4 * b + 3: return pt::forward_resources<B, true, true>(n_sv, n_tris, out);
+    PT_RESOURCES(0, pt::Analytical)
+    PT_RESOURCES(2, pt::Mesh)
+    PT_RESOURCES(3, pt::BigMesh)
+#undef PT_RESOURCES
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The layout of K1's and K3's instantiation (MEDIA with `media`) of the same
+// backends, into out[2]: dynamic shared bytes a block and the tile's paths,
+// 0 for the per-thread loop (megakernel_fwd.cuh forward_layout).
+extern "C" int pt_forward_layout(int backend, int media, int n_sv, int n_tris, long long* out) {
+  switch (2 * backend + (media != 0)) {
+#define PT_LAYOUT(b, B)                                                  \
+  case 2 * b: pt::forward_layout<B, false>(n_sv, n_tris, out); return 0; \
+  case 2 * b + 1: pt::forward_layout<B, true>(n_sv, n_tris, out); return 0;
+    PT_LAYOUT(0, pt::Analytical)
+    PT_LAYOUT(2, pt::Mesh)
+    PT_LAYOUT(3, pt::BigMesh)
+#undef PT_LAYOUT
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 extern "C" const char* pt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

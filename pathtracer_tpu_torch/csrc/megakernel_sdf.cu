@@ -85,6 +85,15 @@ extern "C" int pt_render_forward_media_sdf(const float* sv, int n_sv, const uint
                               n_spheres, n_boxes, n_tori, stream);
 }
 
+// K1's and K3's layout (megakernel_fwd.cu's pt_forward_layout) for backend
+// 1, the SDF scene.
+extern "C" int pt_forward_layout(int backend, int media, int n_sv, int n_tris, long long* out) {
+  if (backend != 1) return (int)cudaErrorInvalidValue;
+  media ? pt::forward_layout<pt::SdfScene, true>(n_sv, n_tris, out)
+        : pt::forward_layout<pt::SdfScene, false>(n_sv, n_tris, out);
+  return 0;
+}
+
 // K6: writes steps[p] and shadow_steps[p] for every pixel of the SDF scene
 // on `stream`; returns a cudaError_t (0 = success).
 extern "C" int pt_march_steps(const float* sv, int n_sv, int* steps, int* shadow_steps, int width, int height,

@@ -19,8 +19,8 @@
 // ends with the camera ray's: it intersects nothing (no closest hit, march,
 // triangle loop, emitter search or shadow ray). The record path repeats
 // bounce's code without the radiance (and the NEE's BSDF evaluation, which
-// only the radiance reads) rather than hook into it, so K1 and K3 compile
-// as before.
+// only the radiance reads) rather than hook into it, so the forward
+// kernels' code stays their own.
 //
 // The media instantiation (MEDIA, a scene whose material table declares a
 // medium) records media_bounce's path with the medium the ray travels in
@@ -198,8 +198,8 @@ __device__ __forceinline__ EmitterHit emitter_at(const SceneView& s, V3 ro, V3 r
   return e;
 }
 
-// The NEE's light pick and shadow ray from scatter_pos (direct_light and
-// media_direct_light up to their any_hit): the flags' NEE bits.
+// The NEE's light pick and shadow ray from scatter_pos (tracer.cuh
+// direct_light up to its any_hit): the flags' NEE bits.
 template <class B>
 __device__ __forceinline__ int nee_record(const SceneView& s, V3 scatter_pos, float u_pick, float r1, float r2) {
   if (s.n_lights == 0) return 0;
@@ -479,13 +479,13 @@ __device__ __forceinline__ V3 direct_light_adj(const SceneView& s, V3 rd, V3 fhp
   return bsdf_nee_adj(s, idx, ls, rd, ffnormal, m, eta, ct, a, c_eta, c_rd, c_ffnormal, g);
 }
 
-// The media instantiation's NEE (tracer.cuh media_direct_light), at a
+// The media instantiation's NEE (tracer.cuh direct_light), at a
 // surface (`phase` false: direct_light_adj's terms) or at a volumetric
 // scatter point (`phase`: ld = L * (w p / pdf), p = hg_phase(<rd, l>, g),
 // w = power_heuristic(pdf, p) for a light with area, the light sample
 // detached), for the light and the verdict the record holds, into the
 // material's, eta's, rd's, the normal's and g's cotangents. Returns ld,
-// what media_direct_light returns.
+// what direct_light returns.
 __device__ __forceinline__ V3 media_direct_light_adj(const SceneView& s, V3 rd, V3 scatter_pos, V3 ffnormal,
                                                      const Material& m, float eta, bool phase, float aniso,
                                                      const BounceHit& h, float r1, float r2, V3 ct, MatAdj& a,

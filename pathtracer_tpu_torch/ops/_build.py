@@ -50,6 +50,8 @@ SIGNATURES = {
         "pt_render_forward_occupancy_mesh": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
         "pt_render_forward_occupancy_bigmesh": (
             [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
+        "pt_forward_resources": ([_I, _I, _I, _I, _I, _P], _I),
+        "pt_forward_layout": ([_I, _I, _I, _I, _P], _I),
     },
     "uniform_stream": {
         "pt_uniform_stream": ([_P, _P, _I, _I, _I, _P], _I),
@@ -83,6 +85,7 @@ _SDF_REC = ([_P, _I, _P, _P] + [_I] * 14 + [_P], _I)
 _SDF_ADJ = ([_P, _I, _P, _P, _P, _P] + [_I] * 14 + [_P], _I)
 _SDF_LIB = {"pt_backward_resources": SIGNATURES["megakernel_bwd"]["pt_backward_resources"]}
 SIGNATURES["megakernel_sdf"] = {
+    "pt_forward_layout": SIGNATURES["megakernel_fwd"]["pt_forward_layout"],
     "pt_render_forward_sdf": _SDF_FWD, "pt_render_forward_media_sdf": _SDF_FWD,
     "pt_render_forward_occupancy_sdf": _SDF_OCC, "pt_render_forward_occupancy_media_sdf": _SDF_OCC,
     "pt_march_steps": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),

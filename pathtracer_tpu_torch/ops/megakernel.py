@@ -298,6 +298,36 @@ def forward_library(k: KernelLaunch, csrc=None):
     return _build.load("megakernel_fwd", csrc=csrc)
 
 
+def _backend_index(k: KernelLaunch) -> int:
+    """The backend's number in the libraries' resource and layout entry
+    points."""
+    return ("analytical", "sdf", "mesh", "bigmesh").index(k.backend)
+
+
+def _n_tris(k: KernelLaunch) -> int:
+    """The triangles whose topology K1 holds in shared memory (the small
+    mesh's), else 0."""
+    return k.counts[0] if k.backend == "mesh" else 0
+
+
+def forward_layout(k: KernelLaunch) -> dict:
+    """K1's and K3's layout for launch `k` in this checkout's kernels, read
+    from their library without a call to the card: `shared_bytes`, the
+    dynamic shared memory a block (the packed vector, the small mesh's
+    topology and, compacted, the tile's path state), and `tile_paths`, the
+    pixels of a block's tile in the compacted loop, 0 for a backend and
+    instantiation that runs the per-thread loop (csrc/megakernel_fwd.cuh
+    Tiling)."""
+    from . import _build
+
+    lib = forward_library(k, _build.CSRC)  # this checkout's, also where tools/k1_pair launches another's
+    out = (ctypes.c_longlong * 2)()
+    err = lib.pt_forward_layout(_backend_index(k), int(k.media), k.sv.shape[1], _n_tris(k), out)
+    if err != 0:
+        raise RuntimeError(f"forward megakernel layout: {lib.pt_error_string(err).decode()}")
+    return {"shared_bytes": out[0], "tile_paths": out[1]}
+
+
 def backward_library(k: KernelLaunch, csrc=None):
     """The library of K2's record and adjoint entry points for launch `k`'s
     backend and instantiation, in this checkout's build or in that of the
@@ -323,7 +353,16 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     With `entered`, an int32 [spp, H, W] tensor on the card, it is one
     launch of K3 instead: the same frame, and the bounces each sample's
     path entered alive written to `entered`; counted alike in
-    `measure_occupancy_megakernel.launches` and `.<backend>_launches`."""
+    `measure_occupancy_megakernel.launches` and `.<backend>_launches`.
+
+    A scene whose packed vector, topology and tile need more shared memory
+    a block than the card's opt-in maximum raises, naming both sizes."""
+    shared = forward_layout(k)["shared_bytes"]
+    budget = torch.cuda.get_device_properties(k.out.device).shared_memory_per_block_optin
+    if shared > budget:
+        raise ValueError(f"a {k.backend}{' media' if k.media else ''} scene of {k.sv.shape[1]} packed scalars and "
+                         f"{_n_tris(k)} triangles needs {shared} bytes of shared memory per block in the forward "
+                         f"megakernel, which holds {budget} (the card's opt-in maximum)")
     lib = forward_library(k)
     height, width = k.out.shape[:2]
     b, counter = BACKENDS[k.backend], render_frame_megakernel
@@ -464,9 +503,8 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor, cap: int | None = None) -
     mesh_bwd_launches), a launch of the media instantiation (`k.media`) in
     `.media_bwd_launches` too.
     A scene whose packed vector, gradient table and topology exceed K2's
-    shared memory per block (the card's opt-in maximum, not K1's 48 KB of
-    ops/megakernel_mesh), or with more lights than its records index,
-    raises."""
+    shared memory per block (the card's opt-in maximum), or with more
+    lights than its records index, raises."""
     from . import _build
 
     if k.sv.device.type != "cuda":
@@ -523,6 +561,19 @@ def backward_resources(k: KernelLaunch) -> dict:
         raise RuntimeError(f"backward megakernel resources: {lib.pt_error_string(err).decode()}")
     names = ("registers", "stack_bytes", "shared_bytes", "blocks_per_sm")
     return {kernel: dict(zip(names, out[4 * i:4 * i + 4])) for i, kernel in enumerate(("record", "adjoint"))}
+
+
+def forward_resources(k: KernelLaunch, count: bool = False) -> dict:
+    """K1's (K3's with `count`) kernel of launch `k`'s backend and
+    instantiation on the card: its registers, stack bytes a thread, dynamic
+    shared bytes a block and blocks an SM (the CUDA runtime's occupancy
+    calculator); the analytical, mesh and big mesh backends."""
+    lib = forward_library(k)
+    out = (ctypes.c_int * 4)()
+    err = lib.pt_forward_resources(_backend_index(k), int(k.media), int(count), k.sv.shape[1], _n_tris(k), out)
+    if err != 0:
+        raise RuntimeError(f"forward megakernel resources: {lib.pt_error_string(err).decode()}")
+    return dict(zip(("registers", "stack_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
 class MegakernelRender(torch.autograd.Function):
@@ -595,12 +646,13 @@ render_frame_megakernel.adjoint_launches = 0
 
 
 # A row of lanes: of JAX's tiles and of debug_uniform_stream's output, and
-# K1's and K3's threads a block (csrc/megakernel_fwd.cuh THREADS)
+# the threads a block of K1's and K3's per-thread loop (csrc/megakernel_fwd.cuh
+# THREADS)
 LANES = 128
 WARP = megakernel_sdf.WARP
 
 
-def occupancy_stats(entered: torch.Tensor, depth: int) -> dict:
+def occupancy_stats(entered: torch.Tensor, depth: int, tile_paths: int = 0) -> dict:
     """Reduce K3's per-lane counts (int32 [spp, H, W], the bounces each
     sample's path entered alive) on their device; the results are on the
     host:
@@ -617,7 +669,12 @@ def occupancy_stats(entered: torch.Tensor, depth: int) -> dict:
         entering each bounce, over all warps; such a warp runs the bounce;
       warp_lanes [depth]: the live lanes per live warp entering each bounce;
       warp_wasted_fraction: the idle lanes of the live warps over all their
-        lanes, summed over the bounces: what the card runs masked.
+        lanes, summed over the bounces: what the per-thread loop runs masked;
+      compacted_wasted_fraction: the same share for the compacted loop,
+        which lists each tile's live paths (`tile_paths` consecutive
+        pixels, one sample) before a bounce and runs them in
+        ceil(live / WARP) warps: the idle lane slots its segments leave;
+        None without a tile (`tile_paths` 0: the per-thread loop).
     Only real pixels count: the lanes past the frame in the last block or
     warp are dead, and only the warps' lane slots count them."""
     spp, height, width = entered.shape
@@ -630,6 +687,10 @@ def occupancy_stats(entered: torch.Tensor, depth: int) -> dict:
     warps = groups(WARP)
     lanes = alive.sum(dim=(1, 2))
     live_warps = (warps > 0).sum(dim=(1, 2))
+    compacted = None
+    if tile_paths:
+        compacted_warps = int(((groups(tile_paths) + WARP - 1) // WARP).sum())
+        compacted = 1.0 - int(lanes.sum()) / (WARP * compacted_warps)
     counts = groups(LANES).sum(1).T
     lanes, live_warps, counts = lanes.cpu().double(), live_warps.cpu().double(), counts.cpu()
     alive_fraction = lanes / (spp * n)
@@ -644,6 +705,7 @@ def occupancy_stats(entered: torch.Tensor, depth: int) -> dict:
         "warp_alive_fraction": live_warps / (spp * warps.shape[2]),
         "warp_lanes": lanes / live_warps.clamp_min(1),
         "warp_wasted_fraction": 1.0 - float(lanes.sum() / (WARP * live_warps.sum())),
+        "compacted_wasted_fraction": compacted,
     }
 
 
@@ -657,7 +719,9 @@ def measure_occupancy_megakernel(
     a scene with a medium, whose launch takes K3's media instantiation, in
     `.media_launches` too), a CPU scene through its plain version, `integrator/tracer.bounces_entered`;
     a failed build or launch raises. Returns `occupancy_stats` of the
-    per-lane counts, with the counts themselves as `entered`.
+    per-lane counts, with the counts themselves as `entered`; on the card,
+    the compacted figure for the tile of the launch's loop (none where it
+    is the per-thread loop: `forward_layout`), on the CPU none.
 
     It takes no `uniforms=` or `tiling=`: the port has one stream, threefry
     at JAX's counters (its "hbm" numbers), and its tiles are the launch's
@@ -666,6 +730,7 @@ def measure_occupancy_megakernel(
     kernels' stream's (the probe draws one stream over all lanes). Unlike
     the TPU kernel, padded lanes never count."""
     _check_supported(scene)
+    tile = 0
     if scene.device.type == "cpu":
         entered = bounces_entered(scene, key, width, height, spp, quirks)
     else:
@@ -673,7 +738,8 @@ def measure_occupancy_megakernel(
         k = prepare_launch(scene, key, width, height, spp, quirks)
         entered = torch.empty((spp, height, width), dtype=torch.int32, device=scene.device)
         launch(k, entered)
-    return {"entered": entered, **occupancy_stats(entered, scene.recursion_depth)}
+        tile = forward_layout(k)["tile_paths"]
+    return {"entered": entered, **occupancy_stats(entered, scene.recursion_depth, tile)}
 
 
 measure_occupancy_megakernel.launches = 0

@@ -8,25 +8,28 @@ order other, this, this, other, three times. Prints the mean launch time
 of each (CUDA events, 20 launches after a warm-up), their ratio, whether
 the two frames are bit-equal, and the card's name and power limit; the
 last line is the same as one JSON object. With several scenes (`--scene
-analytical sdf`, the backends' demo scenes) or several other trees, every
-scene against every other tree, each pair in turns; then K3's launch (K1
-that also writes the bounces each path entered alive) of the two trees
-alike, counts and frames compared. Each tree's SDF launch goes through its
-own library: this tree's is built for the scene's primitive counts
-(`megakernel_sdf.cu`), an older tree's is its `megakernel_fwd`. Last, each
-instantiation's registers, stack, spills and machine code against the
-other tree's: the analytical and mesh ones must be the other's
-(`same_resources`), the SDF and big mesh ones, redesigned, are printed
-beside each other (`redesigned`); the toolkit's cu++filt names each
-instantiation. `k2_pair` does the same for K2.
+analytical sdf`, the backends' demo scenes; `media`, the analytical glass
+filled with the Scatter demo's medium at depth 6, and `media-sdf`,
+`media-mesh`, `media-bigmesh`, each backend's glass filled alike: K1's
+MEDIA instantiations) or several other trees, every scene against every
+other tree, each pair in turns; then K3's launch (K1 that also writes the
+bounces each path entered alive) of the two trees alike, counts and frames
+compared. Each tree's SDF launch goes through its own library: this
+tree's is built for the scene's primitive counts (`megakernel_sdf.cu`), an
+older tree's is its `megakernel_fwd`. Last, each instantiation's
+registers, stack and spills in both trees (`resources`); the toolkit's
+cu++filt names each instantiation. `k2_pair` does the same for K2;
+`kernels_of` runs the port's launches on another tree's kernels (the
+training steps of chip_smoke.py's phase 35).
 
 Usage:
-  python -m pathtracer_tpu_torch.tools.k1_pair --other DIR [DIR ...] [--scene analytical sdf]
+  python -m pathtracer_tpu_torch.tools.k1_pair --other DIR [DIR ...] [--scene analytical sdf media media-sdf]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -36,21 +39,51 @@ import torch
 
 from ..integrator.tracer import VERBATIM
 from ..models import families
+from ..models.material import MediumType
+from ..models.scene import Scene
 from ..ops import _build, rng
 from ..ops import megakernel as mk
 from ..utils.timing import cuda_ms
 
 WIDTH, HEIGHT, DEPTH = 1920, 1080, 4
 ROUNDS, LAUNCHES = 3, 20
+# the media demo: a family's glass (the material of MEDIA_GLASS: spec_trans
+# 1, metallic 0, roughness 0.05, ior 1.5) filled with the Scatter demo's
+# medium, depth 6; "media" is the analytical one, "media-<family>" another's
+MEDIA_DEPTH = 6
+MEDIA_GLASS = {"analytical": 1, "sdf": 0, "mesh": 1, "bigmesh": 1}
+MEDIA_SCENES = {"media": "analytical", **{f"media-{f}": f for f in families.FAMILIES if f != "analytical"}}
+
+
+def media_demo(dev, family: str = "analytical") -> Scene:
+    """The family's glass filled with the Scatter demo's medium."""
+    scene = families.make_family_scene(family, recursion_depth=MEDIA_DEPTH, device=dev)
+    m, i = scene.params.materials, MEDIA_GLASS[family]
+    with torch.no_grad():
+        m.spec_trans[i], m.metallic[i], m.roughness[i], m.ior[i] = 1.0, 0.0, 0.05, 1.5
+        m.medium.medium_type[i], m.medium.density[i], m.medium.anisotropy[i] = int(MediumType.SCATTER), 0.8, 0.4
+        m.medium.color.x[i], m.medium.color.y[i], m.medium.color.z[i] = 0.9, 0.2, 0.1
+    return scene
+
+
+def demo(scene: str, dev) -> Scene:
+    """The scene `scene` of `--scene`: a family's demo at depth 4, or a
+    media demo (MEDIA_SCENES)."""
+    if scene in MEDIA_SCENES:
+        return media_demo(dev, MEDIA_SCENES[scene])
+    return families.make_family_scene(scene, recursion_depth=DEPTH, device=dev)
 
 
 def launcher(csrc: Path, k: mk.KernelLaunch, occupancy: bool = False):
-    """A call of `csrc`'s K1 with launch `k`'s backend, into a frame of its
-    own; with `occupancy`, of its K3, returning the frame and the counts
-    (int32 [spp, H, W]) as one tensor of int32 bits."""
+    """A call of `csrc`'s K1 with launch `k`'s backend and instantiation,
+    into a frame of its own; with `occupancy`, of its K3, returning the
+    frame and the counts (int32 [spp, H, W]) as one tensor of int32 bits."""
     lib = mk.forward_library(k, csrc)
     b = mk.BACKENDS[k.backend]
-    entry = getattr(lib, b.occupancy if occupancy else b.entry)
+    if k.media:
+        entry = getattr(lib, b.media_occupancy if occupancy else b.media_entry)
+    else:
+        entry = getattr(lib, b.occupancy if occupancy else b.entry)
     out = torch.empty_like(k.out)
     entered = torch.empty((k.spp,) + k.out.shape[:2], dtype=torch.int32, device=out.device)
     head = (entered.data_ptr(),) if occupancy else ()
@@ -99,9 +132,13 @@ def card_name() -> str:
 def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
     """Time runs["other"] and runs["this"] (each returns its output) in the
     order other, this, this, other, ROUNDS times, LAUNCHES calls each after
-    a warm-up; print and return the means, their ratio, each timing and
-    whether the two outputs are bit-equal."""
-    bit_equal = bool(torch.equal(runs["other"](), runs["this"]()))
+    a warm-up; print and return the means, their ratio, each timing,
+    whether the two outputs are bit-equal and, where they are not, how many
+    entries differ and by how much at most."""
+    theirs, mine = runs["other"](), runs["this"]()
+    bit_equal = bool(torch.equal(theirs, mine))
+    differ = "" if bit_equal else (f" ({int((theirs != mine).sum())} of {mine.numel()} entries differ, by at most "
+                                   f"{float((mine.double() - theirs.double()).abs().max()):.3e})")
     times = {"other": [], "this": []}
     for _ in range(ROUNDS):
         for name in ("other", "this", "this", "other"):
@@ -110,7 +147,7 @@ def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
     log(f"{label} ({card}):")
     for name in ("other", "this"):
         log(f"  {name}: {mean[name]:.4f} ms (each timing: {', '.join(f'{t:.4f}' for t in times[name])})")
-    log(f"  this / other = {mean['this'] / mean['other']:.4f}; outputs bit-equal: {bit_equal}")
+    log(f"  this / other = {mean['this'] / mean['other']:.4f}; outputs bit-equal: {bit_equal}{differ}")
     return {"card": card, "other_ms": mean["other"], "this_ms": mean["this"], "ratio": mean["this"] / mean["other"],
             "bit_equal": bit_equal, "times": times}
 
@@ -209,80 +246,71 @@ def sass(csrc: Path, kernel: str = "megakernel_fwd", key=k1_key, counts=None) ->
     return {k: "\n".join(v) for k, v in out.items()}
 
 
-KEPT = ("analytical", "mesh")  # the backends whose K1 and K3 keep the parent's machine code
-REDESIGNED = ("sdf", "bigmesh")
-
-
-def _csrc(other: Path) -> Path:
+def tree_csrc(other: Path) -> Path:
+    """The kernel sources of the checkout at `other`."""
     return (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
 
 
-def same_resources(other: Path, log=print) -> bool:
-    """Whether each instantiation of `other`'s K1 template with the
-    analytical and mesh backends (KEPT) has this tree's registers, stack,
-    spills and, where cuobjdump lists it, machine code (this tree's media
-    instantiations aside); logs them."""
-    mine, theirs = instantiations(_build.CSRC), instantiations(_csrc(other))
-    theirs = {k: v for k, v in theirs.items() if family_of(k[0]) in KEPT}
-    my_code, their_code = sass(_build.CSRC), sass(_csrc(other))
-    same = bool(theirs)
-    for k, v in sorted(theirs.items()):
-        code_same = my_code.get(k) == their_code.get(k)
-        code = ("machine code not listed (no cuobjdump)" if not their_code else
-                f"machine code {'the same' if code_same else 'DIFFERENT'} "
-                f"({len(their_code.get(k, '').splitlines())} instructions)")
-        log(f"  {k[0]} {'K3' if k[1] else 'K1'}{' MEDIA' if k[2] else ''}: this {mine.get(k)}; other {v}; {code}")
-        same = same and mine.get(k) == v and (not their_code or code_same)
-    return same
-
-
-def redesigned(other: Path, counts=(1, 1, 1), log=print) -> dict:
-    """The SDF and big mesh instantiations of K1's template in this tree
-    (the SDF scene's library for `counts`) and in `other`, each with its
-    registers, stack and spills: {(family, COUNT, MEDIA): (this, other)}."""
-    mine = {**instantiations(_build.CSRC), **instantiations(_build.CSRC, "megakernel_sdf", counts=counts)}
-    theirs = instantiations(_csrc(other))
-    if "megakernel_sdf" in _build.per_count_kernels(_csrc(other)):
-        theirs.update(instantiations(_csrc(other), "megakernel_sdf", counts=counts))
+def resources(other: Path, counts=(1, 1, 1), log=print) -> dict:
+    """Each instantiation of K1's template in this tree (the SDF scene's
+    library for `counts`) and in `other`, with its registers, stack and
+    spills: {(family, COUNT, MEDIA): {"this": [...], "other": [...]}}."""
     out = {}
-    for tree, table in (("this", mine), ("other", theirs)):
+    for tree, csrc in (("this", _build.CSRC), ("other", tree_csrc(other))):
+        table = instantiations(csrc)
+        if "megakernel_sdf" in _build.per_count_kernels(csrc):
+            table.update(instantiations(csrc, "megakernel_sdf", counts=counts))
         for k, v in sorted(table.items()):
-            if family_of(k[0]) in REDESIGNED:
-                out.setdefault((family_of(k[0]), k[1], k[2]), {}).setdefault(tree, []).append(f"{k[0]}: {v}")
+            out.setdefault((family_of(k[0]), k[1], k[2]), {}).setdefault(tree, []).append(f"{k[0]}: {v}")
     for (family, count, media), trees in sorted(out.items()):
         log(f"  {family} {'K3' if count else 'K1'}{' MEDIA' if media else ''}: this "
             f"{' | '.join(trees.get('this', []))}; other {' | '.join(trees.get('other', []))}")
     return out
 
 
+@contextlib.contextmanager
+def kernels_of(other: Path):
+    """While it lasts, ops/megakernel launches K1, K3 and K2 from `other`'s
+    libraries (K2's reduction stays this tree's): a training step of either
+    tree, through the port's own code."""
+    forward, backward = mk.forward_library, mk.backward_library
+    csrc = tree_csrc(other)
+    mk.forward_library = lambda k, c=None: forward(k, c or csrc)
+    mk.backward_library = lambda k, c=None: backward(k, c or csrc)
+    try:
+        yield
+    finally:
+        mk.forward_library, mk.backward_library = forward, backward
+
+
 def pair(others: list[Path], scenes=("analytical",), log=print) -> list[dict]:
     """K1's and K3's launches of each of `others`' trees against this
-    one's, in turns, on the demo scene of each family in `scenes`."""
+    one's, in turns, on each scene of `scenes` (a family's demo, or one of
+    MEDIA_SCENES)."""
     card = card_name()
     results = []
-    for family in scenes:
-        scene = families.make_family_scene(family, recursion_depth=DEPTH, device=torch.device("cuda", 0))
+    for name in scenes:
+        scene = demo(name, torch.device("cuda", 0))
         k = mk.prepare_launch(scene, rng.prng_key(5), WIDTH, HEIGHT, 1, VERBATIM)
         for other in others:
-            other_csrc = _csrc(other)
+            other_csrc = tree_csrc(other)
             for occ in (False, True):
                 runs = {"other": launcher(other_csrc, k, occ), "this": launcher(_build.CSRC, k, occ)}
-                name = "K3" if occ else "K1"
-                label = f"{name} {family} launch at {WIDTH}x{HEIGHT}, depth {DEPTH}, spp 1, against {other}"
-                results.append({"kernel": name, "scene": family, "other": str(other),
+                kernel = ("K3" if occ else "K1") + (" MEDIA" if k.media else "")
+                label = f"{kernel} {name} launch at {WIDTH}x{HEIGHT}, depth {k.depth}, spp 1, against {other}"
+                results.append({"kernel": kernel, "scene": name, "other": str(other),
                                 **in_turns(runs, label, card, log)})
-            if family == "sdf":
+            if name == "sdf":
                 runs = {"other": k6_launcher(other_csrc, k), "this": k6_launcher(_build.CSRC, k)}
                 label = f"K6 sdf launch at {WIDTH}x{HEIGHT} against {other} (outputs: the trips)"
-                results.append({"kernel": "K6", "scene": family, "other": str(other),
-                                **in_turns(runs, label, card, log)})
+                results.append({"kernel": "K6", "scene": name, "other": str(other), **in_turns(runs, label, card, log)})
     return results
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--other", required=True, nargs="+", type=Path, help="root of each other checkout")
-    ap.add_argument("--scene", nargs="+", default=["analytical"], choices=families.FAMILIES,
+    ap.add_argument("--scene", nargs="+", default=["analytical"], choices=(*families.FAMILIES, *MEDIA_SCENES),
                     help="the demo scenes whose backends to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -291,8 +319,7 @@ def main(argv=None) -> int:
     results = pair(args.other, args.scene)
     for other in args.other:
         print(f"K1's and K3's instantiations against {other}:")
-        same_resources(other)
-        redesigned(other)
+        resources(other)
     print(card)
     print(json.dumps(results if len(results) > 1 else results[0]))
     return 0

@@ -18,7 +18,7 @@ With several scenes (`--scene analytical sdf mesh media`: the demo scenes
 of the families K2 takes, and `media`, the analytical glass filled with the
 Scatter demo's medium at depth 6, K2's MEDIA instantiation) or several
 other trees, every scene against every other tree, each pair in turns.
-Last, as `k1_pair.same_resources` does for K1, each instantiation of K2's
+Last, as `k1_pair.resources` does for K1, each instantiation of K2's
 kernels in both trees: its registers, stack and spills (the two designs
 differ, so they are printed, not compared). With `--contracted`, also K2
 MEDIA's record and adjoint kernels built with nvcc's FMA contraction
@@ -41,17 +41,15 @@ import torch
 
 from ..integrator.tracer import VERBATIM
 from ..models import families
-from ..models.material import MediumType
-from ..models.scene import Scene
 from ..ops import _build, rng
 from ..ops import megakernel as mk
-from .k1_pair import DEPTH, HEIGHT, WIDTH, card_name, in_turns, instance, instantiations, sass
+from .k1_pair import (DEPTH, HEIGHT, MEDIA_DEPTH, WIDTH, card_name, in_turns, instance, instantiations, media_demo,
+                      sass)
 
 # the families whose demo scenes K2 takes, and the media demo
 SCENES = tuple(name for name, b in mk.BACKENDS.items() if b.backward is not None) + ("media",)
-# the media demo: the analytical glass (material 1: spec_trans 1, metallic 0,
-# roughness 0.05, ior 1.5) filled with the Scatter demo's medium, depth 6
-MEDIA_DEPTH = 6
+
+
 def k2_key(text: str):
     """(kernel, backend, MEDIA) of an instantiation of one of K2's kernel
     templates (record_kernel or adjoint_kernel) named in the demangled
@@ -92,17 +90,6 @@ def resources(other: Path, counts=(1, 1, 1), log=print) -> None:
                 continue
             for k, v in sorted(instantiations(csrc, kernel, k2_key, counts=c).items()):
                 log(f"  {label}: {k[1]} {k[0]}{' MEDIA' if k[2] else ''}: {v}")
-
-
-def media_demo(dev) -> Scene:
-    """The analytical glass filled with the Scatter demo's medium."""
-    scene = families.make_family_scene("analytical", recursion_depth=MEDIA_DEPTH, device=dev)
-    m = scene.params.materials
-    with torch.no_grad():
-        m.spec_trans[1], m.metallic[1], m.roughness[1], m.ior[1] = 1.0, 0.0, 0.05, 1.5
-        m.medium.medium_type[1], m.medium.density[1], m.medium.anisotropy[1] = int(MediumType.SCATTER), 0.8, 0.4
-        m.medium.color.x[1], m.medium.color.y[1], m.medium.color.z[1] = 0.9, 0.2, 0.1
-    return scene
 
 
 def _ok(err: int, lib) -> None:

@@ -488,6 +488,55 @@ def test_occupancy_kernel_matches_plain_version(cuda_device, family, spp, quirks
     frame = MK.launch(k, entered).clone()
     assert torch.equal(entered, got["entered"])  # reproducible
     assert torch.equal(frame, MK.launch(k))
+    # the compacted figure is that of the launch's tile, and none where the
+    # backend runs the per-thread loop
+    tile = MK.forward_layout(k)["tile_paths"]
+    assert (tile > 0) == (family in ("analytical", "sdf"))
+    want = MK.occupancy_stats(got["entered"], scene.recursion_depth, tile)["compacted_wasted_fraction"]
+    assert got["compacted_wasted_fraction"] == want and (want is None) == (tile == 0)
+
+
+@pytest.mark.parametrize("family", ["analytical", "sdf", "media"])
+@pytest.mark.parametrize("w,h", [(33, 7), (1100, 3)])
+def test_compacted_kernel_takes_a_part_empty_tile(cuda_device, family, w, h):
+    """K1 and K3 of the backends that run the compacted loop (the analytical
+    scene's tiles of 1536 paths, the SDF scene's of 256, and the analytical
+    MEDIA instantiation: csrc/megakernel_fwd.cuh Tiling) on frames whose
+    last tile is part empty, spp 2:
+    against the plain version, K3's frame bit-equal to K1's and its counts
+    the plain version's on 99.9% of the lanes."""
+    if family == "media":
+        scene = media_scene("analytical", MediumType.SCATTER, anisotropy=0.4, device=cuda_device, **DEMO)
+    else:
+        scene = families.make_family_scene(family, device=cuda_device)
+    key = rng.prng_key(w + h)
+    k = MK.prepare_launch(scene, key, w, h, 2, VERBATIM)
+    assert MK.forward_layout(k)["tile_paths"] > 0
+    entered = torch.empty((2, h, w), dtype=torch.int32, device=cuda_device)
+    frame = MK.launch(k, entered).clone()
+    assert torch.equal(frame, MK.launch(k))
+    assert_image_close(frame.cpu(), MK.render_frame_reference(scene, key, w, h, 2, VERBATIM).cpu())
+    assert (entered == bounces_entered(scene, key, w, h, 2, VERBATIM)).double().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("media", [False, True], ids=["plain", "media"])
+def test_forward_kernel_refuses_what_its_shared_memory_cannot_hold(cuda_device, media):
+    """An analytical scene whose packed vector and tile of paths need more
+    shared memory a block than the card's opt-in maximum raises with both
+    sizes before K1 launches; one that fits launches."""
+    scene = media_scene("analytical", MediumType.SCATTER, anisotropy=0.4, device=cuda_device, **DEMO)
+    k = MK.prepare_launch(scene, rng.prng_key(0), 8, 8, 1, VERBATIM)
+    k = k._replace(media=media, sv=MK.pack_scene(scene, 8, 8, media).contiguous())
+    budget = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    room = (budget - MK.forward_layout(k)["shared_bytes"]) // 4  # the scalars the vector may still take
+    assert room > 0
+    launches = MK.render_frame_megakernel.launches
+    MK.launch(k._replace(sv=torch.cat([k.sv, torch.zeros((1, room - 4), device=cuda_device)], 1)))
+    big = k._replace(sv=torch.cat([k.sv, torch.zeros((1, room + 4), device=cuda_device)], 1))
+    with pytest.raises(ValueError, match=f"needs {MK.forward_layout(big)['shared_bytes']} bytes of shared memory.*"
+                                         f"holds {budget}"):
+        MK.launch(big)
+    assert MK.render_frame_megakernel.launches == launches + 1
 
 
 @pytest.mark.parametrize("seed,num_tiles,n_uniforms,tile_rows", [(1234, 16, 16, 8), (7, 3, 34, 8), (-5, 2, 1, 4)])

@@ -10,6 +10,15 @@ path logic (lobes, lights, quirks, alpha, the threefry counters) where no
 card is present; the card run (chip_smoke.py, test_torch_kernel_cuda.py)
 checks what nvcc makes of it. The shim is built with -ffp-contract=off,
 like the plain version's separate ops, so only libm ulps differ.
+
+The compacted K1 (`csrc/megakernel_fwd.cuh render_tile`) runs the same
+bounce as two phases over lists of a tile's paths in shared memory. TILED
+runs that schedule on the host, tile by tile (`pt::Tile`, the kernel's own
+per-path functions): per level it lists the live paths, runs their
+segments, lists the paths to shade (scatter points before surfaces) and
+runs their shades, each list in an order shuffled from a seed, where the
+kernel's threads take them in the tile's order. Its frames and counts are
+held bit for bit to `trace_sample`'s, which no thread order changes.
 """
 
 import ctypes
@@ -20,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from pathtracer_tpu_torch.integrator import tracer as T
 from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
 from pathtracer_tpu_torch.models import light as L
 from pathtracer_tpu_torch.models.analytical import default_params, make_scene
@@ -59,9 +69,75 @@ struct float4 {
   std::abort()
 """
 
+# The compacted K1's schedule on the host (megakernel_fwd.cuh render_tile):
+# each tile of TILE_PATHS pixels, its samples in turn, level by level; every
+# list run in an order shuffled from `seed` (Fisher-Yates on mt19937), the
+# scatter points still before the surfaces; `entered` gets each sample's
+# bounces entered (K3's counts).
+TILED = r"""
+#include <memory>
+#include <random>
+#include <utility>
+
+constexpr int TILE_PATHS = 256;
+
+template <class B, bool MEDIA>
+static void tiled_frame(const pt::SceneView& s, const uint32_t* keys, float* out, int* entered, int width,
+                        int height, int spp, int depth, int flags, uint32_t seed) {
+  constexpr int P = TILE_PATHS;
+  auto tile = std::make_unique<pt::Tile<MEDIA, P>>();
+  pt::Tile<MEDIA, P>& t = *tile;
+  std::mt19937 gen(seed);
+  auto shuffle = [&](int* a, int m) {
+    for (int j = m - 1; j > 0; --j) std::swap(a[j], a[gen() % (uint32_t)(j + 1)]);
+  };
+  auto list = [&](int outcome, int at) {
+    for (int i = 0; i < P; ++i) {
+      if (t.outcome[i] == outcome) t.list[at++] = i;
+    }
+    return at;
+  };
+  const int n = width * height;
+  for (int p0 = 0; p0 < n; p0 += P) {
+    for (int k = 0; k < spp; ++k) {
+      const uint32_t* kk = keys + 4 * k;
+      for (int i = 0; i < P; ++i) pt::start_tile_path(s, t, i, p0 + i, n, width, height, flags, kk[0], kk[1]);
+      for (int d = 0; d < depth; ++d) {
+        const int live = list(pt::LIVE, 0);
+        if (live == 0) break;
+        shuffle(t.list, live);
+        for (int j = 0; j < live; ++j) {
+          const int i = t.list[j];
+          pt::segment_tile_path<B, true>(s, t, i, p0 + i, n, d, flags, kk[2], kk[3]);
+        }
+        const int scatter = list(pt::SCATTER, 0), shaded = list(pt::SURFACE, scatter);
+        shuffle(t.list, scatter);
+        shuffle(t.list + scatter, shaded - scatter);
+        for (int j = 0; j < shaded; ++j) {
+          const int i = t.list[j];
+          pt::shade_tile_path<B>(s, t, i, p0 + i, n, d, kk[2], kk[3]);
+        }
+      }
+      for (int i = 0; i < P && p0 + i < n; ++i) {
+        pt::end_tile_sample(t, i, k, out + 4 * (p0 + i));
+        entered[k * n + p0 + i] = t.entered[i];
+      }
+    }
+    for (int i = 0; i < P && p0 + i < n && spp > 1; ++i) {
+      float* o = out + 4 * (p0 + i);
+      const pt::V3 mean = pt::v3(o[0], o[1], o[2]) / (float)spp;
+      o[0] = mean.x;
+      o[1] = mean.y;
+      o[2] = mean.z;
+    }
+  }
+}
+"""
+
 SHIM = PRELUDE + r"""
 #include "analytical.cuh"
 #include "tracer.cuh"
+""" + TILED + r"""
 
 extern "C" void host_render(const float* sv, const uint32_t* keys, float* out, int width, int height, int spp,
                             int depth, int n_lights, int n_materials, int flags) {
@@ -80,6 +156,28 @@ extern "C" void host_render(const float* sv, const uint32_t* keys, float* out, i
     out[4 * p + 2] = sum.z;
     out[4 * p + 3] = 1.0f;
   }
+}
+
+// K3's per-thread counts: the bounces each sample's path entered (trace_sample with COUNT).
+extern "C" void host_counts(const float* sv, const uint32_t* keys, int* entered, int width, int height, int spp,
+                            int depth, int n_lights, int n_materials, int flags) {
+  const int n = width * height;
+  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
+  for (int p = 0; p < n; ++p) {
+    for (int k = 0; k < spp; ++k) {
+      const uint32_t* kk = keys + 4 * k;
+      pt::trace_sample<pt::Analytical, true>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2], kk[3],
+                                             entered + k * n + p);
+    }
+  }
+}
+
+// The same frame through the compacted schedule (TILED), with its counts.
+extern "C" void host_render_tiled(const float* sv, const uint32_t* keys, float* out, int* entered, int width,
+                                  int height, int spp, int depth, int n_lights, int n_materials, int flags,
+                                  uint32_t seed) {
+  const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
+  tiled_frame<pt::Analytical, false>(s, keys, out, entered, width, height, spp, depth, flags, seed);
 }
 """
 
@@ -126,6 +224,8 @@ def host_lib(tmp_path_factory):
     lib = build_shim(tmp_path_factory.mktemp("kernel_host"), SHIM)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_render.argtypes = [p, p, p, i, i, i, i, i, i, i]
+    lib.host_render_tiled.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_uint32]
+    lib.host_counts.argtypes = [p, p, p, i, i, i, i, i, i, i]
     return lib
 
 
@@ -188,3 +288,51 @@ def test_kernel_code_matches_plain_version(host_lib, case):
     assert np.quantile(diff, 0.999) < 1e-4
     assert diff.mean() < 1e-5
 
+
+
+def host_render_tiled(lib, scene, key, w, h, spp, quirks, seed):
+    """host_render through the compacted schedule, its lists shuffled from
+    `seed`: (the frame, the bounces each sample's path entered, int32
+    [spp, H, W])."""
+    sv = MK.pack_scene(scene, w, h).contiguous()
+    keys = launch_keys(key, spp)
+    out = torch.empty((h, w, 4), dtype=torch.float32)
+    entered = torch.zeros((spp, h, w), dtype=torch.int32)
+    lib.host_render_tiled(
+        sv.data_ptr(), keys.data_ptr(), out.data_ptr(), entered.data_ptr(), w, h, spp,
+        scene.recursion_depth, scene.num_lights, int(scene.params.materials.roughness.shape[0]),
+        MK.kernel_flags(scene, quirks), seed,
+    )
+    return out, entered
+
+
+def host_counts(lib, scene, key, w, h, spp, quirks):
+    """K3's counts from the per-thread loop on the host, int32 [spp, H, W]."""
+    sv = MK.pack_scene(scene, w, h).contiguous()
+    keys = launch_keys(key, spp)
+    entered = torch.zeros((spp, h, w), dtype=torch.int32)
+    lib.host_counts(sv.data_ptr(), keys.data_ptr(), entered.data_ptr(), w, h, spp, scene.recursion_depth,
+                    scene.num_lights, int(scene.params.materials.roughness.shape[0]), MK.kernel_flags(scene, quirks))
+    return entered
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_compacted_schedule_matches_per_thread_loop(host_lib, case):
+    """The compacted K1's schedule, its lists in a shuffled order (99x65:
+    26 tiles of 256 paths, the last one part empty): each pixel's radiance
+    and its K3 counts bit for bit the per-thread loop's (trace_sample), the
+    counts also the plain version's (tracer.bounces_entered), and the frame
+    within the plain version's image gate. Under 1 s a case."""
+    make, spp, quirks = CASES[case]
+    scene = make()
+    key = rng.prng_key(sorted(CASES).index(case) + 11)
+    seed = int(np.random.default_rng(sorted(CASES).index(case)).integers(2**32))
+    w, h = 99, 65
+    img, entered = host_render_tiled(host_lib, scene, key, w, h, spp, quirks, seed)
+    assert torch.equal(img, host_render(host_lib, scene, key, w, h, spp, quirks))
+    assert torch.equal(entered, host_counts(host_lib, scene, key, w, h, spp, quirks))
+    assert torch.equal(entered, T.bounces_entered(scene, key, w, h, spp, quirks))
+    ref = MK.render_frame_reference(scene, key, w, h, spp, quirks).numpy()
+    diff = np.abs(img.numpy().astype(np.float64) - ref)
+    assert np.quantile(diff, 0.999) < 1e-4
+    assert diff.mean() < 1e-5

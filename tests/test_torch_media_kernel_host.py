@@ -35,7 +35,7 @@ from pathtracer_tpu_torch.models.material import MediumType
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.megakernel_mesh import hit_ties
-from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
+from test_torch_kernel_host import PRELUDE, TILED, build_shim, launch_keys, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -45,11 +45,14 @@ SHIM = PRELUDE + r"""
 #include "mesh.cuh"
 #include "sdf.cuh"
 #include "tracer.cuh"
-
-// K1's (K3's with `entered`) threads of the media instantiation, in turn.
+""" + TILED + r"""
+// K1's (K3's with `entered`) threads of the media instantiation, in turn;
+// with `tiled`, the compacted schedule (TILED, its lists shuffled from
+// `seed`, `entered` required).
 template <class B>
 static void frame(const pt::SceneView& s, const uint32_t* keys, float* out, int* entered, int width, int height,
-                  int spp, int depth, int flags) {
+                  int spp, int depth, int flags, int tiled, uint32_t seed) {
+  if (tiled) return tiled_frame<B, true>(s, keys, out, entered, width, height, spp, depth, flags, seed);
   const int n = width * height;
   for (int p = 0; p < n; ++p) {
     pt::V3 sum = pt::splat3(0.0f);
@@ -73,8 +76,8 @@ static void frame(const pt::SceneView& s, const uint32_t* keys, float* out, int*
 }
 
 #define HEAD const float *sv, const uint32_t *keys, float *out, int *entered, int width, int height, int spp, \
-             int depth, int n_lights, int n_materials, int flags
-#define ARGS keys, out, entered, width, height, spp, depth, flags
+             int depth, int n_lights, int n_materials, int flags, int tiled, uint32_t seed
+#define ARGS keys, out, entered, width, height, spp, depth, flags, tiled, seed
 
 extern "C" void host_media(HEAD) {
   frame<pt::Analytical>(pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0),
@@ -105,7 +108,7 @@ GLASS = {"analytical": 1, "sdf": 0, "mesh": 1, "bigmesh": 1}
 def host_lib(tmp_path_factory):
     lib = build_shim(tmp_path_factory.mktemp("media_kernel_host"), SHIM)
     p, i = ctypes.c_void_p, ctypes.c_int
-    head = [p, p, p, p, i, i, i, i, i, i, i]
+    head = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_uint32]
     lib.host_media.argtypes = head
     lib.host_media_sdf.argtypes = head + [i, i, i]
     lib.host_media_mesh.argtypes = head + [p, i, i]
@@ -113,9 +116,11 @@ def host_lib(tmp_path_factory):
     return lib
 
 
-def host_render(lib, scene, key, w, h, spp, quirks, entered=None):
+def host_render(lib, scene, key, w, h, spp, quirks, entered=None, seed=None):
     """What render_frame_megakernel hands K1's media instantiation (K3's
-    with `entered`, int32 [spp, H, W]), run on the host."""
+    with `entered`, int32 [spp, H, W]), run on the host; with a `seed`,
+    through the compacted schedule (its lists shuffled from it; `entered`
+    required)."""
     family = families.family_of(scene)
     b = MK.BACKENDS[family]
     # held: the library reads their memory
@@ -124,7 +129,8 @@ def host_render(lib, scene, key, w, h, spp, quirks, entered=None):
     getattr(lib, ENTRY[family])(
         sv.data_ptr(), keys.data_ptr(), out.data_ptr(), None if entered is None else entered.data_ptr(), w, h, spp,
         scene.recursion_depth, scene.num_lights, int(scene.params.materials.roughness.shape[0]),
-        MK.kernel_flags(scene, quirks), *(t.data_ptr() for t in extras), *b.counts(scene),
+        MK.kernel_flags(scene, quirks), int(seed is not None), seed or 0, *(t.data_ptr() for t in extras),
+        *b.counts(scene),
     )
     return out
 
@@ -241,3 +247,28 @@ def test_media_counts_match_bounces_entered(host_lib, family):
     want = T.bounces_entered(scene, key, 32, 24, 2)
     assert torch.equal(entered[:, ~ties], want[:, ~ties])
     assert torch.equal(img, host_render(host_lib, scene, key, 32, 24, 2, VERBATIM))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_media_compacted_schedule_matches_per_thread_loop(host_lib, case):
+    """The compacted K1's schedule of the MEDIA instantiation, its lists in
+    a shuffled order and the scatter points before the surfaces, on frames
+    3 pixels wider and one taller than the cases' (so that the last tile of
+    256 paths is part empty): each pixel's radiance and K3 counts bit for
+    bit the per-thread loop's (trace_sample), and within the plain
+    version's image gate, the mesh's coplanar ties left out as above. 0.1-3.9 s a case, most of it the plain
+    version's."""
+    family, med_type, medium, spp, quirks, w, h = CASES[case]
+    w, h = w + 3, h + 1
+    scene = media_scene(family, med_type, **medium)
+    key = rng.prng_key(sorted(CASES).index(case) + 51)
+    seed = int(np.random.default_rng(100 + sorted(CASES).index(case)).integers(2**32))
+    entered, want = (torch.zeros((spp, h, w), dtype=torch.int32) for _ in range(2))
+    img = host_render(host_lib, scene, key, w, h, spp, quirks, entered, seed)
+    assert torch.equal(img, host_render(host_lib, scene, key, w, h, spp, quirks, want))
+    assert torch.equal(entered, want)
+    ref = MK.render_frame_reference(scene, key, w, h, spp, quirks).numpy()
+    ties = coplanar_ties(scene, key, w, h, spp, quirks)
+    diff = np.abs(img.numpy().astype(np.float64) - ref)[~ties]
+    assert np.quantile(diff, 0.999) < 1e-4
+    assert diff.mean() < 1e-5

@@ -261,6 +261,7 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
     frac = got["alive_fraction"].numpy()
     np.testing.assert_allclose(frac, fixture("sdf")["flat_spp2_fraction"], rtol=0, atol=1e-6)
     assert got["wasted_fraction"] == pytest.approx(1.0 - frac.mean())
+    assert got["compacted_wasted_fraction"] is None  # no kernel ran: no tile
     warps = entered.reshape(2, -1, 32)
     for b in range(DEPTH):
         live = (warps > b).sum(-1)
@@ -281,6 +282,36 @@ def test_stats_of_a_short_last_block_and_warp():
     np.testing.assert_allclose(got["warp_alive_fraction"].numpy(), [1.0, 1.0, 0.5])
     np.testing.assert_allclose(got["warp_lanes"].numpy(), [35 / 2, 20 / 2, 10 / 1])
     assert got["warp_wasted_fraction"] == pytest.approx(1.0 - 65 / (32 * 5))
+    # no tile, no compacted figure (the per-thread loop); a compacted loop
+    # lists the one tile's 35, 20 and 10 live paths: 2, 1 and 1 warps
+    assert got["compacted_wasted_fraction"] is None
+    compacted = MK.occupancy_stats(entered, 3, 1536)["compacted_wasted_fraction"]
+    assert compacted == pytest.approx(1.0 - 65 / (32 * 4))
+    assert MK.occupancy_stats(entered, 3, 256)["compacted_wasted_fraction"] == compacted
+
+
+def test_compacted_stats_of_hand_made_counts():
+    """compacted_wasted_fraction on hand-made counts: 2 samples of 2 tiles
+    of 256 pixels, per tile, sample and bounce ceil(live / 32) warps; the
+    same counts in one tile a sample."""
+    n = 2 * 256
+    entered = torch.zeros((2, n), dtype=torch.int32)
+    entered[0, :256] = 3                          # sample 0, tile 0: 256 live at bounces 0-2
+    entered[0, 256:256 + 33] = 1                  # tile 1: 33 live at bounce 0
+    entered[1, 0:64:2] = 2                        # sample 1, tile 0: 32 live, one in two, at bounces 0-1
+    entered[1, 256:256 + 100] = torch.tensor([1, 2, 3, 3] * 25, dtype=torch.int32)  # 100, 75, 50
+    got = MK.occupancy_stats(entered.reshape(2, 4, 128), 3, 256)
+    lanes = 3 * 256 + 33 + 2 * 32 + 100 + 75 + 50
+    warps = 3 * 8 + 2 + 2 * 1 + 4 + 3 + 2
+    assert got["compacted_wasted_fraction"] == pytest.approx(1.0 - lanes / (32 * warps))
+    # one tile a sample: 256 + 33 = 289, 256 and 256 live; 132, 107 and 50
+    whole = MK.occupancy_stats(entered.reshape(2, 4, 128), 3, n)
+    assert whole["compacted_wasted_fraction"] == pytest.approx(1.0 - lanes / (32 * (10 + 8 + 8 + 5 + 4 + 2)))
+    # the per-thread loop's live warps: sample 1's first two warps half full,
+    # and the four warps of its second tile live at every bounce
+    per_thread = 3 * 8 + 2 + 2 * 2 + 3 * 4
+    assert got["warp_wasted_fraction"] == pytest.approx(1.0 - lanes / (32 * per_thread))
+    assert got["compacted_wasted_fraction"] < got["warp_wasted_fraction"]
 
 
 def test_render_cli_prints_the_occupancy_on_the_cpu(tmp_path):
