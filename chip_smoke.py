@@ -82,8 +82,9 @@ which raises on failure (non-zero exit):
    the largest difference where they are not, which must stay within 1e-5
    of the other's largest entry (PAIR_MAX_REL), and the record kernels
    alone in turns, their records bit-equal;
-17. K1 with the mesh backend (K7, csrc/mesh.cuh) vs its plain version on
-   the card, depth 4: 320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and
+17. K1 with the mesh backend (K7, csrc/mesh.cuh: each block's staged
+   triangle table, the compacted loop) vs its plain version on the card,
+   depth 4: 320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and
    1920x1080; then vs the committed JAX render
    tests/golden_torch/mesh_64x48_d4_k3.npy;
 18. the mesh main path: the render CLI with --scene mesh renders 8
@@ -92,7 +93,8 @@ which raises on failure (non-zero exit):
    wrapper, the launch alone and the plain version, ray segments per
    second, and the bound from this frame's triangle tests
    (tools/work.count_mesh_work: the tests K7 and K8 make, shadow rays only
-   where K1 casts one);
+   where K1 casts one; the small mesh's at MESH_TRI_OPS a test on its
+   staged table);
 19. and 20. the same for the big mesh backend (K8, csrc/bigmesh.cuh) and
    --scene bigmesh, against tests/golden_torch/bigmesh_64x48_d4_k3.npy; the
    plain version walks blocks of rays at 1920x1080, and the bound counts
@@ -108,7 +110,11 @@ which raises on failure (non-zero exit):
    plain version as phase 6: 320x240 depth 4 at spp 1 and 2 VERBATIM and
    spp 1 FIXED, and 1920x1080 when the plain version fits; the pixels whose
    plain path passes near an edge are masked beside the knife-edge ones,
-   counted, and may be at most 0.1% of the frame;
+   counted, and may be at most 0.1% of the frame; then its record kernel
+   traces K1's paths: on the mesh demo (depth 4) and the mesh's glass
+   Scatter scene (K2 MEDIA, depth 6) at 1920x1080, the bounces each path
+   entered in the records equal K3's counts for the same keys, lane for
+   lane (check_record_paths);
 22. K2-mesh through the autograd Function and pack_mesh_scene to every
    scene leaf (the 17 vertices included) vs the committed JAX gradient
    tests/golden_torch/grad_mesh_64x48_d4_k3.npz;
@@ -161,10 +167,11 @@ which raises on failure (non-zero exit):
    took another branch (|diff| > 1e-3) are counted; on the mesh, the
    pixels whose plain path meets two coplanar triangles at once (the
    cube's bottom face lies on the floor; ops/megakernel_mesh.hit_ties)
-   are left out and counted. The MEDIA instantiations' registers and
-   spills are printed, and the analytical K1's and K1 MEDIA's registers,
-   stack, shared memory a block and blocks an SM (with `--other DIR`, the
-   other tree's registers and spills beside them);
+   are left out and counted. The MEDIA instantiations'
+   registers and spills are printed, and the analytical and mesh K1's and
+   K1 MEDIA's registers, stack, shared memory a block and blocks an SM
+   (with `--other DIR`, the other tree's registers and spills beside
+   them);
 28. the media main path: 8 progressive 1920x1080 depth-6 frames of the
    Scatter demo through render_frame_megakernel and accumulate, written to
    a PNG, every frame exactly one launch of K1's MEDIA instantiation and
@@ -175,16 +182,22 @@ which raises on failure (non-zero exit):
    and its backward is one K2 MEDIA launch and nothing else. With `--other
    DIR`, K1 and K3 of both trees on each backend's demo and on each
    backend's glass Scatter scene (k1_pair.MEDIA_SCENES: K1 MEDIA) in turns
-   (tools/k1_pair.pair), frames and counts bit-equal, and
-   each instantiation's registers, stack and spills in both trees
-   (k1_pair.resources), printed with the pair's time ratio;
+   (tools/k1_pair.pair), frames and counts bit-equal, but for the small
+   mesh against a tree that built it with FMA contraction
+   (k1_pair.mesh_rounds_apart: there they move in the last bits; the
+   entries that differ, by how much at most, and whether K3's counts are
+   equal are printed, and phases 17, 25, 27 and 29 hold them to the plain
+   version), and each instantiation's registers,
+   stack and spills in both trees (k1_pair.resources), printed with the
+   pair's time ratio;
 29. K3's MEDIA instantiation vs its plain version (bounces_entered), per
    lane and in its alive fractions, its frame bit-equal to K1's MEDIA
    frame, on each backend's glass Scatter scene at 320x240 (the analytical
    one also at spp 2, FIXED and 1920x1080; the mesh's coplanar ties left
    out); then one measure_occupancy_megakernel call at 1920x1080 (one K3
    MEDIA launch), its idle lane slots per-thread and compacted, and K3
-   against K1 in turns there.
+   against K1 in turns there; the idle lane slots of the mesh's glass
+   Scatter scene at 1920x1080 likewise.
 30. K2's MEDIA instantiation (tracer_adj.cuh media_bounce_adj: the
    segment's Absorb and Emissive terms, the Scatter event with its HG-phase
    NEE, the medium's cotangent carried through the reverse sweep) vs its
@@ -218,9 +231,10 @@ which raises on failure (non-zero exit):
    SDF and mesh K2 MEDIA at 320x240 likewise, each with its two kernels
    apart (as phase 9). With `--other DIR`, the mesh and MEDIA K2 of that
    tree against this one's in turns (phase 24 pairs the analytical and SDF
-   ones; the mesh within 1e-5 of the other's largest entry, MEDIA, built
-   without contraction, bit-equal) and both trees' K2 registers, stack and
-   spills (tools/k2_pair.resources);
+   ones; MEDIA, built without contraction, bit-equal; the mesh within
+   1e-5 of the other's largest entry, its records bit-equal, but against
+   a tree that built the mesh with FMA contraction, where both are printed)
+   and both trees' K2 registers, stack and spills (tools/k2_pair.resources);
 34. K2 at depth 20 (the records hold any depth) vs its plain version at
    320x240, spp 1 VERBATIM and spp 2 FIXED, on the demo scene inside
    sphere 1 grown to radius 20 (paths end only on the light or at depth
@@ -375,10 +389,13 @@ SDF_ADJ_OPS = 130 + 330 + 250 + 110
 K6_PIXEL_OPS = dict(f32=130 + 190 + 60, f64=0)
 SDF_Q_MIN = 0.999
 # The mesh backends (csrc/mesh.cuh, csrc/bigmesh.cuh), read the same way: one
-# two-sided Möller-Trumbore test ~60 float32 operations (two edges, two
-# cross products, four dot products, the division and the guards; no early
-# return); one (ray, triangle) pair of the big mesh's mt_hit 8 up to the
-# determinant's guard, 14 more up to u's and 24 more to the end (it returns
+# two-sided Möller-Trumbore test of the small mesh ~54 float32 operations
+# (two cross products, four dot products, ro - v0, the division and the
+# guards; no early return) on the first vertex and edges of the block's
+# staged triangle table (60 when each test formed its two edges, before
+# the table); one (ray, triangle) pair of the big
+# mesh's mt_hit 8 up to the determinant's guard, 14 more up to u's and 24
+# more to the end (it returns
 # where a guard fails); one box test of a chunk ~24. Per ray segment, K1's
 # shading without the analytical hit (~1370) and the winner's normal and
 # material (~25); in float64 only the light-sphere test of the emitter pass
@@ -386,7 +403,7 @@ SDF_Q_MIN = 0.999
 # (tools/work.count_mesh_work): 20 per closest hit of the small mesh and, per
 # shadow ray K1 casts, those up to the first occluder; the big mesh's walks
 # over its chunks, the closest hit's and the shadow ray's, pair by pair.
-MESH_TRI_OPS, BIGMESH_SLAB_OPS = 60, 24
+MESH_TRI_OPS, BIGMESH_SLAB_OPS = 54, 24
 BIGMESH_DET_OPS, BIGMESH_U_OPS, BIGMESH_REST_OPS = 8, 14, 24
 MESH_SEGMENT_OPS = dict(f32=1370 + 25, f64=20)
 MESH_FIXTURES = {
@@ -675,7 +692,8 @@ def mesh_phases(torch, mk, cli, rng, cuda_ms, dev, card: str, family: str, first
     if family == "mesh":
         test_ops = (tests["closest_tests"] + tests["shadow_tests"]) * MESH_TRI_OPS
         walk = (f"{tests['closest_tests']} triangle tests in closest hits ({tests['closest_tests'] / segments:.2f} "
-                f"per segment), {tests['shadow_tests']} in shadow rays")
+                f"per segment), {tests['shadow_tests']} in shadow rays, {MESH_TRI_OPS} operations a test on the "
+                "staged table")
     else:
         pairs = {w: tests[f"{w}_pairs"] for w in ("closest", "shadow")}
         test_ops = sum(tests[f"{w}_pairs"] * BIGMESH_DET_OPS + tests[f"{w}_det_ok"] * BIGMESH_U_OPS
@@ -713,7 +731,7 @@ def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total
     analytical and SDF K2 of another tree in turns. Returns K2-mesh's row of
     the kernels line."""
     from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
-    from pathtracer_tpu_torch.models import mesh
+    from pathtracer_tpu_torch.models import families, mesh
     from pathtracer_tpu_torch.ops import _build
     from pathtracer_tpu_torch.tools.work import count_mesh_work
 
@@ -723,6 +741,9 @@ def mesh_backward_phases(torch, mk, inverse, rng, cuda_ms, dev, card: str, total
         (scene, 320, 240, 1, VERBATIM, 81, ""), (scene, 320, 240, 2, VERBATIM, 82, ""),
         (scene, 320, 240, 1, FIXED, 83, ""), (scene, MAIN_W, MAIN_H, 1, VERBATIM, 84, ""),
     ], moved=mesh_near_edge)
+    for label, sc in (("mesh demo", scene), ("mesh glass Scatter (MEDIA)",
+                                             media_scene(torch, families, "mesh", dev, MEDIA_MAIN))):
+        check_record_paths(torch, mk, mk.prepare_launch(sc, rng.prng_key(85), MAIN_W, MAIN_H, 1, VERBATIM), label)
 
     print("== 22. K2-mesh vs the JAX gradient fixture, through the autograd Function and pack_mesh_scene")
     with np.load(MESH_GRAD_FIXTURE) as data:
@@ -925,7 +946,8 @@ def occupancy_phase(torch, mk, cli, rng, cuda_ms, dev, card: str, k1_work: dict)
         launches = counts["occupancy_launches" if family == "analytical" else f"occupancy_{family}_launches"]
         rows.append(dict(
             name="megakernel_fwd_occupancy" + ("" if family == "analytical" else f"_{family}"), route="cuda",
-            source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
+            source="pathtracer_tpu_torch/csrc/" + {"sdf": "megakernel_sdf.cu", "mesh": "megakernel_mesh.cu"}.get(
+                family, "megakernel_fwd.cu"),
             replaces="pathtracer_tpu/ops/megakernel.py:1644" + {
                 "analytical": "", "sdf": " + pathtracer_tpu/ops/megakernel_sdf.py:172",
                 "mesh": " + pathtracer_tpu/ops/megakernel_mesh.py:95",
@@ -1022,23 +1044,21 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
     from pathtracer_tpu_torch.utils.image import save_render
 
     print(f"== 27. K1's media instantiation vs its plain version on the card (depth {MEDIA_DEPTH})")
-    for key_, line in sorted({**k1_pair.instantiations(_build.CSRC),
-                              **k1_pair.instantiations(_build.CSRC, "megakernel_sdf", counts=(1, 1, 1))}.items()):
+    for key_, line in sorted(k1_pair.forward_instantiations(_build.CSRC).items()):
         if key_[2]:
             print(f"  {key_[0]} {'K3' if key_[1] else 'K1'} MEDIA: {line}")
-    demo = mk.prepare_launch(media_scene(torch, families, "analytical", dev, MEDIA_MAIN), rng.prng_key(0), MAIN_W,
-                             MAIN_H, 1, VERBATIM)
-    theirs = k1_pair.instantiations(k1_pair.tree_csrc(other)) if other else {}
-    for media in (False, True):
-        k = demo._replace(media=media, sv=mk.pack_scene(media_scene(torch, families, "analytical", dev, MEDIA_MAIN),
-                                                           MAIN_W, MAIN_H, media).contiguous())
-        res = mk.forward_resources(k)
-        label = f"K1{' MEDIA' if media else ''} analytical"
-        print(f"  {label}: this tree {res['registers']} registers, {res['stack_bytes']} B stack, "
-              f"{res['shared_bytes']} B shared memory a block of {mk.forward_layout(k)['tile_paths']} paths, "
-              f"{res['blocks_per_sm']} block(s) an SM"
-              + (f"; the other tree: {theirs.get(('Analytical', False, media))}, {4 * k.sv.shape[1]} B shared "
-                 "memory a block of 128 pixels" if other else ""))
+    theirs = k1_pair.forward_instantiations(k1_pair.tree_csrc(other)) if other else {}
+    for family in ("analytical", "mesh"):  # the backends of K1's tiles of 1536 paths
+        scene = media_scene(torch, families, family, dev, MEDIA_MAIN)
+        demo = mk.prepare_launch(scene, rng.prng_key(0), MAIN_W, MAIN_H, 1, VERBATIM)
+        for media in (False, True):
+            k = demo._replace(media=media, sv=mk.BACKENDS[family].pack(scene, MAIN_W, MAIN_H, media).contiguous())
+            res = mk.forward_resources(k)
+            label = f"K1{' MEDIA' if media else ''} {family}"
+            print(f"  {label}: this tree {res['registers']} registers, {res['stack_bytes']} B stack, "
+                  f"{res['shared_bytes']} B shared memory a block of {mk.forward_layout(k)['tile_paths']} paths, "
+                  f"{res['blocks_per_sm']} block(s) an SM"
+                  + (f"; the other tree: {theirs.get((family.capitalize(), False, media))}" if other else ""))
     err = 0.0
     cases = [("analytical", name, w, h, spp, quirks) for name in MEDIA
              for w, h, spp, quirks in ((320, 240, 1, VERBATIM), (320, 240, 2, VERBATIM), (320, 240, 1, FIXED),
@@ -1136,9 +1156,19 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
         k1_pair.resources(Path(other), log=lambda s: print("  " + s))
         for r in results:
             print(f"  {r['kernel']} {r['scene']}: this / other {r['ratio']:.4f}, "
-                  f"{'frames and counts' if r['kernel'].startswith('K3') else 'output'} bit-equal {r['bit_equal']}")
-        if not all(r["bit_equal"] for r in results):
-            raise AssertionError("K1 or K3 of this tree and the other's differ in output")
+                  f"{'frames and counts' if r['kernel'].startswith('K3') else 'output'} bit-equal {r['bit_equal']}"
+                  + ("" if r["bit_equal"] else f" ({r['differ']} of {r['entries']} entries differ"
+                     + (f", by at most {r['max_diff']:.3e}" if r["max_diff"] is not None else "")
+                     + (f"; counts equal {r['counts_equal']}" if "counts_equal" in r else "") + ")"))
+        # the small mesh's frames (and with them K3's output) move in the
+        # last bits against a tree that built it with FMA contraction:
+        # phases 17, 25, 27 and 29 hold them to the plain version. Every
+        # other pair is the other tree's bit for bit.
+        contracted = not k1_pair.mesh_rounds_apart(k1_pair.tree_csrc(other))
+        moved = [(r["kernel"], r["scene"]) for r in results if not r["bit_equal"]
+                 and not (contracted and k1_pair.MEDIA_SCENES.get(r["scene"], r["scene"]) == "mesh")]
+        if moved:
+            raise AssertionError(f"K1 or K3 of this tree and the other's differ in output: {moved}")
     else:
         print("  K1 and K3 against another tree's: not run (no --other DIR given)")
 
@@ -1176,6 +1206,12 @@ def media_phases(torch, mk, _build, rng, cuda_ms, dev, card: str, other) -> list
     print(f"  measure_occupancy_megakernel at {MAIN_W}x{MAIN_H}: launches {counts}; alive fractions "
           f"{fmt_fractions(occ['alive_fraction'])}, idle lanes of live warps {occ['warp_wasted_fraction']:.5f} "
           f"(per-thread loop), {occ['compacted_wasted_fraction']:.5f} (compacted loop)")
+    occ_mesh = mk.measure_occupancy_megakernel(media_scene(torch, families, "mesh", dev, MEDIA_MAIN), key, MAIN_W,
+                                               MAIN_H)
+    print(f"  the mesh's glass Scatter scene at {MAIN_W}x{MAIN_H}: alive fractions "
+          f"{fmt_fractions(occ_mesh['alive_fraction'])}, idle lanes of live warps "
+          f"{occ_mesh['warp_wasted_fraction']:.5f} (per-thread loop), {occ_mesh['compacted_wasted_fraction']:.5f} "
+          "(compacted loop)")
     k3 = k1._replace(out=torch.empty_like(k1.out))
     entered = torch.empty((1, MAIN_H, MAIN_W), dtype=torch.int32, device=dev)
     pair = k1_pair.in_turns({"other": lambda: mk.launch(k1), "this": lambda: mk.launch(k3, entered)},
@@ -1292,7 +1328,7 @@ def media_backward_phases(torch, mk, _build, inverse, rng, cuda_ms, dev, card: s
 
     print(f"== 30. K2's media instantiation vs its plain version on the card (depth {MEDIA_DEPTH})")
     lib = _build.load("megakernel_bwd")
-    for kernel, counts in (("megakernel_bwd", None), ("megakernel_bwd_media", None),
+    for kernel, counts in (("megakernel_bwd", None), ("megakernel_bwd_media", None), ("megakernel_mesh", None),
                            ("megakernel_sdf", (1, 1, 1)), ("megakernel_sdf_bwd_media", (1, 1, 1))):
         for key_, line in sorted(k1_pair.instantiations(_build.CSRC, kernel, k2_pair.k2_key, counts=counts).items()):
             print(f"  {key_[1]} K2{' MEDIA' if key_[2] else ''} {key_[0]}: {line}")
@@ -1616,6 +1652,29 @@ def mesh_near_edge(scene, key, w, h, spp, quirks):
     return near, f"near an edge (margin < {MESH_MARGIN} or |det| < {MESH_DET})", MESH_NEAR_MAX
 
 
+def check_record_paths(torch, mk, k, label: str) -> None:
+    """K2's record kernel traces K1's paths: for launch `k` (one chunk of
+    records), the bounces each path entered in its records (the lengths
+    after them, csrc/megakernel_bwd.cuh) equal K3's counts for the same
+    keys, lane for lane; raises where they do not."""
+    from pathtracer_tpu_torch.tools import k2_pair
+
+    height, width = k.out.shape[:2]
+    lanes = k.spp * height * width
+    if mk.record_chunks(k) != [(0, height * width, 0, k.spp)]:
+        raise AssertionError(f"{label}: the records of {width}x{height} take more than one chunk")
+    entered = torch.empty((k.spp, height, width), dtype=torch.int32, device=k.out.device)
+    mk.launch(k, entered)
+    rec = k2_pair.record_launcher(k)()
+    lens = rec[rec.numel() - lanes:].view(torch.int32).reshape(entered.shape)
+    same = int((lens == entered).sum())
+    print(f"  {label} at {width}x{height}: the record kernel's path lengths equal K3's counts on {same} of {lanes} "
+          f"paths (mean length {float(entered.double().mean()):.4f})")
+    if same != lanes:
+        raise AssertionError(f"{label}: K2's record kernel and K3 trace different paths on {lanes - same} lanes")
+    del rec, entered
+
+
 def check_backward(torch, mk, rng, dev, total_bytes: int, cases: list, moved=None,
                    peak_320=None) -> tuple[float, int]:
     """K2 against its plain version (phases 6, 13 and 21) for each case
@@ -1710,8 +1769,8 @@ def k2_stages(mk, _build, cuda_ms, k, ct, card: str, label: str) -> dict:
         ptxas = k1_pair.instantiations(_build.CSRC, "megakernel_sdf_bwd_media" if k.media else "megakernel_sdf",
                                        k2_pair.k2_key, counts=k.counts)
     else:
-        ptxas = k1_pair.instantiations(_build.CSRC, "megakernel_bwd_media" if k.media else "megakernel_bwd",
-                                       k2_pair.k2_key)
+        library = "megakernel_bwd_media" if k.media else {"mesh": "megakernel_mesh"}.get(k.backend, "megakernel_bwd")
+        ptxas = k1_pair.instantiations(_build.CSRC, library, k2_pair.k2_key)
     backend = {"analytical": "AnalyticalAdj", "sdf": "SdfAdj", "mesh": "MeshAdj"}[k.backend]
     print(f"  {label}: record kernel {record_ms:.3f} ms, adjoint kernel {adjoint_ms:.3f} ms ({card}); record buffer "
           f"{nbytes} bytes ({nbytes / 2**20:.1f} MiB; chunks of {pixels} pixels x {samples} samples)")
@@ -1747,11 +1806,21 @@ PAIR_MAX_REL = 1e-5
 def check_pairing(results: list[dict]) -> None:
     """Each of k2_pair.pair's results within PAIR_MAX_REL of the other
     tree's gradient, MEDIA's bit-equal, and the record kernels' records
-    bit-equal (each is K1's bounce, whose frames are the other tree's)."""
+    bit-equal (each is K1's bounce, whose frames are the other tree's). The
+    small mesh's only printed against a tree that built it with FMA
+    contraction (k1_pair.mesh_rounds_apart), whose paths may branch
+    otherwise (phases 21-23 hold its gradient to the plain version and to
+    JAX's)."""
+    from pathtracer_tpu_torch.tools import k1_pair
+
     for r in results:
         rec = r["record"]
         print(f"  K2 {r['scene']}'s record kernel: this / other {rec['ratio']:.4f} ({rec['this_ms']:.4f} against "
-              f"{rec['other_ms']:.4f} ms), records bit-equal {rec['bit_equal']}")
+              f"{rec['other_ms']:.4f} ms), records bit-equal {rec['bit_equal']}"
+              + ("" if rec["bit_equal"] else f" ({rec['differ']} of {rec['entries']} words differ); the gradients' "
+                 f"largest difference {r['max_rel']:.3e} of the other's largest entry"))
+        if r["scene"] == "mesh" and not k1_pair.mesh_rounds_apart(k1_pair.tree_csrc(r["other"])):
+            continue
         if not rec["bit_equal"]:
             raise AssertionError(f"K2 {r['scene']}'s records differ from {r['other']}'s")
         if r["scene"] == "media" and not r["bit_equal"]:

@@ -58,14 +58,14 @@ __device__ __forceinline__ float ray_plane(V3 ro, V3 rd, V3 normal, V3 point) {
   return miss ? INFINITY : t;
 }
 
-// Two-sided Möller-Trumbore (ops/intersect.ray_triangle): t > eps or +inf.
-// inv_det is 0 where |det| <= eps; a hit needs u, v >= 0 and u + v <= 1.
-// Every dot and cross product is unfused, in the plain version's order: a
-// ray through an edge shared by two triangles picks its triangle by the
-// last bits of u and v.
-__device__ __forceinline__ float ray_triangle(V3 ro, V3 rd, V3 v0, V3 v1, V3 v2) {
+// Two-sided Möller-Trumbore (ops/intersect.ray_triangle) over the first
+// vertex and the edges e1 = v1 - v0, e2 = v2 - v0 (the small mesh's staged
+// table holds them): t > eps or +inf. inv_det is 0 where |det| <= eps; a
+// hit needs u, v >= 0 and u + v <= 1. Every dot and cross product is
+// unfused, in the plain version's order: a ray through an edge shared by
+// two triangles picks its triangle by the last bits of u and v.
+__device__ __forceinline__ float ray_triangle_edges(V3 ro, V3 rd, V3 v0, V3 e1, V3 e2) {
   const float eps = 1e-7f;
-  const V3 e1 = v1 - v0, e2 = v2 - v0;
   const V3 p = cross_rn(rd, e2);
   const float det = dot_rn(e1, p);
   const bool ok_det = fabsf(det) > eps;

@@ -50,12 +50,12 @@ __device__ __forceinline__ void ray_rect_adj(V3 ro, V3 rd, V3 corner, V3 u, V3 v
   cross_adj(u, v, c_n, c_u, c_v);
 }
 
-// Two-sided Möller-Trumbore's t past its guards (ray_triangle on a hit):
+// Two-sided Möller-Trumbore's t past its guards (ray_triangle_edges on a hit):
 // t = <e2, q> inv_det, inv_det = 1 / det, det = <e1, p>, p = rd x e2,
 // q = s x e1, s = ro - v0, e1 = v1 - v0, e2 = v2 - v0. u and v only gate,
 // so they carry no cotangent; v0 is reached through e1, e2 and s, v1
 // through e1, v2 through e2, ro through s, rd through p. The forward values
-// are ray_triangle's, unfused; the adjoint itself may round freely.
+// are ray_triangle_edges', unfused; the adjoint itself may round freely.
 __device__ __forceinline__ void ray_triangle_adj(V3 ro, V3 rd, V3 v0, V3 v1, V3 v2, float ct, V3& c_ro, V3& c_rd,
                                                  V3& c_v0, V3& c_v1, V3& c_v2) {
   const V3 e1 = v1 - v0, e2 = v2 - v0;

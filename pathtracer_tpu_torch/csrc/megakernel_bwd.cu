@@ -1,9 +1,9 @@
-// K2's media-free entry points (the analytical and mesh instantiations of
-// megakernel_bwd.cuh's template: its record kernel and adjoint kernel),
-// its reduction and its helpers. The MEDIA instantiations are
-// megakernel_bwd_media.cu, a library of their own; the SDF scene's are
-// megakernel_sdf.cu's and megakernel_sdf_bwd_media.cu's, built for its
-// primitive counts.
+// K2's media-free entry points for the analytical scene (megakernel_bwd.cuh's
+// template: its record kernel and adjoint kernel), its reduction and its
+// helpers. The MEDIA instantiations are megakernel_bwd_media.cu, a library
+// of their own; the SDF scene's are megakernel_sdf.cu's and
+// megakernel_sdf_bwd_media.cu's, built for its primitive counts; the small
+// mesh's media-free ones megakernel_mesh.cu's, built with its K1.
 
 #include "megakernel_bwd.cuh"
 
@@ -13,7 +13,7 @@ extern "C" int pt_backward_max_lights() { return pt::REC_MAX_LIGHTS; }
 extern "C" size_t pt_backward_record_cap() { return pt::REC_CAP_BYTES; }
 
 // Dynamic shared memory the adjoint kernel needs for n_sv scene scalars and
-// a topology of n_tris triangles (0 but for the small mesh).
+// a triangle table of n_tris triangles (0 but for the small mesh).
 extern "C" size_t pt_backward_smem_bytes(int n_sv, int n_tris) { return pt::backward_smem_bytes(n_sv, n_tris); }
 
 // The record buffer's bytes for a frame of n pixels, spp samples and depth
@@ -54,26 +54,6 @@ extern "C" int pt_render_backward_adjoint(const float* sv, int n_sv, const uint3
                                                s, {p0, pixels, k0, samples}, stream);
 }
 
-// The small mesh scene's, with its topology [n_tris, 4] int32 (a, b, c,
-// material) on the card.
-extern "C" int pt_render_backward_mesh_record(const float* sv, int n_sv, const uint32_t* keys, float* rec, int width,
-                                              int height, int spp, int depth, int n_lights, int n_materials,
-                                              int flags, const int* topo, int n_tris, int n_verts, int p0,
-                                              int pixels, int k0, int samples, void* stream) {
-  const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
-  return pt::launch_record<pt::MeshAdj>(sv, n_sv, keys, rec, width, height, spp, depth, flags, s,
-                                        {p0, pixels, k0, samples}, stream);
-}
-
-extern "C" int pt_render_backward_mesh_adjoint(const float* sv, int n_sv, const uint32_t* keys, const float* ct,
-                                               float* rec, float* partial, int width, int height, int spp, int depth,
-                                               int n_lights, int n_materials, int flags, const int* topo, int n_tris,
-                                               int n_verts, int p0, int pixels, int k0, int samples, void* stream) {
-  const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
-  return pt::launch_adjoint<pt::MeshAdj>(sv, n_sv, keys, ct, rec, partial, width, height, spp, depth, flags, s,
-                                         {p0, pixels, k0, samples}, stream);
-}
-
 // grad[j] = the sum over the num_blocks rows of partial[.][n_sv], in a fixed
 // order (megakernel_bwd.cuh reduce_blocks_kernel), on `stream`.
 extern "C" int pt_backward_reduce(const float* partial, int num_blocks, int n_sv, float* grad, void* stream) {
@@ -81,11 +61,13 @@ extern "C" int pt_backward_reduce(const float* partial, int num_blocks, int n_sv
   return (int)cudaGetLastError();
 }
 
-// The record and adjoint kernels' resources of backend 0 (analytical) or 2
-// (mesh; the SDF scene's, 1, are megakernel_sdf.cu's) for n_sv scalars and
-// n_tris triangles, into out[8] (megakernel_bwd.cuh backward_resources).
+// The record and adjoint kernels' resources of backend 0 (analytical; the
+// SDF scene's, 1, are megakernel_sdf.cu's, the small mesh's, 2,
+// megakernel_mesh.cu's) for n_sv scalars, into out[8] (megakernel_bwd.cuh
+// backward_resources).
 extern "C" int pt_backward_resources(int backend, int n_sv, int n_tris, int* out) {
-  return pt::backward_resources_of<false>(backend, n_sv, n_tris, out);
+  if (backend != 0) return (int)cudaErrorInvalidValue;
+  return pt::backward_resources<pt::AnalyticalAdj>(n_sv, n_tris, out);
 }
 
 extern "C" const char* pt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -38,10 +38,10 @@
 //    (adjoint_sample). It intersects nothing: no closest hit, no march, no
 //    triangle loop, no emitter search, no shadow ray. Each thread adds into
 //    its own column of a [P][THREADS+1] shared-memory table (padded against
-//    bank conflicts), so no atomics; the small mesh's [T, 4] topology
-//    follows the table (75,720 bytes a block for the demo mesh, P = 145,
-//    over 48 KB: the launch opts in to more). The block then sums each row
-//    in thread order into partial[block][P].
+//    bank conflicts), so no atomics; the small mesh's triangle table (K1's,
+//    mesh.cuh) follows it (over 48 KB for the demo mesh: the launch opts in
+//    to more). The block then sums each row in thread order into
+//    partial[block][P].
 // 3. reduce_blocks_kernel sums the blocks of each entry in a fixed order
 //    (in double). The gradient is the same bit for bit from run to run.
 //
@@ -83,7 +83,6 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <type_traits>
 
 #include "analytical_adj.cuh"
 #include "mesh_adj.cuh"
@@ -97,19 +96,13 @@ constexpr int BWD_MIN_BLOCKS = 3;  // the adjoint kernel's blocks an SM (<= 168 
 constexpr int ACC_STRIDE = BWD_THREADS + 1;
 constexpr int REDUCE_THREADS = 256;
 constexpr size_t REC_CAP_BYTES = size_t(1) << 31;  // the record buffer's cap, 2 GiB
-// Whether K2 copies the backend's topology to shared memory (mesh_adj.cuh),
-// as K1 does for Mesh: the other instantiations compile no copy.
-template <class B>
-constexpr bool BWD_SHARED_TOPOLOGY = std::is_same_v<B, MeshAdj>;
 
-// Dynamic shared memory of one block: the packed vector and the topology of
-// n_tris triangles (the record kernel), with the gradient table between
-// them (the adjoint kernel).
-inline size_t record_smem_bytes(int n_sv, int n_tris) {
-  return (size_t)n_sv * sizeof(float) + 4 * (size_t)n_tris * sizeof(int);
-}
+// Dynamic shared memory of one block: the packed vector and the triangle
+// table of n_tris triangles (mesh.cuh; the record kernel), with the
+// gradient table between them (the adjoint kernel).
+inline size_t record_smem_bytes(int n_sv, int n_tris) { return table_end((size_t)n_sv * sizeof(float), n_tris); }
 inline size_t backward_smem_bytes(int n_sv, int n_tris) {
-  return (size_t)n_sv * (1 + ACC_STRIDE) * sizeof(float) + 4 * (size_t)n_tris * sizeof(int);
+  return table_end((size_t)n_sv * (1 + ACC_STRIDE) * sizeof(float), n_tris);
 }
 
 // How a record buffer of at most `cap` bytes (REC_CAP_BYTES at most; a
@@ -134,15 +127,15 @@ inline size_t record_bytes(const RecordPlan& pl, int depth, int words) {
   return (size_t)pl.pixels * pl.samples * ((size_t)depth * words + 1) * sizeof(float);
 }
 
-// Copies the packed vector (and the mesh's topology) to shared memory and
-// points `s` at the copies.
+// Copies the packed vector to shared memory (and stages the mesh's
+// triangle table at `table`) and points `s` at the copies.
 template <class B>
-__device__ __forceinline__ void stage_scene(const float* __restrict__ sv_global, int n_sv, float* sv, int* topo,
+__device__ __forceinline__ void stage_scene(const float* __restrict__ sv_global, int n_sv, float* sv, float4* table,
                                             SceneView& s) {
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
-  if constexpr (BWD_SHARED_TOPOLOGY<B>) {
-    for (int i = threadIdx.x; i < 4 * s.n_tris; i += blockDim.x) topo[i] = s.topo[i];
-    s.topo = topo;
+  if constexpr (STAGED_TABLE<B>) {
+    for (int i = threadIdx.x; i < s.n_tris; i += blockDim.x) stage_mesh_triangle(sv_global, s.topo, i, table);
+    s.tris = table;
   }
   s.sv = sv;
 }
@@ -155,8 +148,9 @@ __global__ void __launch_bounds__(BWD_THREADS)
     record_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
                   float* __restrict__ rec, int* __restrict__ lens, int width, int height, int depth, int flags,
                   int p0, int pixels, int k0, int samples, SceneView s) {
-  extern __shared__ float smem[];
-  stage_scene<B>(sv_global, n_sv, smem, reinterpret_cast<int*>(smem + n_sv), s);
+  extern __shared__ __align__(16) float smem[];
+  float4* table = reinterpret_cast<float4*>(reinterpret_cast<char*>(smem) + align16(n_sv * sizeof(float)));
+  stage_scene<B>(sv_global, n_sv, smem, table, s);
   __syncthreads();
 
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
@@ -180,9 +174,11 @@ __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
                    const float* __restrict__ ct, float* __restrict__ rec, const int* __restrict__ lens,
                    float* __restrict__ partial, int width, int height, int spp, int depth, int flags, int p0,
                    int pixels, int k0, int samples, SceneView s) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* acc = smem + n_sv;  // [n_sv][ACC_STRIDE]: column threadIdx.x is this thread's gradient
-  stage_scene<B>(sv_global, n_sv, smem, reinterpret_cast<int*>(acc + n_sv * ACC_STRIDE), s);
+  const size_t at = align16(n_sv * (1 + ACC_STRIDE) * sizeof(float));  // after the gradient table
+  float4* table = reinterpret_cast<float4*>(reinterpret_cast<char*>(smem) + at);
+  stage_scene<B>(sv_global, n_sv, smem, table, s);
   for (int j = 0; j < n_sv; ++j) acc[j * ACC_STRIDE + threadIdx.x] = 0.0f;
   __syncthreads();
 
@@ -238,8 +234,8 @@ inline bool chunk_ok(const Chunk& c, int n, int spp) {
 
 // One launch of record_kernel on `stream` for chunk `c` into rec, which
 // holds record_bytes of the chunk (its lengths after its records). `s` is
-// the scene's structure (its sv and topology are set to the shared copies
-// in the kernel). Returns a cudaError_t (0 = success).
+// the scene's structure (its sv and triangle table are set to the block's
+// copies in the kernel). Returns a cudaError_t (0 = success).
 template <class B, bool MEDIA = false>
 int launch_record(const float* sv, int n_sv, const uint32_t* keys, float* rec, int width, int height, int spp,
                   int depth, int flags, SceneView s, Chunk c, void* stream) {

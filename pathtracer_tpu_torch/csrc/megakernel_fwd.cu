@@ -1,7 +1,8 @@
-// K1's and K3's entry points for the analytical, small mesh and big mesh
-// backends, with and without the medium (megakernel_fwd.cuh holds the
-// template, its design and what bounds it). The SDF backend's are
-// megakernel_sdf.cu's, a library built for each scene's primitive counts.
+// K1's and K3's entry points for the analytical and big mesh backends,
+// with and without the medium (megakernel_fwd.cuh holds the template, its
+// design and what bounds it). The SDF backend's are megakernel_sdf.cu's, a
+// library built for each scene's primitive counts; the small mesh's are
+// megakernel_mesh.cu's, a library built without FMA contraction.
 
 #include "megakernel_fwd.cuh"
 
@@ -13,16 +14,6 @@ extern "C" int pt_render_forward_occupancy(const float* sv, int n_sv, const uint
                                            int flags, void* stream) {
   const pt::SceneView s = pt::analytical_view(nullptr, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
   return pt::launch_forward<pt::Analytical>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
-}
-
-// The small mesh scene with its topology [n_tris, 4] int32 (a, b, c,
-// material) on the card.
-extern "C" int pt_render_forward_occupancy_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
-                                                int* entered, int width, int height, int spp, int depth,
-                                                int n_lights, int n_materials, int flags, const int* topo, int n_tris,
-                                                int n_verts, void* stream) {
-  const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
-  return pt::launch_forward<pt::Mesh>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
 }
 
 // The big mesh scene with its tables on the card: coef [n_chunks * 128, 16],
@@ -40,13 +31,6 @@ extern "C" int pt_render_forward(const float* sv, int n_sv, const uint32_t* keys
                                  int spp, int depth, int n_lights, int n_materials, int flags, void* stream) {
   return pt_render_forward_occupancy(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights, n_materials,
                                      flags, stream);
-}
-
-extern "C" int pt_render_forward_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
-                                      int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                      const int* topo, int n_tris, int n_verts, void* stream) {
-  return pt_render_forward_occupancy_mesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
-                                          n_materials, flags, topo, n_tris, n_verts, stream);
 }
 
 extern "C" int pt_render_forward_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
@@ -68,14 +52,6 @@ extern "C" int pt_render_forward_occupancy_media(const float* sv, int n_sv, cons
                                                   stream);
 }
 
-extern "C" int pt_render_forward_occupancy_media_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
-                                                      int* entered, int width, int height, int spp, int depth,
-                                                      int n_lights, int n_materials, int flags, const int* topo,
-                                                      int n_tris, int n_verts, void* stream) {
-  const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
-  return pt::launch_forward<pt::Mesh, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
-}
-
 extern "C" int pt_render_forward_occupancy_media_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
                                                          int* entered, int width, int height, int spp, int depth,
                                                          int n_lights, int n_materials, int flags, const float* coef,
@@ -93,13 +69,6 @@ extern "C" int pt_render_forward_media(const float* sv, int n_sv, const uint32_t
                                            n_materials, flags, stream);
 }
 
-extern "C" int pt_render_forward_media_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
-                                            int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                            const int* topo, int n_tris, int n_verts, void* stream) {
-  return pt_render_forward_occupancy_media_mesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
-                                                n_materials, flags, topo, n_tris, n_verts, stream);
-}
-
 extern "C" int pt_render_forward_media_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                                int height, int spp, int depth, int n_lights, int n_materials,
                                                int flags, const float* coef, const float* attr, const float* aabb,
@@ -109,9 +78,10 @@ extern "C" int pt_render_forward_media_bigmesh(const float* sv, int n_sv, const 
 }
 
 // The resources of K1's instantiation (K3's with `count`, MEDIA with
-// `media`) of backend 0 (analytical), 2 (small mesh) or 3 (big mesh; the SDF
-// scene's, 1, are megakernel_sdf.cu's) for n_sv scalars and n_tris
-// triangles, into out[4] (megakernel_fwd.cuh forward_resources).
+// `media`) of backend 0 (analytical) or 3 (big mesh; the SDF scene's, 1,
+// are megakernel_sdf.cu's, the small mesh's, 2, megakernel_mesh.cu's) for
+// n_sv scalars and n_tris triangles, into out[4] (megakernel_fwd.cuh
+// forward_resources).
 extern "C" int pt_forward_resources(int backend, int media, int count, int n_sv, int n_tris, int* out) {
   const int which = 4 * backend + 2 * (media != 0) + (count != 0);
   switch (which) {
@@ -121,7 +91,6 @@ extern "C" int pt_forward_resources(int backend, int media, int count, int n_sv,
   case 4 * b + 2: return pt::forward_resources<B, true, false>(n_sv, n_tris, out); \
   case 4 * b + 3: return pt::forward_resources<B, true, true>(n_sv, n_tris, out);
     PT_RESOURCES(0, pt::Analytical)
-    PT_RESOURCES(2, pt::Mesh)
     PT_RESOURCES(3, pt::BigMesh)
 #undef PT_RESOURCES
     default: return (int)cudaErrorInvalidValue;
@@ -137,7 +106,6 @@ extern "C" int pt_forward_layout(int backend, int media, int n_sv, int n_tris, l
   case 2 * b: pt::forward_layout<B, false>(n_sv, n_tris, out); return 0; \
   case 2 * b + 1: pt::forward_layout<B, true>(n_sv, n_tris, out); return 0;
     PT_LAYOUT(0, pt::Analytical)
-    PT_LAYOUT(2, pt::Mesh)
     PT_LAYOUT(3, pt::BigMesh)
 #undef PT_LAYOUT
     default: return (int)cudaErrorInvalidValue;

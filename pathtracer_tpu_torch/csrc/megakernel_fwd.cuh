@@ -16,7 +16,7 @@
 // trips of its bounce loop) into an int32 [spp, H, W] array: any tiling
 // (the TPU's tiles, this card's blocks and warps) reduces from it exactly,
 // and the loop and its early exit stay K1's. K1's instantiation compiles no
-// count (COUNT = false), as it compiles no topology copy outside the mesh.
+// count (COUNT = false), as it compiles no triangle table outside the mesh.
 // A scene whose material table declares a medium takes the MEDIA
 // instantiation of both (_make_kernel with has_media: the segment inside a
 // medium, the Scatter event, the medium transition; tracer.cuh), its own
@@ -56,26 +56,26 @@
 // Larger tiles fill more warps: the analytical scene's 1536 paths a block
 // of 512 threads, one block an SM (its registers and shared memory), took
 // 0.42 of the per-thread loop's time and the media frame 0.23 (tools/k1_pair
-// on an H100 80GB HBM3 at 700 W). On the SDF scene the march dominates: up to 96
-// distance evaluations per ray, a warp marching until its slowest lane is
-// done, each evaluation a chain of square roots over the primitives; K5 is
-// therefore built for the scene's primitive counts, so the field unrolls,
-// its records sit at fixed offsets and the primitives' chains interleave
-// (sdf.cuh, megakernel_sdf.cu), and its compacted tiles are small (256
+// on an H100 80GB HBM3 at 700 W), and the small mesh takes the same tile.
+// On the SDF scene the march dominates: up to 96 distance evaluations per
+// ray, a warp marching until its slowest lane is done, each evaluation a
+// chain of square roots over the primitives; K5 is therefore built for the
+// scene's primitive counts, so the field unrolls, its records sit at fixed
+// offsets and the primitives' chains interleave (sdf.cuh,
+// megakernel_sdf.cu), and its compacted tiles are small (256
 // paths, 128 threads: the march holds more registers). On the mesh scenes
-// the triangle tests do: 20 per ray for the small mesh (its topology copied
-// to shared memory beside the packed vector), and 128 for each chunk of the
+// the triangle tests do: 20 per ray for the small mesh (each block stages
+// a table of its triangles' first vertices, edges and normals in shared
+// memory beside the packed vector, mesh.cuh), and 128 for each chunk of the
 // big mesh that the ray's box test admits, a warp running the union of its
 // lanes' chunks, each pair a dependent chain from its row's load to its
-// guard (bigmesh.cuh reads the rows as float4, several at once); both keep
-// the per-thread loop.
+// guard (bigmesh.cuh reads the rows as float4, several at once); the big
+// mesh keeps the per-thread loop.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "analytical.cuh"
 #include "bigmesh.cuh"
@@ -96,9 +96,9 @@ constexpr int THREADS = 128;
 // compacts, the fuller its warps); the SDF march holds more registers
 // (compacted, its MEDIA instantiation spills 32 B and still takes 0.74 of
 // its per-thread loop's time, tools/k1_pair on an H100 80GB HBM3 at 700 W).
-// The mesh backends keep the per-thread loop: compacted, their frames moved
-// in the last bits, the normal's dot products rounding otherwise than in
-// the per-thread code.
+// The small mesh (megakernel_mesh.cu) takes the analytical scene's tile,
+// the fastest of those tools/k1_pair timed for it (PERF.md). The big mesh
+// keeps the per-thread loop: compacted, its frames moved in the last bits.
 template <class B>
 struct Tiling {
   static constexpr int threads = THREADS, paths = 0;
@@ -111,6 +111,10 @@ template <class C>
 struct Tiling<Sdf<C>> {
   static constexpr int threads = 128, paths = 256;
 };
+template <>
+struct Tiling<Mesh> {
+  static constexpr int threads = 512, paths = 1536;
+};
 
 template <class B>
 constexpr int TILE_PATHS = Tiling<B>::paths;
@@ -119,24 +123,20 @@ constexpr bool COMPACTED = TILE_PATHS<B> > 0;
 template <class B>
 constexpr int BLOCK_THREADS = Tiling<B>::threads;
 
-// Whether K1 copies the backend's topology to shared memory (mesh.cuh).
-template <class B>
-constexpr bool SHARED_TOPOLOGY = std::is_same_v<B, Mesh>;
-
 // Where a block's tile starts in dynamic shared memory: after the packed
-// vector and the topology, 16-byte aligned.
+// vector and the triangle table (mesh.cuh), 16-byte aligned.
 __host__ __device__ inline size_t tile_offset(int n_sv, int n_tris) {
-  return ((size_t)n_sv * sizeof(float) + 4 * (size_t)n_tris * sizeof(int) + 15) & ~(size_t)15;
+  return align16(table_end((size_t)n_sv * sizeof(float), n_tris));
 }
 
 // A launch's dynamic shared memory a block: the packed vector, the
-// topology and, compacted, the tile.
+// triangle table and, compacted, the tile.
 template <class B, bool MEDIA>
 size_t forward_smem_bytes(int n_sv, int n_tris) {
   if constexpr (COMPACTED<B>) {
     return tile_offset(n_sv, n_tris) + sizeof(Tile<MEDIA, TILE_PATHS<B>>);
   } else {
-    return (size_t)n_sv * sizeof(float) + 4 * (size_t)n_tris * sizeof(int);
+    return table_end((size_t)n_sv * sizeof(float), n_tris);
   }
 }
 
@@ -245,17 +245,17 @@ __global__ void __launch_bounds__(BLOCK_THREADS<B>)
     render_forward_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
                           float* __restrict__ out, int* __restrict__ entered, int width, int height, int spp,
                           int depth, int flags, SceneView s) {
-  extern __shared__ float sv[];
+  extern __shared__ __align__(16) float sv[];
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
-  // The small mesh's topology beside the packed vector; the other backends
-  // have none, and their instantiations compile no copy.
-  int* topo = reinterpret_cast<int*>(sv + n_sv);
-  if constexpr (SHARED_TOPOLOGY<B>) {
-    for (int i = threadIdx.x; i < 4 * s.n_tris; i += blockDim.x) topo[i] = s.topo[i];
+  // The small mesh's triangle table beside the packed vector; the other
+  // backends have none, and their instantiations compile no staging.
+  if constexpr (STAGED_TABLE<B>) {
+    float4* table = reinterpret_cast<float4*>(reinterpret_cast<char*>(sv) + align16(n_sv * sizeof(float)));
+    for (int i = threadIdx.x; i < s.n_tris; i += blockDim.x) stage_mesh_triangle(sv_global, s.topo, i, table);
+    s.tris = table;
   }
   __syncthreads();
   s.sv = sv;
-  if constexpr (SHARED_TOPOLOGY<B>) s.topo = topo;
 
   if constexpr (COMPACTED<B>) {
     using T = Tile<MEDIA, TILE_PATHS<B>>;
@@ -280,7 +280,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS<B>)
 
 // One frame on `stream` through K1's (K3's with COUNT) instantiation: a
 // block a tile, or a block of THREADS pixels; `s` is the scene's structure
-// (its sv and topology are set to the shared copies in the kernel).
+// (its sv and triangle table are set to the block's copies in the kernel).
 // Returns cudaGetLastError().
 template <class B, bool MEDIA, bool COUNT>
 int launch_one(const float* sv, int n_sv, const uint32_t* keys, float* out, int* entered, int width, int height,

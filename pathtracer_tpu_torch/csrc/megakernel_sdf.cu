@@ -28,7 +28,7 @@ constexpr int MARCH_THREADS = 128;
 __global__ void __launch_bounds__(MARCH_THREADS)
     march_steps_kernel(const float* __restrict__ sv_global, int n_sv, int* __restrict__ steps,
                        int* __restrict__ shadow_steps, int width, int height, SceneView s) {
-  extern __shared__ float sv[];
+  extern __shared__ __align__(16) float sv[];
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
   __syncthreads();
 

@@ -12,8 +12,9 @@
 // it (analytical_adj.cuh). The winner is the triangle's index, which K2's
 // record kernel finds with K1's unfused tests and its tie rule and the
 // adjoint reads back; the hit test, the winner search and the shadow ray's
-// any hit are boolean and carry none. The topology comes with the launch,
-// which both of K2's kernels copy to shared memory as K1 does.
+// any hit are boolean and carry none. Both of K2's kernels stage K1's
+// triangle table (mesh.cuh) from the launch's topology, and read the
+// winner's vertex indices from its rows.
 #pragma once
 
 #include "intersect_adj.cuh"
@@ -42,11 +43,8 @@ struct MeshAdj : Mesh {
   template <class M>
   __device__ __forceinline__ static void surface(const SceneView& s, V3 ro, V3 rd, float t, int win, V3& normal,
                                                  M& mat) {
-    const int* tri = s.topo + 4 * win;
-    const V3 a = mesh_vertex(s, tri[0]);
-    const V3 n = safe_normalize_rn(cross_rn(mesh_vertex(s, tri[1]) - a, mesh_vertex(s, tri[2]) - a));
-    normal = dot_rn(n, rd) > 0.0f ? -n : n;
-    load_material(s, tri[3], mat);
+    normal = mesh_normal(s, win, rd);
+    load_material(s, mesh_material(s, win), mat);
   }
   // On a ray that hit triangle `idx`: the cotangents of t, the normal and
   // the raw material record.
@@ -54,21 +52,21 @@ struct MeshAdj : Mesh {
   __device__ __forceinline__ static void closest_hit_adj(const SceneView& s, V3 ro, V3 rd, float t, int idx,
                                                          float ct_t, V3 ct_normal, const A& a, const GradSink& g,
                                                          V3& c_ro, V3& c_rd) {
-    const int* tri = s.topo + 4 * idx;
-    scatter_material_adj(g, material_offset(s, tri[3], a), a, true);
-    const V3 va = mesh_vertex(s, tri[0]), vb = mesh_vertex(s, tri[1]), vc = mesh_vertex(s, tri[2]);
+    const int ia = mesh_index(s, idx, 0), ib = mesh_index(s, idx, 1), ic = mesh_index(s, idx, 2);
+    scatter_material_adj(g, material_offset(s, mesh_material(s, idx), a), a, true);
+    const V3 va = mesh_vertex(s, ia), vb = mesh_vertex(s, ib), vc = mesh_vertex(s, ic);
     V3 c_a = splat3(0.0f), c_b = splat3(0.0f), c_c = splat3(0.0f);
     ray_triangle_adj(ro, rd, va, vb, vc, ct_t, c_ro, c_rd, c_a, c_b, c_c);
-    // normal = sign * safe_normalize(e1 x e2), e1 = b - a, e2 = c - a
+    // normal = sign * safe_normalize(e1 x e2), e1 = b - a, e2 = c - a; the
+    // sign is the forward's, from the table's normal
     const V3 e1 = vb - va, e2 = vc - va;
-    const V3 cr = cross_rn(e1, e2);
-    const V3 c_n = dot_rn(safe_normalize_rn(cr), rd) > 0.0f ? -ct_normal : ct_normal;
+    const V3 c_n = dot_rn(xyz(mesh_rows(s, idx)[3]), rd) > 0.0f ? -ct_normal : ct_normal;
     V3 c_e1 = splat3(0.0f), c_e2 = splat3(0.0f);
-    cross_adj(e1, e2, safe_normalize_adj(cr, c_n), c_e1, c_e2);
+    cross_adj(e1, e2, safe_normalize_adj(cross_rn(e1, e2), c_n), c_e1, c_e2);
     c_a -= c_e1 + c_e2;
-    g.add3(MESH_VERTS + 3 * tri[0], c_a);
-    g.add3(MESH_VERTS + 3 * tri[1], c_b + c_e1);
-    g.add3(MESH_VERTS + 3 * tri[2], c_c + c_e2);
+    g.add3(MESH_VERTS + 3 * ia, c_a);
+    g.add3(MESH_VERTS + 3 * ib, c_b + c_e1);
+    g.add3(MESH_VERTS + 3 * ic, c_c + c_e2);
   }
   __device__ __forceinline__ static void background_adj(const SceneView& s, V3 rd, V3 ct, const GradSink& g,
                                                         V3& c_rd) {

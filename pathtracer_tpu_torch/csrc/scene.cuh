@@ -43,10 +43,12 @@ struct SceneView {
   bool respect_max_dist;  // analytical: shadow rays stop at the light
   int lights_at;          // where the light records start; the materials follow them
   int n_spheres, n_boxes, n_tori;  // the SDF scene's primitives (0 for the analytical one)
-  // The small mesh's topology, n_tris records of (a, b, c, material) (mesh.cuh);
-  // K1 copies it to shared memory beside the packed vector.
+  // The small mesh's topology, n_tris records of (a, b, c, material), and
+  // the triangle table the kernels stage from it in shared memory beside
+  // the packed vector (mesh.cuh).
   const int* topo = nullptr;
   int n_tris = 0;
+  const float4* tris = nullptr;
   // The big mesh's tables in global memory (bigmesh.cuh): coef [n_chunks *
   // 128, 16], attr [8, n_chunks * 128], aabb [n_chunks, 8].
   const float* coef = nullptr;

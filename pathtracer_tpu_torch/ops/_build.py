@@ -35,8 +35,12 @@ NVCC_FLAGS = (
 # kernel -> the flags it adds to NVCC_FLAGS: K2's MEDIA instantiation (its
 # record kernel and its adjoint) rounds each product and sum apart, as its
 # plain version does (the glass's grazing refractions amplify a contracted
-# rounding; megakernel_bwd_media.cu)
-KERNEL_FLAGS = {"megakernel_bwd_media": ("-fmad=false",), "megakernel_sdf_bwd_media": ("-fmad=false",)}
+# rounding; megakernel_bwd_media.cu), and so do the small mesh's K1 and K3,
+# whose compacted loop must render the per-thread loop's frames bit for bit,
+# and its media-free K2, whose record kernel traces those paths again
+# (megakernel_mesh.cu)
+KERNEL_FLAGS = {"megakernel_bwd_media": ("-fmad=false",), "megakernel_sdf_bwd_media": ("-fmad=false",),
+                "megakernel_mesh": ("-fmad=false",)}
 # kernels built for each SDF scene's (spheres, boxes, tori)
 PER_COUNT = ("megakernel_sdf", "megakernel_sdf_bwd_media")
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
@@ -44,10 +48,8 @@ _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 SIGNATURES = {
     "megakernel_fwd": {
         "pt_render_forward": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "pt_render_forward_mesh": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
         "pt_render_forward_bigmesh": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
         "pt_render_forward_occupancy": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "pt_render_forward_occupancy_mesh": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I),
         "pt_render_forward_occupancy_bigmesh": (
             [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
         "pt_forward_resources": ([_I, _I, _I, _I, _I, _P], _I),
@@ -63,8 +65,6 @@ SIGNATURES = {
     "megakernel_bwd": {
         "pt_render_backward_record": ([_P, _I, _P, _P] + [_I] * 11 + [_P], _I),
         "pt_render_backward_adjoint": ([_P, _I, _P, _P, _P, _P] + [_I] * 11 + [_P], _I),
-        "pt_render_backward_mesh_record": ([_P, _I, _P, _P] + [_I] * 7 + [_P] + [_I] * 6 + [_P], _I),
-        "pt_render_backward_mesh_adjoint": ([_P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P] + [_I] * 6 + [_P], _I),
         "pt_backward_reduce": ([_P, _I, _I, _P, _P], _I),
         "pt_backward_sdf_max_primitives": ([], _I),
         "pt_backward_smem_bytes": ([_I, _I], _S),
@@ -94,19 +94,33 @@ SIGNATURES["megakernel_sdf"] = {
 SIGNATURES["megakernel_sdf_bwd_media"] = {
     "pt_render_backward_media_sdf_record": _SDF_REC, "pt_render_backward_media_sdf_adjoint": _SDF_ADJ, **_SDF_LIB,
 }
+# The small mesh's library: K1 and K3 without and with the medium, and
+# K2's media-free record and adjoint kernels (the topology, its triangles
+# and vertices after the flags; K2's then the chunk).
+_MESH_FWD = ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I)
+_MESH_OCC = ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I)
+_MESH_REC = ([_P, _I, _P, _P] + [_I] * 7 + [_P] + [_I] * 6 + [_P], _I)
+_MESH_ADJ = ([_P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P] + [_I] * 6 + [_P], _I)
+SIGNATURES["megakernel_mesh"] = {
+    "pt_render_forward_mesh": _MESH_FWD, "pt_render_forward_media_mesh": _MESH_FWD,
+    "pt_render_forward_occupancy_mesh": _MESH_OCC, "pt_render_forward_occupancy_media_mesh": _MESH_OCC,
+    "pt_forward_resources": SIGNATURES["megakernel_fwd"]["pt_forward_resources"],
+    "pt_forward_layout": SIGNATURES["megakernel_fwd"]["pt_forward_layout"],
+    "pt_render_backward_mesh_record": _MESH_REC, "pt_render_backward_mesh_adjoint": _MESH_ADJ,
+    "pt_backward_resources": SIGNATURES["megakernel_bwd"]["pt_backward_resources"],
+}
 # The media instantiations take the media-free entry points' arguments.
 _FWD, _BWD = SIGNATURES["megakernel_fwd"], SIGNATURES["megakernel_bwd"]
 _FWD.update({
     "pt_render_forward_media": _FWD["pt_render_forward"],
-    "pt_render_forward_media_mesh": _FWD["pt_render_forward_mesh"],
     "pt_render_forward_media_bigmesh": _FWD["pt_render_forward_bigmesh"],
     "pt_render_forward_occupancy_media": _FWD["pt_render_forward_occupancy"],
-    "pt_render_forward_occupancy_media_mesh": _FWD["pt_render_forward_occupancy_mesh"],
     "pt_render_forward_occupancy_media_bigmesh": _FWD["pt_render_forward_occupancy_bigmesh"],
 })
 SIGNATURES["megakernel_bwd_media"] = {
-    **{f"pt_render_backward_media{backend}_{kernel}": _BWD[f"pt_render_backward{backend}_{kernel}"]
-       for backend in ("", "_mesh") for kernel in ("record", "adjoint")},
+    "pt_render_backward_media_record": _BWD["pt_render_backward_record"],
+    "pt_render_backward_media_adjoint": _BWD["pt_render_backward_adjoint"],
+    "pt_render_backward_media_mesh_record": _MESH_REC, "pt_render_backward_media_mesh_adjoint": _MESH_ADJ,
     "pt_backward_resources": _BWD["pt_backward_resources"],
 }
 

@@ -288,14 +288,15 @@ def forward_library(k: KernelLaunch, csrc=None):
     """The library of K1's and K3's entry points for launch `k`'s backend,
     in this checkout's build or in that of the sources `csrc`
     (tools/k1_pair): the SDF scene's built for its primitive counts
-    (`megakernel_sdf.cu`, where the tree has it), the others'
+    (`megakernel_sdf.cu`, where the tree has it), the small mesh's built
+    without FMA contraction (`megakernel_mesh.cu`), the others'
     `megakernel_fwd`."""
     from . import _build
 
     csrc = csrc or _build.CSRC
     if k.backend == "sdf" and "megakernel_sdf" in _build.per_count_kernels(csrc):
         return _build.load("megakernel_sdf", csrc=csrc, counts=k.counts)
-    return _build.load("megakernel_fwd", csrc=csrc)
+    return _build.load("megakernel_mesh" if k.backend == "mesh" else "megakernel_fwd", csrc=csrc)
 
 
 def _backend_index(k: KernelLaunch) -> int:
@@ -305,7 +306,7 @@ def _backend_index(k: KernelLaunch) -> int:
 
 
 def _n_tris(k: KernelLaunch) -> int:
-    """The triangles whose topology K1 holds in shared memory (the small
+    """The triangles whose table K1 stages in shared memory (the small
     mesh's), else 0."""
     return k.counts[0] if k.backend == "mesh" else 0
 
@@ -314,10 +315,10 @@ def forward_layout(k: KernelLaunch) -> dict:
     """K1's and K3's layout for launch `k` in this checkout's kernels, read
     from their library without a call to the card: `shared_bytes`, the
     dynamic shared memory a block (the packed vector, the small mesh's
-    topology and, compacted, the tile's path state), and `tile_paths`, the
-    pixels of a block's tile in the compacted loop, 0 for a backend and
-    instantiation that runs the per-thread loop (csrc/megakernel_fwd.cuh
-    Tiling)."""
+    triangle table and, compacted, the tile's path state), and
+    `tile_paths`, the pixels of a block's tile in the compacted loop, 0 for
+    a backend and instantiation that runs the per-thread loop
+    (csrc/megakernel_fwd.cuh Tiling)."""
     from . import _build
 
     lib = forward_library(k, _build.CSRC)  # this checkout's, also where tools/k1_pair launches another's
@@ -333,12 +334,15 @@ def backward_library(k: KernelLaunch, csrc=None):
     backend and instantiation, in this checkout's build or in that of the
     sources `csrc` (tools/k2_pair): the SDF scene's built for its counts
     (`megakernel_sdf.cu`, `megakernel_sdf_bwd_media.cu`), where the tree
-    has them."""
+    has them; the small mesh's media-free one built with its K1
+    (`megakernel_mesh.cu`)."""
     from . import _build
 
     csrc = csrc or _build.CSRC
     if k.backend == "sdf" and "megakernel_sdf" in _build.per_count_kernels(csrc):
         return _build.load("megakernel_sdf_bwd_media" if k.media else "megakernel_sdf", csrc=csrc, counts=k.counts)
+    if k.backend == "mesh" and not k.media:
+        return _build.load("megakernel_mesh", csrc=csrc)
     return _build.load("megakernel_bwd_media" if k.media else "megakernel_bwd", csrc=csrc)
 
 
@@ -355,14 +359,16 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     path entered alive written to `entered`; counted alike in
     `measure_occupancy_megakernel.launches` and `.<backend>_launches`.
 
-    A scene whose packed vector, topology and tile need more shared memory
-    a block than the card's opt-in maximum raises, naming both sizes."""
+    A scene whose packed vector, triangle table and tile need more shared
+    memory a block than the card's opt-in maximum raises, naming both
+    sizes."""
     shared = forward_layout(k)["shared_bytes"]
     budget = torch.cuda.get_device_properties(k.out.device).shared_memory_per_block_optin
     if shared > budget:
         raise ValueError(f"a {k.backend}{' media' if k.media else ''} scene of {k.sv.shape[1]} packed scalars and "
                          f"{_n_tris(k)} triangles needs {shared} bytes of shared memory per block in the forward "
-                         f"megakernel, which holds {budget} (the card's opt-in maximum)")
+                         f"megakernel, which holds {budget} (the card's opt-in maximum)"
+                         + ("; the big mesh backend takes such a mesh" if k.backend == "mesh" else ""))
     lib = forward_library(k)
     height, width = k.out.shape[:2]
     b, counter = BACKENDS[k.backend], render_frame_megakernel
@@ -452,11 +458,11 @@ def adjoint_args(k: KernelLaunch, ct: torch.Tensor, rec: torch.Tensor, partial: 
             *k.counts, *chunk, torch.cuda.current_stream(k.sv.device).cuda_stream)
 
 
-def backward_entries(k: KernelLaunch, csrc=None) -> tuple:
+def backward_entries(k: KernelLaunch, lib=None) -> tuple:
     """The record and adjoint entry points of `k`'s backend and
-    instantiation, in this checkout's build or in that of the sources
-    `csrc` (tools/k2_pair)."""
-    lib = backward_library(k, csrc)
+    instantiation, and their library: this checkout's backward_library, or
+    `lib` (another tree's, tools/k2_pair)."""
+    lib = lib or backward_library(k)
     b = BACKENDS[k.backend]
     stem = b.media_backward if k.media else b.backward
     return getattr(lib, f"{stem}_record"), getattr(lib, f"{stem}_adjoint"), lib
@@ -502,7 +508,7 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor, cap: int | None = None) -
     `render_frame_megakernel.<backend>_bwd_launches` too (sdf_bwd_launches,
     mesh_bwd_launches), a launch of the media instantiation (`k.media`) in
     `.media_bwd_launches` too.
-    A scene whose packed vector, gradient table and topology exceed K2's
+    A scene whose packed vector, gradient table and triangle table exceed K2's
     shared memory per block (the card's opt-in maximum), or with more
     lights than its records index, raises."""
     from . import _build

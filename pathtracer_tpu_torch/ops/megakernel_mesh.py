@@ -9,8 +9,9 @@ face-forward normal and material) is `csrc/mesh.cuh`, which K1
 `ops/megakernel` launches them for a mesh scene. Their plain versions are
 the eager integrator on `models/mesh` and its autograd. The JAX kernel
 keeps the topology in its static meta and unrolls the triangle loop at
-trace time; here it is an int32 table [T, 4] of (a, b, c, material) that
-K1 and K2 copy to shared memory beside the packed vector. `hit_margins`
+trace time; here it is an int32 table [T, 4] of (a, b, c, material) from
+which each block of K1 and K2 stages a triangle table (first vertex,
+edges, normal) in shared memory beside the packed vector. `hit_margins`
 reads how near the plain path's hits pass to an edge, where K2 and the
 plain version may pick the two triangles of a shared edge apart.
 """
@@ -28,13 +29,6 @@ from .pack import (
 )
 from .rng import split
 from .vecmath import V2, V3, dot
-
-# K1's shared memory per block, which it takes without opting in to more:
-# the packed vector and the topology must fit. K2 holds its gradient table
-# there too and opts in to the card's maximum (ops/megakernel.launch_backward
-# checks that budget).
-SHARED_BYTES = 48 * 1024
-
 
 def pack_mesh_scene(scene: Scene, width: int, height: int, with_medium: bool = False) -> torch.Tensor:
     """The mesh scene as one [1, P] float32 vector on its device, the JAX
@@ -73,15 +67,11 @@ def unpack_mesh_scene(sv: torch.Tensor, scene: Scene) -> tuple[Scene, tuple]:
 
 def mesh_counts(scene: Scene) -> tuple[int, int]:
     """(triangles, vertices) of a mesh scene, the ints its entry points take
-    after the topology. The packed vector and the topology must fit in K1's
-    shared memory per block (SHARED_BYTES)."""
+    after the topology. The launches refuse a scene whose packed vector,
+    triangle table and tile of paths exceed the card's shared memory per
+    block (ops/megakernel.launch, launch_backward)."""
     p = scene.params
-    n_tris, n_verts = int(p.tri_idx.shape[0]), int(p.vertices.x.shape[0])
-    n_sv = 12 + 3 * n_verts + 7 + 15 * scene.num_lights + 20 * int(p.materials.roughness.shape[0])
-    if 4 * (n_sv + 4 * n_tris) > SHARED_BYTES:
-        raise ValueError(f"a mesh of {n_tris} triangles and {n_verts} vertices does not fit in shared memory "
-                         f"({4 * (n_sv + 4 * n_tris)} > {SHARED_BYTES} bytes); the big mesh backend takes it")
-    return n_tris, n_verts
+    return int(p.tri_idx.shape[0]), int(p.vertices.x.shape[0])
 
 
 def mesh_topology(scene: Scene) -> tuple[torch.Tensor]:

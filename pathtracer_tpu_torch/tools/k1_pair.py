@@ -16,7 +16,10 @@ other tree, each pair in turns; then K3's launch (K1 that also writes the
 bounces each path entered alive) of the two trees alike, counts and frames
 compared. Each tree's SDF launch goes through its own library: this
 tree's is built for the scene's primitive counts (`megakernel_sdf.cu`), an
-older tree's is its `megakernel_fwd`. Last, each instantiation's
+older tree's is its `megakernel_fwd`; so does its small mesh's
+(`megakernel_mesh.cu`, built without FMA contraction; in a tree older than
+that file, `megakernel_fwd` and `megakernel_bwd`: `forward_library`,
+`backward_library`). Last, each instantiation's
 registers, stack and spills in both trees (`resources`); the toolkit's
 cu++filt names each instantiation. `k2_pair` does the same for K2;
 `kernels_of` runs the port's launches on another tree's kernels (the
@@ -74,24 +77,53 @@ def demo(scene: str, dev) -> Scene:
     return families.make_family_scene(scene, recursion_depth=DEPTH, device=dev)
 
 
+_FORWARD, _BACKWARD = mk.forward_library, mk.backward_library  # kernels_of swaps the module's
+
+
+def mesh_rounds_apart(csrc: Path) -> bool:
+    """Whether the tree of sources `csrc` builds the small mesh's K1, K3
+    and media-free K2 without FMA contraction, in a library of their own
+    (`megakernel_mesh.cu`). An older tree built them contracted, in
+    `megakernel_fwd` and `megakernel_bwd`: their frames, counts and records
+    differ from this tree's in the last bits, and may tip a path's branch."""
+    return (Path(csrc) / "megakernel_mesh.cu").exists()
+
+
+def forward_library(k: mk.KernelLaunch, csrc: Path):
+    """mk.forward_library of the tree of sources `csrc`, an older one's
+    small mesh too (mesh_rounds_apart)."""
+    if k.backend == "mesh" and not mesh_rounds_apart(csrc):
+        return _build.load("megakernel_fwd", csrc=csrc)
+    return _FORWARD(k, csrc)
+
+
+def backward_library(k: mk.KernelLaunch, csrc: Path):
+    """mk.backward_library of the tree of sources `csrc`, an older one's
+    media-free small mesh too (mesh_rounds_apart)."""
+    if k.backend == "mesh" and not k.media and not mesh_rounds_apart(csrc):
+        return _build.load("megakernel_bwd", csrc=csrc)
+    return _BACKWARD(k, csrc)
+
+
 def launcher(csrc: Path, k: mk.KernelLaunch, occupancy: bool = False):
     """A call of `csrc`'s K1 with launch `k`'s backend and instantiation,
     into a frame of its own; with `occupancy`, of its K3, returning the
     frame and the counts (int32 [spp, H, W]) as one tensor of int32 bits."""
-    lib = mk.forward_library(k, csrc)
+    lib = forward_library(k, csrc)
     b = mk.BACKENDS[k.backend]
     if k.media:
         entry = getattr(lib, b.media_occupancy if occupancy else b.media_entry)
     else:
         entry = getattr(lib, b.occupancy if occupancy else b.entry)
     out = torch.empty_like(k.out)
-    entered = torch.empty((k.spp,) + k.out.shape[:2], dtype=torch.int32, device=out.device)
+    height, width = k.out.shape[:2]
+    entered = torch.empty((k.spp, height, width), dtype=torch.int32, device=out.device)
     head = (entered.data_ptr(),) if occupancy else ()
     stream = torch.cuda.current_stream(out.device).cuda_stream
 
     def run() -> torch.Tensor:
         err = entry(
-            k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), out.data_ptr(), *head, WIDTH, HEIGHT, k.spp,
+            k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), out.data_ptr(), *head, width, height, k.spp,
             k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras), *k.counts, stream,
         )
         if err != 0:
@@ -134,11 +166,13 @@ def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
     order other, this, this, other, ROUNDS times, LAUNCHES calls each after
     a warm-up; print and return the means, their ratio, each timing,
     whether the two outputs are bit-equal and, where they are not, how many
-    entries differ and by how much at most."""
+    entries differ and, for a float output, by how much at most."""
     theirs, mine = runs["other"](), runs["this"]()
     bit_equal = bool(torch.equal(theirs, mine))
-    differ = "" if bit_equal else (f" ({int((theirs != mine).sum())} of {mine.numel()} entries differ, by at most "
-                                   f"{float((mine.double() - theirs.double()).abs().max()):.3e})")
+    n_differ = int((theirs != mine).sum())
+    max_diff = float((mine.double() - theirs.double()).abs().max()) if mine.is_floating_point() else None
+    differ = "" if bit_equal else (f" ({n_differ} of {mine.numel()} entries differ"
+                                   + (f", by at most {max_diff:.3e})" if max_diff is not None else ")"))
     times = {"other": [], "this": []}
     for _ in range(ROUNDS):
         for name in ("other", "this", "this", "other"):
@@ -149,7 +183,7 @@ def in_turns(runs: dict, label: str, card: str, log=print) -> dict:
         log(f"  {name}: {mean[name]:.4f} ms (each timing: {', '.join(f'{t:.4f}' for t in times[name])})")
     log(f"  this / other = {mean['this'] / mean['other']:.4f}; outputs bit-equal: {bit_equal}{differ}")
     return {"card": card, "other_ms": mean["other"], "this_ms": mean["this"], "ratio": mean["this"] / mean["other"],
-            "bit_equal": bit_equal, "times": times}
+            "bit_equal": bit_equal, "differ": n_differ, "entries": mine.numel(), "max_diff": max_diff, "times": times}
 
 
 _MANGLED = re.compile(r"_Z\w+")
@@ -251,15 +285,25 @@ def tree_csrc(other: Path) -> Path:
     return (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
 
 
+def forward_instantiations(csrc: Path, counts=(1, 1, 1)) -> dict:
+    """instantiations() of K1's template in every library of `csrc` that
+    holds some: `megakernel_fwd`, and where the tree has them the SDF
+    scene's for `counts` and the small mesh's (`megakernel_mesh`)."""
+    table = instantiations(csrc)
+    if "megakernel_sdf" in _build.per_count_kernels(csrc):
+        table.update(instantiations(csrc, "megakernel_sdf", counts=counts))
+    if mesh_rounds_apart(csrc):
+        table.update(instantiations(csrc, "megakernel_mesh"))
+    return table
+
+
 def resources(other: Path, counts=(1, 1, 1), log=print) -> dict:
     """Each instantiation of K1's template in this tree (the SDF scene's
     library for `counts`) and in `other`, with its registers, stack and
     spills: {(family, COUNT, MEDIA): {"this": [...], "other": [...]}}."""
     out = {}
     for tree, csrc in (("this", _build.CSRC), ("other", tree_csrc(other))):
-        table = instantiations(csrc)
-        if "megakernel_sdf" in _build.per_count_kernels(csrc):
-            table.update(instantiations(csrc, "megakernel_sdf", counts=counts))
+        table = forward_instantiations(csrc, counts)
         for k, v in sorted(table.items()):
             out.setdefault((family_of(k[0]), k[1], k[2]), {}).setdefault(tree, []).append(f"{k[0]}: {v}")
     for (family, count, media), trees in sorted(out.items()):
@@ -273,14 +317,13 @@ def kernels_of(other: Path):
     """While it lasts, ops/megakernel launches K1, K3 and K2 from `other`'s
     libraries (K2's reduction stays this tree's): a training step of either
     tree, through the port's own code."""
-    forward, backward = mk.forward_library, mk.backward_library
     csrc = tree_csrc(other)
-    mk.forward_library = lambda k, c=None: forward(k, c or csrc)
-    mk.backward_library = lambda k, c=None: backward(k, c or csrc)
+    mk.forward_library = lambda k, c=None: forward_library(k, c or csrc)
+    mk.backward_library = lambda k, c=None: backward_library(k, c or csrc)
     try:
         yield
     finally:
-        mk.forward_library, mk.backward_library = forward, backward
+        mk.forward_library, mk.backward_library = _FORWARD, _BACKWARD
 
 
 def pair(others: list[Path], scenes=("analytical",), log=print) -> list[dict]:
@@ -300,6 +343,11 @@ def pair(others: list[Path], scenes=("analytical",), log=print) -> list[dict]:
                 label = f"{kernel} {name} launch at {WIDTH}x{HEIGHT}, depth {k.depth}, spp 1, against {other}"
                 results.append({"kernel": kernel, "scene": name, "other": str(other),
                                 **in_turns(runs, label, card, log)})
+                if occ:  # K3's output: the frame's bits, then the counts
+                    frame = k.out.numel()
+                    theirs, mine = runs["other"](), runs["this"]()
+                    results[-1]["counts_equal"] = bool(torch.equal(theirs[frame:], mine[frame:]))
+                    log(f"  counts equal: {results[-1]['counts_equal']}")
             if name == "sdf":
                 runs = {"other": k6_launcher(other_csrc, k), "this": k6_launcher(_build.CSRC, k)}
                 label = f"K6 sdf launch at {WIDTH}x{HEIGHT} against {other} (outputs: the trips)"

@@ -43,8 +43,8 @@ from ..integrator.tracer import VERBATIM
 from ..models import families
 from ..ops import _build, rng
 from ..ops import megakernel as mk
-from .k1_pair import (DEPTH, HEIGHT, MEDIA_DEPTH, WIDTH, card_name, in_turns, instance, instantiations, media_demo,
-                      sass)
+from .k1_pair import (DEPTH, HEIGHT, MEDIA_DEPTH, WIDTH, backward_library, card_name, in_turns, instance,
+                      instantiations, media_demo, mesh_rounds_apart, sass)
 
 # the families whose demo scenes K2 takes, and the media demo
 SCENES = tuple(name for name, b in mk.BACKENDS.items() if b.backward is not None) + ("media",)
@@ -62,19 +62,26 @@ def k2_key(text: str):
     return None
 
 
+def _libraries(csrc: Path) -> tuple:
+    """The libraries of `csrc`'s tree that hold K2's analytical and mesh
+    instantiations (the small mesh's media-free ones in `megakernel_mesh`
+    where the tree has it)."""
+    return ("megakernel_bwd", "megakernel_bwd_media") + (("megakernel_mesh",) if mesh_rounds_apart(csrc) else ())
+
+
 def same_code(other: Path, log=print) -> bool:
     """Whether the analytical and mesh instantiations of K2's kernels
-    (`megakernel_bwd`, `megakernel_bwd_media`) have `other`'s machine code,
-    instruction for instruction, where cuobjdump lists it; logs each."""
+    (`_libraries`) have `other`'s machine code, instruction for
+    instruction, where cuobjdump lists it; logs each."""
     other_csrc = (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve()
+    mine, theirs = ({k: v for kernel in _libraries(csrc) for k, v in sass(csrc, kernel, k2_key).items()}
+                    for csrc in (_build.CSRC, other_csrc))
     same = True
-    for kernel in ("megakernel_bwd", "megakernel_bwd_media"):
-        mine, theirs = sass(_build.CSRC, kernel, k2_key), sass(other_csrc, kernel, k2_key)
-        for k in sorted(key for key in theirs if key[1] in ("AnalyticalAdj", "MeshAdj")):
-            equal = mine.get(k) == theirs[k]
-            same = same and equal
-            log(f"  {k[1]} {k[0]}{' MEDIA' if k[2] else ''}: machine code {'the same' if equal else 'DIFFERENT'} "
-                f"({len(theirs[k].splitlines())} instructions)")
+    for k in sorted(key for key in theirs if key[1] in ("AnalyticalAdj", "MeshAdj")):
+        equal = mine.get(k) == theirs[k]
+        same = same and equal
+        log(f"  {k[1]} {k[0]}{' MEDIA' if k[2] else ''}: machine code {'the same' if equal else 'DIFFERENT'} "
+            f"({len(theirs[k].splitlines())} instructions)")
     return same
 
 
@@ -83,7 +90,7 @@ def resources(other: Path, counts=(1, 1, 1), log=print) -> None:
     SDF scene's in its library for `counts`, where the tree builds one):
     its registers, stack and spills as ptxas printed them."""
     for label, csrc in (("this", _build.CSRC), ("other", (Path(other) / "pathtracer_tpu_torch" / "csrc").resolve())):
-        libs = [(kernel, None) for kernel in ("megakernel_bwd", "megakernel_bwd_media")]
+        libs = [(kernel, None) for kernel in _libraries(csrc)]
         libs += [(kernel, counts) for kernel in _build.per_count_kernels(csrc)]
         for kernel, c in libs:
             if not (csrc / f"{kernel}.cu").exists():
@@ -101,14 +108,14 @@ def other_launcher(csrc: Path, k: mk.KernelLaunch, ct: torch.Tensor):
     """A call of `csrc`'s K2 with launch `k`'s backend and instantiation on
     cotangent `ct`, into a gradient of its own: the same chunks as
     ops/megakernel.launch_backward with that tree's kernels, uncounted."""
-    lib = _build.load("megakernel_bwd", csrc=csrc)
+    lib = _build.load("megakernel_bwd", csrc=csrc)  # the reduction
     height, width = k.out.shape[:2]
     n_sv = k.sv.shape[1]
     blocks = -(-width * height // 128)
     partial = torch.empty((blocks, n_sv), device=k.sv.device)
     grad = torch.empty((1, n_sv), device=k.sv.device)
     stream = torch.cuda.current_stream(grad.device).cuda_stream
-    record, adjoint, entry_lib = mk.backward_entries(k, csrc)
+    record, adjoint, entry_lib = mk.backward_entries(k, backward_library(k, csrc))
     rec, chunks = mk.record_buffer(k), mk.record_chunks(k)
 
     def run() -> torch.Tensor:
@@ -157,7 +164,7 @@ def record_launcher(k: mk.KernelLaunch, csrc: Path | None = None):
     default) for launch `k`, every chunk, into a record buffer of its own,
     uncounted; returns the buffer (zeroed first, so that the words past a
     path's end compare too)."""
-    record, _, lib = mk.backward_entries(k, csrc)
+    record, _, lib = mk.backward_entries(k, csrc and backward_library(k, csrc))
     rec, chunks = mk.record_buffer(k).zero_(), mk.record_chunks(k)
 
     def run() -> torch.Tensor:

@@ -149,7 +149,7 @@ MESH_RENDER = r"""
 extern "C" void host_grad_pixel_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
                                      const float* ct, float* grad, int p, int width, int height, int depth,
                                      int n_lights, int n_materials, int flags) {
-  host_backward_pixel<pt::MeshAdj, false>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys,
+  host_backward_pixel<pt::MeshAdj, false>(host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys,
                                           pt::v3(ct[0], ct[1], ct[2]), grad, p, width, height, depth, flags);
 }
 
@@ -157,7 +157,7 @@ extern "C" void host_render_mesh(const float* sv, const int* topo, int n_tris, i
                                  float* out, int width, int height, int spp, int depth, int n_lights, int n_materials,
                                  int flags) {
   const int n = width * height;
-  const pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
+  const pt::SceneView s = host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
   for (int p = 0; p < n; ++p) {
     const pt::V3 r = pt::trace_sample<pt::Mesh>(s, p, n, width, height, depth, flags, keys[0], keys[1], keys[2],
                                                 keys[3]);

@@ -437,8 +437,9 @@ def test_mesh_backward_kernel_matches_jax_fixture(cuda_device):
 
 
 def test_mesh_backward_kernel_refuses_what_its_shared_memory_cannot_hold(cuda_device):
-    """A mesh whose packed vector fits K1's 48 KB but whose gradient table
-    exceeds K2's budget (the card's opt-in maximum) raises with its sizes."""
+    """A mesh whose packed vector fits K1's shared memory but whose gradient
+    table exceeds K2's budget (the card's opt-in maximum) raises with its
+    sizes."""
     scene = families.make_family_scene("mesh", device=cuda_device)
     p = scene.params.unpack()
     extra = torch.zeros(200, device=cuda_device)
@@ -462,6 +463,29 @@ def test_mesh_training_step_is_two_forward_and_one_backward_launch(cuda_device):
     assert counts == dict(launches=4, bwd_launches=2, mesh_launches=4, mesh_bwd_launches=2, sdf_launches=0,
                           sdf_bwd_launches=0, bigmesh_launches=0)
     assert np.isfinite(out.losses.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("media", [False, True], ids=["plain", "media"])
+def test_mesh_records_follow_k3_paths(cuda_device, media):
+    """K2's record kernel traces K1's paths on the small mesh, both built
+    without FMA contraction (csrc/megakernel_mesh.cu; K2 MEDIA's
+    megakernel_bwd_media.cu): the bounces each path entered in its records
+    equal K3's counts for the same keys, lane for lane (chip_smoke.py phase
+    21 at 1920x1080)."""
+    if media:
+        scene = media_scene("mesh", MediumType.SCATTER, anisotropy=0.4, device=cuda_device, **DEMO)
+    else:
+        scene = families.make_family_scene("mesh", device=cuda_device)
+    w, h, spp = 320, 240, 2
+    k = MK.prepare_launch(scene, rng.prng_key(7), w, h, spp, VERBATIM)
+    assert k.media == media
+    entered = torch.empty((spp, h, w), dtype=torch.int32, device=cuda_device)
+    MK.launch(k, entered)
+    (chunk,) = MK.record_chunks(k)
+    rec = MK.record_buffer(k)
+    MK.launch_record(k, rec, chunk)
+    lens = rec[rec.numel() - entered.numel():].view(torch.int32).reshape(entered.shape)
+    assert torch.equal(lens, entered)
 
 
 @pytest.mark.parametrize("family", ["analytical", "sdf", "mesh", "bigmesh"])
@@ -491,18 +515,18 @@ def test_occupancy_kernel_matches_plain_version(cuda_device, family, spp, quirks
     # the compacted figure is that of the launch's tile, and none where the
     # backend runs the per-thread loop
     tile = MK.forward_layout(k)["tile_paths"]
-    assert (tile > 0) == (family in ("analytical", "sdf"))
+    assert (tile > 0) == (family in ("analytical", "sdf", "mesh"))
     want = MK.occupancy_stats(got["entered"], scene.recursion_depth, tile)["compacted_wasted_fraction"]
     assert got["compacted_wasted_fraction"] == want and (want is None) == (tile == 0)
 
 
-@pytest.mark.parametrize("family", ["analytical", "sdf", "media"])
+@pytest.mark.parametrize("family", ["analytical", "sdf", "mesh", "media"])
 @pytest.mark.parametrize("w,h", [(33, 7), (1100, 3)])
 def test_compacted_kernel_takes_a_part_empty_tile(cuda_device, family, w, h):
     """K1 and K3 of the backends that run the compacted loop (the analytical
-    scene's tiles of 1536 paths, the SDF scene's of 256, and the analytical
-    MEDIA instantiation: csrc/megakernel_fwd.cuh Tiling) on frames whose
-    last tile is part empty, spp 2:
+    scene's and the small mesh's tiles of 1536 paths, the SDF scene's of
+    256, and the analytical MEDIA instantiation's of 1536: csrc/
+    megakernel_fwd.cuh Tiling) on frames whose last tile is part empty, spp 2:
     against the plain version, K3's frame bit-equal to K1's and its counts
     the plain version's on 99.9% of the lanes."""
     if family == "media":
@@ -537,6 +561,33 @@ def test_forward_kernel_refuses_what_its_shared_memory_cannot_hold(cuda_device, 
                                          f"holds {budget}"):
         MK.launch(big)
     assert MK.render_frame_megakernel.launches == launches + 1
+
+
+@pytest.mark.parametrize("media", [False, True], ids=["plain", "media"])
+def test_mesh_kernel_refuses_what_its_shared_memory_cannot_hold(cuda_device, media):
+    """A small mesh whose triangle table and tile of paths need more shared
+    memory a block than the card's opt-in maximum (the demo's topology
+    repeated to 3,000 triangles) raises with both sizes before K1 or K3
+    launches; the demo itself fits."""
+    scene = families.make_family_scene("mesh", device=cuda_device)
+    if media:
+        scene = media_scene("mesh", MediumType.SCATTER, anisotropy=0.4, depth=4, device=cuda_device, **DEMO)
+    p = scene.params.unpack()
+    budget = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    k = MK.prepare_launch(scene, rng.prng_key(0), 8, 8, 1, VERBATIM)
+    assert MK.forward_layout(k)["shared_bytes"] <= budget
+    reps = -(-3000 // p.tri_idx.shape[0])
+    big = scene.replace(params=p._replace(tri_idx=p.tri_idx.repeat(reps, 1), tri_mat=p.tri_mat.repeat(reps)))
+    k = MK.prepare_launch(big, rng.prng_key(0), 8, 8, 1, VERBATIM)
+    assert k.media == media
+    need = MK.forward_layout(k)["shared_bytes"]
+    assert need > budget
+    counts = (MK.render_frame_megakernel.launches, MK.measure_occupancy_megakernel.launches)
+    with pytest.raises(ValueError, match=f"{k.counts[0]} triangles needs {need} bytes of shared memory.*holds {budget}"):
+        MK.render_frame_megakernel(big, rng.prng_key(0), 8, 8)
+    with pytest.raises(ValueError, match=f"needs {need} bytes"):
+        MK.measure_occupancy_megakernel(big, rng.prng_key(0), 8, 8)
+    assert (MK.render_frame_megakernel.launches, MK.measure_occupancy_megakernel.launches) == counts
 
 
 @pytest.mark.parametrize("seed,num_tiles,n_uniforms,tile_rows", [(1234, 16, 16, 8), (7, 3, 34, 8), (-5, 2, 1, 4)])

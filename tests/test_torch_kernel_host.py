@@ -18,7 +18,9 @@ per-path functions): per level it lists the live paths, runs their
 segments, lists the paths to shade (scatter points before surfaces) and
 runs their shades, each list in an order shuffled from a seed, where the
 kernel's threads take them in the tile's order. Its frames and counts are
-held bit for bit to `trace_sample`'s, which no thread order changes.
+held bit for bit to `trace_sample`'s, which no thread order changes, on
+the analytical scene and on the small mesh (its triangle table staged as
+the kernels' blocks stage it, MESH_VIEW), with and without the medium.
 """
 
 import ctypes
@@ -32,9 +34,12 @@ import torch
 from pathtracer_tpu_torch.integrator import tracer as T
 from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
 from pathtracer_tpu_torch.models import light as L
+from pathtracer_tpu_torch.models import mesh
 from pathtracer_tpu_torch.models.analytical import default_params, make_scene
+from pathtracer_tpu_torch.models.material import MediumType
 from pathtracer_tpu_torch.ops import _build, megakernel as MK
 from pathtracer_tpu_torch.ops import rng
+from pathtracer_tpu_torch.ops.megakernel_mesh import hit_ties
 
 # The per-thread headers are plain C++ behind these definitions.
 PRELUDE = r"""
@@ -43,6 +48,7 @@ PRELUDE = r"""
 #include <cstdint>
 #include <cstdlib>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 using std::isfinite;
 using std::max;
@@ -134,10 +140,28 @@ static void tiled_frame(const pt::SceneView& s, const uint32_t* keys, float* out
 }
 """
 
+# The small mesh's view on the host (after mesh.cuh): its triangle table
+# staged as each block of the kernels stages it (mesh.cuh
+# stage_mesh_triangle), valid until the next call.
+MESH_VIEW = r"""
+#include <vector>
+
+static pt::SceneView host_mesh_view(const float* sv, int n_lights, int n_materials, const int* topo, int n_tris,
+                                    int n_verts) {
+  static std::vector<float4> table;
+  table.assign((size_t)pt::MESH_ROWS * n_tris, float4{});
+  for (int i = 0; i < n_tris; ++i) pt::stage_mesh_triangle(sv, topo, i, table.data());
+  pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
+  s.tris = table.data();
+  return s;
+}
+"""
+
 SHIM = PRELUDE + r"""
 #include "analytical.cuh"
+#include "mesh.cuh"
 #include "tracer.cuh"
-""" + TILED + r"""
+""" + TILED + MESH_VIEW + r"""
 
 extern "C" void host_render(const float* sv, const uint32_t* keys, float* out, int width, int height, int spp,
                             int depth, int n_lights, int n_materials, int flags) {
@@ -178,6 +202,38 @@ extern "C" void host_render_tiled(const float* sv, const uint32_t* keys, float* 
                                   uint32_t seed) {
   const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
   tiled_frame<pt::Analytical, false>(s, keys, out, entered, width, height, spp, depth, flags, seed);
+}
+
+// The small mesh's frame and K3 counts (MEDIA with `media`) through the
+// per-thread loop (trace_sample) or, with `tiled`, the compacted schedule
+// (TILED, its lists shuffled from `seed`), on its staged triangle table.
+template <bool MEDIA>
+static void mesh_frame(const pt::SceneView& s, const uint32_t* keys, float* out, int* entered, int width, int height,
+                       int spp, int depth, int flags, int tiled, uint32_t seed) {
+  if (tiled) return tiled_frame<pt::Mesh, MEDIA>(s, keys, out, entered, width, height, spp, depth, flags, seed);
+  const int n = width * height;
+  for (int p = 0; p < n; ++p) {
+    pt::V3 sum = pt::splat3(0.0f);
+    for (int k = 0; k < spp; ++k) {
+      const uint32_t* kk = keys + 4 * k;
+      pt::V3 r = pt::trace_sample<pt::Mesh, true, MEDIA>(s, p, n, width, height, depth, flags, kk[0], kk[1], kk[2],
+                                                         kk[3], entered + k * n + p);
+      sum = k == 0 ? r : sum + r;
+    }
+    if (spp > 1) sum = sum / (float)spp;
+    out[4 * p + 0] = sum.x;
+    out[4 * p + 1] = sum.y;
+    out[4 * p + 2] = sum.z;
+    out[4 * p + 3] = 1.0f;
+  }
+}
+
+extern "C" void host_mesh_frame(const float* sv, const uint32_t* keys, float* out, int* entered, int width,
+                                int height, int spp, int depth, int n_lights, int n_materials, int flags,
+                                const int* topo, int n_tris, int n_verts, int media, int tiled, uint32_t seed) {
+  const pt::SceneView s = host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
+  (media ? mesh_frame<true> : mesh_frame<false>)(s, keys, out, entered, width, height, spp, depth, flags, tiled,
+                                                  seed);
 }
 """
 
@@ -226,6 +282,7 @@ def host_lib(tmp_path_factory):
     lib.host_render.argtypes = [p, p, p, i, i, i, i, i, i, i]
     lib.host_render_tiled.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_uint32]
     lib.host_counts.argtypes = [p, p, p, i, i, i, i, i, i, i]
+    lib.host_mesh_frame.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, i, i, i, i, ctypes.c_uint32]
     return lib
 
 
@@ -316,23 +373,76 @@ def host_counts(lib, scene, key, w, h, spp, quirks):
     return entered
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+def host_mesh_frame(lib, scene, key, w, h, spp, quirks, seed=None):
+    """The small mesh's frame and K3 counts on the host, through the
+    per-thread loop or, with a `seed`, the compacted schedule (its lists
+    shuffled from it); the MEDIA instantiation for a scene with a medium."""
+    b, media = MK.BACKENDS["mesh"], MK.scene_media(scene)
+    # held: the library reads their memory
+    sv, keys, extras = b.pack(scene, w, h, media).contiguous(), launch_keys(key, spp), b.extras(scene)
+    out = torch.empty((h, w, 4), dtype=torch.float32)
+    entered = torch.zeros((spp, h, w), dtype=torch.int32)
+    lib.host_mesh_frame(
+        sv.data_ptr(), keys.data_ptr(), out.data_ptr(), entered.data_ptr(), w, h, spp, scene.recursion_depth,
+        scene.num_lights, int(scene.params.materials.roughness.shape[0]), MK.kernel_flags(scene, quirks),
+        *(t.data_ptr() for t in extras), *b.counts(scene), int(media), int(seed is not None), seed or 0,
+    )
+    return out, entered
+
+
+def mesh_glass():
+    """The mesh demo at depth 6 with its cube (material 1) glass and filled
+    with the Scatter demo's medium (tests/test_torch_media_kernel_host.py
+    media_scene)."""
+    scene = mesh.make_scene(recursion_depth=6)
+    m = scene.params.materials
+    with torch.no_grad():
+        m.spec_trans[1], m.metallic[1], m.roughness[1], m.ior[1] = 1.0, 0.0, 0.05, 1.5
+        med = m.medium
+        med.medium_type[1], med.density[1], med.anisotropy[1] = int(MediumType.SCATTER), 0.8, 0.4
+        med.color.x[1], med.color.y[1], med.color.z[1] = 0.9, 0.2, 0.1
+    return scene
+
+
+# The small mesh's cases of the compacted schedule, with and without MEDIA.
+MESH_CASES = {
+    "mesh": (lambda: mesh.make_scene(), 1, VERBATIM),
+    "mesh_spp2_fixed": (lambda: mesh.make_scene(), 2, FIXED),
+    "mesh_media_scatter": (mesh_glass, 1, VERBATIM),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(MESH_CASES))
 def test_compacted_schedule_matches_per_thread_loop(host_lib, case):
     """The compacted K1's schedule, its lists in a shuffled order (99x65:
-    26 tiles of 256 paths, the last one part empty): each pixel's radiance
-    and its K3 counts bit for bit the per-thread loop's (trace_sample), the
-    counts also the plain version's (tracer.bounces_entered), and the frame
-    within the plain version's image gate. Under 1 s a case."""
-    make, spp, quirks = CASES[case]
+    26 tiles of 256 paths, the last one part empty), on the analytical
+    scene and the small mesh (its staged triangle table; MEDIA on the glass
+    cube): each pixel's radiance and its K3 counts bit for bit the
+    per-thread loop's (trace_sample), the counts also the plain version's
+    (tracer.bounces_entered), and the frame within the plain version's
+    image gate, the pixels of a coplanar tie on the mesh left out
+    (ops/megakernel_mesh.hit_ties). Under 1 s an analytical case, 2-6 s a
+    mesh one (most of it the plain version's)."""
+    make, spp, quirks = {**CASES, **MESH_CASES}[case]
     scene = make()
-    key = rng.prng_key(sorted(CASES).index(case) + 11)
-    seed = int(np.random.default_rng(sorted(CASES).index(case)).integers(2**32))
+    index = (sorted(CASES) + sorted(MESH_CASES)).index(case)
+    key = rng.prng_key(index + 11)
+    seed = int(np.random.default_rng(index).integers(2**32))
     w, h = 99, 65
-    img, entered = host_render_tiled(host_lib, scene, key, w, h, spp, quirks, seed)
-    assert torch.equal(img, host_render(host_lib, scene, key, w, h, spp, quirks))
-    assert torch.equal(entered, host_counts(host_lib, scene, key, w, h, spp, quirks))
-    assert torch.equal(entered, T.bounces_entered(scene, key, w, h, spp, quirks))
+    ties = torch.zeros((h, w), dtype=torch.bool)
+    if case in MESH_CASES:
+        img, entered = host_mesh_frame(host_lib, scene, key, w, h, spp, quirks, seed)
+        per_thread, per_thread_entered = host_mesh_frame(host_lib, scene, key, w, h, spp, quirks)
+        assert torch.equal(img, per_thread)
+        assert torch.equal(entered, per_thread_entered)
+        ties = (hit_ties(scene, key, w, h, spp, quirks) < 1e-6).any(1).any(0).reshape(h, w)
+        assert ties.double().mean() < 0.05
+    else:
+        img, entered = host_render_tiled(host_lib, scene, key, w, h, spp, quirks, seed)
+        assert torch.equal(img, host_render(host_lib, scene, key, w, h, spp, quirks))
+        assert torch.equal(entered, host_counts(host_lib, scene, key, w, h, spp, quirks))
+    assert torch.equal(entered[:, ~ties], T.bounces_entered(scene, key, w, h, spp, quirks)[:, ~ties])
     ref = MK.render_frame_reference(scene, key, w, h, spp, quirks).numpy()
-    diff = np.abs(img.numpy().astype(np.float64) - ref)
+    diff = np.abs(img.numpy().astype(np.float64) - ref)[~ties.numpy()]
     assert np.quantile(diff, 0.999) < 1e-4
     assert diff.mean() < 1e-5

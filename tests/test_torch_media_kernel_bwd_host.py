@@ -51,7 +51,7 @@ from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng, sampling
 from pathtracer_tpu_torch.ops.vecmath import V3
 from test_torch_kernel_bwd_host import HOST_BACKWARD, assert_carries_equal, assert_grad_close, record_carries
-from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
+from test_torch_kernel_host import MESH_VIEW, PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
 from test_torch_media_kernel_host import DEMO, coplanar_ties, lit_scene, media_scene
 from test_torch_sdf_kernel_bwd_host import assert_lanes_close, f32
 
@@ -62,6 +62,7 @@ SHIM = PRELUDE + r"""
 #include "mesh_adj.cuh"
 #include "sdf_adj.cuh"
 #include "tracer_adj.cuh"
+""" + MESH_VIEW + r"""
 """ + HOST_BACKWARD + r"""
 
 // K2's two kernels of the media instantiation, in turn.
@@ -86,7 +87,7 @@ extern "C" void host_grad_media_sdf(HEAD, int n_spheres, int n_boxes, int n_tori
 }
 
 extern "C" void host_grad_media_mesh(HEAD, const int* topo, int n_tris, int n_verts) {
-  grad<pt::MeshAdj>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), ARGS);
+  grad<pt::MeshAdj>(host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), ARGS);
 }
 
 #define CARRIES_HEAD const float *sv, const uint32_t *keys, int width, int height, int spp, int depth, int n_lights, \
@@ -105,7 +106,7 @@ extern "C" void host_carries_media_sdf(CARRIES_HEAD, int n_spheres, int n_boxes,
 }
 
 extern "C" void host_carries_media_mesh(CARRIES_HEAD, const int* topo, int n_tris, int n_verts) {
-  host_carries<pt::MeshAdj, true>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), CARRIES_ARGS);
+  host_carries<pt::MeshAdj, true>(host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), CARRIES_ARGS);
 }
 
 // Lane i: hg_phase_adj at (cos[i], g[i]) for the cotangent ct[i].

@@ -35,7 +35,7 @@ from pathtracer_tpu_torch.models.material import MediumType
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.megakernel_mesh import hit_ties
-from test_torch_kernel_host import PRELUDE, TILED, build_shim, launch_keys, one_torch_thread  # noqa: F401
+from test_torch_kernel_host import MESH_VIEW, PRELUDE, TILED, build_shim, launch_keys, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -45,6 +45,7 @@ SHIM = PRELUDE + r"""
 #include "mesh.cuh"
 #include "sdf.cuh"
 #include "tracer.cuh"
+""" + MESH_VIEW + r"""
 """ + TILED + r"""
 // K1's (K3's with `entered`) threads of the media instantiation, in turn;
 // with `tiled`, the compacted schedule (TILED, its lists shuffled from
@@ -90,7 +91,7 @@ extern "C" void host_media_sdf(HEAD, int n_spheres, int n_boxes, int n_tori) {
 }
 
 extern "C" void host_media_mesh(HEAD, const int* topo, int n_tris, int n_verts) {
-  frame<pt::Mesh>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), ARGS);
+  frame<pt::Mesh>(host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), ARGS);
 }
 
 extern "C" void host_media_bigmesh(HEAD, const float* coef, const float* attr, const float* aabb, int n_chunks) {

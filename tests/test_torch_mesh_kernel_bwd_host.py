@@ -43,7 +43,7 @@ from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.intersect import ray_triangle
 from pathtracer_tpu_torch.ops.vecmath import V3, v3
 from test_torch_kernel_bwd_host import HOST_BACKWARD, assert_carries_equal, assert_grad_close, record_carries
-from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
+from test_torch_kernel_host import MESH_VIEW, PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
 from test_torch_sdf_kernel_bwd_host import assert_lanes_close, f32
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -51,6 +51,7 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 SHIM = PRELUDE + r"""
 #include "mesh_adj.cuh"
 #include "tracer_adj.cuh"
+""" + MESH_VIEW + r"""
 """ + HOST_BACKWARD + r"""
 
 static pt::V3 at3(const float* a, int i) { return pt::v3(a[3 * i], a[3 * i + 1], a[3 * i + 2]); }
@@ -59,14 +60,14 @@ static void put3(float* a, int i, pt::V3 v) { a[3 * i] = v.x; a[3 * i + 1] = v.y
 extern "C" void host_grad_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
                                const float* ct, float* grad, int width, int height, int spp, int depth, int n_lights,
                                int n_materials, int flags) {
-  host_backward<pt::MeshAdj, false>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys, ct, grad,
-                                    width, height, spp, depth, flags);
+  host_backward<pt::MeshAdj, false>(host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys, ct,
+                                    grad, width, height, spp, depth, flags);
 }
 
 extern "C" void host_carries_mesh(const float* sv, const int* topo, int n_tris, int n_verts, const uint32_t* keys,
                                   int width, int height, int spp, int depth, int n_lights, int n_materials, int flags,
                                   float* rec_carry, float* ref_carry, int* rec_len, int* ref_len) {
-  host_carries<pt::MeshAdj, false>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys, width,
+  host_carries<pt::MeshAdj, false>(host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys, width,
                                    height, spp, depth, flags, rec_carry, ref_carry, rec_len, ref_len);
 }
 
@@ -76,7 +77,8 @@ extern "C" void host_ray_triangle_adj(int n, const float* ro, const float* rd, c
                                       const float* v2, float* t, float* out) {
   for (int i = 0; i < n; ++i) {
     pt::V3 c[5] = {pt::splat3(0.0f), pt::splat3(0.0f), pt::splat3(0.0f), pt::splat3(0.0f), pt::splat3(0.0f)};
-    t[i] = pt::ray_triangle(at3(ro, i), at3(rd, i), at3(v0, i), at3(v1, i), at3(v2, i));
+    const pt::V3 a = at3(v0, i);
+    t[i] = pt::ray_triangle_edges(at3(ro, i), at3(rd, i), a, at3(v1, i) - a, at3(v2, i) - a);
     if (std::isfinite(t[i])) {
       pt::ray_triangle_adj(at3(ro, i), at3(rd, i), at3(v0, i), at3(v1, i), at3(v2, i), 1.0f, c[0], c[1], c[2], c[3],
                            c[4]);
@@ -92,7 +94,7 @@ extern "C" void host_closest_hit_adj(const float* sv, const int* topo, int n_tri
                                      int n_materials, int n_sv, int n, const float* ro, const float* rd,
                                      const float* ct_t, const float* ct_n, const float* ct_rgb, float* c_ro,
                                      float* c_rd, float* grad, uint8_t* hit) {
-  const pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
+  const pt::SceneView s = host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
   for (int i = 0; i < n; ++i) {
     const pt::V3 o = at3(ro, i), d = at3(rd, i);
     int win;
@@ -113,7 +115,7 @@ extern "C" void host_closest_hit_adj(const float* sv, const int* topo, int n_tri
 extern "C" void host_sky_adj(const float* sv, const int* topo, int n_tris, int n_verts, int n_lights,
                              int n_materials, int n_sv, int n, const float* rd, const float* ct, float* c_rd,
                              float* grad) {
-  const pt::SceneView s = pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
+  const pt::SceneView s = host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
   for (int i = 0; i < n; ++i) {
     pt::V3 cd = pt::splat3(0.0f);
     pt::MeshAdj::background_adj(s, at3(rd, i), at3(ct, i), {grad + (size_t)n_sv * i, 1}, cd);

@@ -7,8 +7,11 @@ shim of tests/test_torch_kernel_host.py, so g++ builds them with
 every pixel as K1's threads do, on the packed vector, the topology and the
 tables that ops/megakernel hands the kernel. Each frame is held per pixel
 to the plain version (the eager integrator on models/mesh, models/bigmesh)
-within chip_smoke.py's image gate. The card run checks what nvcc makes of
-it.
+within chip_smoke.py's image gate. The small mesh's triangle table, which
+each block of the kernels stages, is held bit for bit to the values its
+tests computed inline before it, and its triangle test to the test over
+the vertices, rays through the mesh's shared edges among them. The card
+run checks what nvcc makes of it.
 """
 
 import ctypes
@@ -22,8 +25,10 @@ from pathtracer_tpu_torch.models import bigmesh, mesh
 from pathtracer_tpu_torch.models import light as L
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import rng
-from pathtracer_tpu_torch.ops.vecmath import V3
-from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
+from pathtracer_tpu_torch.ops.vecmath import V3, safe_normalize
+from test_torch_kernel_host import (  # noqa: F401
+    MESH_VIEW, PRELUDE, build_shim, launch_keys, mesh_glass, one_torch_thread,
+)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -31,6 +36,7 @@ SHIM = PRELUDE + r"""
 #include "bigmesh.cuh"
 #include "mesh.cuh"
 #include "tracer.cuh"
+""" + MESH_VIEW + r"""
 
 template <class B>
 static void frame(const pt::SceneView& s, const uint32_t* keys, float* out, int width, int height, int spp,
@@ -54,7 +60,7 @@ static void frame(const pt::SceneView& s, const uint32_t* keys, float* out, int 
 extern "C" void host_render_mesh(const float* sv, const uint32_t* keys, float* out, int width, int height, int spp,
                                  int depth, int n_lights, int n_materials, int flags, const int* topo, int n_tris,
                                  int n_verts) {
-  frame<pt::Mesh>(pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys, out, width, height, spp,
+  frame<pt::Mesh>(host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts), keys, out, width, height, spp,
                   depth, flags);
 }
 
@@ -63,6 +69,75 @@ extern "C" void host_render_bigmesh(const float* sv, const uint32_t* keys, float
                                     const float* attr, const float* aabb, int n_chunks) {
   frame<pt::BigMesh>(pt::bigmesh_view(sv, n_lights, n_materials, coef, attr, aabb, n_chunks), keys, out, width,
                      height, spp, depth, flags);
+}
+
+// The small mesh's triangle tests before its table: each triangle's three
+// vertices read by index and its edges formed in the test (the reference
+// of host_mesh_table and host_mesh_tests).
+static pt::V3 old_vertex(const float* sv, int v) { return pt::load3(sv + pt::MESH_VERTS + 3 * v); }
+
+static float old_ray_triangle(pt::V3 ro, pt::V3 rd, pt::V3 v0, pt::V3 v1, pt::V3 v2) {
+  const float eps = 1e-7f;
+  const pt::V3 e1 = v1 - v0, e2 = v2 - v0;
+  const pt::V3 p = pt::cross_rn(rd, e2);
+  const float det = pt::dot_rn(e1, p);
+  const bool ok_det = std::fabs(det) > eps;
+  const float inv_det = ok_det ? 1.0f / det : 0.0f;
+  const pt::V3 s = ro - v0;
+  const float u = pt::dot_rn(s, p) * inv_det;
+  const pt::V3 q = pt::cross_rn(s, e1);
+  const float v = pt::dot_rn(rd, q) * inv_det;
+  const float t = pt::dot_rn(e2, q) * inv_det;
+  return ok_det && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps ? t : INFINITY;
+}
+
+// Triangle i's staged rows (staged[16 i ...], as mesh.cuh's stage_mesh_triangle
+// lays them out) and the values the tests computed inline before the table
+// (inline_[16 i ...]: a, b - a, c - a, the normal
+// safe_normalize_rn(cross_rn(b - a, c - a)), the indices as floats).
+extern "C" void host_mesh_table(const float* sv, const int* topo, int n_tris, int n_verts, float* staged,
+                                float* inline_) {
+  const pt::SceneView s = host_mesh_view(sv, 0, 0, topo, n_tris, n_verts);
+  for (int i = 0; i < n_tris; ++i) {
+    for (int r = 0; r < pt::MESH_ROWS; ++r) {
+      const float4 row = s.tris[pt::MESH_ROWS * i + r];
+      const float v[4] = {row.x, row.y, row.z, row.w};
+      for (int c = 0; c < 4; ++c) staged[16 * i + 4 * r + c] = v[c];
+    }
+    const int* tri = topo + 4 * i;
+    const pt::V3 a = old_vertex(sv, tri[0]);
+    const pt::V3 rows[4] = {a, old_vertex(sv, tri[1]) - a, old_vertex(sv, tri[2]) - a,
+                            pt::safe_normalize_rn(pt::cross_rn(old_vertex(sv, tri[1]) - a, old_vertex(sv, tri[2]) - a))};
+    const int w[4] = {tri[3], tri[0], tri[1], tri[2]};
+    for (int r = 0; r < 4; ++r) {
+      const float v[4] = {rows[r].x, rows[r].y, rows[r].z, (float)w[r]};
+      for (int c = 0; c < 4; ++c) inline_[16 * i + 4 * r + c] = v[c];
+    }
+  }
+}
+
+// Ray j against every triangle i: t over the staged table (mesh_triangle,
+// t_table[j * n_tris + i]) and over the vertices (t_vertices); then the
+// closest hit's t and the shadow ray's verdict at max_dist[j] as Mesh runs
+// them (closest[j], occluded[j]).
+extern "C" void host_mesh_tests(const float* sv, const int* topo, int n_tris, int n_verts, int n, const float* ro,
+                                const float* rd, const float* max_dist, float* t_table, float* t_vertices,
+                                float* closest, uint8_t* occluded) {
+  const pt::SceneView s = host_mesh_view(sv, 0, 0, topo, n_tris, n_verts);
+  for (int j = 0; j < n; ++j) {
+    const pt::V3 o = pt::v3(ro[3 * j], ro[3 * j + 1], ro[3 * j + 2]);
+    const pt::V3 d = pt::v3(rd[3 * j], rd[3 * j + 1], rd[3 * j + 2]);
+    for (int i = 0; i < n_tris; ++i) {
+      const int* tri = topo + 4 * i;
+      t_table[(size_t)j * n_tris + i] = pt::mesh_triangle(s, i, o, d);
+      t_vertices[(size_t)j * n_tris + i] =
+          old_ray_triangle(o, d, old_vertex(sv, tri[0]), old_vertex(sv, tri[1]), old_vertex(sv, tri[2]));
+    }
+    pt::V3 normal;
+    pt::Material mat;
+    closest[j] = pt::Mesh::closest_hit(s, o, d, normal, mat);
+    occluded[j] = pt::Mesh::any_hit(s, o, d, max_dist[j]);
+  }
 }
 
 // K8's walk before its rows were read as float4 (all 16 coefficients read
@@ -142,6 +217,8 @@ def host_lib(tmp_path_factory):
     lib.host_render_bigmesh.argtypes = head + [p, p, p, i]
     lib.host_walks.argtypes = [p, p, i, i, p, p, p, p, p, p]
     lib.host_mt_hit.argtypes = [p, p, i, p, p]
+    lib.host_mesh_table.argtypes = [p, p, i, i, p, p]
+    lib.host_mesh_tests.argtypes = [p, p, i, i, i, p, p, p, p, p, p, p]
     return lib
 
 
@@ -257,3 +334,73 @@ def test_mt_hit_matches_old_walk_at_every_magnitude():
     u_num = (k[:, 3:6] * d).sum(1) + (k[:, 6:9] * m).sum(1)
     tiny = (det.abs() > 1e-7) & (torch.sign(u_num) * torch.sign(det) < 0) & ((u_num / det).abs() < 1e-40)
     assert int(tiny.sum()) > 100
+
+
+def _mesh_inputs(scene):
+    """(packed vector, topology, n_tris, n_verts) as K1 gets them, held."""
+    b = MK.BACKENDS["mesh"]
+    sv = b.pack(scene, 64, 48, MK.scene_media(scene)).contiguous()
+    return (sv, *b.extras(scene), *b.counts(scene))
+
+
+@pytest.mark.parametrize("make", [mesh.make_scene, mesh_glass], ids=["demo", "media_glass"])
+def test_staged_table_is_the_inline_values(host_lib, make):
+    """The triangle table each block stages (mesh.cuh stage_mesh_triangle)
+    holds, bit for bit, the first vertex, the edges and the normal that the
+    triangle tests and the winner computed inline before it, with the
+    topology's indices, and the plain version's float32 corners, edges and
+    normal (models/mesh). Under 1 s."""
+    scene = make()
+    sv, topo, n_tris, n_verts = _mesh_inputs(scene)
+    staged, inline = torch.empty((n_tris, 4, 4)), torch.empty((n_tris, 4, 4))
+    host_lib.host_mesh_table(sv.data_ptr(), topo.data_ptr(), n_tris, n_verts, staged.data_ptr(), inline.data_ptr())
+    assert torch.equal(staged.view(torch.int32), inline.view(torch.int32))
+    assert torch.equal(staged[:, :, 3].to(torch.int32), topo[:, [3, 0, 1, 2]])
+    p = scene.params.unpack()
+    a, b, c = mesh.corners(p)
+    n = safe_normalize((b - a).cross(c - a))
+    plain = torch.stack([torch.stack([v.x, v.y, v.z], 1) for v in (a, b - a, c - a, n)], 1)
+    assert torch.equal(staged[:, :, :3].view(torch.int32), plain.view(torch.int32))
+
+
+def test_table_triangle_test_is_the_vertex_test(host_lib):
+    """Möller-Trumbore over the staged table (ray_triangle_edges) gives,
+    for every ray and triangle of the demo mesh, the t of the test over
+    the three vertices bit for bit, and so do the closest hit and the
+    shadow ray: camera-like rays toward the mesh, and rays aimed at points
+    of the edges that two triangles share (where the two tests' u and v
+    decide the winner), some of them exactly at a vertex. Under 1 s."""
+    scene = mesh.make_scene()
+    sv, topo, n_tris, n_verts = _mesh_inputs(scene)
+    p = scene.params.unpack()
+    verts = torch.stack([p.vertices.x, p.vertices.y, p.vertices.z], 1).double().numpy()
+    tris = topo[:, :3].numpy()
+    edges = {}
+    for i, tri in enumerate(tris):
+        for a, b in ((tri[0], tri[1]), (tri[1], tri[2]), (tri[2], tri[0])):
+            edges.setdefault((min(a, b), max(a, b)), []).append(i)
+    shared = np.array([e for e, owners in edges.items() if len(owners) > 1])
+    assert len(shared) >= 10
+    rs = np.random.default_rng(7)
+    n = 6000
+    pick = shared[rs.integers(len(shared), size=n // 2)]
+    s = rs.uniform(0.0, 1.0, (n // 2, 1))
+    s[: n // 20] = rs.integers(0, 2, (n // 20, 1))  # at a vertex
+    on_edge = verts[pick[:, 0]] * (1 - s) + verts[pick[:, 1]] * s
+    ro = rs.uniform([-4, -1, 2], [4, 4, 7], (n, 3))
+    target = np.concatenate([on_edge, rs.uniform([-1.5, -1.0, -1.5], [1.5, 1.5, 1.5], (n - n // 2, 3))])
+    rd = target - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    max_dist = rs.uniform(0.0, 8.0, n)
+    ro, rd, max_dist = (torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in (ro, rd, max_dist))
+    t_table, t_vertices = torch.empty((n, n_tris)), torch.empty((n, n_tris))
+    closest, occluded = torch.empty(n), torch.empty(n, dtype=torch.uint8)
+    host_lib.host_mesh_tests(sv.data_ptr(), topo.data_ptr(), n_tris, n_verts, n, ro.data_ptr(), rd.data_ptr(),
+                             max_dist.data_ptr(), t_table.data_ptr(), t_vertices.data_ptr(), closest.data_ptr(),
+                             occluded.data_ptr())
+    assert torch.equal(t_table.view(torch.int32), t_vertices.view(torch.int32))
+    assert torch.equal(closest.view(torch.int32), t_vertices.min(1).values.view(torch.int32))
+    assert torch.equal(occluded.bool(), (t_vertices < max_dist[:, None]).any(1))
+    hits = torch.isfinite(t_vertices[: n // 2]).sum(1)
+    assert float((hits >= 2).double().mean()) > 0.2  # rays through a shared edge that both triangles take
+    assert 0.2 < float(torch.isfinite(closest).double().mean()) < 0.95

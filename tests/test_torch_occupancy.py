@@ -36,7 +36,7 @@ from pathtracer_tpu_torch.integrator.tracer import FIXED, VERBATIM
 from pathtracer_tpu_torch.models import families
 from pathtracer_tpu_torch.ops import megakernel as MK
 from pathtracer_tpu_torch.ops import _build, rng
-from test_torch_kernel_host import PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
+from test_torch_kernel_host import MESH_VIEW, PRELUDE, build_shim, launch_keys, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -153,6 +153,7 @@ SHIM = PRELUDE + r"""
 #include "mesh.cuh"
 #include "sdf.cuh"
 #include "tracer.cuh"
+""" + MESH_VIEW + r"""
 
 template <class B>
 static void frame(const pt::SceneView& s, const uint32_t* keys, float* out, int* entered, int width, int height,
@@ -191,7 +192,7 @@ extern "C" void host_sdf(HEAD, int n_spheres, int n_boxes, int n_tori) {
   WITH_SDF_COUNTS(n_spheres, n_boxes, n_tori, RUN(pt::Sdf<C>, pt::sdf_view(sv, n_lights, n_materials, n_spheres, n_boxes, n_tori)));
 }
 extern "C" void host_mesh(HEAD, const int* topo, int n_tris, int n_verts) {
-  RUN(pt::Mesh, pt::mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts));
+  RUN(pt::Mesh, host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts));
 }
 extern "C" void host_bigmesh(HEAD, const float* coef, const float* attr, const float* aabb, int n_chunks) {
   RUN(pt::BigMesh, pt::bigmesh_view(sv, n_lights, n_materials, coef, attr, aabb, n_chunks));
@@ -203,8 +204,8 @@ extern "C" void host_bigmesh(HEAD, const float* coef, const float* attr, const f
 def host_lib(tmp_path_factory):
     lib = build_shim(tmp_path_factory.mktemp("occupancy_host"), SHIM)
     for family in FAMILIES:
-        argtypes, _ = _build.SIGNATURES["megakernel_sdf" if family == "sdf" else "megakernel_fwd"][
-            MK.BACKENDS[family].occupancy]
+        library = {"sdf": "megakernel_sdf", "mesh": "megakernel_mesh"}.get(family, "megakernel_fwd")
+        argtypes, _ = _build.SIGNATURES[library][MK.BACKENDS[family].occupancy]
         getattr(lib, f"host_{family}").argtypes = argtypes[:-1]  # no stream
     return lib
 
