@@ -247,10 +247,26 @@ which raises on failure (non-zero exit):
    analytical trainer (depth 4) and of the media trainer (the Scatter
    demo's medium, depth 6), through this tree's kernels and through the
    other tree's (tools/k1_pair.kernels_of), in turns, their first losses
-   bit-equal.
+   bit-equal;
+36. the render CLI's host surface through cli.render at 1920x1080, depth 4,
+   spp 1, every frame one K1 launch of the scene's backend and nothing
+   else: --scene file: of a JSON that utils/sceneio.save_scene wrote of the
+   SDF scene with its radius moved (K5's library for its counts) and of the
+   mesh scene, each buffer bit-equal to the scene object's render; --frames
+   2 --ckpt-dir D --ckpt-every 2, then --frames 4 on D, which resumes at
+   frame 2 with 2 launches and reaches the straight 4-frame run's buffer
+   bit for bit; --metrics (one JSON line a frame) and --profile (the
+   torch.profiler Chrome trace names K1's kernel, once a frame); --serve 0
+   --preview with the preview captured, an orbit, a malformed control and
+   a 5 KiB body posted after frame 1 (204, 400, 413), the accumulation
+   restarted and /frame.png 1080x1920; the big mesh's tables built twice
+   for one camera move; the native tonemap_encode_png of the 1080p buffer
+   decoding to buffer.to_u8 of it; the host ms a frame with and without
+   --serve and --preview, and of the native and numpy PNG encoders, the
+   ANSI preview and the checkpoint.
 
 The total seconds, with phase 25's, phase 26's, phases 27-29's, phases
-30-33's and phase 34's, are printed before the kernels line. Each K2 row
+30-33's, phase 34's and phase 36's, are printed before the kernels line. Each K2 row
 of the kernels line lists its two kernels under "stages" (the record
 kernel and the adjoint kernel: their launches on the main path and their
 times apart).
@@ -1847,6 +1863,221 @@ def check_leaf_grads(grads: dict, fixture: str, close) -> None:
             raise AssertionError(f"K2 gradients outside the fixture's tolerance: {bad}")
 
 
+# Phase 36: the render CLI's host surface at MAIN_W x MAIN_H, depth
+# MAIN_DEPTH, spp 1; HOST_FRAMES frames in each timed run, the control posted
+# after frame 1 (drained after frame 2: the rest accumulate again).
+HOST_FRAMES = 8
+HOST_ORBIT = b'{"orbit": [120, -40]}'
+HOST_BAD = b'{"zoom": "x"}'
+HOST_BIG = b'{"orbit": [1, 2], "pad": "' + b"x" * 5200 + b'"}'
+
+
+def host_surface_phase(torch, mk, cli, dev, card: str) -> None:
+    """Phase 36: the render CLI's host surface on the card, through
+    cli.render: scene files, the checkpoint and its resume, metrics and the
+    profiler's trace, the live viewer with a camera move and the ANSI
+    preview, the native PNG runtime. Every run's frames are each one K1
+    launch of the scene's backend and nothing else. Raises on any failure."""
+    import http.client
+    import io
+    import re
+    import threading
+
+    from pathtracer_tpu_torch.integrator.tracer import accumulate
+    from pathtracer_tpu_torch.models.families import make_family_scene
+    from pathtracer_tpu_torch.ops import megakernel_bigmesh, megakernel_sdf, rng
+    from pathtracer_tpu_torch.utils import buffer, image, sceneio
+    from pathtracer_tpu_torch.utils.checkpoint import load_render_state, save_checkpoint
+
+    print(f"== 36. the render CLI's host surface, {MAIN_W}x{MAIN_H}, depth {MAIN_DEPTH}, spp 1")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="host_surface_") as tmp:
+        size = ["--device", "cuda", "--width", str(MAIN_W), "--height", str(MAIN_H), "--depth", str(MAIN_DEPTH),
+                "--spp", "1", "-o", os.path.join(tmp, "out.png")]
+
+        def run(args, family: str, launches: int, log=None):
+            """cli.render(args) -> (buffer, host ms of each frame after the
+            first, log lines); every launch K1 of `family`'s backend."""
+            lines, stamps = [], []
+
+            def logger(line):
+                if line.startswith("frame "):
+                    stamps.append(time.perf_counter())
+                lines.append(line)
+                if log is not None:
+                    log(line)
+
+            cfg, out = cli.parse_args(size + args)
+            reset_counts(mk)
+            buf = cli.render(cfg, out, log=logger)
+            counts = read_counts(mk)
+            backend = {} if family == "analytical" else {f"{family}_launches": launches}
+            if counts != expect_counts(launches=launches, **backend):
+                raise AssertionError(f"{args}: expected {launches} K1 launches of the {family} backend, got {counts}")
+            return buf, [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])], lines
+
+        def direct(scene, frames: int):
+            """The CLI's loop on a scene object: seed 0's keys, K1, accumulate."""
+            buf, key = buffer.new_buffer(MAIN_W, MAIN_H, torch.float32, dev), rng.prng_key(0)
+            for _ in range(frames):
+                key, sub = rng.split(key)
+                buf = buffer.ColorBuffer(*accumulate(buf.pixels, mk.render_frame_megakernel(scene, sub, MAIN_W, MAIN_H),
+                                                     buf.frames))
+            return buf
+
+        def post(port: int, body: bytes) -> int:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            try:
+                conn.request("POST", "/control", body=body)
+                return conn.getresponse().status
+            finally:
+                conn.close()
+
+        def decode(png: bytes) -> np.ndarray:
+            path = os.path.join(tmp, "decode.png")
+            with open(path, "wb") as f:
+                f.write(png)
+            return image.read_png(path)
+
+        # (a) scene files that save_scene wrote, each the scene object's render
+        for family, section, leaf, new in (("sdf", "params", ".sphere_radius", 1.15), ("mesh", "lights", ".emission.x", 4.5)):
+            desc = sceneio.scene_to_dict(make_family_scene(family, recursion_depth=MAIN_DEPTH), family)
+            desc[section][leaf][0] = new
+            scene = sceneio.scene_from_dict(desc, device=dev)
+            path = os.path.join(tmp, f"{family}.json")
+            sceneio.save_scene(scene, path, family)
+            got, _, _ = run(["--scene", f"file:{path}", "--frames", "2"], family, 2)
+            same = torch.equal(got.pixels, direct(scene, 2).pixels)
+            counts = f", K5's library for its counts {megakernel_sdf.sdf_counts(scene)}" if family == "sdf" else ""
+            print(f"  --scene file: ({family}, {leaf} = {new}): 2 K1 launches of the {family} backend{counts}; the "
+                  f"buffer {'bit-equal to' if same else 'DIFFERS from'} the scene object's")
+            if not same:
+                raise AssertionError(f"--scene file: of the {family} scene differs from the scene object's render")
+
+        # (b) a checkpoint every 2 frames, then a resume to 4: the straight run's buffer
+        ck = os.path.join(tmp, "ck")
+        run(["--frames", "2", "--ckpt-dir", ck, "--ckpt-every", "2"], "analytical", 2)
+        resumed, _, lines = run(["--frames", "4", "--ckpt-dir", ck, "--ckpt-every", "2"], "analytical", 2)
+        straight, _, _ = run(["--frames", "4"], "analytical", 4)
+        want_line = f"resumed from {os.path.join(ck, 'ckpt_000002.npz')} at frame 2"
+        same = torch.equal(resumed.pixels, straight.pixels) and float(resumed.frames) == float(straight.frames) == 4.0
+        print(f"  --ckpt-dir: {lines[0]!r}, 2 K1 launches; the buffer {'bit-equal to' if same else 'DIFFERS from'} "
+              "the straight 4-frame run's")
+        if lines[0] != want_line or not same:
+            raise AssertionError(f"the resume did not reach the straight run: {lines[0]!r}")
+        state = (straight, rng.prng_key(0), 4)
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "ckpt_save.npz"), state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        load_render_state(os.path.join(tmp, "ckpt_save.npz"), state)
+        load_ms = (time.perf_counter() - t0) * 1e3
+
+        # (c) --metrics and --profile: one JSON line a frame, K1 in the trace
+        metrics, prof = os.path.join(tmp, "m.jsonl"), os.path.join(tmp, "prof")
+        run(["--frames", "3", "--metrics", metrics, "--profile", prof], "analytical", 3)
+        with open(metrics) as f:
+            rows = [json.loads(line) for line in f]
+        (trace,) = os.listdir(prof)
+        with open(os.path.join(prof, trace)) as f:
+            events = json.load(f)["traceEvents"]
+        k1 = [e for e in events if e.get("cat") == "kernel" and "render_forward_kernel" in e.get("name", "")]
+        print(f"  --metrics: {len(rows)} lines, frame_ms {[round(r['frame_ms'], 3) for r in rows]}; --profile: "
+              f"{trace}, {len(events)} events, K1 kernels {len(k1)}"
+              + (f" ({k1[0]['name'][:90]}, {[round(e['dur'] / 1e3, 4) for e in k1]} ms)" if k1 else ""))
+        if len(rows) != 3 or not all(r["frame_ms"] > 0 and r["rays"] == MAIN_W * MAIN_H for r in rows):
+            raise AssertionError(f"--metrics wrote {rows}")
+        if len(k1) != 3:
+            raise AssertionError(f"the profiler's trace holds {len(k1)} K1 kernels, not 3: "
+                                 f"{sorted({str(e.get('cat')) for e in events})}")
+
+        # (d) the live viewer and the preview: a control posted after frame 1
+        replies, pngs, port = [], [], []
+
+        def viewer_client(line):
+            if line.startswith("live view: "):
+                port.append(int(re.search(r":(\d+)/$", line).group(1)))
+            if line.startswith("frame 1/"):
+                client = threading.Thread(target=lambda: replies.extend(post(port[0], b) for b in (HOST_ORBIT, HOST_BAD,
+                                                                                                     HOST_BIG)))
+                client.start()
+                client.join()
+            if line.startswith("frame 3/"):
+                conn = http.client.HTTPConnection("127.0.0.1", port[0], timeout=30)
+                conn.request("GET", "/frame.png")
+                pngs.append(conn.getresponse().read())
+                conn.close()
+
+        shown = io.StringIO()
+        with contextlib.redirect_stdout(shown):
+            served, both_ms, lines = run(["--frames", str(HOST_FRAMES), "--serve", "0", "--preview"], "analytical",
+                                         HOST_FRAMES, log=viewer_client)
+        frame_png = decode(pngs[0]) if pngs else None
+        repaints = shown.getvalue().count("\x1b[H")
+        print(f"  --serve 0 --preview: {lines[0]!r}; replies {replies} (orbit, malformed, {len(HOST_BIG)} B); frames "
+              f"accumulated after the move {float(served.frames):.0f} of {HOST_FRAMES}; /frame.png "
+              f"{None if frame_png is None else frame_png.shape}; {repaints} repaints, {len(shown.getvalue())} characters")
+        if replies != [204, 400, 413]:
+            raise AssertionError(f"the viewer answered {replies}, not [204, 400, 413]")
+        if float(served.frames) != HOST_FRAMES - 2 or not torch.isfinite(served.pixels).all():
+            raise AssertionError("the camera move did not restart the accumulation")
+        if frame_png is None or frame_png.shape != (MAIN_H, MAIN_W, 4) or repaints != HOST_FRAMES:
+            raise AssertionError("the viewer's frame or the preview is wrong")
+        builds = megakernel_bigmesh.bigmesh_tables.builds
+        bigmesh_replies = []
+
+        def bigmesh_client(line):
+            if line.startswith("live view: "):
+                port.append(int(re.search(r":(\d+)/$", line).group(1)))
+            if line.startswith("frame 1/"):
+                bigmesh_replies.append(post(port[-1], HOST_ORBIT))
+
+        run(["--scene", "bigmesh", "--frames", "3", "--serve", "0"], "bigmesh", 3, log=bigmesh_client)
+        builds = megakernel_bigmesh.bigmesh_tables.builds - builds
+        print(f"  --scene bigmesh --serve 0, one orbit: replies {bigmesh_replies}, the big mesh's tables built {builds} "
+              "times (once for the scene, once for the moved camera's new Scene)")
+        if bigmesh_replies != [204] or builds != 2:
+            raise AssertionError(f"the big mesh's camera move: replies {bigmesh_replies}, {builds} table builds")
+
+        # times a frame on the host clock: without the flags, with each, with both
+        _, plain_ms, _ = run(["--frames", str(HOST_FRAMES)], "analytical", HOST_FRAMES)
+        _, serve_ms, _ = run(["--frames", str(HOST_FRAMES), "--serve", "0"], "analytical", HOST_FRAMES)
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, preview_ms, _ = run(["--frames", str(HOST_FRAMES), "--preview"], "analytical", HOST_FRAMES)
+
+        # (e) the native runtime's PNG of the 1080p buffer is to_u8 of it
+        native, err = image.native_runtime()
+        if native is None:
+            raise AssertionError(f"the native runtime did not load: {err}")
+        arr = image.as_float32(straight.pixels)
+        u8 = buffer.to_u8(arr)
+        same = np.array_equal(decode(native.tonemap_encode_png(arr)), u8)
+        print(f"  native tonemap_encode_png of the {MAIN_W}x{MAIN_H} buffer: decodes to buffer.to_u8 of it "
+              f"{'bit for bit' if same else 'NOT'}")
+        if not same:
+            raise AssertionError("the native PNG does not decode to to_u8 of the buffer")
+
+        def host_ms(fn, n=5):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        native_ms = host_ms(lambda: native.tonemap_encode_png(arr))
+        numpy_ms = host_ms(lambda: image.encode_png(buffer.to_u8(arr)))
+        copy_ms = host_ms(lambda: image.as_float32(straight.pixels))
+        preview_only_ms = host_ms(lambda: image.ansi_preview(straight.pixels), 3)
+        mean = lambda xs: sum(xs) / len(xs)
+        print(f"  host ms a frame after the first (frames {HOST_FRAMES}, the host clock between frame lines): none "
+              f"{mean(plain_ms):.3f}, --serve {mean(serve_ms):.3f}, --preview {mean(preview_ms):.3f}, both "
+              f"{mean(both_ms):.3f} ({card})")
+        print(f"  {MAIN_W}x{MAIN_H} on the host: the buffer to a host float32 array {copy_ms:.3f} ms, PNG encode native "
+              f"{native_ms:.3f} ms, numpy (to_u8 + encode_png) {numpy_ms:.3f} ms, ansi_preview {preview_only_ms:.3f} ms, "
+              f"save_checkpoint of the render state {save_ms:.3f} ms, load_render_state {load_ms:.3f} ms ({card})")
+    print(f"  phase 36 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2291,6 +2522,8 @@ def main(argv=None) -> int:
     deep_phase(torch, mk, rng, dev, total_bytes)
     t35 = time.perf_counter()
     step_pair_phase(torch, inverse, rng, dev, card, args.other)
+    t36 = time.perf_counter()
+    host_surface_phase(torch, mk, cli, dev, card)
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
@@ -2319,7 +2552,8 @@ def main(argv=None) -> int:
         library_ms=None,
     ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row, *media_rows, *media_bwd_rows]
     print(f"== total {time.perf_counter() - started:.1f} s (phase 25 {t26 - t25:.1f} s, phase 26 {t27 - t26:.1f} s, "
-          f"phases 27-29 {t30 - t27:.1f} s, phases 30-33 {t34 - t30:.1f} s, phase 34 {t35 - t34:.1f} s)")
+          f"phases 27-29 {t30 - t27:.1f} s, phases 30-33 {t34 - t30:.1f} s, phase 34 {t35 - t34:.1f} s, "
+          f"phase 36 {time.perf_counter() - t36:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

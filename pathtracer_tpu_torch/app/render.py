@@ -1,38 +1,56 @@
 """Progressive renderer CLI of the PyTorch port.
 
-Renders a demo scene frame by frame, folds each frame into the running
-mean and writes a PNG: `--scene analytical` (two spheres over a checker
-plane, the default), `--scene sdf` (the sphere-traced SDF scene), `--scene
-mesh` (20 triangles: a ground quad, a metal cube, a clearcoat pyramid) or
-`--scene bigmesh` (a 1,088-triangle sphere over the ground). With
-`--device cuda` (the default) every frame is one launch of the CUDA
-megakernel, with the scene's backend; with `--device cpu` it is the eager
-integrator. A CUDA device that is not there is an error, never a move to
-the CPU. `--occupancy` first prints the fraction of lanes alive entering
-each bounce: on the card from one launch of the occupancy kernel K3, with
-the wasted-lane fraction and the warps' numbers; on the CPU from the eager
-probe.
+Renders a scene frame by frame, folds each frame into the running mean and
+writes a PNG: `--scene analytical` (two spheres over a checker plane, the
+default), `--scene sdf` (the sphere-traced SDF scene), `--scene mesh` (20
+triangles: a ground quad, a metal cube, a clearcoat pyramid), `--scene
+bigmesh` (a 1,088-triangle sphere over the ground), or `--scene file:PATH`
+(a JSON scene file of either package's `utils/sceneio.save_scene`: its
+family's scene with the file's leaves). With `--device cuda` (the default)
+every frame is one launch of the CUDA megakernel K1, with the scene's
+backend; with `--device cpu` it is the eager integrator. A CUDA device
+that is not there is an error, never a move to the CPU. `--occupancy`
+first prints the fraction of lanes alive entering each bounce: on the card
+from one launch of the occupancy kernel K3, with the wasted-lane fraction
+and the warps' numbers; on the CPU from the eager probe.
+
+The host surface, as the JAX package's CLI has it: `--ckpt-dir` writes the
+state (buffer, key, frame) every `--ckpt-every` frames and resumes from
+the newest `ckpt_*.npz` there, the port's or one the JAX render CLI wrote;
+`--metrics PATH` writes each frame's metrics as a JSON line; `--profile
+DIR` writes a torch.profiler Chrome trace of the frames; `--preview`
+repaints the buffer in the terminal each frame; `--serve PORT` (0: a free
+port) serves the progressive render over HTTP, and the page's drag, wheel
+and keys orbit, zoom, widen or reset the camera, which restarts the
+accumulation.
 
 Usage:
   python -m pathtracer_tpu_torch.app.render --device cuda --scene sdf \
       --width 1920 --height 1080 --frames 16 -o out.png
+  python -m pathtracer_tpu_torch.app.render --scene file:scene.json --ckpt-dir runs/a --serve 0
 """
 
 from __future__ import annotations
 
 import argparse
-import time
+import os
+import sys
 
 import torch
 
 from ..integrator.tracer import accumulate, measure_occupancy
 from ..models import families
+from ..models.camera import Pinhole, orbit, zoom
 from ..models.scene import Scene
 from ..ops import rng
 from ..ops.megakernel import measure_occupancy_megakernel, render_frame_megakernel
 from ..utils.buffer import ColorBuffer, new_buffer
+from ..utils.checkpoint import latest_checkpoint, load_render_state, save_checkpoint
 from ..utils.config import RenderConfig
-from ..utils.image import save_render
+from ..utils.image import ansi_preview, save_render
+from ..utils.metrics import FrameMetrics, MetricsLog, Timer, trace_to
+from ..utils.sceneio import load_scene
+from ..utils.viewer import LiveViewer
 
 
 def parse_args(argv=None) -> tuple[RenderConfig, str]:
@@ -50,21 +68,33 @@ def parse_args(argv=None) -> tuple[RenderConfig, str]:
     ap.add_argument("-o", "--output", default="render.png")
     ap.add_argument("--occupancy", action="store_true",
                     help="print the alive-lane fraction entering each bounce before rendering")
+    ap.add_argument("--ckpt-dir", default=None, help="checkpoint/resume directory")
+    ap.add_argument("--ckpt-every", type=int, default=8)
+    ap.add_argument("--metrics", default=None, help="write per-frame metrics as JSON lines")
+    ap.add_argument("--profile", default=None, help="torch.profiler Chrome trace directory")
+    ap.add_argument("--preview", action="store_true", help="repaint the buffer in the terminal (ANSI) each frame")
+    ap.add_argument("--serve", type=int, default=None, metavar="PORT",
+                    help="serve the progressive render over HTTP with camera controls (0: a free port)")
     args = ap.parse_args(argv)
     if not (args.scene in families.FAMILIES or args.scene.startswith("file:")):
-        ap.error(f"unknown scene {args.scene!r} (choose {'|'.join(families.FAMILIES)})")
+        ap.error(f"unknown scene {args.scene!r} (choose {'|'.join(families.FAMILIES)}|file:PATH)")
+    if args.ckpt_every < 1:
+        ap.error("--ckpt-every must be at least 1")
     cfg = RenderConfig(
         width=args.width, height=args.height, spp=args.spp, frames=args.frames,
         depth=args.depth, seed=args.seed, precision=args.precision,
         quirks=args.quirks, device=args.device, scene=args.scene, occupancy=args.occupancy,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, metrics=args.metrics, profile=args.profile,
+        preview=args.preview, serve=args.serve,
     )
     return cfg, args.output
 
 
 def make_scene(cfg: RenderConfig, device) -> Scene:
-    """The demo scene that cfg.scene names, on `device`."""
+    """The scene that cfg.scene names, on `device`: a family's demo, or the
+    scene a file:PATH describes (its family's, with the file's leaves)."""
     if cfg.scene.startswith("file:"):
-        raise NotImplementedError("--scene file:PATH: scene files are not ported yet (ROADMAP item 15)")
+        return load_scene(cfg.scene[5:], dtype=cfg.dtype, recursion_depth=cfg.depth, device=device)
     return families.make_family_scene(cfg.scene, dtype=cfg.dtype, recursion_depth=cfg.depth, device=device)
 
 
@@ -88,27 +118,81 @@ def log_occupancy(cfg: RenderConfig, scene: Scene, key, log=print) -> None:
         + ("" if compacted is None else f", {compacted:.3f} (this backend's compacted loop)"))
 
 
+def apply_controls(cam: Pinhole, controls: list, home: Pinhole) -> Pinhole:
+    """The camera after the viewer's messages, oldest first: a drag of
+    (dx, dy) pixels orbits by (-0.005 dx, 0.005 dy) radians, a wheel step
+    zooms by its factor, a key widens or narrows the fov by its degrees, and
+    reset returns to `home`."""
+    for c in controls:
+        if "orbit" in c:
+            dx, dy = c["orbit"]
+            cam = orbit(cam, -0.005 * float(dx), 0.005 * float(dy))
+        if "zoom" in c:
+            cam = zoom(cam, float(c["zoom"]))
+        if "fov" in c:
+            cam = cam.set_fov(cam.fov + float(c["fov"]))
+        if c.get("reset"):
+            cam = home
+    return cam
+
+
 def render(cfg: RenderConfig, output: str, log=print) -> ColorBuffer:
-    """Render cfg.frames progressive frames, write the PNG, return the
-    accumulated buffer."""
+    """Render frames up to cfg.frames (from a checkpoint's frame when
+    cfg.ckpt_dir holds one), write the PNG, return the accumulated buffer."""
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {cfg.device}: CUDA is not available")
     scene = make_scene(cfg, device)
+    home = scene.camera.unpack()
     buf = new_buffer(cfg.width, cfg.height, cfg.dtype, device)
     key = rng.prng_key(cfg.seed)
+    start = 0
+    if cfg.ckpt_dir:
+        os.makedirs(cfg.ckpt_dir, exist_ok=True)
+        path = latest_checkpoint(cfg.ckpt_dir)
+        if path:
+            buf, key, start = load_render_state(path, (buf, key, 0))
+            log(f"resumed from {path} at frame {start}")
     if cfg.occupancy:
         log_occupancy(cfg, scene, key, log)
-    for f in range(cfg.frames):
-        key, sub = rng.split(key)
-        t0 = time.perf_counter()
-        frame = render_frame_megakernel(scene, sub, cfg.width, cfg.height, cfg.spp, cfg.quirk_flags)
-        buf = ColorBuffer(*accumulate(buf.pixels, frame, buf.frames))
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        log(f"frame {f + 1}/{cfg.frames}  {(time.perf_counter() - t0) * 1e3:8.1f} ms")
-    save_render(output, buf.pixels)
-    log(f"wrote {output}")
+    viewer = None
+    if cfg.serve is not None:
+        viewer = LiveViewer(port=cfg.serve)
+        log(f"live view: http://localhost:{viewer.port}/")
+    metrics = MetricsLog()
+    try:
+        with trace_to(cfg.profile, device):
+            for f in range(start, cfg.frames):
+                key, sub = rng.split(key)
+                t = Timer()
+                frame = render_frame_megakernel(scene, sub, cfg.width, cfg.height, cfg.spp, cfg.quirk_flags)
+                buf = ColorBuffer(*accumulate(buf.pixels, frame, buf.frames))
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                ms = t.stop()
+                metrics.record(FrameMetrics(cfg.width, cfg.height, cfg.spp, cfg.depth, ms))
+                if viewer is not None:
+                    viewer.update(buf.pixels)
+                    controls = viewer.pop_controls()
+                    if controls:  # a new view: the accumulation starts again
+                        scene = scene.replace(camera=apply_controls(scene.camera.unpack(), controls, home))
+                        buf = new_buffer(cfg.width, cfg.height, cfg.dtype, device)
+                if cfg.preview:  # home the cursor and repaint in place
+                    sys.stdout.write("\x1b[H\x1b[2J" if f == start else "\x1b[H")
+                    sys.stdout.write(ansi_preview(buf.pixels) + "\n")
+                log(f"frame {f + 1}/{cfg.frames}  {ms:8.1f} ms")
+                if cfg.ckpt_dir and (f + 1) % cfg.ckpt_every == 0:
+                    save_checkpoint(os.path.join(cfg.ckpt_dir, f"ckpt_{f + 1:06d}.npz"), (buf, key, f + 1))
+    finally:
+        if viewer is not None:
+            viewer.close()
+    encoder = save_render(output, buf.pixels)
+    log(f"wrote {output} (encoder: {encoder})")
+    s = metrics.summary()
+    if s:
+        log(f"avg {s['avg_frame_ms']:.1f} ms/frame, {s['rays_per_s'] / 1e6:.2f} Mrays/s (primary)")
+    if cfg.metrics:
+        metrics.dump_jsonl(cfg.metrics)
     return buf
 
 

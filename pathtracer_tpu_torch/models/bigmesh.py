@@ -43,6 +43,11 @@ FEAT = 16  # ray features [d(3), m(3), o(3), 1, pad(6)]
 BLOCK_PAIRS = 2**24  # (ray, triangle) pairs per block of the plain version
 
 
+# BigMeshParams' static fields: no leaves of the JAX package's pytree, so
+# no entries of a scene file
+STATIC = ("tri_a", "tri_b", "tri_c", "tri_mat")
+
+
 class BigMeshParams(NamedTuple):
     """The big mesh scene's values; field order and names are the JAX
     package's. The topology (Morton-ordered) is integer buffers that nothing

@@ -2,6 +2,9 @@
 
 Port of `pathtracer_tpu/models/camera.py`, keeping the reference's
 horizontal-FOV convention and its unnormalized `u = up x w` basis vector.
+`Pinhole.set`, `set_fov`, `orbit` and `zoom` move a camera for the live
+viewer: tensor ops on the camera's 0-d tensors on its device, with no
+copy to or from the host.
 """
 
 from __future__ import annotations
@@ -17,6 +20,42 @@ class Pinhole(NamedTuple):
     origin: V3
     center: V3
     fov: torch.Tensor  # degrees, horizontal
+
+    def set(self, origin: V3, center: V3) -> "Pinhole":
+        return self._replace(origin=origin, center=center)
+
+    def set_fov(self, fov) -> "Pinhole":
+        """fov: a number, or a tensor on the camera's device."""
+        if isinstance(fov, torch.Tensor):
+            return self._replace(fov=fov.to(self.fov))
+        return self._replace(fov=torch.full_like(self.fov, fov))
+
+
+def orbit(cam: Pinhole, dyaw, dpitch) -> Pinhole:
+    """Rotate the eye about the look-at center by dyaw and dpitch radians,
+    the pitch clamped to +-1.45 off the poles and the distance to the center
+    kept."""
+    v = cam.origin - cam.center
+    r = torch.sqrt(v.dot(v))
+    yaw = torch.atan2(v.x, v.z) + dyaw
+    pitch = torch.asin(torch.clamp(v.y / torch.clamp_min(r, 1e-8), -1.0, 1.0))
+    pitch = torch.clamp(pitch + dpitch, -1.45, 1.45)
+    cp = torch.cos(pitch)
+    origin = V3(
+        cam.center.x + r * cp * torch.sin(yaw),
+        cam.center.y + r * torch.sin(pitch),
+        cam.center.z + r * cp * torch.cos(yaw),
+    )
+    return cam.set(origin, cam.center)
+
+
+def zoom(cam: Pinhole, factor) -> Pinhole:
+    """Scale the eye's distance to the center by factor (> 1 away, < 1 in),
+    no nearer than 1e-3."""
+    v = cam.origin - cam.center
+    r = torch.sqrt(v.dot(v))
+    s = torch.clamp_min(r * factor, 1e-3) / torch.clamp_min(r, 1e-8)
+    return cam.set(cam.center + v * s, cam.center)
 
 
 def default_pinhole(dtype=torch.float32, device=None) -> Pinhole:

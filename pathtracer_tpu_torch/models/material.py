@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.vecmath import V3, clip, maximum, mix_f, v3
+from ..ops.vecmath import V3, clip, maximum, mix, mix_f, v3
 from ..utils.tree import tree_map
 
 
@@ -124,6 +124,21 @@ def finalize_material(m: Material) -> Material:
         medium=medium,
         ax=ax,
         ay=ay,
+    )
+
+
+def mix_materials(a: Material, b: Material, t: torch.Tensor) -> Material:
+    """Material::mix: the lerp of the listed fields; every other field
+    (clearcoat_roughness, opacity, the alpha fields, ax, ay, the medium)
+    keeps Material::new's default, as the reference leaves it."""
+    m = default_material(t.shape, t.dtype, t.device)
+    lerp = lambda name: mix_f(getattr(a, name), getattr(b, name), t)
+    return m._replace(
+        rgb=mix(a.rgb, b.rgb, t),
+        emission=mix(a.emission, b.emission, t),
+        **{name: lerp(name) for name in (
+            "anisotropic", "metallic", "roughness", "subsurface", "specular_tint", "sheen", "sheen_tint",
+            "clearcoat", "clearcoat_gloss", "spec_trans", "ior")},
     )
 
 

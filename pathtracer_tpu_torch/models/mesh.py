@@ -29,6 +29,11 @@ from .material import Material, default_material, gather_material, make_material
 from .scene import Scene, SurfaceHit
 
 
+# MeshParams' static fields: no leaves of the JAX package's pytree, so no
+# entries of a scene file
+STATIC = ("tri_idx", "tri_mat")
+
+
 class MeshParams(NamedTuple):
     """The mesh scene's values; field order and names are the JAX
     package's."""

@@ -36,7 +36,6 @@ class V3(NamedTuple):
             return V3(self.x + o.x, self.y + o.y, self.z + o.z)
         return V3(self.x + o, self.y + o, self.z + o)
 
-
     def __sub__(self, o):
         if isinstance(o, V3):
             return V3(self.x - o.x, self.y - o.y, self.z - o.z)
@@ -87,6 +86,38 @@ class V3(NamedTuple):
         return V3(self.x.to(dtype), self.y.to(dtype), self.z.to(dtype))
 
 
+class B3(NamedTuple):
+    """3-vector of booleans over SoA batches."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+    def __and__(self, o: "B3") -> "B3":
+        return B3(self.x & o.x, self.y & o.y, self.z & o.z)
+
+    def __or__(self, o: "B3") -> "B3":
+        return B3(self.x | o.x, self.y | o.y, self.z | o.z)
+
+    def __invert__(self) -> "B3":
+        return B3(~self.x, ~self.y, ~self.z)
+
+    def any(self) -> torch.Tensor:
+        return self.x | self.y | self.z
+
+    def all(self) -> torch.Tensor:
+        return self.x & self.y & self.z
+
+    def select(self, a: V3, b: V3) -> V3:
+        """Componentwise where: self ? a : b."""
+        return V3(torch.where(self.x, a.x, b.x), torch.where(self.y, a.y, b.y), torch.where(self.z, a.z, b.z))
+
+
+def less_than(a: V3, b: V3) -> B3:
+    """GLSL lessThan."""
+    return B3(a.x < b.x, a.y < b.y, a.z < b.z)
+
+
 def v3(x, y, z, dtype=torch.float32, device=None) -> V3:
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     return V3(t(x), t(y), t(z))
@@ -99,6 +130,22 @@ def splat3(a) -> V3:
 def zeros3(shape=(), dtype=torch.float32, device=None) -> V3:
     z = torch.zeros(shape, dtype=dtype, device=device)
     return V3(z, z, z)
+
+
+def ones3(shape=(), dtype=torch.float32, device=None) -> V3:
+    o = torch.ones(shape, dtype=dtype, device=device)
+    return V3(o, o, o)
+
+
+def from_array(a: torch.Tensor) -> V3:
+    """Unpack a dense [..., 3] tensor into SoA."""
+    return V3(a[..., 0], a[..., 1], a[..., 2])
+
+
+def hex_color(hex_str: str, dtype=torch.float32, device=None) -> V3:
+    """An "#rrggbb" color, each channel / 255."""
+    s = hex_str.lstrip("#")
+    return v3(*(int(s[i : i + 2], 16) / 255.0 for i in (0, 2, 4)), dtype=dtype, device=device)
 
 
 def safe_sqrt(x):
@@ -131,6 +178,10 @@ def cross(a: V3, b: V3) -> V3:
     return a.cross(b)
 
 
+def length(a: V3) -> torch.Tensor:
+    return a.length()
+
+
 def normalize(a: V3) -> V3:
     return a.normalize()
 
@@ -149,6 +200,17 @@ def mix(a: V3, b: V3, t) -> V3:
 
 def mix_f(a, b, t):
     return (1.0 - t) * a + b * t
+
+
+def smoothstep(e0, e1, x):
+    """Hermite step of a tensor x between e0 and e1."""
+    t = clip((x - e0) / (e1 - e0), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def pow3(a: V3, b: V3) -> V3:
+    """Componentwise pow."""
+    return V3(a.x ** b.x, a.y ** b.y, a.z ** b.z)
 
 
 def reflect(i: V3, n: V3) -> V3:

@@ -18,6 +18,18 @@ class ColorBuffer(NamedTuple):
     pixels: torch.Tensor  # [H, W, 4] linear RGBA
     frames: torch.Tensor  # 0-d frame count
 
+    @property
+    def width(self) -> int:
+        return int(self.pixels.shape[1])
+
+    @property
+    def height(self) -> int:
+        return int(self.pixels.shape[0])
+
+    def at(self, x: int, y: int) -> torch.Tensor:
+        """The pixel at column x, row y."""
+        return self.pixels[y, x]
+
 
 def new_buffer(width: int, height: int, dtype=torch.float32, device=None) -> ColorBuffer:
     return ColorBuffer(

@@ -1,4 +1,4 @@
-"""Checkpoint/resume for inverse-rendering runs.
+"""Checkpoint/resume for progressive renders and inverse-rendering runs.
 
 Port of `pathtracer_tpu/utils/checkpoint.py`. A state is a nested
 structure of tuples and lists whose leaves are tensors or numbers. It is
@@ -7,6 +7,10 @@ order `jax.tree_util.tree_flatten` gives the same structure) and the
 structure as a string beside them. Saving is atomic (a temporary file,
 then `os.replace`); loading enforces the structure, so a checkpoint of
 another shape never loads with its leaves misassigned.
+
+A render's state crosses from the JAX package too: `render_state_from_jax`
+reads the checkpoint the JAX render CLI writes, and `load_render_state`
+takes either package's.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ import numpy as np
 import torch
 
 STRUCTURE_KEY = "__structure__"
+# the JAX render CLI's state, (ColorBuffer(pixels, frames), key, frame), as
+# `jax.tree_util` describes it in the checkpoint's __treedef__
+JAX_TREEDEF_KEY = "__treedef__"
+JAX_RENDER_TREEDEF = "PyTreeDef((CustomNode(namedtuple[ColorBuffer], [*, *]), *, *))"
 
 
 def _flatten(tree: Any) -> tuple[list, str]:
@@ -91,3 +99,41 @@ def latest_checkpoint(directory: str, prefix: str = "ckpt_") -> str | None:
         return None
     cands = sorted(f for f in os.listdir(directory) if f.startswith(prefix) and f.endswith(".npz"))
     return os.path.join(directory, cands[-1]) if cands else None
+
+
+def render_state_from_jax(path: str, like: tuple) -> tuple:
+    """Read a checkpoint of the JAX render CLI, `(ColorBuffer(pixels,
+    frames), key, frame)` with a uint32[2] key, into the port's render
+    state of the structure of `like` = (ColorBuffer, key, frame): the
+    buffer on like's device, the key as the port's int64 pair of uint32
+    words (ops/rng), the frame an int. Another structure, another pixel
+    shape or float dtype, or a key that is not uint32[2] raises ValueError."""
+    like_buf = like[0]
+    with np.load(path) as data:
+        if JAX_TREEDEF_KEY not in data.files:
+            raise ValueError(f"{path} holds no JAX tree structure")
+        treedef = json.loads(bytes(data[JAX_TREEDEF_KEY]).decode())
+        if treedef != JAX_RENDER_TREEDEF:
+            raise ValueError(f"{path} is not a JAX render checkpoint: {treedef}")
+        pixels, frames, key, frame = (data[f"leaf_{i}"] for i in range(4))
+    want = like_buf.pixels
+    if pixels.shape != tuple(want.shape) or torch.from_numpy(pixels).dtype != want.dtype:
+        raise ValueError(f"{path}: pixels {pixels.shape} {pixels.dtype}, expected {tuple(want.shape)} {want.dtype}")
+    if key.dtype != np.uint32 or key.shape != (2,):
+        raise ValueError(f"{path}: key {key.shape} {key.dtype}, expected uint32[2]")
+    buf = type(like_buf)(
+        torch.as_tensor(pixels, device=want.device),
+        torch.as_tensor(frames, dtype=like_buf.frames.dtype, device=like_buf.frames.device),
+    )
+    return buf, torch.as_tensor(key.astype(np.int64)), int(frame)
+
+
+def load_render_state(path: str, like: tuple) -> tuple:
+    """A render state (ColorBuffer, key, frame) from a checkpoint that the
+    port's render CLI or the JAX package's wrote."""
+    with np.load(path) as data:
+        jax_written = JAX_TREEDEF_KEY in data.files
+    if jax_written:
+        return render_state_from_jax(path, like)
+    buf, key, frame = load_checkpoint(path, like)
+    return type(like[0])(*buf), key, int(frame)

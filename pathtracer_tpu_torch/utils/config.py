@@ -1,11 +1,15 @@
 """Render configuration of the port's CLI.
 
-Port of `pathtracer_tpu/utils/config.py`, cut to the fields the CLI uses.
+Port of `pathtracer_tpu/utils/config.py`, with the fields the port's CLI
+uses: the device in place of the TPU execution fields, and the host
+surface's (checkpoints, metrics, profiler, preview, viewer). JSON round
+trips it for reproducible runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import torch
 
@@ -25,6 +29,12 @@ class RenderConfig:
     device: str = "cuda"  # as the CLI; the eager integrator on the CPU with "cpu"
     scene: str = "analytical"  # a family of models/families, or file:PATH
     occupancy: bool = False  # print the alive-lane fraction per bounce first
+    ckpt_dir: str | None = None  # checkpoint/resume directory
+    ckpt_every: int = 8  # frames between checkpoints
+    metrics: str | None = None  # per-frame metrics as JSON lines
+    profile: str | None = None  # torch.profiler Chrome trace directory
+    preview: bool = False  # ANSI repaint of the buffer each frame
+    serve: int | None = None  # live viewer's HTTP port (0: a free one)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -33,3 +43,13 @@ class RenderConfig:
     @property
     def quirk_flags(self) -> Quirks:
         return VERBATIM if self.quirks == "verbatim" else FIXED
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RenderConfig":
+        return cls(**json.loads(s))
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)

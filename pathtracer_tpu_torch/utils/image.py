@@ -1,15 +1,20 @@
-"""PNG write and read for render output, with the standard library only.
+"""PNG write and read for render output, and the terminal preview.
 
-Port of `pathtracer_tpu/utils/image.py` (the encoder and reader were numpy
-already); `save_render` gamma-encodes through `buffer.to_u8`.
+Port of `pathtracer_tpu/utils/image.py`. The encoder and reader need the
+standard library and numpy only; `save_render` writes through the native
+runtime (`utils/native`) where it loads, and through `buffer.to_u8` and
+`encode_png` otherwise, and says which. `ansi_preview` draws a buffer as
+24-bit-color half blocks.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 
 import numpy as np
+import torch
 
 from .buffer import to_numpy, to_u8
 
@@ -45,14 +50,68 @@ def write_png(path: str, rgba_u8: np.ndarray) -> None:
         f.write(encode_png(rgba_u8))
 
 
-def save_render(path: str, pixels, gamma: bool = True) -> None:
+def as_float32(pixels) -> np.ndarray:
+    """A host float32 array of a tensor on any device (cast on the device
+    before the copy) or of an array."""
+    if isinstance(pixels, torch.Tensor):
+        return pixels.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(pixels, np.float32)
+
+
+@functools.cache
+def native_runtime():
+    """(the native runtime module, None), or (None, why it did not load)."""
+    try:
+        from . import native
+    except ImportError as e:
+        return None, str(e)
+    return native, None
+
+
+def save_render(path: str, pixels, gamma: bool = True) -> str:
     """Save a linear [H, W, 4] buffer as PNG: ^0.4545 encode, or with
-    gamma=False linear * 255."""
+    gamma=False linear * 255. Returns the encoder that wrote it: "native",
+    or "numpy" with the reason the native runtime did not load."""
+    native, err = native_runtime()
+    if native is not None:
+        data = native.tonemap_encode_png(as_float32(pixels), gamma)
+        with open(path, "wb") as f:
+            f.write(data)
+        return "native"
     if gamma:
         u8 = to_u8(pixels)
     else:
         u8 = np.clip(to_numpy(pixels) * 255.0, 0, 255).astype(np.uint8)
     write_png(path, u8)
+    return f"numpy (native runtime unavailable: {err})"
+
+
+def ansi_preview(pixels, max_cols: int = 100, gamma: bool = True) -> str:
+    """A linear [H, W, 3|4] buffer as a 24-bit-color ANSI string: each
+    character cell shows two vertical pixels with the upper-half-block glyph
+    (foreground the top pixel, background the bottom one), box-filtered
+    down to at most `max_cols` columns."""
+    a = to_numpy(pixels)[..., :3]
+    if gamma:
+        a = np.power(np.maximum(a, 0.0), 0.4545)
+    a = np.clip(np.nan_to_num(a) * 255.0, 0.0, 255.0)
+    h, w = a.shape[:2]
+    cols = min(max_cols, w)
+    # a terminal cell is about twice as tall as wide: two pixels a cell
+    sx = sy = max(1, w // cols)
+    hh, ww = (h // (2 * sy)) * 2 * sy, (w // sx) * sx
+    if hh == 0 or ww == 0:
+        return ""
+    ds = a[:hh, :ww].reshape(hh // sy, sy, ww // sx, sx, 3).mean(axis=(1, 3)).astype(np.int32)
+    lines = []
+    for y in range(0, ds.shape[0] - 1, 2):
+        cells = []
+        for x in range(ds.shape[1]):
+            tr, tg, tb = ds[y, x]
+            br, bg, bb = ds[y + 1, x]
+            cells.append(f"\x1b[38;2;{tr};{tg};{tb}m\x1b[48;2;{br};{bg};{bb}m\u2580")
+        lines.append("".join(cells) + "\x1b[0m")
+    return "\n".join(lines)
 
 
 def read_png(path: str) -> np.ndarray:

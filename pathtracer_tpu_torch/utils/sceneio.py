@@ -1,6 +1,8 @@
-"""Scene descriptions: build a port scene from the JAX package's scene dict.
+"""Scene descriptions: JSON files of a scene's leaves, shared with the JAX
+package.
 
-`pathtracer_tpu/utils/sceneio.scene_to_dict(scene, family)` emits
+Port of `pathtracer_tpu/utils/sceneio.py`. `scene_to_dict(scene, family)`
+(the JAX package's and the port's give equal dicts for equal scenes) emits
 
     {"family": "analytical", "recursion_depth": 4,
      "params": {".sphere_radius": [1.0, 1.0], ...},
@@ -10,8 +12,11 @@
 whose keys are `jax.tree_util.keystr` paths into the scene's pytrees. The
 port's scene buffers are named by the same paths (`params.sphere_radius`),
 so `scene_from_dict` writes each value over the family default. This is
-how parameters cross from a JAX scene to a port scene, for every family
-("analytical", "sdf", "mesh", "bigmesh").
+how parameters cross between a JAX scene and a port scene, for every family
+("analytical", "sdf", "mesh", "bigmesh"): a file that `save_scene` of
+either package writes, `load_scene` of the other reads. The mesh families'
+topology is static structure (`STATIC` of their modules), the family
+default's, and no entry of a file.
 
 An optimizer's state crosses too: `invert_state_from_jax` reads the
 checkpoint a JAX `recover_demo` writes for either family
@@ -21,33 +26,82 @@ then the step), so a run started in JAX resumes in the port.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
 
-from ..models.families import make_family_scene
+from ..models.families import FAMILIES, make_family_scene, require_family
 from ..models.light import concat_lights, spherical_light
-from ..models.scene import Scene
+from ..models.scene import Scene, TreeModule
+
+SECTIONS = ("params", "lights", "camera")
+
+
+def _leaves(tree: TreeModule, static=(), prefix: str = "") -> dict:
+    """Buffer name -> tensor in field order (the JAX flatten order), the
+    top-level fields named in `static` left out."""
+    out = {}
+    for field in tree._tree_type._fields:
+        if field in static:
+            continue
+        child = getattr(tree, field)
+        if isinstance(child, TreeModule):
+            out.update(_leaves(child, prefix=f"{prefix}{field}."))
+        else:
+            out[prefix + field] = child
+    return out
+
+
+def _static(family: str, section: str) -> tuple:
+    return getattr(FAMILIES[family], "STATIC", ()) if section == "params" else ()
+
+
+def scene_to_dict(scene: Scene, family: str) -> dict:
+    """A scene's leaves (params, lights, camera) by JAX keystr path, as
+    Python numbers and lists of the values each tensor holds."""
+    require_family(family)
+    out = {"family": family, "recursion_depth": int(scene.recursion_depth)}
+    for section in SECTIONS:
+        out[section] = {"." + name: t.detach().cpu().tolist()
+                        for name, t in _leaves(getattr(scene, section), _static(family, section)).items()}
+    return out
+
+
+def save_scene(scene: Scene, path: str, family: str) -> None:
+    with open(path, "w") as f:
+        json.dump(scene_to_dict(scene, family), f, indent=1)
+
+
+def load_scene(path: str, dtype=torch.float32, recursion_depth: int | None = None, device=None) -> Scene:
+    """The scene a file describes (scene_from_dict), on `device`;
+    `recursion_depth`, where given, overrides the file's."""
+    with open(path) as f:
+        return scene_from_dict(json.load(f), device=device, dtype=dtype, recursion_depth=recursion_depth)
 
 
 def scene_from_dict(desc: dict, device=None, dtype=torch.float32,
                     recursion_depth: int | None = None) -> Scene:
     """The family's default scene with the description's leaves written
-    over it (a default light table has the dict's light count). Unknown
-    families (ValueError), paths and shape mismatches raise. The mesh
+    over it (a light table of another count than the default's starts as
+    placeholder lights). Unknown
+    families (ValueError), paths (KeyError; the mesh families' static
+    topology among them) and shape mismatches (ValueError) raise. The mesh
     families' topology is the family default's, as in the JAX package."""
     depth = recursion_depth if recursion_depth is not None else int(desc.get("recursion_depth", 4))
-    # The light count is the length of the dict's light leaves; the table
-    # starts as that many placeholder lights that the leaves overwrite.
-    n_lights = len(desc.get("lights", {}).get(".radius", [None]))
-    lights = concat_lights(*[
-        spherical_light((0.0, 0.0, 0.0), 1.0, (0.0, 0.0, 0.0), dtype=dtype, device=device)
-        for _ in range(n_lights)
-    ])
-    scene = make_family_scene(desc.get("family", "analytical"), dtype=dtype, recursion_depth=depth, device=device,
-                              lights=lights)
-    for section in ("params", "lights", "camera"):
+    family = desc.get("family", "analytical")
+    scene = make_family_scene(family, dtype=dtype, recursion_depth=depth, device=device)
+    n_lights = len(desc.get("lights", {}).get(".radius", [None] * scene.num_lights))
+    if n_lights != scene.num_lights:
+        # another light count: that many placeholder lights, which the
+        # dict's leaves overwrite
+        scene = scene.replace(lights=concat_lights(*[
+            spherical_light((0.0, 0.0, 0.0), 1.0, (0.0, 0.0, 0.0), dtype=dtype, device=device)
+            for _ in range(n_lights)
+        ]))
+    for section in SECTIONS:
         tree = getattr(scene, section)
-        known = dict(tree.named_buffers(remove_duplicate=False))
+        known = _leaves(tree, _static(family, section))
         for path, val in desc.get(section, {}).items():
             name = path.removeprefix(".")
             if name not in known:

@@ -53,8 +53,9 @@ def test_cli_renders_the_mesh_scenes_on_cpu(tmp_path, scene):
 
 
 def test_cli_refuses_unported_scenes(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--scene", "file:scene.json", "--device", "cpu", "--frames", "1", "-o", str(tmp_path / "x.png")])
+    with pytest.raises(FileNotFoundError):  # a scene file that is not there
+        cli.main(["--scene", f"file:{tmp_path / 'scene.json'}", "--device", "cpu", "--frames", "1",
+                  "-o", str(tmp_path / "x.png")])
     with pytest.raises(SystemExit):
         cli.main(["--scene", "teapot", "--device", "cpu", "--frames", "1", "-o", str(tmp_path / "x.png")])
 
