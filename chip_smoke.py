@@ -38,7 +38,8 @@ which raises on failure (non-zero exit):
 9. times (CUDA events, after a warm-up) at 1920x1080, depth 4, spp 1: one
    training step through the kernels, K2 alone, its record kernel and its
    adjoint kernel apart on one record buffer, and the
-   plain version's step and gradient; the record buffer's bytes, and each
+   plain version's step and gradient (one run each, no warm-up: ~10 and
+   ~17 s a run); the record buffer's bytes, and each
    kernel's registers, stack, spills, shared memory and blocks an SM;
 10. K1 with the SDF backend (K5) vs its plain version on the card, depth 4:
    320x240 at spp 1 and 2 VERBATIM and spp 1 FIXED, and 1920x1080; a
@@ -264,12 +265,37 @@ which raises on failure (non-zero exit):
    decoding to buffer.to_u8 of it; the host ms a frame with and without
    --serve and --preview, and of the native and numpy PNG encoders, the
    ANSI preview and the checkpoint.
+37. sharding (parallel/, sharding_phase): K1 over the pixel ranges of 2,
+   3 and 7 ranks (parallel/mesh.shard_ranges; 7 cuts K1's tiles of 256
+   and 1536 paths) at 1920x1080 on all four
+   backends and the Scatter demo's MEDIA instantiation (depth 6), each
+   range the single launch's pixels bit for bit, one launch a range and
+   nothing written outside; each of 2 ranges of a 320x240 frame against
+   the plain version over the same pixels at the image tolerance; K2's
+   gradients over 2 ranges summed within 1e-5 of the whole frame's
+   largest entry (analytical, SDF, mesh). Then two ranks on this card
+   (gloo, both on cuda:0; tools/rank_jobs spawns them, each with a time
+   limit): the sharded 1080p frame (render_frame_sharded_megakernel)
+   bit-equal to the single launch, one K1 launch a rank; the sharded
+   training step (make_train_step_sharded, kernel="megakernel") once at
+   1080p and 3 times at 256x192, the same loss on both ranks, one K1 and
+   one K2 launch a rank a step, the losses and leaves within 1e-5 of one
+   rank's;
+   run_demo_ckpt's drill at 32x16, 4 steps: rank 0 dies after step 2, the
+   survivor fails, the restart resumes to the uninterrupted loss bit for
+   bit; the render CLI with --mesh 2x1 under torch.distributed.run, 2
+   frames, its PNG the 1x1 run's byte for byte; what NCCL does with two
+   ranks on one card (one all-reduce; recorded, either way). The times,
+   beside the card's name and power limit: each rank's K1 over its half
+   alone, the all-reduce of the 1080p frame, the sharded frame against the
+   single launch, the sharded step against one rank's.
 
 The total seconds, with phase 25's, phase 26's, phases 27-29's, phases
-30-33's, phase 34's and phase 36's, are printed before the kernels line. Each K2 row
-of the kernels line lists its two kernels under "stages" (the record
-kernel and the adjoint kernel: their launches on the main path and their
-times apart).
+30-33's, phase 34's, phase 36's and phase 37's, are printed before the
+kernels line. Each K2 row of the kernels line lists its two kernels under
+"stages" (the record kernel and the adjoint kernel: their launches on the
+main path and their times apart); K1's and K2's rows hold phase 37's
+numbers under "pixel_range".
 
 Image tolerance (phases 3, 4, 10, 17, 19 and 27): quantile(|diff|, 0.999) < 1e-4 and
 mean(|diff|) < 1e-5, all values finite. The two sides draw the same
@@ -2078,6 +2104,221 @@ def host_surface_phase(torch, mk, cli, dev, card: str) -> None:
     print(f"  phase 36 {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 37: K1 over the ranges of this many ranks (parallel/mesh.shard_ranges;
+# at 1920x1080, 7 ranks' ranges start inside K1's tiles of 256 and 1536 paths)
+SHARD_RANKS = (2, 3, 7)
+# its plain-version checks run at this size (the plain SDF and big mesh
+# frames take seconds at 1080p), its drill at run_demo_ckpt's 32x16, 4
+# steps
+SHARD_PLAIN_W, SHARD_PLAIN_H = 320, 240
+DRILL_STEPS, DRILL_DIE = 4, 2
+# K2's range gradients summed against the whole frame's, over its largest entry
+SHARD_GRAD_RTOL = 1e-5
+# the two-rank steps' losses and leaves against one rank's
+SHARD_LEAF_RTOL = 1e-5
+
+
+def sharding_phase(torch, mk, cli, rng, cuda_ms, dev, card: str) -> dict:
+    """Phase 37: K1 over pixel ranges on every backend (and the Scatter
+    demo's MEDIA instantiation), bit-equal to the single launch and held to
+    the plain version over the same pixels; K2's range gradients summed
+    against the whole frame's; then two ranks on this card (gloo, both on
+    cuda:0, spawned with time limits by tools/rank_jobs): the sharded frame
+    bit-equal to the single launch with one K1 launch a rank, the sharded
+    training step against one rank's, run_demo_ckpt's kill-and-restart
+    drill, the render CLI with --mesh 2x1 under torch.distributed.run
+    against the 1x1 PNG, what NCCL does with two ranks on one card; and the
+    times. Raises on any failure; returns the numbers of the kernels line's
+    K1 and K2 entries."""
+    from pathtracer_tpu_torch.integrator.tracer import VERBATIM
+    from pathtracer_tpu_torch.models import families
+    from pathtracer_tpu_torch.parallel import mesh as M
+    from pathtracer_tpu_torch.tools import rank_jobs
+
+    print(f"== 37. sharding: K1 and K2 over pixel ranges, {MAIN_W}x{MAIN_H}; two ranks on this card")
+    t_phase = time.perf_counter()
+    n = MAIN_W * MAIN_H
+    scenes = {f: families.make_family_scene(f, recursion_depth=MAIN_DEPTH, device=dev)
+              for f in ("analytical", "sdf", "mesh", "bigmesh")}
+    scenes["media"] = media_scene(torch, families, "analytical", dev, MEDIA_MAIN)
+    key = rng.prng_key(371)
+    for name, scene in scenes.items():
+        whole = mk.render_frame_megakernel(scene, key, MAIN_W, MAIN_H).clone().reshape(-1, 4)
+        for ranks in SHARD_RANKS:
+            total = torch.zeros_like(whole)
+            reset_counts(mk)
+            for begin, count in M.shard_ranges(n, ranks):
+                part = mk.render_frame_megakernel(scene, key, MAIN_W, MAIN_H, pixels=(begin, count)).reshape(-1, 4)
+                if not (torch.equal(part[begin:begin + count], whole[begin:begin + count])
+                        and not part[:begin].any() and not part[begin + count:].any()):
+                    raise AssertionError(f"{name}: K1 over ({begin}, {count}) is not the single launch's pixels")
+                total += part
+            launches = read_counts(mk)["launches"]
+            if not torch.equal(total, whole) or launches != ranks:
+                raise AssertionError(f"{name}: {ranks} ranges ({launches} launches) do not sum to the single launch")
+        print(f"  {name}{' (Scatter, depth 6)' if name == 'media' else ''}: K1 over the ranges of "
+              f"{' and '.join(map(str, SHARD_RANKS))} ranks bit-equal to the single launch, one launch a range, "
+              "nothing written outside")
+    w, h = SHARD_PLAIN_W, SHARD_PLAIN_H
+    for name, scene in scenes.items():
+        for i, (begin, count) in enumerate(M.shard_ranges(w * h, 2)):
+            k = rng.prng_key(372 + i)
+            img = mk.render_frame_megakernel(scene, k, w, h, pixels=(begin, count)).reshape(-1, 4)[begin:begin + count]
+            ref = mk.render_frame_reference(scene, k, w, h, pixels=(begin, count)).reshape(-1, 4)[begin:begin + count]
+            check_diff(f"{name} range ({begin}, {count}) of {w}x{h} vs its plain version", image_diff(img.cpu(),
+                                                                                                    ref.cpu()))
+    ct = torch.from_numpy(np.random.default_rng(37).standard_normal((MAIN_H, MAIN_W, 4)).astype(np.float32)).to(dev)
+    grad_rel = 0.0
+    for name in ("analytical", "sdf", "mesh"):
+        whole = mk.launch_backward(mk.prepare_launch(scenes[name], key, MAIN_W, MAIN_H, 1, VERBATIM), ct)
+        parts = [mk.launch_backward(mk.prepare_launch(scenes[name], key, MAIN_W, MAIN_H, 1, VERBATIM, r), ct)
+                 for r in M.shard_ranges(n, 2)]
+        rel = float((parts[0] + parts[1] - whole).abs().max() / whole.abs().max())
+        grad_rel = max(grad_rel, rel)
+        print(f"  {name}: K2 over 2 ranges summed, {rel:.3e} of the whole frame's largest entry off it")
+        if not rel <= SHARD_GRAD_RTOL:
+            raise AssertionError(f"{name}: the range gradients do not sum to the frame's (rel {rel})")
+    del scenes, ct
+
+    with tempfile.TemporaryDirectory(prefix="sharding_") as tmp:
+        dirs = {name: os.path.join(tmp, name) for name in ("pair", "drill", "nccl", "cli")}
+        for d in dirs.values():
+            os.makedirs(d)
+        ref_ckpt, drill_ckpt = os.path.join(tmp, "ref_ckpt"), os.path.join(tmp, "drill_ckpt")
+        on_card = dict(device="cuda:0", backend="gloo")
+        t0 = time.perf_counter()
+        runs = rank_jobs.finish(rank_jobs.start(dirs["pair"], 2, "parts", **on_card, parts={
+            "frame": ["card_frame", dict(width=MAIN_W, height=MAIN_H, depth=MAIN_DEPTH)],
+            "step": ["card_step", dict(width=MAIN_W, height=MAIN_H, small=[TRAIN_W, TRAIN_H])],
+            "drill": ["drill", dict(steps=DRILL_STEPS, ckpt_dir=ref_ckpt)],
+        }), timeout=300)
+        for r, (rc, out, err) in enumerate(runs):
+            print("  " + "\n  ".join(line for line in out.splitlines() if "backend" in line))
+            if rc != 0:
+                raise AssertionError(f"two ranks on the card: rank {r} failed ({rc}):\n{out}\n{err[-4000:]}")
+        pair = [rank_jobs.result(dirs["pair"], "parts", r) for r in range(2)]
+        print(f"  two ranks (gloo, both on cuda:0): frame, step and drill in {time.perf_counter() - t0:.1f} s")
+
+        # then the drill's death, NCCL's try, and the CLI over two ranks, side by side
+        died = rank_jobs.start(dirs["drill"], 2, "drill", **on_card, steps=DRILL_STEPS, ckpt_dir=drill_ckpt,
+                               die_after=DRILL_DIE)
+        nccl = rank_jobs.start(dirs["nccl"], 2, "nccl_probe", device="cuda:0", backend="nccl", group_timeout=30)
+        png_mesh, png_one = os.path.join(dirs["cli"], "mesh.png"), os.path.join(dirs["cli"], "one.png")
+        size = ["--device", "cuda", "--width", str(MAIN_W), "--height", str(MAIN_H), "--depth", str(MAIN_DEPTH),
+                "--frames", "2"]
+        torchrun = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                     "--nproc-per-node", "2", "-m", "pathtracer_tpu_torch.app.render", *size,
+                                     "--mesh", "2x1", "-o", png_mesh], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=rank_jobs.child_env(), cwd=ROOT)
+        t0 = time.perf_counter()
+        died = rank_jobs.finish(died, timeout=180)
+        died_s = time.perf_counter() - t0
+        left = sorted(os.listdir(drill_ckpt))
+        restart = rank_jobs.start(dirs["drill"], 2, "drill", **on_card, steps=DRILL_STEPS, ckpt_dir=drill_ckpt)
+        cfg, _ = cli.parse_args([*size, "-o", png_one])
+        cli.render(cfg, png_one, log=lambda s: None)
+        cli_run = rank_jobs.finish([torchrun], timeout=240)[0]
+        nccl = rank_jobs.finish(nccl, timeout=90)
+        restart = rank_jobs.finish(restart, timeout=180)
+
+        # the sharded frame
+        frame_scene = families.make_family_scene("analytical", recursion_depth=MAIN_DEPTH, device=dev)
+        single = mk.render_frame_megakernel(frame_scene, rng.prng_key(5), MAIN_W, MAIN_H).cpu()
+        frames = [p["frame"] for p in pair]
+        for r, f in enumerate(frames):
+            if not torch.equal(f["frame"], single) or f["launches"] != 1:
+                raise AssertionError(f"rank {r}: the sharded frame is not the single launch's "
+                                     f"({f['launches']} K1 launches)")
+        print(f"  the sharded {MAIN_W}x{MAIN_H} frame on both ranks: the single launch's bit for bit; "
+              f"K1 launches a rank: {[f['launches'] for f in frames]}; ranges {[f['pixels'] for f in frames]}")
+
+        # the sharded step against one rank's
+        steps = [p["step"] for p in pair]
+        one_mesh = M.make_mesh(1, 1)
+        one_big = rank_jobs.train_steps(one_mesh, "megakernel", MAIN_W, MAIN_H, 1, depth=MAIN_DEPTH, steps=1,
+                                        device=dev)
+        one_small = rank_jobs.train_steps(one_mesh, "megakernel", TRAIN_W, TRAIN_H, 1, depth=MAIN_DEPTH, steps=3,
+                                          device=dev)
+        leaf_rel = loss_rel = 0.0
+        for label, got, want in ((f"{MAIN_W}x{MAIN_H}, 1 step", "big", one_big),
+                                 (f"{TRAIN_W}x{TRAIN_H}, 3 steps", "small", one_small)):
+            losses = [s[got]["losses"] for s in steps]
+            if losses[0] != losses[1]:
+                raise AssertionError(f"{label}: the ranks' losses differ: {losses}")
+            for s in steps:
+                for a, b in zip(s[got]["leaves"], want["leaves"]):
+                    b = b.cpu()
+                    leaf_rel = max(leaf_rel, float(((a - b).abs() / b.abs().clamp_min(1e-7)).max()))
+            rel = max(abs(a / b - 1.0) for a, b in zip(losses[0], want["losses"]))
+            loss_rel = max(loss_rel, rel)
+            print(f"  sharded step {label}: losses {losses[0]} on both ranks, one rank's {want['losses']} "
+                  f"(rel {rel:.2e}); K1 and K2 launches a rank in the 1080p step "
+                  f"{[s['launches'] for s in steps] if got == 'big' else '-'}")
+        one_each = all(s["launches"] == (1, 1) for s in steps)
+        if not (leaf_rel <= SHARD_LEAF_RTOL and loss_rel <= SHARD_LEAF_RTOL and one_each):
+            raise AssertionError(f"the sharded step's losses are {loss_rel:.2e} and its leaves {leaf_rel:.2e} off "
+                                 f"one rank's (rtol {SHARD_LEAF_RTOL}) or a rank's step was not 1 K1 + 1 K2: "
+                                 f"{[s['launches'] for s in steps]}")
+        print(f"  the two-rank losses within {loss_rel:.2e} and leaves within {leaf_rel:.2e} of one rank's")
+
+        # the drill
+        ref_losses = [p["drill"]["loss"] for p in pair]
+        (rc0, out0, _), (rc1, _, err1) = died
+        print(f"  drill: rank 0 exited {rc0} after step {DRILL_DIE}, rank 1 {rc1} ({died_s:.1f} s for the pair; "
+              f"rank 1's last error line: {(err1.strip().splitlines() or ['-'])[-1][:160]}); left {left}")
+        if rc0 != 17 or rc1 == 0 or f"mh_{DRILL_DIE:04d}.npz" not in left or f"mh_{DRILL_DIE + 1:04d}.npz" in left:
+            raise AssertionError("the drill's death did not go as it should")
+        for r, (rc, out, err) in enumerate(restart):
+            if rc != 0:
+                raise AssertionError(f"drill restart rank {r} failed ({rc}):\n{out}\n{err[-4000:]}")
+        restart_losses = [rank_jobs.result(dirs["drill"], "drill", r)["loss"] for r in range(2)]
+        resumed = "resumed from" in restart[0][1] and f"at step {DRILL_DIE}" in restart[0][1]
+        print(f"  restart: resumed at step {DRILL_DIE}: {resumed}; final losses {restart_losses}, uninterrupted "
+              f"{ref_losses}")
+        if not resumed or restart_losses != ref_losses or ref_losses[0] != ref_losses[1]:
+            raise AssertionError("the restarted drill is not the uninterrupted run bit for bit")
+
+        # the CLI over two ranks, and NCCL
+        rc, out, err = cli_run
+        if rc != 0:
+            raise AssertionError(f"the render CLI --mesh 2x1 failed ({rc}):\n{out}\n{err[-4000:]}")
+        same_png = Path(png_mesh).read_bytes() == Path(png_one).read_bytes()
+        print("  render CLI --mesh 2x1 under torch.distributed.run, 2 frames: "
+              + "; ".join(line for line in out.splitlines() if "backend" in line or "wrote" in line)
+              + f"; its PNG the 1x1 run's byte for byte: {same_png}")
+        if not same_png or out.count("wrote ") != 1:
+            raise AssertionError("the --mesh 2x1 PNG differs from the 1x1 run's, or more than rank 0 wrote")
+        nccl_codes = [r[0] for r in nccl]
+        nccl_said = [next((line for line in r[2].splitlines()[::-1] if "Duplicate GPU" in line), None)
+                     or next((line for line in r[2].splitlines()[::-1] if "Error" in line and "Warning" not in line),
+                             "-") for r in nccl]
+        nccl_said = [line.strip()[:240] for line in nccl_said]
+        nccl_note = ("ran: " + str([rank_jobs.result(dirs["nccl"], "nccl_probe", r)["sum"] for r in range(2)])
+                     if nccl_codes == [0, 0] else f"refused: exit codes {nccl_codes}; {nccl_said}")
+        print(f"  NCCL with two ranks on cuda:0 (one all-reduce): {nccl_note}")
+
+    # the times
+    single_ms = cuda_ms(lambda: mk.render_frame_megakernel(frame_scene, rng.prng_key(5), MAIN_W, MAIN_H), 10)
+    step, train, opt, target, _ = rank_jobs.trainer(M.make_mesh(1, 1), "megakernel", MAIN_W, MAIN_H, 1, MAIN_DEPTH, dev)
+    step(train, opt, target, rng.prng_key(7))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(train, opt, target, rng.prng_key(7))
+    torch.cuda.synchronize()
+    single_step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    times = dict(rank_launch_ms=[f["launch_ms"] for f in frames], all_reduce_ms=[f["all_reduce_ms"] for f in frames],
+                 sharded_frame_ms=[f["frame_ms"] for f in frames], single_frame_ms=single_ms,
+                 sharded_step_ms=[s["step_ms"] for s in steps], single_step_ms=single_step_ms)
+    print(f"  K1 over each rank's half, alone: {times['rank_launch_ms']} ms; all-reduce of the {MAIN_W}x{MAIN_H}x4 "
+          f"frame (gloo, host copies): {times['all_reduce_ms']} ms; the sharded frame on both ranks at once "
+          f"{times['sharded_frame_ms']} ms against the single launch's wrapper {single_ms:.3f} ms; the sharded "
+          f"step {times['sharded_step_ms']} ms against one rank's {single_step_ms:.3f} ms (host clock) ({card})")
+    print(f"  phase 37 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(times, ranges_bit_equal=list(SHARD_RANKS), k2_range_sum_rel=grad_rel, two_rank_loss_rel=loss_rel,
+                two_rank_leaf_rel=leaf_rel, nccl=nccl_note)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2286,8 +2527,8 @@ def main(argv=None) -> int:
     if need > 0.6 * total_bytes:
         raise AssertionError(f"the plain version needs ~{need / 2**30:.1f} GiB at {MAIN_W}x{MAIN_H}")
     plain_bwd_ms = cuda_ms(lambda: mk.render_grad_reference(
-        bwd_launch.sv, main_scene, key, ct, MAIN_W, MAIN_H), 2)
-    plain_step_ms = cuda_ms(trainer("eager", true_scene, start_scene, "analytical"), 2)
+        bwd_launch.sv, main_scene, key, ct, MAIN_W, MAIN_H), 1, warmup=0)
+    plain_step_ms = cuda_ms(trainer("eager", true_scene, start_scene, "analytical"), 1, warmup=0)
     bwd_bound, bwd_bound_by = bound(main_segments, MAIN_W * MAIN_H, n_sv * 8 + 16 + MAIN_W * MAIN_H * 16, K2_OPS)
     print(f"  training step: kernels {step_ms:.3f} ms, plain {plain_step_ms:.3f} ms ({card})")
     print(f"  K2 launch alone {bwd_ms:.3f} ms, plain gradient (eager forward + autograd) {plain_bwd_ms:.3f} ms, "
@@ -2524,17 +2765,21 @@ def main(argv=None) -> int:
     step_pair_phase(torch, inverse, rng, dev, card, args.other)
     t36 = time.perf_counter()
     host_surface_phase(torch, mk, cli, dev, card)
+    t37 = time.perf_counter()
+    sharding = sharding_phase(torch, mk, cli, rng, cuda_ms, dev, card)
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
         replaces="pathtracer_tpu/ops/megakernel.py:1605", launches=launches,
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=fwd_bound, bound_by=fwd_bound_by,
-        library_ms=None,
+        library_ms=None, pixel_range={k: sharding[k] for k in (
+            "ranges_bit_equal", "rank_launch_ms", "all_reduce_ms", "sharded_frame_ms", "single_frame_ms")},
     ), dict(
         name="megakernel_bwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_bwd.cu",
         replaces="pathtracer_tpu/ops/megakernel.py:1771", launches=train_launches[1],
         max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_bound_by,
-        library_ms=None, stages=stage_rows(bwd_split, train_launches[2:]),
+        library_ms=None, stages=stage_rows(bwd_split, train_launches[2:]), pixel_range={k: sharding[k] for k in (
+            "k2_range_sum_rel", "two_rank_loss_rel", "two_rank_leaf_rel", "sharded_step_ms", "single_step_ms")},
     ), dict(
         name="megakernel_fwd_sdf", route="cuda", source="pathtracer_tpu_torch/csrc/sdf.cuh",
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:172", launches=sdf_counts[1],
@@ -2553,7 +2798,7 @@ def main(argv=None) -> int:
     ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row, *media_rows, *media_bwd_rows]
     print(f"== total {time.perf_counter() - started:.1f} s (phase 25 {t26 - t25:.1f} s, phase 26 {t27 - t26:.1f} s, "
           f"phases 27-29 {t30 - t27:.1f} s, phases 30-33 {t34 - t30:.1f} s, phase 34 {t35 - t34:.1f} s, "
-          f"phase 36 {time.perf_counter() - t36:.1f} s)")
+          f"phase 36 {t37 - t36:.1f} s, phase 37 {time.perf_counter() - t37:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """pathtracer_tpu_torch: the PyTorch and CUDA port of pathtracer_tpu.
 
 Eager PyTorch modules that mirror the JAX package's layout and names
-(`ops/`, `models/`, `integrator/`, `utils/`, `app/`), held to it image for
+(`ops/`, `models/`, `integrator/`, `utils/`, `app/`, `parallel/`), held to it image for
 image and gradient for gradient, and the hand-written CUDA kernels of
 `csrc/` for an NVIDIA Hopper card. All four scene families render on the
 card, with or without a participating medium: K1 renders one progressive
@@ -9,9 +9,10 @@ frame a launch with the scene's backend (analytical; K5, the sphere-traced
 SDF; K7, the small mesh; K8, the big mesh); K2 gives a frame's gradient
 with respect to the packed scene for the analytical, SDF and mesh
 families; K3 counts the bounces each path entered, K4 draws the in-kernel
-uniform stream, K6 counts the SDF march's trips. On the CPU the same entry
-points run the eager integrator. The package imports torch and numpy,
-never JAX.
+uniform stream, K6 counts the SDF march's trips. K1 and K2 take a range of
+the frame's pixels, which `parallel/` gives each rank of a
+torch.distributed process group. On the CPU the same entry points run the
+eager integrator. The package imports torch and numpy, never JAX.
 
 This module is the prelude: one flat namespace of the public API, under
 the JAX package's names where the port has them, and the port's kernel

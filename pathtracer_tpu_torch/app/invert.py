@@ -11,11 +11,20 @@ the backward megakernel K2, with the scene's backend; with `--device cpu`
 it is the eager integrator. A CUDA device that is not there is an error,
 never a move to the CPU.
 
+`--mesh TILESxSPP` shards every render over the ranks of a process group
+(`integrator/inverse.recover_demo(mesh=)`), run under `python -m
+torch.distributed.run --standalone --nproc-per-node N`, N = TILES x SPP:
+each rank renders its range of the pixels (on the card K1 forward and K2
+backward over it), the gradients and the loss are summed over the ranks,
+and rank 0 alone prints, writes the checkpoints and the report. A mesh
+that is not the world size raises before the first step.
+
 Usage:
   python -m pathtracer_tpu_torch.app.invert                     # the card
   python -m pathtracer_tpu_torch.app.invert --scene sdf         # geometry, on the card
   python -m pathtracer_tpu_torch.app.invert --device cpu --width 32 --height 16 --steps 3
   python -m pathtracer_tpu_torch.app.invert --ckpt-dir /tmp/inv  # checkpoint + resume
+  python -m torch.distributed.run --standalone --nproc-per-node 2 -m pathtracer_tpu_torch.app.invert --mesh 2x1
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 
 from ..integrator.inverse import DEMO_SELECTS, KERNELS, recover_demo
 from ..ops import rng
+from ..parallel import mesh as sharding
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -46,6 +56,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda | cuda:N | cpu")
     ap.add_argument("--json-out", default=None, help="write the recovery report as JSON to this path")
+    ap.add_argument("--mesh", default=None, metavar="TILESxSPP",
+                    help="shard every render over a mesh of ranks, e.g. 2x1 (under torch.distributed.run)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the collectives' backend (default: NCCL when each rank owns a card, else gloo)")
     return ap.parse_args(argv)
 
 
@@ -53,11 +67,22 @@ def main(argv=None, log=print) -> int:
     args = parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: CUDA is not available")
+    device, mesh = args.device, None
+    tiles, spp = sharding.parse_mesh(args.mesh) if args.mesh else (1, 1)
+    if tiles * spp > 1:
+        from ..parallel.launch import initialize
+
+        device = initialize(backend=args.backend, device=args.device, log=log)
+        mesh = sharding.make_mesh(tiles, spp)
     report = recover_demo(
         key=rng.prng_key(args.seed), scene=args.scene, width=args.width, height=args.height, steps=args.steps,
-        spp=args.spp, lr=args.lr, kernel=args.kernel, ckpt_dir=args.ckpt_dir,
-        recursion_depth=args.depth, device=args.device, verbose=True,
+        spp=args.spp, lr=args.lr, kernel=args.kernel, mesh=mesh, ckpt_dir=args.ckpt_dir,
+        recursion_depth=args.depth, device=device, verbose=True,
     )
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    if mesh is not None and mesh.rank != 0:
+        return 0
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump({

@@ -2,18 +2,27 @@
 // with and without the medium (megakernel_fwd.cuh holds the template, its
 // design and what bounds it). The SDF backend's are megakernel_sdf.cu's, a
 // library built for each scene's primitive counts; the small mesh's are
-// megakernel_mesh.cu's, a library built without FMA contraction.
+// megakernel_mesh.cu's, a library built without FMA contraction. Every
+// entry point takes a pixel range [p_begin, p_begin + p_count) of the
+// frame, the whole frame (0, W * H) or a rank's share of it, and writes
+// only its pixels.
 
 #include "megakernel_fwd.cuh"
 
-// K3's entry points, one per backend: one frame, and the bounces each
-// sample's path entered alive written to `entered` (int32 [spp, H, W]); with a
-// null `entered` the launch is K1's. 0 = success, else a cudaError_t.
+// Exported by the libraries whose K1 and K3 entry points take the pixel
+// range, which tools that launch another tree's libraries ask for.
+extern "C" int pt_forward_takes_range() { return 1; }
+
+// K3's entry points, one per backend: one frame's pixel range, and the
+// bounces each sample's path entered alive written to `entered` (int32
+// [spp, H, W]) there; with a null `entered` the launch is K1's. 0 =
+// success, else a cudaError_t.
 extern "C" int pt_render_forward_occupancy(const float* sv, int n_sv, const uint32_t* keys, float* out, int* entered,
                                            int width, int height, int spp, int depth, int n_lights, int n_materials,
-                                           int flags, void* stream) {
+                                           int flags, int p_begin, int p_count, void* stream) {
   const pt::SceneView s = pt::analytical_view(nullptr, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
-  return pt::launch_forward<pt::Analytical>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
+  return pt::launch_forward<pt::Analytical>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, p_begin,
+                                            p_count, s, stream);
 }
 
 // The big mesh scene with its tables on the card: coef [n_chunks * 128, 16],
@@ -21,24 +30,27 @@ extern "C" int pt_render_forward_occupancy(const float* sv, int n_sv, const uint
 extern "C" int pt_render_forward_occupancy_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
                                                    int* entered, int width, int height, int spp, int depth,
                                                    int n_lights, int n_materials, int flags, const float* coef,
-                                                   const float* attr, const float* aabb, int n_chunks, void* stream) {
+                                                   const float* attr, const float* aabb, int n_chunks, int p_begin,
+                                                   int p_count, void* stream) {
   const pt::SceneView s = pt::bigmesh_view(nullptr, n_lights, n_materials, coef, attr, aabb, n_chunks);
-  return pt::launch_forward<pt::BigMesh>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
+  return pt::launch_forward<pt::BigMesh>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, p_begin,
+                                         p_count, s, stream);
 }
 
 // K1's entry points: K3's arguments without `entered`.
 extern "C" int pt_render_forward(const float* sv, int n_sv, const uint32_t* keys, float* out, int width, int height,
-                                 int spp, int depth, int n_lights, int n_materials, int flags, void* stream) {
+                                 int spp, int depth, int n_lights, int n_materials, int flags, int p_begin,
+                                 int p_count, void* stream) {
   return pt_render_forward_occupancy(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights, n_materials,
-                                     flags, stream);
+                                     flags, p_begin, p_count, stream);
 }
 
 extern "C" int pt_render_forward_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                          int height, int spp, int depth, int n_lights, int n_materials, int flags,
                                          const float* coef, const float* attr, const float* aabb, int n_chunks,
-                                         void* stream) {
+                                         int p_begin, int p_count, void* stream) {
   return pt_render_forward_occupancy_bigmesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
-                                             n_materials, flags, coef, attr, aabb, n_chunks, stream);
+                                             n_materials, flags, coef, attr, aabb, n_chunks, p_begin, p_count, stream);
 }
 
 // The media instantiation's entry points, K3's and K1's for each backend:
@@ -46,35 +58,36 @@ extern "C" int pt_render_forward_bigmesh(const float* sv, int n_sv, const uint32
 // material records hold 26 scalars.
 extern "C" int pt_render_forward_occupancy_media(const float* sv, int n_sv, const uint32_t* keys, float* out,
                                                  int* entered, int width, int height, int spp, int depth, int n_lights,
-                                                 int n_materials, int flags, void* stream) {
+                                                 int n_materials, int flags, int p_begin, int p_count, void* stream) {
   const pt::SceneView s = pt::analytical_view(nullptr, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
-  return pt::launch_forward<pt::Analytical, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s,
-                                                  stream);
+  return pt::launch_forward<pt::Analytical, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags,
+                                                  p_begin, p_count, s, stream);
 }
 
 extern "C" int pt_render_forward_occupancy_media_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
                                                          int* entered, int width, int height, int spp, int depth,
                                                          int n_lights, int n_materials, int flags, const float* coef,
                                                          const float* attr, const float* aabb, int n_chunks,
-                                                         void* stream) {
+                                                         int p_begin, int p_count, void* stream) {
   const pt::SceneView s = pt::bigmesh_view(nullptr, n_lights, n_materials, coef, attr, aabb, n_chunks);
-  return pt::launch_forward<pt::BigMesh, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s,
-                                               stream);
+  return pt::launch_forward<pt::BigMesh, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags,
+                                               p_begin, p_count, s, stream);
 }
 
 extern "C" int pt_render_forward_media(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                        int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                       void* stream) {
+                                       int p_begin, int p_count, void* stream) {
   return pt_render_forward_occupancy_media(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
-                                           n_materials, flags, stream);
+                                           n_materials, flags, p_begin, p_count, stream);
 }
 
 extern "C" int pt_render_forward_media_bigmesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                                int height, int spp, int depth, int n_lights, int n_materials,
                                                int flags, const float* coef, const float* attr, const float* aabb,
-                                               int n_chunks, void* stream) {
+                                               int n_chunks, int p_begin, int p_count, void* stream) {
   return pt_render_forward_occupancy_media_bigmesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
-                                                   n_materials, flags, coef, attr, aabb, n_chunks, stream);
+                                                   n_materials, flags, coef, attr, aabb, n_chunks, p_begin, p_count,
+                                                   stream);
 }
 
 // The resources of K1's instantiation (K3's with `count`, MEDIA with

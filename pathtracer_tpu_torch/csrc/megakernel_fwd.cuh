@@ -194,24 +194,31 @@ __device__ __forceinline__ int compact(Tile<MEDIA, P>& t, int first, int second)
   return na + nb;
 }
 
-// The compacted loop of one block: its tile's P paths, for each sample in
-// turn, level by level. At bounce d the block lists its live paths and runs
-// their segments, thread j taking entry j (and j + T, ...), then lists the
+// The compacted loop of one block: its tile's P paths of the launch's
+// pixel range [p_begin, p_end), for each sample in turn, level by level.
+// At bounce d the block lists its live paths and runs their segments,
+// thread j taking entry j (and j + T, ...), then lists the
 // paths to shade, the MEDIA instantiation's scatter points before its
 // surfaces, so that at most one warp mixes the two, and runs their shades.
 // A dead path waits in shared memory; after each sample the block adds
 // its paths' radiance to their pixels in the frame (and with COUNT writes
-// the bounces they entered), and at the end divides by the samples.
+// the bounces they entered), and at the end divides by the samples. A
+// block's tile starts at p_begin + blockIdx.x * P, anywhere in the frame;
+// its places past p_end start dead, and no pixel outside the range is
+// written. The random numbers stay those of the global pixel p and the
+// frame's n, so a range draws what the whole frame draws there.
 template <class B, bool COUNT, bool MEDIA, int T, int P>
 __device__ __forceinline__ void render_tile(const SceneView& s, Tile<MEDIA, P>& t, const uint32_t* __restrict__ keys,
                                             float* __restrict__ out, int* __restrict__ entered, int width, int height,
-                                            int spp, int depth, int flags) {
+                                            int spp, int depth, int flags, int p_begin, int p_end) {
   static_assert(T % 32 == 0 && P % T == 0, "a tile is whole rounds of whole warps");
   const int n = width * height;
-  const int p0 = blockIdx.x * P;
+  const int p0 = p_begin + blockIdx.x * P;
   for (int k = 0; k < spp; ++k) {
     const uint32_t* kk = keys + 4 * k;  // (kc0, kc1, kb0, kb1) of sample k
-    for (int i = threadIdx.x; i < P; i += T) start_tile_path(s, t, i, p0 + i, n, width, height, flags, kk[0], kk[1]);
+    for (int i = threadIdx.x; i < P; i += T) {
+      start_tile_path(s, t, i, p0 + i, p_end, width, height, flags, kk[0], kk[1]);
+    }
     for (int d = 0; d < depth; ++d) {
       const int live = compact<T>(t, LIVE, -1);
       if (live == 0) break;
@@ -226,13 +233,13 @@ __device__ __forceinline__ void render_tile(const SceneView& s, Tile<MEDIA, P>& 
       }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < P && p0 + i < n; i += T) {
+    for (int i = threadIdx.x; i < P && p0 + i < p_end; i += T) {
       end_tile_sample(t, i, k, out + 4 * (p0 + i));
       if constexpr (COUNT) entered[k * n + p0 + i] = t.entered[i];
     }
   }
   if (spp > 1) {
-    for (int i = threadIdx.x; i < P && p0 + i < n; i += T) {
+    for (int i = threadIdx.x; i < P && p0 + i < p_end; i += T) {
       float4& o = reinterpret_cast<float4*>(out)[p0 + i];
       const V3 mean = v3(o.x, o.y, o.z) / (float)spp;
       o = make_float4(mean.x, mean.y, mean.z, 1.0f);
@@ -244,7 +251,7 @@ template <class B, bool COUNT, bool MEDIA>
 __global__ void __launch_bounds__(BLOCK_THREADS<B>)
     render_forward_kernel(const float* __restrict__ sv_global, int n_sv, const uint32_t* __restrict__ keys,
                           float* __restrict__ out, int* __restrict__ entered, int width, int height, int spp,
-                          int depth, int flags, SceneView s) {
+                          int depth, int flags, int p_begin, int p_end, SceneView s) {
   extern __shared__ __align__(16) float sv[];
   for (int i = threadIdx.x; i < n_sv; i += blockDim.x) sv[i] = sv_global[i];
   // The small mesh's triangle table beside the packed vector; the other
@@ -260,11 +267,12 @@ __global__ void __launch_bounds__(BLOCK_THREADS<B>)
   if constexpr (COMPACTED<B>) {
     using T = Tile<MEDIA, TILE_PATHS<B>>;
     T& t = *reinterpret_cast<T*>(reinterpret_cast<char*>(sv) + tile_offset(n_sv, s.n_tris));
-    render_tile<B, COUNT, MEDIA, BLOCK_THREADS<B>>(s, t, keys, out, entered, width, height, spp, depth, flags);
-  } else {  // one thread a pixel, its samples in turn
+    render_tile<B, COUNT, MEDIA, BLOCK_THREADS<B>>(s, t, keys, out, entered, width, height, spp, depth, flags,
+                                                   p_begin, p_end);
+  } else {  // one thread a pixel of the range, its samples in turn
     const int n = width * height;
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= n) return;
+    const int p = p_begin + blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= p_end) return;
     V3 sum = splat3(0.0f);
     for (int k = 0; k < spp; ++k) {
       const uint32_t* kk = keys + 4 * k;
@@ -278,13 +286,18 @@ __global__ void __launch_bounds__(BLOCK_THREADS<B>)
   }
 }
 
-// One frame on `stream` through K1's (K3's with COUNT) instantiation: a
-// block a tile, or a block of THREADS pixels; `s` is the scene's structure
-// (its sv and triangle table are set to the block's copies in the kernel).
-// Returns cudaGetLastError().
+// One frame's pixels [p_begin, p_begin + p_count) on `stream` through K1's
+// (K3's with COUNT) instantiation: a block a tile, or a block of THREADS
+// pixels, from p_begin on; the other pixels of `out` (and `entered`) are
+// not written. `s` is the scene's structure (its sv and triangle table are
+// set to the block's copies in the kernel). A range outside the frame is
+// cudaErrorInvalidValue, an empty one launches nothing. Returns
+// cudaGetLastError().
 template <class B, bool MEDIA, bool COUNT>
 int launch_one(const float* sv, int n_sv, const uint32_t* keys, float* out, int* entered, int width, int height,
-               int spp, int depth, int flags, SceneView s, cudaStream_t stream) {
+               int spp, int depth, int flags, int p_begin, int p_count, SceneView s, cudaStream_t stream) {
+  if (p_begin < 0 || p_count < 0 || p_count > width * height - p_begin) return (int)cudaErrorInvalidValue;
+  if (p_count == 0) return 0;
   const auto kernel = render_forward_kernel<B, COUNT, MEDIA>;
   const size_t smem = forward_smem_bytes<B, MEDIA>(n_sv, s.n_tris);
   const int pixels = COMPACTED<B> ? TILE_PATHS<B> : THREADS;
@@ -292,8 +305,8 @@ int launch_one(const float* sv, int n_sv, const uint32_t* keys, float* out, int*
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<(width * height + pixels - 1) / pixels, BLOCK_THREADS<B>, smem, stream>>>(
-      sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s);
+  kernel<<<(p_count + pixels - 1) / pixels, BLOCK_THREADS<B>, smem, stream>>>(
+      sv, n_sv, keys, out, entered, width, height, spp, depth, flags, p_begin, p_begin + p_count, s);
   return (int)cudaGetLastError();
 }
 
@@ -315,17 +328,17 @@ int forward_resources(int n_sv, int n_tris, int* out) {
   return 0;
 }
 
-// Launches one frame on `stream`: K1, or K3 when `entered` (int32 [spp, H,
-// W]) is given; MEDIA selects the media instantiation.
+// Launches one frame's pixel range on `stream`: K1, or K3 when `entered`
+// (int32 [spp, H, W]) is given; MEDIA selects the media instantiation.
 template <class B, bool MEDIA = false>
 int launch_forward(const float* sv, int n_sv, const uint32_t* keys, float* out, int* entered, int width,
-                   int height, int spp, int depth, int flags, SceneView s, void* stream) {
+                   int height, int spp, int depth, int flags, int p_begin, int p_count, SceneView s, void* stream) {
   if (entered == nullptr) {
-    return launch_one<B, MEDIA, false>(sv, n_sv, keys, out, nullptr, width, height, spp, depth, flags, s,
-                                       (cudaStream_t)stream);
+    return launch_one<B, MEDIA, false>(sv, n_sv, keys, out, nullptr, width, height, spp, depth, flags, p_begin,
+                                       p_count, s, (cudaStream_t)stream);
   }
-  return launch_one<B, MEDIA, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s,
-                                    (cudaStream_t)stream);
+  return launch_one<B, MEDIA, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, p_begin, p_count,
+                                    s, (cudaStream_t)stream);
 }
 
 }  // namespace pt

@@ -23,24 +23,27 @@
 #include "megakernel_bwd.cuh"
 #include "megakernel_fwd.cuh"
 
-// K3's entry point: one frame of the mesh scene with its topology [n_tris,
-// 4] int32 (a, b, c, material) on the card, and the bounces each sample's
-// path entered alive written to `entered` (int32 [spp, H, W]); with a null
-// `entered` the launch is K1's. 0 = success, else a cudaError_t.
+// K3's entry point: one frame's pixel range [p_begin, p_begin + p_count) of
+// the mesh scene with its topology [n_tris, 4] int32 (a, b, c, material)
+// on the card, and the bounces each sample's path entered alive written to
+// `entered` (int32 [spp, H, W]) there; with a null `entered` the launch is
+// K1's. 0 = success, else a cudaError_t.
 extern "C" int pt_render_forward_occupancy_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
                                                 int* entered, int width, int height, int spp, int depth,
                                                 int n_lights, int n_materials, int flags, const int* topo, int n_tris,
-                                                int n_verts, void* stream) {
+                                                int n_verts, int p_begin, int p_count, void* stream) {
   const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
-  return pt::launch_forward<pt::Mesh>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
+  return pt::launch_forward<pt::Mesh>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, p_begin, p_count,
+                                      s, stream);
 }
 
 // K1's: K3's arguments without `entered`.
 extern "C" int pt_render_forward_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                       int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                      const int* topo, int n_tris, int n_verts, void* stream) {
+                                      const int* topo, int n_tris, int n_verts, int p_begin, int p_count,
+                                      void* stream) {
   return pt_render_forward_occupancy_mesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
-                                          n_materials, flags, topo, n_tris, n_verts, stream);
+                                          n_materials, flags, topo, n_tris, n_verts, p_begin, p_count, stream);
 }
 
 // The media instantiation's: the same arguments over a packed vector whose
@@ -48,17 +51,22 @@ extern "C" int pt_render_forward_mesh(const float* sv, int n_sv, const uint32_t*
 extern "C" int pt_render_forward_occupancy_media_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out,
                                                       int* entered, int width, int height, int spp, int depth,
                                                       int n_lights, int n_materials, int flags, const int* topo,
-                                                      int n_tris, int n_verts, void* stream) {
+                                                      int n_tris, int n_verts, int p_begin, int p_count,
+                                                      void* stream) {
   const pt::SceneView s = pt::mesh_view(nullptr, n_lights, n_materials, topo, n_tris, n_verts);
-  return pt::launch_forward<pt::Mesh, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
+  return pt::launch_forward<pt::Mesh, true>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, p_begin,
+                                            p_count, s, stream);
 }
 
 extern "C" int pt_render_forward_media_mesh(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                             int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                            const int* topo, int n_tris, int n_verts, void* stream) {
+                                            const int* topo, int n_tris, int n_verts, int p_begin, int p_count,
+                                            void* stream) {
   return pt_render_forward_occupancy_media_mesh(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights,
-                                                n_materials, flags, topo, n_tris, n_verts, stream);
+                                                n_materials, flags, topo, n_tris, n_verts, p_begin, p_count, stream);
 }
+
+extern "C" int pt_forward_takes_range() { return 1; }
 
 // K1's and K3's resources and layout (megakernel_fwd.cu's
 // pt_forward_resources and pt_forward_layout) for backend 2, the small mesh.

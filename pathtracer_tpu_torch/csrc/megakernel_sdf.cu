@@ -41,31 +41,35 @@ __global__ void __launch_bounds__(MARCH_THREADS)
 template <bool MEDIA>
 int launch_sdf(const float* sv, int n_sv, const uint32_t* keys, float* out, int* entered, int width, int height,
                int spp, int depth, int n_lights, int n_materials, int flags, int n_spheres, int n_boxes, int n_tori,
-               void* stream) {
+               int p_begin, int p_count, void* stream) {
   const SceneView s = sdf_view(nullptr, n_lights, n_materials, n_spheres, n_boxes, n_tori);
   return sdf_launch(n_spheres, n_boxes, n_tori, [&] {
-    return launch_forward<SdfScene, MEDIA>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, s, stream);
+    return launch_forward<SdfScene, MEDIA>(sv, n_sv, keys, out, entered, width, height, spp, depth, flags, p_begin,
+                                           p_count, s, stream);
   });
 }
 
 }  // namespace pt
 
-// K3's entry points (K1's with a null `entered`): one frame of the SDF
-// scene, and the bounces each sample's path entered alive written to
-// `entered` (int32 [spp, H, W]). 0 = success, else a cudaError_t.
+extern "C" int pt_forward_takes_range() { return 1; }
+
+// K3's entry points (K1's with a null `entered`): one frame's pixel range
+// [p_begin, p_begin + p_count) of the SDF scene, and the bounces each
+// sample's path entered alive written to `entered` (int32 [spp, H, W])
+// there. 0 = success, else a cudaError_t.
 extern "C" int pt_render_forward_occupancy_sdf(const float* sv, int n_sv, const uint32_t* keys, float* out,
                                                int* entered, int width, int height, int spp, int depth, int n_lights,
                                                int n_materials, int flags, int n_spheres, int n_boxes, int n_tori,
-                                               void* stream) {
+                                               int p_begin, int p_count, void* stream) {
   return pt::launch_sdf<false>(sv, n_sv, keys, out, entered, width, height, spp, depth, n_lights, n_materials, flags,
-                               n_spheres, n_boxes, n_tori, stream);
+                               n_spheres, n_boxes, n_tori, p_begin, p_count, stream);
 }
 
 extern "C" int pt_render_forward_sdf(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                      int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                     int n_spheres, int n_boxes, int n_tori, void* stream) {
+                                     int n_spheres, int n_boxes, int n_tori, int p_begin, int p_count, void* stream) {
   return pt::launch_sdf<false>(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights, n_materials, flags,
-                               n_spheres, n_boxes, n_tori, stream);
+                               n_spheres, n_boxes, n_tori, p_begin, p_count, stream);
 }
 
 // The media instantiation's: the same arguments over a packed vector whose
@@ -73,16 +77,17 @@ extern "C" int pt_render_forward_sdf(const float* sv, int n_sv, const uint32_t* 
 extern "C" int pt_render_forward_occupancy_media_sdf(const float* sv, int n_sv, const uint32_t* keys, float* out,
                                                      int* entered, int width, int height, int spp, int depth,
                                                      int n_lights, int n_materials, int flags, int n_spheres,
-                                                     int n_boxes, int n_tori, void* stream) {
+                                                     int n_boxes, int n_tori, int p_begin, int p_count, void* stream) {
   return pt::launch_sdf<true>(sv, n_sv, keys, out, entered, width, height, spp, depth, n_lights, n_materials, flags,
-                              n_spheres, n_boxes, n_tori, stream);
+                              n_spheres, n_boxes, n_tori, p_begin, p_count, stream);
 }
 
 extern "C" int pt_render_forward_media_sdf(const float* sv, int n_sv, const uint32_t* keys, float* out, int width,
                                            int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                           int n_spheres, int n_boxes, int n_tori, void* stream) {
+                                           int n_spheres, int n_boxes, int n_tori, int p_begin, int p_count,
+                                           void* stream) {
   return pt::launch_sdf<true>(sv, n_sv, keys, out, nullptr, width, height, spp, depth, n_lights, n_materials, flags,
-                              n_spheres, n_boxes, n_tori, stream);
+                              n_spheres, n_boxes, n_tori, p_begin, p_count, stream);
 }
 
 // K1's and K3's layout (megakernel_fwd.cu's pt_forward_layout) for backend

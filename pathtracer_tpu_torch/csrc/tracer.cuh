@@ -502,14 +502,15 @@ __device__ __forceinline__ void store_path(Tile<MEDIA, P>& t, int i, const Carry
   }
 }
 
-// Path i of the tile (pixel p < n, or none: DEAD) starts sample k's path.
+// Path i of the tile (pixel p < end, the end of the launch's pixel range,
+// or none: DEAD) starts sample k's path.
 template <bool MEDIA, int P>
-__device__ __forceinline__ void start_tile_path(const SceneView& s, Tile<MEDIA, P>& t, int i, int p, int n,
+__device__ __forceinline__ void start_tile_path(const SceneView& s, Tile<MEDIA, P>& t, int i, int p, int end,
                                                 int width, int height, int flags, uint32_t kc0, uint32_t kc1) {
-  t.outcome[i] = p < n ? LIVE : DEAD;
+  t.outcome[i] = p < end ? LIVE : DEAD;
   t.entered[i] = 0;
   put3(t.radiance, i, splat3(0.0f));
-  if (p < n) store_path(t, i, start_path<MEDIA>(s, p, width, height, flags, kc0, kc1));
+  if (p < end) store_path(t, i, start_path<MEDIA>(s, p, width, height, flags, kc0, kc1));
 }
 
 // Path i of the tile (pixel p) enters bounce d: its segment on the tile's

@@ -350,18 +350,28 @@ def recover_demo(
     resumes from the newest checkpoint there, the port's or one a JAX
     `recover_demo` of the same family wrote.
 
-    Not ported yet: mesh= (sharding, ROADMAP item 14). The mesh scene
-    families have no demo here (ROADMAP item 12): the JAX package's
+    mesh= (a `parallel/mesh.Mesh` over the initialised process group, every
+    rank calling this with the same arguments) shards each render: the
+    target through the sharded render (render_frame_sharded_megakernel, or
+    render_frame_sharded for kernel="eager"), each step through
+    `parallel/mesh.paired_step_sharded` (each rank's pixels, on the card K1
+    and K2 over its range, the gradients and the loss summed over the
+    mesh). Rank 0 alone prints and writes checkpoints.
+
+    The mesh scene families have no demo here (ROADMAP item 12): the JAX package's
     recover_demo trains the analytical demo under their names, which the
     port does not copy; `inverse_render` takes a mesh scene."""
     require_family(scene)
     if scene not in DEMO_SELECTS:
         raise NotImplementedError(f"recover_demo has no demo of the {scene} scene (ROADMAP item 12); "
                                   "inverse_render takes a mesh scene")
-    if mesh is not None:
-        raise NotImplementedError("the sharded megakernel (mesh=) is not ported yet")
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    if mesh is not None:
+        from ..parallel import mesh as sharding
+
+        if not isinstance(mesh, sharding.Mesh):
+            raise TypeError(f"mesh= takes a parallel.mesh.Mesh, got {type(mesh).__name__}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: CUDA is not available")
@@ -372,7 +382,15 @@ def recover_demo(
     projection = PROJECTIONS[scene]
 
     true_scene, start_scene = demo_scenes(recursion_depth, device, scene)
-    render = make_renderer(kernel, width, height, spp, VERBATIM)
+    lead = mesh is None or mesh.rank == 0
+    verbose = verbose and lead
+    if mesh is None:
+        render = make_renderer(kernel, width, height, spp, VERBATIM)
+    else:
+        if kernel == "megakernel":
+            render = lambda s, k: sharding.render_frame_sharded_megakernel(s, k, mesh, width, height, spp)
+        else:
+            render = lambda s, k: sharding.render_frame_sharded(s, k, mesh, width, height, spp, detach=True)
     with torch.no_grad():
         tkeys = rng.split(rng.fold_in(key, 17), 4)
         target = sum(render(true_scene, k) for k in tkeys) / 4.0
@@ -393,10 +411,14 @@ def recover_demo(
     kbase = rng.fold_in(key, 29)
     losses = []
     for i in range(start_step, steps):
-        losses.append(paired_step(train, rebuild, projection, opt, render, target, rng.fold_in(kbase, i)))
+        if mesh is None:
+            losses.append(paired_step(train, rebuild, projection, opt, render, target, rng.fold_in(kbase, i)))
+        else:
+            losses.append(sharding.paired_step_sharded(train, rebuild, projection, opt, mesh, kernel, width, height,
+                                                       spp, VERBATIM, target, rng.fold_in(kbase, i)))
         if verbose and (i % 10 == 0 or i == steps - 1):
             print(f"step {i:4d}  loss {float(losses[-1]):.6e}")
-        if ckpt_dir is not None and ((i + 1) % ckpt_every == 0 or i == steps - 1):
+        if lead and ckpt_dir is not None and ((i + 1) % ckpt_every == 0 or i == steps - 1):
             os.makedirs(ckpt_dir, exist_ok=True)
             save_checkpoint(os.path.join(ckpt_dir, f"invert_{i + 1:06d}.npz"), _invert_state(train, opt, i + 1))
 

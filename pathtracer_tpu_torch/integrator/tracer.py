@@ -20,6 +20,12 @@ single Scatter) and the three direct-lighting estimators (`mis`, `bsdf`,
 `nee`) are the JAX package's. A media-free scene skips the media segment,
 whose every term is masked off there, as the kernel's media-free
 instantiation compiles none of it.
+
+A render may take a range of the frame's flat pixels (`pixels=(p_begin,
+p_count)`): it traces only those rays, each from the uniforms at its
+global counters, so the range's pixels are the whole frame's bit for bit
+(the rank's share of a sharded render, `parallel/mesh`), and the frame is
+zero elsewhere.
 """
 
 from __future__ import annotations
@@ -536,7 +542,7 @@ def measure_occupancy(
 
 
 def bounces_entered(
-    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
+    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM, pixels=None
 ) -> torch.Tensor:
     """How many bounces each sample's path entered alive, [spp, H, W] int32
     on the scene's device: the plain version of the occupancy kernel K3
@@ -544,25 +550,57 @@ def bounces_entered(
     stream of render_frame and the kernels, split(key, spp)[s] (key itself
     at spp 1), so at spp 1 the alive fraction entering bounce b, the mean
     of (counts > b), is `measure_occupancy`'s, and at spp > 1 it is not
-    (that probe draws one stream over all W*H*spp lanes)."""
-    coords = pixel_coords(width, height, torch.float64, scene.device)
-    out = []
+    (that probe draws one stream over all W*H*spp lanes). Over the pixel
+    range `pixels`, the range's counts and zeros elsewhere."""
+    n = width * height
+    begin, count = check_pixels(n, pixels)
+    coords = range_coords(width, height, scene.device, begin, count)
+    out = torch.zeros((spp, n), dtype=torch.int32, device=scene.device)
+    if count == 0:
+        return out.reshape(spp, height, width)
     with torch.no_grad():
-        for k in [key] if spp == 1 else list(rng.split(key, spp)):
-            cam_u, bounce_u = draw_uniforms(k, width * height, scene.recursion_depth, scene.dtype, scene.device)
-            entered = torch.zeros(width * height, dtype=torch.int32, device=scene.device)
+        for s, k in enumerate([key] if spp == 1 else list(rng.split(key, spp))):
+            cam_u, bounce_u = draw_uniforms(k, n, scene.recursion_depth, scene.dtype, scene.device, (begin, count))
             for alive in _alive_entering(scene, coords, cam_u, bounce_u, quirks, width, height):
-                entered += alive.to(torch.int32)
-            out.append(entered.reshape(height, width))
-    return torch.stack(out)
+                out[s, begin:begin + count] += alive.to(torch.int32)
+    return out.reshape(spp, height, width)
 
 
-def draw_uniforms(key, n: int, depth: int, dtype=torch.float32, device=None):
+def check_pixels(n: int, pixels) -> tuple[int, int]:
+    """(p_begin, p_count) of a frame of n flat pixels: `pixels`, or the
+    whole frame for None; a range outside the frame raises."""
+    if pixels is None:
+        return 0, n
+    begin, count = (int(x) for x in pixels)
+    if begin < 0 or count < 0 or begin + count > n:
+        raise ValueError(f"pixel range ({begin}, {count}) is outside a frame of {n} pixels")
+    return begin, count
+
+
+def range_coords(width: int, height: int, device, begin: int, count: int) -> V2:
+    """pixel_coords (float64) of the flat pixels [begin, begin + count)."""
+    coords = pixel_coords(width, height, torch.float64, device)
+    if count == width * height:
+        return coords
+    return V2(coords.x[begin:begin + count], coords.y[begin:begin + count])
+
+
+def draw_uniforms(key, n: int, depth: int, dtype=torch.float32, device=None, pixels=None):
     """Per-frame randomness (cam jitter [N, 2], bounce uniforms
-    [depth, N, 8]), bit-equal to the JAX package's `draw_uniforms`."""
+    [depth, N, 8]), bit-equal to the JAX package's `draw_uniforms`; with
+    `pixels` (p_begin, p_count) those of the range's pixels only ([count,
+    2], [depth, count, 8]), drawn at their counters in the frame's draw."""
     kc, kb = rng.split(key)
-    cam = rng.uniform(kc, (n, 2), dtype, device)
-    bounce = rng.uniform(kb, (depth, n, U_PER_BOUNCE), dtype, device)
+    begin, count = check_pixels(n, pixels)
+    if count == n:
+        cam = rng.uniform(kc, (n, 2), dtype, device)
+        bounce = rng.uniform(kb, (depth, n, U_PER_BOUNCE), dtype, device)
+        return cam, bounce
+    p = torch.arange(begin, begin + count, dtype=torch.int64, device=device)
+    lanes = lambda m: torch.arange(m, dtype=torch.int64, device=device)
+    cam = rng.uniform_at(kc, p[:, None] * 2 + lanes(2), dtype)
+    d = lanes(depth)[:, None, None]
+    bounce = rng.uniform_at(kb, ((d * n + p[None, :, None]) * U_PER_BOUNCE) + lanes(U_PER_BOUNCE), dtype)
     return cam, bounce
 
 
@@ -577,50 +615,72 @@ def render_frame(
     estimator: str = "mis",
     uniforms: tuple | None = None,
     basis: tuple | None = None,
+    pixels: tuple | None = None,
 ) -> torch.Tensor:
     """Render one progressive frame -> [H, W, 4] linear RGBA (alpha 1) on
     the scene's device. `uniforms=(cam [N, 2], bounce [depth, N, 8])`
-    replaces the key's stream (spp 1 only), so tests can feed JAX's
-    float64 stream. `basis` (lower_left, horizontal, vertical, origin)
-    replaces the camera's, as the packed scene vector holds it.
+    replaces the key's stream (spp 1, the whole frame only), so tests can
+    feed JAX's float64 stream. `basis` (lower_left, horizontal, vertical,
+    origin) replaces the camera's, as the packed scene vector holds it.
+    `pixels` (p_begin, p_count) renders that range of the flat pixels: the
+    whole frame's there, zeros (alpha too) elsewhere.
 
     detach=True is the detached-sampling gradient estimator: autograd
     through the frame differentiates everything but the sampled BSDF and
     light directions and pdfs; forward values are those of detach=False."""
-    dtype, device = scene.dtype, scene.device
     n = width * height
-    coords = pixel_coords(width, height, torch.float64, device)
-    depth = scene.recursion_depth
-    cam = scene.camera.unpack()
-
-    def one_sample(u):
-        cam_u, bounce_u = u
-        offset = V2(cam_u[:, 0], cam_u[:, 1])
-        ro, rd = gen_ray(cam, coords, offset, float(width), float(height), basis)
-        return trace(scene, ro, rd, bounce_u, quirks, detach, estimator)
-
     if uniforms is not None:
-        if spp != 1:
-            raise ValueError("explicit uniforms need spp == 1")
-        radiance = one_sample(uniforms)
+        if spp != 1 or check_pixels(n, pixels)[1] != n:
+            raise ValueError("explicit uniforms need spp == 1 and the whole frame")
+        radiance = sample_radiance(scene, None, width, height, quirks, detach, estimator, uniforms, basis)
     elif spp == 1:
-        radiance = one_sample(draw_uniforms(key, n, depth, dtype, device))
+        radiance = sample_radiance(scene, key, width, height, quirks, detach, estimator, None, basis, pixels)
     else:
-        acc = [
-            one_sample(draw_uniforms(k, n, depth, dtype, device))
-            for k in rng.split(key, spp)
-        ]
+        acc = [sample_radiance(scene, k, width, height, quirks, detach, estimator, None, basis, pixels)
+               for k in rng.split(key, spp)]
         radiance = V3(*[torch.stack([a[c] for a in acc]).mean(dim=0) for c in range(3)])
+    return frame_of(radiance, width, height, pixels)
 
-    return torch.stack(
-        [
-            radiance.x.reshape(height, width),
-            radiance.y.reshape(height, width),
-            radiance.z.reshape(height, width),
-            torch.ones((height, width), dtype=dtype, device=device),
-        ],
-        dim=-1,
-    )
+
+def sample_radiance(
+    scene: Scene, key, width: int, height: int, quirks: Quirks = VERBATIM, detach: bool = False,
+    estimator: str = "mis", uniforms: tuple | None = None, basis: tuple | None = None, pixels: tuple | None = None,
+) -> V3:
+    """One sample's radiance, V3 of [count], of the flat pixels
+    [p_begin, p_begin + p_count) (`pixels`; None: the whole frame), from
+    the uniforms render_frame draws from `key` (or `uniforms`)."""
+    n = width * height
+    begin, count = check_pixels(n, pixels)
+    if count == 0:  # a rank past the frame's last pixel traces nothing
+        none = torch.zeros(0, dtype=scene.dtype, device=scene.device)
+        return V3(none, none, none)
+    if uniforms is None:
+        uniforms = draw_uniforms(key, n, scene.recursion_depth, scene.dtype, scene.device, (begin, count))
+    cam_u, bounce_u = uniforms
+    coords = range_coords(width, height, scene.device, begin, count)
+    ro, rd = gen_ray(scene.camera.unpack(), coords, V2(cam_u[:, 0], cam_u[:, 1]), float(width), float(height), basis)
+    return trace(scene, ro, rd, bounce_u, quirks, detach, estimator)
+
+
+def frame_of(radiance: V3, width: int, height: int, pixels: tuple | None = None) -> torch.Tensor:
+    """The [H, W, 4] frame of the radiance of the pixel range `pixels`
+    (None: the whole frame), alpha 1 there; the other pixels are 0."""
+    n = width * height
+    begin, count = check_pixels(n, pixels)
+    ref = radiance.x
+    if count == n:
+        return torch.stack(
+            [
+                radiance.x.reshape(height, width),
+                radiance.y.reshape(height, width),
+                radiance.z.reshape(height, width),
+                torch.ones((height, width), dtype=ref.dtype, device=ref.device),
+            ],
+            dim=-1,
+        )
+    rows = torch.stack([radiance.x, radiance.y, radiance.z, torch.ones_like(ref)], dim=-1)
+    return torch.cat([rows.new_zeros((begin, 4)), rows, rows.new_zeros((n - begin - count, 4))]).reshape(
+        height, width, 4)
 
 
 def accumulate(pixels: torch.Tensor, frame: torch.Tensor, frames):

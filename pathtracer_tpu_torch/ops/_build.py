@@ -44,16 +44,20 @@ KERNEL_FLAGS = {"megakernel_bwd_media": ("-fmad=false",), "megakernel_sdf_bwd_me
 # kernels built for each SDF scene's (spheres, boxes, tori)
 PER_COUNT = ("megakernel_sdf", "megakernel_sdf_bwd_media")
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+# K1's and K3's entry points (pt_render_forward*) end with the pixel range
+# (p_begin, p_count) and the stream
+_RANGE = [_I, _I, _P]
 # kernel -> its entry points' (argtypes, restype)
 SIGNATURES = {
     "megakernel_fwd": {
-        "pt_render_forward": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "pt_render_forward_bigmesh": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
-        "pt_render_forward_occupancy": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "pt_render_forward": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I] + _RANGE, _I),
+        "pt_render_forward_bigmesh": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I] + _RANGE, _I),
+        "pt_render_forward_occupancy": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I] + _RANGE, _I),
         "pt_render_forward_occupancy_bigmesh": (
-            [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P], _I),
+            [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I] + _RANGE, _I),
         "pt_forward_resources": ([_I, _I, _I, _I, _I, _P], _I),
         "pt_forward_layout": ([_I, _I, _I, _I, _P], _I),
+        "pt_forward_takes_range": ([], _I),
     },
     "uniform_stream": {
         "pt_uniform_stream": ([_P, _P, _I, _I, _I, _P], _I),
@@ -79,13 +83,14 @@ SIGNATURES = {
 # The SDF scene's library of its counts: K1 and K3 (the counts after the
 # flags), K6, and K2's record and adjoint kernels (the counts after the
 # flags, then the chunk).
-_SDF_FWD = ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)
-_SDF_OCC = ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)
+_SDF_FWD = ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I] + _RANGE, _I)
+_SDF_OCC = ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I] + _RANGE, _I)
 _SDF_REC = ([_P, _I, _P, _P] + [_I] * 14 + [_P], _I)
 _SDF_ADJ = ([_P, _I, _P, _P, _P, _P] + [_I] * 14 + [_P], _I)
 _SDF_LIB = {"pt_backward_resources": SIGNATURES["megakernel_bwd"]["pt_backward_resources"]}
 SIGNATURES["megakernel_sdf"] = {
     "pt_forward_layout": SIGNATURES["megakernel_fwd"]["pt_forward_layout"],
+    "pt_forward_takes_range": SIGNATURES["megakernel_fwd"]["pt_forward_takes_range"],
     "pt_render_forward_sdf": _SDF_FWD, "pt_render_forward_media_sdf": _SDF_FWD,
     "pt_render_forward_occupancy_sdf": _SDF_OCC, "pt_render_forward_occupancy_media_sdf": _SDF_OCC,
     "pt_march_steps": ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
@@ -97,8 +102,8 @@ SIGNATURES["megakernel_sdf_bwd_media"] = {
 # The small mesh's library: K1 and K3 without and with the medium, and
 # K2's media-free record and adjoint kernels (the topology, its triangles
 # and vertices after the flags; K2's then the chunk).
-_MESH_FWD = ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I)
-_MESH_OCC = ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P], _I)
+_MESH_FWD = ([_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I] + _RANGE, _I)
+_MESH_OCC = ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I] + _RANGE, _I)
 _MESH_REC = ([_P, _I, _P, _P] + [_I] * 7 + [_P] + [_I] * 6 + [_P], _I)
 _MESH_ADJ = ([_P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P] + [_I] * 6 + [_P], _I)
 SIGNATURES["megakernel_mesh"] = {
@@ -106,6 +111,7 @@ SIGNATURES["megakernel_mesh"] = {
     "pt_render_forward_occupancy_mesh": _MESH_OCC, "pt_render_forward_occupancy_media_mesh": _MESH_OCC,
     "pt_forward_resources": SIGNATURES["megakernel_fwd"]["pt_forward_resources"],
     "pt_forward_layout": SIGNATURES["megakernel_fwd"]["pt_forward_layout"],
+    "pt_forward_takes_range": SIGNATURES["megakernel_fwd"]["pt_forward_takes_range"],
     "pt_render_backward_mesh_record": _MESH_REC, "pt_render_backward_mesh_adjoint": _MESH_ADJ,
     "pt_backward_resources": SIGNATURES["megakernel_bwd"]["pt_backward_resources"],
 }
@@ -233,10 +239,21 @@ def load(kernel: str = "megakernel_fwd", flags: tuple = NVCC_FLAGS, csrc: Path =
     out_dir = build(flags, csrc, () if counts is None else (counts,), stems=None if counts is None else (kernel,))
     lib = ctypes.CDLL(str(out_dir / f"lib{library_name(kernel, counts)}.so"))
     # every library's signatures: an older checkout's library may export an
-    # entry point that another library holds here (its SDF entry points)
+    # entry point that another library holds here (its SDF entry points),
+    # and its K1 and K3 may take no pixel range
     known = {name: sig for table in SIGNATURES.values() for name, sig in table.items()}
+    ranged = takes_range(lib)
     for name, (argtypes, restype) in {**known, "pt_error_string": ([_I], ctypes.c_char_p)}.items():
         entry = getattr(lib, name, None)
         if entry is not None:
+            if name.startswith("pt_render_forward") and not ranged:
+                argtypes = argtypes[:-len(_RANGE)] + argtypes[-1:]
             entry.argtypes, entry.restype = argtypes, restype
     return lib
+
+
+def takes_range(lib: ctypes.CDLL) -> bool:
+    """Whether a library's K1 and K3 entry points take the pixel range
+    (p_begin, p_count) before the stream: this checkout's do; an older
+    checkout's (tools/k1_pair --other) render the whole frame."""
+    return getattr(lib, "pt_forward_takes_range", None) is not None

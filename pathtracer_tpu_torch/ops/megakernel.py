@@ -43,6 +43,15 @@ analytical, SDF and mesh ones. The kernels take no procedural hooks, and
 K2 no big mesh: a CUDA big mesh scene that requires grad raises (the JAX
 package differentiates it through its XLA twin).
 
+Every entry point takes a pixel range `pixels=(p_begin, p_count)` of the
+frame, the whole frame by default, as the TPU kernels take a tile base and
+a tile count: K1 (and K3) launch over the range's pixels only, drawing
+each pixel's random numbers at its global counters, so the range's pixels
+are the whole frame's bit for bit, and write nothing else (the frame is
+zero there); K2 walks only the range's chunks and reduces only its blocks,
+the gradient of the range's pixels. `parallel/mesh` gives each rank its
+range.
+
 The instruments: `measure_occupancy_megakernel` (the port of
 `measure_occupancy_pallas`) launches K3, `_pallas_forward_occupancy`'s
 counterpart, which is K1's template compiled with a count of the bounces
@@ -58,7 +67,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..integrator.tracer import VERBATIM, Quirks, bounces_entered, draw_uniforms, has_media, render_frame
+from ..integrator.tracer import VERBATIM, Quirks, bounces_entered, check_pixels, draw_uniforms, has_media, render_frame
 from ..models import analytical
 from ..models.families import family_of
 from ..models.scene import Scene
@@ -209,35 +218,38 @@ BACKENDS = {
 
 
 def render_frame_reference(
-    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
+    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM, pixels=None
 ) -> torch.Tensor:
     """The plain version of K1: the eager integrator's frame under the
     detached-sampling estimator, whose autograd is the plain version of K2
-    (forward values are those of detach=False)."""
-    return render_frame(scene, key, width, height, spp=spp, quirks=quirks, detach=True)
+    (forward values are those of detach=False); over the pixel range
+    `pixels` (p_begin, p_count), the frame's pixels there and zeros
+    elsewhere."""
+    return render_frame(scene, key, width, height, spp=spp, quirks=quirks, detach=True, pixels=pixels)
 
 
 def render_frame_packed(
     sv: torch.Tensor, scene: Scene, key, width: int, height: int, spp: int = 1,
-    quirks: Quirks = VERBATIM,
+    quirks: Quirks = VERBATIM, pixels=None,
 ) -> torch.Tensor:
     """The plain version of K1 as a function of the packed scene vector
     (the kernel's own input): the eager frame of the scene its family's
     unpack (unpack_scene, megakernel_sdf.unpack_sdf_scene) reads from sv,
     the medium's fields too where sv holds 26-scalar material records."""
     s, basis = BACKENDS[family_of(scene)].unpack(sv, scene)
-    return render_frame(s, key, width, height, spp=spp, quirks=quirks, detach=True, basis=basis)
+    return render_frame(s, key, width, height, spp=spp, quirks=quirks, detach=True, basis=basis, pixels=pixels)
 
 
 def render_grad_reference(
     sv: torch.Tensor, scene: Scene, key, ct: torch.Tensor, width: int, height: int,
-    spp: int = 1, quirks: Quirks = VERBATIM,
+    spp: int = 1, quirks: Quirks = VERBATIM, pixels=None,
 ) -> torch.Tensor:
     """The plain version of K2: d(sum(ct * frame))/d(sv) [1, P] by autograd
-    of render_frame_packed."""
+    of render_frame_packed, over the pixel range `pixels` the gradient of
+    its pixels only."""
     sv = sv.detach().requires_grad_(True)
     with torch.enable_grad():
-        img = render_frame_packed(sv, scene, key, width, height, spp, quirks)
+        img = render_frame_packed(sv, scene, key, width, height, spp, quirks, pixels)
         (grad,) = torch.autograd.grad(img, sv, grad_outputs=ct)
     return grad
 
@@ -257,21 +269,32 @@ class KernelLaunch(NamedTuple):
     counts: tuple = ()  # the backend's extra ints, e.g. the SDF scene's (spheres, boxes, tori)
     extras: tuple = ()  # the backend's device tensors, e.g. the mesh's topology
     media: bool = False  # the media instantiation, over 26-scalar material records
+    pixels: tuple | None = None  # (p_begin, p_count) of the frame's flat pixels; None: the whole frame
 
 
-def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks: Quirks) -> KernelLaunch:
-    """Pack the scene and upload the sample keys for one frame on the
+def pixel_range(k: KernelLaunch) -> tuple[int, int]:
+    """(p_begin, p_count) of launch `k`'s pixel range."""
+    height, width = k.out.shape[:2]
+    return check_pixels(width * height, k.pixels)
+
+
+def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks: Quirks,
+                   pixels=None) -> KernelLaunch:
+    """Pack the scene and upload the sample keys for one frame, or for its
+    pixel range `pixels` (p_begin, p_count; None: the whole frame), on the
     scene's CUDA device; a scene with a medium takes the media
-    instantiation."""
+    instantiation. A range's frame is zero outside it."""
     device = scene.device
     keys = launch_keys(key, spp)
     backend = family_of(scene)
     b = BACKENDS[backend]
     media = scene_media(scene)
+    begin, count = check_pixels(width * height, pixels)
+    alloc = torch.empty if count == width * height else torch.zeros
     return KernelLaunch(
         sv=b.pack(scene, width, height, media).contiguous(),
         keys=keys.pin_memory().to(device, non_blocking=True),
-        out=torch.empty((height, width, 4), dtype=torch.float32, device=device),
+        out=alloc((height, width, 4), dtype=torch.float32, device=device),
         spp=spp,
         depth=scene.recursion_depth,
         n_lights=scene.num_lights,
@@ -281,6 +304,7 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
         counts=b.counts(scene),
         extras=b.extras(scene),
         media=media,
+        pixels=(begin, count),
     )
 
 
@@ -347,7 +371,9 @@ def backward_library(k: KernelLaunch, csrc=None):
 
 
 def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor:
-    """One launch of K1 on PyTorch's current stream; returns `k.out`.
+    """One launch of K1 over launch `k`'s pixel range on PyTorch's current
+    stream; returns `k.out`, whose other pixels it does not write. An empty
+    range launches nothing and counts nothing.
     Counted in `render_frame_megakernel.launches`, and those with another
     backend than the analytical one in `render_frame_megakernel.
     <backend>_launches` too (sdf_launches, mesh_launches, bigmesh_launches);
@@ -371,6 +397,9 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
                          + ("; the big mesh backend takes such a mesh" if k.backend == "mesh" else ""))
     lib = forward_library(k)
     height, width = k.out.shape[:2]
+    begin, count = pixel_range(k)
+    if count == 0:
+        return k.out
     b, counter = BACKENDS[k.backend], render_frame_megakernel
     entry, head = getattr(lib, b.media_entry if k.media else b.entry), ()
     if entered is not None:
@@ -383,7 +412,7 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     err = entry(
         k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(), *head,
         width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
-        *k.counts, torch.cuda.current_stream(k.out.device).cuda_stream,
+        *k.counts, begin, count, torch.cuda.current_stream(k.out.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: {lib.pt_error_string(err).decode()}")
@@ -406,7 +435,7 @@ def _require_backward(backend: str, media: bool = False) -> None:
 
 
 def record_plan(k: KernelLaunch, cap: int | None = None) -> tuple[int, int, int]:
-    """How K2's record buffer takes launch `k`'s frame
+    """How K2's record buffer takes launch `k`'s pixel range
     (csrc/megakernel_bwd.cuh record_plan) within `cap` bytes (None: the
     source's cap, `pt_backward_record_cap()`, which also bounds any other):
     (its bytes, the pixels and the samples a chunk)."""
@@ -414,9 +443,8 @@ def record_plan(k: KernelLaunch, cap: int | None = None) -> tuple[int, int, int]
 
     lib = _build.load("megakernel_bwd")
     cap = lib.pt_backward_record_cap() if cap is None else cap
-    height, width = k.out.shape[:2]
     plan = (ctypes.c_int * 2)()
-    nbytes = lib.pt_backward_record_bytes(width * height, k.spp, k.depth, int(k.media), cap, plan)
+    nbytes = lib.pt_backward_record_bytes(max(pixel_range(k)[1], 1), k.spp, k.depth, int(k.media), cap, plan)
     if nbytes == 0:
         raise ValueError(f"one block's records at depth {k.depth} exceed the backward megakernel's record buffer "
                          f"of {min(cap, lib.pt_backward_record_cap())} bytes")
@@ -424,14 +452,14 @@ def record_plan(k: KernelLaunch, cap: int | None = None) -> tuple[int, int, int]
 
 
 def record_chunks(k: KernelLaunch, cap: int | None = None) -> list[tuple[int, int, int, int]]:
-    """record_plan's chunks of launch `k`'s frame, in launch order: (p0,
-    pixels, k0, samples), samples [k0, k0 + samples) of pixels [p0, p0 +
-    pixels)."""
+    """record_plan's chunks of launch `k`'s pixel range, in launch order:
+    (p0, pixels, k0, samples), samples [k0, k0 + samples) of pixels [p0, p0
+    + pixels)."""
     _, pixels, samples = record_plan(k, cap)
-    height, width = k.out.shape[:2]
-    n = width * height
-    return [(p0, min(pixels, n - p0), k0, min(samples, k.spp - k0))
-            for p0 in range(0, n, pixels) for k0 in range(0, k.spp, samples)]
+    begin, count = pixel_range(k)
+    end = begin + count
+    return [(p0, min(pixels, end - p0), k0, min(samples, k.spp - k0))
+            for p0 in range(begin, end, pixels) for k0 in range(0, k.spp, samples)]
 
 
 def record_buffer(k: KernelLaunch, cap: int | None = None) -> torch.Tensor:
@@ -495,14 +523,18 @@ def launch_adjoint(k: KernelLaunch, ct: torch.Tensor, rec: torch.Tensor, partial
 
 def launch_backward(k: KernelLaunch, ct: torch.Tensor, cap: int | None = None) -> torch.Tensor:
     """K2 on PyTorch's current stream: d(sum(ct * frame))/d(sv) [1, P] for
-    the frame K1 renders from `k`; ct [H, W, 4] float32 (its alpha channel
-    gets no gradient). K2 is two kernels: for each chunk of record_chunks
+    the frame K1 renders from `k`, over its pixel range the gradient of the
+    range's pixels (the range starts on one of K2's blocks of
+    `pt_backward_threads()` pixels, as parallel/mesh.shard_ranges' do);
+    ct [H, W, 4] float32 (its alpha channel, and its pixels outside the
+    range, get no gradient). K2 is two kernels: for each chunk of record_chunks
     (the record buffer allocated here holds at most
     `pt_backward_record_cap()` bytes, or `cap` where that is less, which
     makes chunks of a small frame) the record kernel traces each sample's
     path once and writes what each bounce decided (launch_record), and the
     adjoint kernel runs the reverse sweep from those records
-    (launch_adjoint); then a reduction sums the blocks, one launch a call,
+    (launch_adjoint); then a reduction sums the range's blocks, one launch a
+    call,
     counted in `render_frame_megakernel.bwd_launches`, and those with
     another backend than the analytical one in
     `render_frame_megakernel.<backend>_bwd_launches` too (sdf_bwd_launches,
@@ -534,16 +566,25 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor, cap: int | None = None) -
                          "maximum)")
     if ct.shape != k.out.shape or ct.device != k.sv.device:
         raise ValueError(f"cotangent {tuple(ct.shape)} on {ct.device}, frame {tuple(k.out.shape)} on {k.sv.device}")
+    threads = lib.pt_backward_threads()
+    begin, count = pixel_range(k)
+    if begin % threads != 0:
+        raise ValueError(f"the backward megakernel's pixel range starts on a block of {threads} pixels, got {begin}")
+    grad = torch.zeros((1, n_sv), dtype=torch.float32, device=k.sv.device)
+    if count == 0:
+        return grad
     ct = ct.to(torch.float32).contiguous()
     rec = record_buffer(k, cap)
-    blocks = -(-width * height // lib.pt_backward_threads())
-    partial = torch.empty((blocks, n_sv), dtype=torch.float32, device=k.sv.device)
-    grad = torch.empty((1, n_sv), dtype=torch.float32, device=k.sv.device)
+    # the adjoint kernel writes block b's sums to row b of the frame's
+    # blocks; the reduction reads only the range's rows
+    partial = torch.empty((-(-width * height // threads), n_sv), dtype=torch.float32, device=k.sv.device)
+    first, blocks = begin // threads, -(-count // threads)
     for chunk in record_chunks(k, cap):
         launch_record(k, rec, chunk)
         launch_adjoint(k, ct, rec, partial, chunk)
     stream = torch.cuda.current_stream(k.sv.device).cuda_stream
-    _check(lib.pt_backward_reduce(partial.data_ptr(), blocks, n_sv, grad.data_ptr(), stream), lib, "reduction")
+    _check(lib.pt_backward_reduce(partial[first].data_ptr(), blocks, n_sv, grad.data_ptr(), stream), lib,
+           "reduction")
     counter = render_frame_megakernel
     counter.bwd_launches += 1
     if k.backend != "analytical":
@@ -610,9 +651,12 @@ def _check_frame(scene: Scene, width: int, height: int, spp: int) -> None:
 
 
 def render_frame_megakernel(
-    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
+    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM, pixels=None
 ) -> torch.Tensor:
-    """Render one frame -> [H, W, 4] float32 on the scene's device.
+    """Render one frame -> [H, W, 4] float32 on the scene's device; with
+    `pixels` (p_begin, p_count) only that range of its flat pixels, the
+    whole frame's there bit for bit, the frame zero elsewhere (an empty
+    range launches nothing).
 
     A CUDA scene goes through K1 (one launch, counted in
     `render_frame_megakernel.launches`) with its scene's backend; when a
@@ -629,9 +673,11 @@ def render_frame_megakernel(
     _check_supported(scene)
     device = scene.device
     if device.type == "cpu":
-        return render_frame_reference(scene, key, width, height, spp, quirks)
+        return render_frame_reference(scene, key, width, height, spp, quirks, pixels)
     _check_frame(scene, width, height, spp)
-    k = prepare_launch(scene, key, width, height, spp, quirks)
+    k = prepare_launch(scene, key, width, height, spp, quirks, pixels)
+    if pixel_range(k)[1] == 0:
+        return k.out
     if torch.is_grad_enabled() and (k.sv.requires_grad or any(t.requires_grad for t in k.extras)):
         _require_backward(k.backend, k.media)
         return MegakernelRender.apply(k.sv, k)
@@ -716,7 +762,7 @@ def occupancy_stats(entered: torch.Tensor, depth: int, tile_paths: int = 0) -> d
 
 
 def measure_occupancy_megakernel(
-    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM
+    scene: Scene, key, width: int, height: int, spp: int = 1, quirks: Quirks = VERBATIM, pixels=None
 ) -> dict:
     """Masked-lane occupancy measured inside the forward megakernel: the
     port of `measure_occupancy_pallas`. A CUDA scene goes through one launch
@@ -727,7 +773,10 @@ def measure_occupancy_megakernel(
     a failed build or launch raises. Returns `occupancy_stats` of the
     per-lane counts, with the counts themselves as `entered`; on the card,
     the compacted figure for the tile of the launch's loop (none where it
-    is the per-thread loop: `forward_layout`), on the CPU none.
+    is the per-thread loop: `forward_layout`), on the CPU none. Over the
+    pixel range `pixels` (p_begin, p_count), K3 runs the range's pixels
+    only: `entered` is zero elsewhere, and the statistics are the range's,
+    its tiles and warps counted from p_begin as the launch's blocks are.
 
     It takes no `uniforms=` or `tiling=`: the port has one stream, threefry
     at JAX's counters (its "hbm" numbers), and its tiles are the launch's
@@ -737,15 +786,18 @@ def measure_occupancy_megakernel(
     the TPU kernel, padded lanes never count."""
     _check_supported(scene)
     tile = 0
+    begin, count = check_pixels(width * height, pixels)
     if scene.device.type == "cpu":
-        entered = bounces_entered(scene, key, width, height, spp, quirks)
+        entered = bounces_entered(scene, key, width, height, spp, quirks, pixels)
     else:
         _check_frame(scene, width, height, spp)
-        k = prepare_launch(scene, key, width, height, spp, quirks)
-        entered = torch.empty((spp, height, width), dtype=torch.int32, device=scene.device)
+        k = prepare_launch(scene, key, width, height, spp, quirks, pixels)
+        alloc = torch.empty if count == width * height else torch.zeros
+        entered = alloc((spp, height, width), dtype=torch.int32, device=scene.device)
         launch(k, entered)
         tile = forward_layout(k)["tile_paths"]
-    return {"entered": entered, **occupancy_stats(entered, scene.recursion_depth, tile)}
+    counted = entered.reshape(spp, 1, -1)[..., begin:begin + count]
+    return {"entered": entered, **occupancy_stats(counted, scene.recursion_depth, tile)}
 
 
 measure_occupancy_megakernel.launches = 0

@@ -57,11 +57,6 @@ def fold_in(key, data: int) -> torch.Tensor:
     return torch.tensor(threefry2x32(key, 0, int(data) & MASK32), dtype=torch.int64)
 
 
-def _counters(n: int, device):
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    return i >> 32, i & MASK32
-
-
 def split(key, n: int = 2) -> torch.Tensor:
     """`jax.random.split(key, n)` -> [n, 2] int64 keys (on the CPU). Keys
     are few, so this runs on Python ints: no tensor op per round."""
@@ -73,14 +68,21 @@ def split(key, n: int = 2) -> torch.Tensor:
 def uniform(key, shape, dtype=torch.float32, device=None) -> torch.Tensor:
     """`jax.random.uniform(key, shape, dtype)` on [0, 1)."""
     n = math.prod(shape)
-    x0, x1 = threefry2x32(key, *_counters(n, device))
+    return uniform_at(key, torch.arange(n, dtype=torch.int64, device=device), dtype).reshape(shape)
+
+
+def uniform_at(key, index: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """The uniforms at flat indices `index` (int64, any shape) of a draw
+    from `key`: `uniform(key, shape, dtype).reshape(-1)[index]`, without
+    drawing the rest."""
+    x0, x1 = threefry2x32(key, index >> 32, index & MASK32)
     if dtype == torch.float32:
         out = ((x0 ^ x1) >> 9).to(torch.float32) * 2.0 ** -23
     elif dtype == torch.float64:
         out = ((x0 << 20) | (x1 >> 12)).to(torch.float64) * 2.0 ** -52
     else:
         raise ValueError(f"uniform: unsupported dtype {dtype}")
-    return out.reshape(shape)
+    return out
 
 
 def uniform_f32(key, n: int, device=None) -> torch.Tensor:

@@ -97,6 +97,39 @@ def forward_library(k: mk.KernelLaunch, csrc: Path):
     return _FORWARD(k, csrc)
 
 
+class WholeFrames:
+    """An older tree's K1 and K3 library, whose entry points take no pixel
+    range, called as this tree's are: each `pt_render_forward*` entry drops
+    the range (the last two arguments before the stream), which must be the
+    whole frame's."""
+
+    def __init__(self, lib, n_pixels: int):
+        self._lib, self._n = lib, n_pixels
+
+    def __getattr__(self, name: str):
+        entry = getattr(self._lib, name)
+        if not name.startswith("pt_render_forward"):
+            return entry
+
+        def whole_frame(*args):
+            *head, begin, count, stream = args
+            if (begin, count) != (0, self._n):
+                raise ValueError(f"this library's K1 renders whole frames only, not the range {(begin, count)}")
+            return entry(*head, stream)
+
+        return whole_frame
+
+
+def ranged_library(k: mk.KernelLaunch, csrc: Path):
+    """forward_library called as ops/megakernel.launch calls its own: an
+    older tree's that takes no range through WholeFrames."""
+    lib = forward_library(k, csrc)
+    if _build.takes_range(lib):
+        return lib
+    height, width = k.out.shape[:2]
+    return WholeFrames(lib, width * height)
+
+
 def backward_library(k: mk.KernelLaunch, csrc: Path):
     """mk.backward_library of the tree of sources `csrc`, an older one's
     media-free small mesh too (mesh_rounds_apart)."""
@@ -119,12 +152,14 @@ def launcher(csrc: Path, k: mk.KernelLaunch, occupancy: bool = False):
     height, width = k.out.shape[:2]
     entered = torch.empty((k.spp, height, width), dtype=torch.int32, device=out.device)
     head = (entered.data_ptr(),) if occupancy else ()
+    span = (0, width * height) if _build.takes_range(lib) else ()  # an older tree's K1 takes no pixel range
     stream = torch.cuda.current_stream(out.device).cuda_stream
 
     def run() -> torch.Tensor:
         err = entry(
             k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), out.data_ptr(), *head, width, height, k.spp,
-            k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras), *k.counts, stream,
+            k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras), *k.counts, *span,
+            stream,
         )
         if err != 0:
             raise RuntimeError(f"launch failed: {lib.pt_error_string(err).decode()}")
@@ -318,7 +353,7 @@ def kernels_of(other: Path):
     libraries (K2's reduction stays this tree's): a training step of either
     tree, through the port's own code."""
     csrc = tree_csrc(other)
-    mk.forward_library = lambda k, c=None: forward_library(k, c or csrc)
+    mk.forward_library = lambda k, c=None: ranged_library(k, c or csrc)
     mk.backward_library = lambda k, c=None: backward_library(k, c or csrc)
     try:
         yield

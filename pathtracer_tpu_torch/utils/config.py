@@ -1,9 +1,10 @@
 """Render configuration of the port's CLI.
 
 Port of `pathtracer_tpu/utils/config.py`, with the fields the port's CLI
-uses: the device in place of the TPU execution fields, and the host
-surface's (checkpoints, metrics, profiler, preview, viewer). JSON round
-trips it for reproducible runs.
+uses: the device in place of the TPU execution fields, the host
+surface's (checkpoints, metrics, profiler, preview, viewer), and the rank
+mesh of a sharded render (`--mesh TILESxSPP`). JSON round trips it for
+reproducible runs.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ class RenderConfig:
     profile: str | None = None  # torch.profiler Chrome trace directory
     preview: bool = False  # ANSI repaint of the buffer each frame
     serve: int | None = None  # live viewer's HTTP port (0: a free one)
+    mesh_tiles: int = 1  # the rank mesh's tile axis (>1: a sharded render over torch.distributed)
+    mesh_spp: int = 1  # its sample axis (the render CLI flattens both into the pixel axis)
+    backend: str | None = None  # the collectives' backend (nccl | gloo), None: the layout's choice
 
     @property
     def dtype(self) -> torch.dtype:
@@ -50,6 +54,10 @@ class RenderConfig:
     @classmethod
     def from_json(cls, s: str) -> "RenderConfig":
         return cls(**json.loads(s))
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh_tiles * self.mesh_spp > 1
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

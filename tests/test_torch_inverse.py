@@ -358,7 +358,7 @@ def test_jax_state_reader_checks_its_input(jax_run, tmp_path):
 
 
 def test_recover_demo_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):  # mesh= is ported: it takes a Mesh
         inv.recover_demo(mesh=object(), device="cpu", steps=1, width=8, height=8, verbose=False)
     with pytest.raises(ValueError):
         inv.recover_demo(kernel="pallas", device="cpu", steps=1, width=8, height=8, verbose=False)

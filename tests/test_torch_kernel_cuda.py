@@ -30,6 +30,13 @@ version at K2's tolerance (the mesh's coplanar-tie pixels masked too), the
 Scatter density's entry exactly 0; a CUDA big mesh media scene that
 requires grad raises and launches nothing.
 
+K1 and K2 over a pixel range, as chip_smoke.py phase 37: K1 over the
+ranges of parallel/mesh.shard_ranges (2 and 3 ranks) and over unaligned
+ranges, on every backend and the media instantiation, each launch the
+single launch's pixels bit for bit and nothing else written; K2's range
+gradients over 2 ranks summed within rtol 1e-5 of the whole frame's
+largest entry.
+
 K2's tolerance, as chip_smoke.py phase 6: with the cotangent zeroed at the
 knife-edge pixels (the two forward frames differ by more than 1e-3 there:
 K2 differentiates K1's branch, the plain version the other),
@@ -267,7 +274,7 @@ def test_sdf_library_takes_only_its_counts(cuda_device):
     demo_lib = _build.load("megakernel_sdf", counts=(1, 1, 1))
     assert demo_lib.pt_render_forward_sdf(
         k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(), 160, 120, 1, k.depth, k.n_lights,
-        k.n_materials, k.flags, *k.counts, torch.cuda.current_stream(cuda_device).cuda_stream) != 0
+        k.n_materials, k.flags, *k.counts, 0, 160 * 120, torch.cuda.current_stream(cuda_device).cuda_stream) != 0
 
 
 def test_sdf_launches_on_two_streams(cuda_device):
@@ -708,3 +715,54 @@ def test_media_gradient_on_the_card_raises(cuda_device):
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         MK.render_frame_megakernel(scene, rng.prng_key(0), 16, 8)
     assert (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches) == before
+
+
+RANGE_FAMILIES = ("analytical", "sdf", "mesh", "bigmesh", "media")
+
+
+def range_scene(family, device):
+    if family == "media":
+        return media_scene("analytical", MediumType.SCATTER, anisotropy=0.4, device=device, **DEMO)
+    return families.make_family_scene(family, device=device)
+
+
+@pytest.mark.parametrize("family", RANGE_FAMILIES)
+def test_forward_kernel_over_pixel_ranges(cuda_device, family):
+    """K1 over each rank's range of 2 and 3 ranks (parallel/mesh.
+    shard_ranges) and over unaligned ranges at 320x240, spp 2: one launch
+    a range, the single launch's pixels bit for bit, zeros elsewhere; the
+    ranges summed are the single launch's frame."""
+    from pathtracer_tpu_torch.parallel.mesh import shard_ranges
+
+    scene, key, (w, h) = range_scene(family, cuda_device), rng.prng_key(121), (320, 240)
+    n = w * h
+    whole = MK.render_frame_megakernel(scene, key, w, h, 2).reshape(-1, 4)
+    for ranges in (shard_ranges(n, 2), shard_ranges(n, 3), [(100, 777), (3001, 1), (257, n - 257)]):
+        total = torch.zeros_like(whole)
+        for begin, count in ranges:
+            before = MK.render_frame_megakernel.launches
+            part = MK.render_frame_megakernel(scene, key, w, h, 2, pixels=(begin, count)).reshape(-1, 4)
+            assert MK.render_frame_megakernel.launches == before + 1
+            assert torch.equal(part[begin:begin + count], whole[begin:begin + count]), (begin, count)
+            assert not part[:begin].any() and not part[begin + count:].any()
+            total += part
+        if sum(c for _, c in ranges) == n:
+            assert torch.equal(total, whole)
+
+
+@pytest.mark.parametrize("family", ["analytical", "sdf", "mesh"])
+def test_backward_kernel_range_gradients_sum_to_the_frame(cuda_device, family):
+    """K2 over each of 2 ranks' ranges at 320x240: the two gradients summed
+    are the whole frame's within 1e-5 of its largest entry (the reduction
+    reads only the range's blocks; a block of another range, or one left
+    unwritten, would show)."""
+    from pathtracer_tpu_torch.parallel.mesh import shard_ranges
+
+    scene, key, (w, h) = families.make_family_scene(family, device=cuda_device), rng.prng_key(122), (320, 240)
+    ct = torch.from_numpy(np.random.default_rng(122).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
+    whole = MK.launch_backward(MK.prepare_launch(scene, key, w, h, 1, VERBATIM), ct)
+    parts = [MK.launch_backward(MK.prepare_launch(scene, key, w, h, 1, VERBATIM, r), ct)
+             for r in shard_ranges(w * h, 2)]
+    assert (parts[0] + parts[1] - whole).abs().max() <= 1e-5 * whole.abs().max()
+    with pytest.raises(ValueError, match="block of 128"):
+        MK.launch_backward(MK.prepare_launch(scene, key, w, h, 1, VERBATIM, (100, 300)), ct)

@@ -21,6 +21,9 @@ kernel's threads take them in the tile's order. Its frames and counts are
 held bit for bit to `trace_sample`'s, which no thread order changes, on
 the analytical scene and on the small mesh (its triangle table staged as
 the kernels' blocks stage it, MESH_VIEW), with and without the medium.
+Both loops take a launch's pixel range (p_begin, p_count) as the kernels
+do: a range's tiles start at p_begin, anywhere in the frame, and its
+pixels are the whole frame's bit for bit, the others not written.
 """
 
 import ctypes
@@ -76,10 +79,10 @@ struct float4 {
 """
 
 # The compacted K1's schedule on the host (megakernel_fwd.cuh render_tile):
-# each tile of TILE_PATHS pixels, its samples in turn, level by level; every
-# list run in an order shuffled from `seed` (Fisher-Yates on mt19937), the
-# scatter points still before the surfaces; `entered` gets each sample's
-# bounces entered (K3's counts).
+# each tile of TILE_PATHS pixels of the range [p_begin, p_begin + p_count),
+# its samples in turn, level by level; every list run in an order shuffled
+# from `seed` (Fisher-Yates on mt19937), the scatter points still before the
+# surfaces; `entered` gets each sample's bounces entered (K3's counts).
 TILED = r"""
 #include <memory>
 #include <random>
@@ -89,7 +92,7 @@ constexpr int TILE_PATHS = 256;
 
 template <class B, bool MEDIA>
 static void tiled_frame(const pt::SceneView& s, const uint32_t* keys, float* out, int* entered, int width,
-                        int height, int spp, int depth, int flags, uint32_t seed) {
+                        int height, int spp, int depth, int flags, uint32_t seed, int p_begin, int p_count) {
   constexpr int P = TILE_PATHS;
   auto tile = std::make_unique<pt::Tile<MEDIA, P>>();
   pt::Tile<MEDIA, P>& t = *tile;
@@ -103,11 +106,11 @@ static void tiled_frame(const pt::SceneView& s, const uint32_t* keys, float* out
     }
     return at;
   };
-  const int n = width * height;
-  for (int p0 = 0; p0 < n; p0 += P) {
+  const int n = width * height, p_end = p_begin + p_count;
+  for (int p0 = p_begin; p0 < p_end; p0 += P) {
     for (int k = 0; k < spp; ++k) {
       const uint32_t* kk = keys + 4 * k;
-      for (int i = 0; i < P; ++i) pt::start_tile_path(s, t, i, p0 + i, n, width, height, flags, kk[0], kk[1]);
+      for (int i = 0; i < P; ++i) pt::start_tile_path(s, t, i, p0 + i, p_end, width, height, flags, kk[0], kk[1]);
       for (int d = 0; d < depth; ++d) {
         const int live = list(pt::LIVE, 0);
         if (live == 0) break;
@@ -124,12 +127,12 @@ static void tiled_frame(const pt::SceneView& s, const uint32_t* keys, float* out
           pt::shade_tile_path<B>(s, t, i, p0 + i, n, d, kk[2], kk[3]);
         }
       }
-      for (int i = 0; i < P && p0 + i < n; ++i) {
+      for (int i = 0; i < P && p0 + i < p_end; ++i) {
         pt::end_tile_sample(t, i, k, out + 4 * (p0 + i));
         entered[k * n + p0 + i] = t.entered[i];
       }
     }
-    for (int i = 0; i < P && p0 + i < n && spp > 1; ++i) {
+    for (int i = 0; i < P && p0 + i < p_end && spp > 1; ++i) {
       float* o = out + 4 * (p0 + i);
       const pt::V3 mean = pt::v3(o[0], o[1], o[2]) / (float)spp;
       o[0] = mean.x;
@@ -196,23 +199,28 @@ extern "C" void host_counts(const float* sv, const uint32_t* keys, int* entered,
   }
 }
 
-// The same frame through the compacted schedule (TILED), with its counts.
+// The same frame's pixel range through the compacted schedule (TILED), with
+// its counts.
 extern "C" void host_render_tiled(const float* sv, const uint32_t* keys, float* out, int* entered, int width,
                                   int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                  uint32_t seed) {
+                                  uint32_t seed, int p_begin, int p_count) {
   const pt::SceneView s = pt::analytical_view(sv, n_lights, n_materials, (flags & pt::FLAG_RESPECT_MAX_DIST) != 0);
-  tiled_frame<pt::Analytical, false>(s, keys, out, entered, width, height, spp, depth, flags, seed);
+  tiled_frame<pt::Analytical, false>(s, keys, out, entered, width, height, spp, depth, flags, seed, p_begin, p_count);
 }
 
-// The small mesh's frame and K3 counts (MEDIA with `media`) through the
-// per-thread loop (trace_sample) or, with `tiled`, the compacted schedule
-// (TILED, its lists shuffled from `seed`), on its staged triangle table.
+// The small mesh's frame and K3 counts (MEDIA with `media`) over the pixel
+// range through the per-thread loop (trace_sample) or, with `tiled`, the
+// compacted schedule (TILED, its lists shuffled from `seed`), on its staged
+// triangle table.
 template <bool MEDIA>
 static void mesh_frame(const pt::SceneView& s, const uint32_t* keys, float* out, int* entered, int width, int height,
-                       int spp, int depth, int flags, int tiled, uint32_t seed) {
-  if (tiled) return tiled_frame<pt::Mesh, MEDIA>(s, keys, out, entered, width, height, spp, depth, flags, seed);
+                       int spp, int depth, int flags, int tiled, uint32_t seed, int p_begin, int p_count) {
+  if (tiled) {
+    return tiled_frame<pt::Mesh, MEDIA>(s, keys, out, entered, width, height, spp, depth, flags, seed, p_begin,
+                                        p_count);
+  }
   const int n = width * height;
-  for (int p = 0; p < n; ++p) {
+  for (int p = p_begin; p < p_begin + p_count; ++p) {
     pt::V3 sum = pt::splat3(0.0f);
     for (int k = 0; k < spp; ++k) {
       const uint32_t* kk = keys + 4 * k;
@@ -230,10 +238,11 @@ static void mesh_frame(const pt::SceneView& s, const uint32_t* keys, float* out,
 
 extern "C" void host_mesh_frame(const float* sv, const uint32_t* keys, float* out, int* entered, int width,
                                 int height, int spp, int depth, int n_lights, int n_materials, int flags,
-                                const int* topo, int n_tris, int n_verts, int media, int tiled, uint32_t seed) {
+                                const int* topo, int n_tris, int n_verts, int media, int tiled, uint32_t seed,
+                                int p_begin, int p_count) {
   const pt::SceneView s = host_mesh_view(sv, n_lights, n_materials, topo, n_tris, n_verts);
   (media ? mesh_frame<true> : mesh_frame<false>)(s, keys, out, entered, width, height, spp, depth, flags, tiled,
-                                                  seed);
+                                                  seed, p_begin, p_count);
 }
 """
 
@@ -280,9 +289,9 @@ def host_lib(tmp_path_factory):
     lib = build_shim(tmp_path_factory.mktemp("kernel_host"), SHIM)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_render.argtypes = [p, p, p, i, i, i, i, i, i, i]
-    lib.host_render_tiled.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_uint32]
+    lib.host_render_tiled.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_uint32, i, i]
     lib.host_counts.argtypes = [p, p, p, i, i, i, i, i, i, i]
-    lib.host_mesh_frame.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, i, i, i, i, ctypes.c_uint32]
+    lib.host_mesh_frame.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, i, i, i, i, ctypes.c_uint32, i, i]
     return lib
 
 
@@ -347,18 +356,19 @@ def test_kernel_code_matches_plain_version(host_lib, case):
 
 
 
-def host_render_tiled(lib, scene, key, w, h, spp, quirks, seed):
+def host_render_tiled(lib, scene, key, w, h, spp, quirks, seed, pixels=None):
     """host_render through the compacted schedule, its lists shuffled from
-    `seed`: (the frame, the bounces each sample's path entered, int32
-    [spp, H, W])."""
+    `seed`, over the pixel range `pixels` (p_begin, p_count; None: the
+    whole frame): (the frame, the bounces each sample's path entered, int32
+    [spp, H, W]); the pixels outside the range keep NaN and -1."""
     sv = MK.pack_scene(scene, w, h).contiguous()
     keys = launch_keys(key, spp)
-    out = torch.empty((h, w, 4), dtype=torch.float32)
-    entered = torch.zeros((spp, h, w), dtype=torch.int32)
+    out = torch.full((h, w, 4), float("nan"), dtype=torch.float32)
+    entered = torch.full((spp, h, w), -1, dtype=torch.int32)
     lib.host_render_tiled(
         sv.data_ptr(), keys.data_ptr(), out.data_ptr(), entered.data_ptr(), w, h, spp,
         scene.recursion_depth, scene.num_lights, int(scene.params.materials.roughness.shape[0]),
-        MK.kernel_flags(scene, quirks), seed,
+        MK.kernel_flags(scene, quirks), seed, *(pixels or (0, w * h)),
     )
     return out, entered
 
@@ -373,19 +383,21 @@ def host_counts(lib, scene, key, w, h, spp, quirks):
     return entered
 
 
-def host_mesh_frame(lib, scene, key, w, h, spp, quirks, seed=None):
+def host_mesh_frame(lib, scene, key, w, h, spp, quirks, seed=None, pixels=None):
     """The small mesh's frame and K3 counts on the host, through the
     per-thread loop or, with a `seed`, the compacted schedule (its lists
-    shuffled from it); the MEDIA instantiation for a scene with a medium."""
+    shuffled from it); the MEDIA instantiation for a scene with a medium;
+    over the pixel range `pixels` as host_render_tiled."""
     b, media = MK.BACKENDS["mesh"], MK.scene_media(scene)
     # held: the library reads their memory
     sv, keys, extras = b.pack(scene, w, h, media).contiguous(), launch_keys(key, spp), b.extras(scene)
-    out = torch.empty((h, w, 4), dtype=torch.float32)
-    entered = torch.zeros((spp, h, w), dtype=torch.int32)
+    out = torch.full((h, w, 4), float("nan"), dtype=torch.float32)
+    entered = torch.full((spp, h, w), -1, dtype=torch.int32)
     lib.host_mesh_frame(
         sv.data_ptr(), keys.data_ptr(), out.data_ptr(), entered.data_ptr(), w, h, spp, scene.recursion_depth,
         scene.num_lights, int(scene.params.materials.roughness.shape[0]), MK.kernel_flags(scene, quirks),
         *(t.data_ptr() for t in extras), *b.counts(scene), int(media), int(seed is not None), seed or 0,
+        *(pixels or (0, w * h)),
     )
     return out, entered
 
@@ -446,3 +458,43 @@ def test_compacted_schedule_matches_per_thread_loop(host_lib, case):
     diff = np.abs(img.numpy().astype(np.float64) - ref)[~ties.numpy()]
     assert np.quantile(diff, 0.999) < 1e-4
     assert diff.mean() < 1e-5
+
+
+# Ranges of the 99x65 frame (6435 pixels) for the range cases: aligned to
+# the kernels' tiles and blocks (parallel/mesh.shard_ranges over 2 and 3
+# ranks at 1536 and 128), and unaligned, a tile cut in two at either end.
+RANGES = ((0, 3072), (3072, 3363), (0, 2176), (2176, 2176), (4352, 2083), (100, 777), (3001, 1), (257, 6000))
+RANGE_CASES = {"verbatim": CASES["verbatim"], "alpha_and_transmission": CASES["alpha_and_transmission"],
+               **MESH_CASES}
+
+
+@pytest.mark.parametrize("case", sorted(RANGE_CASES))
+def test_compacted_schedule_over_pixel_ranges(host_lib, case):
+    """K1's pixel range (megakernel_fwd.cuh render_tile from p_begin, its
+    places past the range's end dead): each range of RANGES, aligned or not,
+    gives the whole frame's pixels and K3 counts bit for bit through the
+    compacted schedule (and the small mesh's per-thread loop), and leaves
+    every other pixel and count unwritten; the ranges of one split cover
+    the frame. The analytical scene, its alpha and glass case, the small
+    mesh and its glass Scatter cube (MEDIA)."""
+    make, spp, quirks = RANGE_CASES[case]
+    scene = make()
+    key = rng.prng_key(sorted(RANGE_CASES).index(case) + 41)
+    w, h = 99, 65
+    if case in MESH_CASES:
+        frames = [lambda pixels, seed=seed: host_mesh_frame(host_lib, scene, key, w, h, spp, quirks, seed, pixels)
+                  for seed in (None, 7)]
+    else:
+        frames = [lambda pixels: host_render_tiled(host_lib, scene, key, w, h, spp, quirks, 7, pixels)]
+    for frame in frames:
+        whole, whole_entered = frame(None)
+        whole, whole_entered = whole.reshape(-1, 4), whole_entered.reshape(spp, -1)
+        assert not whole.isnan().any() and (whole_entered >= 0).all()
+        for begin, count in RANGES:
+            img, entered = frame((begin, count))
+            img, entered = img.reshape(-1, 4), entered.reshape(spp, -1)
+            inside = torch.zeros(w * h, dtype=torch.bool)
+            inside[begin:begin + count] = True
+            assert torch.equal(img[inside], whole[inside]), (begin, count)
+            assert torch.equal(entered[:, inside], whole_entered[:, inside]), (begin, count)
+            assert img[~inside].isnan().all() and (entered[:, ~inside] == -1).all(), (begin, count)

@@ -53,7 +53,9 @@ SHIM = PRELUDE + r"""
 template <class B>
 static void frame(const pt::SceneView& s, const uint32_t* keys, float* out, int* entered, int width, int height,
                   int spp, int depth, int flags, int tiled, uint32_t seed) {
-  if (tiled) return tiled_frame<B, true>(s, keys, out, entered, width, height, spp, depth, flags, seed);
+  if (tiled) {
+    return tiled_frame<B, true>(s, keys, out, entered, width, height, spp, depth, flags, seed, 0, width * height);
+  }
   const int n = width * height;
   for (int p = 0; p < n; ++p) {
     pt::V3 sum = pt::splat3(0.0f);

@@ -206,7 +206,7 @@ def host_lib(tmp_path_factory):
     for family in FAMILIES:
         library = {"sdf": "megakernel_sdf", "mesh": "megakernel_mesh"}.get(family, "megakernel_fwd")
         argtypes, _ = _build.SIGNATURES[library][MK.BACKENDS[family].occupancy]
-        getattr(lib, f"host_{family}").argtypes = argtypes[:-1]  # no stream
+        getattr(lib, f"host_{family}").argtypes = argtypes[:-3]  # no pixel range, no stream
     return lib
 
 
