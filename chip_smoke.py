@@ -7,8 +7,9 @@ which raises on failure (non-zero exit):
 1. card: name and power limit (nvidia-smi), torch and nvcc versions;
 2. build: the CUDA kernels of pathtracer_tpu_torch/csrc, timed, the SDF
    backend's libraries (megakernel_sdf.cu, megakernel_sdf_bwd_media.cu)
-   for the demo scene's primitive counts (1, 1, 1) among them, all side by
-   side; the seconds each library took;
+   for the demo scene's primitive counts (1, 1, 1) and phase 38's plugins'
+   (megakernel_plugin.cu, one for each) among them, all side by side; the
+   seconds each library took;
 3. kernel vs its plain PyTorch version on the card, depth 4: 320x240 at
    spp 1 and 2 VERBATIM and spp 1 FIXED, 1100x3 at spp 2 FIXED (its last
    tile of paths part empty), and the main path's 1920x1080;
@@ -289,20 +290,38 @@ which raises on failure (non-zero exit):
    beside the card's name and power limit: each rank's K1 over its half
    alone, the all-reduce of the 1080p frame, the sharded frame against the
    single launch, the sharded step against one rank's.
+38. scene-backend plugins (plugin_phase): the plugins that
+   tests/torch_plugin_toy.py registers from outside the package (the
+   one-sphere toy with an adjoint struct; toy_extra, its sphere in an
+   extra tensor; stripes, the analytical backend with JAX's `_stripes`
+   hook after its closest hit), each library built in phase 2 beside the
+   others from csrc/megakernel_plugin.cu. The main path, its counts read
+   just after: one K1 and one K3 launch of each plugin at 1920x1080,
+   depth 4, and one K2 call of the toy (a 320x240 frame's gradient
+   through the autograd Function). Each plugin's K1 against its plain
+   version at the image tolerance, its K3 frame K1's and its counts the
+   plain version's on at least 99.9% of lanes; the toy's glass with a
+   Scatter medium (MEDIA, depth 6) at 320x240 alike; the toy's K2 (spp 1
+   and 2, and MEDIA) against its plain version at 320x240 at the gradient
+   tolerance (check_backward); the toy over the ranges of 2 and 3 ranks
+   bit-equal to the single launch; toy_extra and stripes with grad on the
+   card refused before any launch. Each plugin's launch, wrapper and plain
+   ms, its bound from this run's segments (K3's counts) and its
+   registers; the toy's K2 ms, plain ms and bound at 320x240.
 
 The total seconds, with phase 25's, phase 26's, phases 27-29's, phases
-30-33's, phase 34's, phase 36's and phase 37's, are printed before the
-kernels line. Each K2 row of the kernels line lists its two kernels under
+30-33's, phase 34's, phase 36's, phase 37's and phase 38's, are printed
+before the kernels line. Each K2 row of the kernels line lists its two kernels under
 "stages" (the record kernel and the adjoint kernel: their launches on the
 main path and their times apart); K1's and K2's rows hold phase 37's
 numbers under "pixel_range".
 
-Image tolerance (phases 3, 4, 10, 17, 19 and 27): quantile(|diff|, 0.999) < 1e-4 and
+Image tolerance (phases 3, 4, 10, 17, 19, 27 and 38): quantile(|diff|, 0.999) < 1e-4 and
 mean(|diff|) < 1e-5, all values finite. The two sides draw the same
 threefry numbers, so they differ only by float rounding (FMA contraction,
 libm ulps), which can flip a rare knife-edge branch in a few pixels.
 
-Gradient tolerance (phases 6, 13, 21, 30 and 34), at every size: with the cotangent
+Gradient tolerance (phases 6, 13, 21, 30, 34 and 38), at every size: with the cotangent
 zeroed at the knife-edge pixels (where the two forward frames differ by
 more than 1e-3: a branch taken the other way, so K2 differentiates K1's
 path and the plain version another), max|g_k - g_p| <= 1e-2 max|g_p|, and
@@ -546,6 +565,22 @@ MEDIUM_SEGMENT_ADJ_OPS = 30
 SCATTER_SAVED_ADJ_OPS = 1000 + 500 - 25 - 35
 # Phase 34: K2 at this depth, past the 16 bounces the adjoint once held.
 DEEP_DEPTH = 20
+# Phase 38, the scene-backend plugins of tests/torch_plugin_toy.py. A
+# plugin's segment, read from csrc/tracer.cuh and tests/torch_plugin_toy.cuh
+# as K1_OPS: the toy's shading is K1's without the analytical closest hit
+# (~60 float32: its two sphere tests' float32 part, the plane test, the
+# argmin, the checker) but with the toy's normal and material (~25); in
+# float64 three sphere tests of ~20 (the closest hit, the light in the
+# emitter pass, the shadow ray) where the analytical scene has five. The
+# stripes hook adds ~10 float32 operations to the analytical segment. K2's
+# toy: K2_ADJ_OPS without the analytical hit's adjoint, with the toy's
+# (~90 float32: the normal's adjoint ~60, the material scatter ~15, the
+# sphere test's float32 part ~15) and the sphere test's ~45 float64.
+TOY_SEGMENT_OPS = dict(f32=K1_OPS["f32"] - 60 + 25, f64=60)
+STRIPES_SEGMENT_OPS = dict(f32=K1_OPS["f32"] + 10, f64=K1_OPS["f64"])
+TOY_K2_OPS = dict(f32=TOY_SEGMENT_OPS["f32"] + K2_ADJ_OPS["f32"] - ANALYTICAL_HIT_ADJ_F32 + 90,
+                  f64=TOY_SEGMENT_OPS["f64"] + 45)
+PLUGIN_BWD_W, PLUGIN_BWD_H = 320, 240
 
 
 def image_diff(a, b) -> dict:
@@ -1667,9 +1702,10 @@ def deep_phase(torch, mk, rng, dev, total_bytes: int) -> None:
                 raise AssertionError(f"spp {spp}, cap {cap}: the chunked gradient differs from the one-chunk one")
 
 
-def print_registers(_build) -> None:
-    """ptxas's lines of each library's build, and the seconds it took."""
-    for line in _build.build_log().splitlines():
+def print_registers(_build, plugins=()) -> None:
+    """ptxas's lines of each library's build (and of the plugins'
+    PluginSources `plugins`), and the seconds it took."""
+    for line in _build.build_log(plugins=plugins).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line or line.startswith(("built in", "== ")):
             print("  " + line.strip())
 
@@ -2319,6 +2355,187 @@ def sharding_phase(torch, mk, cli, rng, cuda_ms, dev, card: str) -> dict:
                 two_rank_leaf_rel=leaf_rel, nccl=nccl_note)
 
 
+def plugin_phase(torch, mk, rng, cuda_ms, dev, card: str, total_bytes: int) -> list[dict]:
+    """Phase 38: the scene-backend plugins registered from test code
+    (tests/torch_plugin_toy.py: the toy, the toy with its sphere in an extra
+    tensor, the stripes hook wrapping the analytical backend), each through
+    K1 and K3 built from csrc/megakernel_plugin.cu with its struct, and the
+    toy's K2: at 1920x1080, depth 4, spp 1 each plugin's K1 against its
+    plain version at phase 3's gate and K3's counts against
+    tracer.bounces_entered (phase 25's share), the toy's glass with a
+    Scatter medium (MEDIA) at 320x240, the toy's K2 at 320x240 at K2's gate
+    (phase 6's check_backward), the toy over 2 and 3 pixel ranges bit-equal
+    to the single launch, the gradients of toy_extra and stripes refused
+    before any launch; each plugin's launch time, bound and registers.
+    Returns the kernels line's rows megakernel_fwd_plugin and
+    megakernel_bwd_plugin."""
+    import torch_plugin_toy as toy
+
+    from pathtracer_tpu_torch.integrator.inverse import named_leaves
+    from pathtracer_tpu_torch.integrator.tracer import VERBATIM, bounces_entered
+    from pathtracer_tpu_torch.parallel import mesh as M
+
+    print(f"== 38. scene-backend plugins registered from test code (tests/torch_plugin_toy.py), {MAIN_W}x{MAIN_H}, "
+          f"depth {MAIN_DEPTH}")
+    t_phase = time.perf_counter()
+    scenes = {"toy": toy.make_toy_scene(recursion_depth=MAIN_DEPTH, device=dev),
+              "toy_extra": toy.make_toy_scene(recursion_depth=MAIN_DEPTH, device=dev, extra=True),
+              "stripes": toy.make_stripes_scene(recursion_depth=MAIN_DEPTH, device=dev)}
+    ops = {"toy": TOY_SEGMENT_OPS, "toy_extra": TOY_SEGMENT_OPS, "stripes": STRIPES_SEGMENT_OPS}
+    key = rng.prng_key(381)
+    pix = MAIN_W * MAIN_H
+
+    # the main path: one frame and one K3 launch of each plugin, one K2 call of the toy
+    bwd_scene = toy.make_toy_scene(recursion_depth=MAIN_DEPTH, device=dev)
+    bwd_leaf = dict(named_leaves(bwd_scene))["params.radius"].requires_grad_(True)
+    reset_counts(mk)
+    for plugin in toy.PLUGINS:  # their own counts, besides COUNTERS' totals
+        for fn, suffix in ((mk.render_frame_megakernel, "launches"), (mk.render_frame_megakernel, "bwd_launches"),
+                           (mk.measure_occupancy_megakernel, "launches")):
+            setattr(fn, f"{plugin.name}_{suffix}", 0)
+    frames = {name: mk.render_frame_megakernel(scene, key, MAIN_W, MAIN_H).clone() for name, scene in scenes.items()}
+    occupancy = {name: mk.measure_occupancy_megakernel(scene, key, MAIN_W, MAIN_H) for name, scene in scenes.items()}
+    img = mk.render_frame_megakernel(bwd_scene, key, PLUGIN_BWD_W, PLUGIN_BWD_H)
+    (bwd_grad,) = torch.autograd.grad((img[..., :3] ** 2).mean(), [bwd_leaf])
+    torch.cuda.synchronize()
+    counts = read_counts(mk)
+    launches = {name: (mk.render_frame_megakernel.__dict__[f"{name}_launches"],
+                       mk.measure_occupancy_megakernel.__dict__[f"{name}_launches"]) for name in scenes}
+    toy_bwd_launches = mk.render_frame_megakernel.toy_bwd_launches
+    print(f"  main path: K1 and K3 launches a plugin {launches}; the toy's K2 calls {toy_bwd_launches} (record and "
+          f"adjoint kernels {stage_counts(counts)}); d mean(rgb^2)/d radius {float(bwd_grad):.6e}")
+    want = expect_counts(launches=4, bwd_launches=1, occupancy_launches=3)
+    if (counts != want or launches != {"toy": (2, 1), "toy_extra": (1, 1), "stripes": (1, 1)}
+            or toy_bwd_launches != 1):
+        raise AssertionError(f"the plugins' main path is not one K1 and one K3 launch a plugin, and one more K1 "
+                             f"launch and one K2 call of the toy: {counts}, {launches}, toy K2 {toy_bwd_launches}")
+
+    rows, max_err = {}, 0.0
+    for name, scene in scenes.items():
+        ref = mk.render_frame_reference(scene, key, MAIN_W, MAIN_H)
+        d = image_diff(frames[name].cpu(), ref.cpu())
+        max_err = max(max_err, d["max"])
+        check_diff(f"{name} K1 vs its plain version", d)
+        entered = occupancy[name]["entered"]
+        want_entered = bounces_entered(scene, key, MAIN_W, MAIN_H)
+        same = float((entered == want_entered).double().mean())
+        print(f"    K3's counts equal the plain version's on {same:.6f} of lanes; alive fractions "
+              f"{fmt_fractions(occupancy[name]['alive_fraction'])}")
+        if same < OCC_SAME_MIN:
+            raise AssertionError(f"{name}: K3's counts equal the plain version's on {same}, below {OCC_SAME_MIN}")
+        k = mk.prepare_launch(scene, key, MAIN_W, MAIN_H, 1, VERBATIM)
+        k3 = torch.empty((1, MAIN_H, MAIN_W), dtype=torch.int32, device=dev)
+        if not torch.equal(mk.launch(k, k3), frames[name]) or not torch.equal(k3, entered):
+            raise AssertionError(f"{name}: K3's frame or counts are not K1's and measure_occupancy's")
+        segments = int(entered.sum())
+        nbytes = k.sv.shape[1] * 4 + sum(t.numel() * 4 for t in k.held) + 16 + pix * 16
+        bound_ms, bound_by = bound(segments, pix, nbytes, ops[name])
+        launch_ms = cuda_ms(lambda: mk.launch(k), 20)
+        wrapper_ms = cuda_ms(lambda: mk.render_frame_megakernel(scene, key, MAIN_W, MAIN_H), 10)
+        plain_ms = cuda_ms(lambda: mk.render_frame_reference(scene, key, MAIN_W, MAIN_H), 1, warmup=0)
+        res = mk.forward_resources(k)
+        print(f"    launch {launch_ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain {plain_ms:.3f} ms; {segments} segments "
+              f"({segments / pix:.3f} a pixel), bound {bound_ms:.4f} ms ({bound_by}); {res['registers']} registers, "
+              f"{res['stack_bytes']} B stack, {res['shared_bytes']} B shared, {res['blocks_per_sm']} blocks of "
+              f"{mk.LANES} an SM ({card})")
+        rows[name] = dict(launches=launches[name][0], occupancy_launches=launches[name][1], max_abs_err=d["max"],
+                          ms=launch_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, segments=segments, registers=res["registers"],
+                          stack_bytes=res["stack_bytes"])
+        del k, k3, ref, entered, want_entered
+
+    media = toy.make_toy_media_scene(device=dev)
+    w, h = SHARD_PLAIN_W, SHARD_PLAIN_H
+    mkey = rng.prng_key(382)
+    reset_counts(mk)
+    img = mk.render_frame_megakernel(media, mkey, w, h)
+    if read_counts(mk)["media_launches"] != 1:
+        raise AssertionError("the media toy did not take K1's MEDIA instantiation")
+    d = image_diff(img.cpu(), mk.render_frame_reference(media, mkey, w, h).cpu())
+    max_err = max(max_err, d["max"])
+    check_diff(f"toy glass with a Scatter medium (MEDIA, depth {media.recursion_depth}), {w}x{h}", d)
+    media_err = d["max"]
+    k = mk.prepare_launch(media, mkey, w, h, 1, VERBATIM)
+    entered = torch.empty((1, h, w), dtype=torch.int32, device=dev)
+    same_frame = bool(torch.equal(mk.launch(k, entered), img))
+    same = float((entered == bounces_entered(media, mkey, w, h)).double().mean())
+    media_res = mk.forward_resources(k)
+    print(f"    K3 MEDIA's frame K1's: {same_frame}; its counts the plain version's on {same:.6f} of lanes; "
+          f"{media_res['registers']} registers, {media_res['stack_bytes']} B stack")
+    if not same_frame or same < OCC_SAME_MIN:
+        raise AssertionError(f"the media toy's K3 frame is not K1's, or its counts equal the plain version's on {same}")
+
+    print(f"  the toy's K2 vs its plain version, {PLUGIN_BWD_W}x{PLUGIN_BWD_H}:")
+    bwd_err, _ = check_backward(torch, mk, rng, dev, total_bytes, [
+        (scenes["toy"], PLUGIN_BWD_W, PLUGIN_BWD_H, 1, VERBATIM, 383, ", toy"),
+        (scenes["toy"], PLUGIN_BWD_W, PLUGIN_BWD_H, 2, VERBATIM, 384, ", toy"),
+        (media, PLUGIN_BWD_W, PLUGIN_BWD_H, 1, VERBATIM, 385, ", toy glass MEDIA"),
+    ])
+    k = mk.prepare_launch(scenes["toy"], key, PLUGIN_BWD_W, PLUGIN_BWD_H, 1, VERBATIM)
+    ct = torch.from_numpy(np.random.default_rng(386).standard_normal((PLUGIN_BWD_H, PLUGIN_BWD_W, 4))
+                          .astype(np.float32)).to(dev)
+    bwd_ms = cuda_ms(lambda: mk.launch_backward(k, ct), 10)
+    plain_bwd_ms = cuda_ms(lambda: mk.render_grad_reference(k.sv, scenes["toy"], key, ct, PLUGIN_BWD_W, PLUGIN_BWD_H),
+                           1, warmup=0)
+    entered = torch.empty((1, PLUGIN_BWD_H, PLUGIN_BWD_W), dtype=torch.int32, device=dev)
+    mk.launch(k, entered)
+    bwd_segments = int(entered.sum())
+    bwd_bound_ms, bwd_bound_by = bound(bwd_segments, PLUGIN_BWD_W * PLUGIN_BWD_H,
+                                       k.sv.shape[1] * 8 + 16 + PLUGIN_BWD_W * PLUGIN_BWD_H * 16, TOY_K2_OPS)
+    bwd_res = mk.backward_resources(k)
+    print(f"  toy K2 at {PLUGIN_BWD_W}x{PLUGIN_BWD_H}: {bwd_ms:.3f} ms, plain {plain_bwd_ms:.3f} ms, bound "
+          f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}), {bwd_segments} segments; record kernel "
+          f"{bwd_res['record']['registers']} registers, {bwd_res['record']['stack_bytes']} B stack; adjoint kernel "
+          f"{bwd_res['adjoint']['registers']} registers, {bwd_res['adjoint']['stack_bytes']} B stack, "
+          f"{bwd_res['adjoint']['blocks_per_sm']} blocks an SM ({card})")
+
+    whole = frames["toy"].reshape(-1, 4)
+    for ranks in (2, 3):
+        total = torch.zeros_like(whole)
+        reset_counts(mk)
+        for begin, count in M.shard_ranges(pix, ranks):
+            part = mk.render_frame_megakernel(scenes["toy"], key, MAIN_W, MAIN_H, pixels=(begin, count)).reshape(-1, 4)
+            if not torch.equal(part[begin:begin + count], whole[begin:begin + count]):
+                raise AssertionError(f"the toy's K1 over ({begin}, {count}) is not the single launch's pixels")
+            total += part
+        if not torch.equal(total, whole) or read_counts(mk)["launches"] != ranks:
+            raise AssertionError(f"the toy over {ranks} ranges does not sum to the single launch")
+    print("  the toy over the ranges of 2 and 3 ranks: the single launch's frame bit for bit, one launch a range")
+
+    refused = {"toy_extra": (lambda: toy.make_toy_scene(device=dev, extra=True), "params.center.x"),
+               "stripes": (lambda: toy.make_stripes_scene(device=dev), "params.sphere_radius")}
+    for name, (make, leaf) in refused.items():
+        scene = make()
+        dict(named_leaves(scene))[leaf].requires_grad_(True)
+        reset_counts(mk)
+        try:
+            mk.render_frame_megakernel(scene, key, 64, 48)
+        except NotImplementedError as err:
+            print(f"  {name} with grad on {leaf}: refused before any launch ({err})")
+        else:
+            raise AssertionError(f"{name}: a CUDA scene with grad was not refused")
+        if any(read_counts(mk).values()):
+            raise AssertionError(f"{name}: the refused gradient launched a kernel: {read_counts(mk)}")
+    print(f"  phase 38 in {time.perf_counter() - t_phase:.1f} s")
+
+    first = rows["toy"]
+    fwd = dict(
+        name="megakernel_fwd_plugin", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_plugin.cu",
+        replaces="pathtracer_tpu/ops/megakernel.py:1605", resolves="pathtracer_tpu/ops/megakernel.py:788",
+        launches=first["launches"], max_abs_err=max_err, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None, plugins=rows,
+        media=dict(max_abs_err=media_err, registers=media_res["registers"]),
+    )
+    bwd = dict(
+        name="megakernel_bwd_plugin", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_plugin.cu",
+        replaces="pathtracer_tpu/ops/megakernel.py:1771", resolves="pathtracer_tpu/ops/megakernel.py:788",
+        launches=toy_bwd_launches, max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_bound_ms,
+        bound_by=bwd_bound_by, library_ms=None, shape=f"{PLUGIN_BWD_W}x{PLUGIN_BWD_H}",
+        registers={kernel: r["registers"] for kernel, r in bwd_res.items()},
+    )
+    return [fwd, bwd]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2363,15 +2580,20 @@ def main(argv=None) -> int:
 
     print("== 2. build")
     t0 = time.perf_counter()
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_plugin_toy  # registers the plugins of phase 38
+
     demo_counts = mks.sdf_counts(make_sdf_scene())
-    _build.build(sdf_counts=(demo_counts,))
+    _build.build(sdf_counts=(demo_counts,), plugins=torch_plugin_toy.sources())
     for kernel in _build.kernels():
         _build.load(kernel)
     for kernel in _build.PER_COUNT:
         _build.load(kernel, counts=demo_counts)
-    print(f"  built (one nvcc per kernel, side by side; the SDF backend's for the demo's counts {demo_counts}) and "
-          f"loaded in {time.perf_counter() - t0:.1f} s")
-    print_registers(_build)
+    for source in torch_plugin_toy.sources():
+        _build.load_plugin(source)
+    print(f"  built (one nvcc per kernel, side by side; the SDF backend's for the demo's counts {demo_counts}, and "
+          f"each plugin's of phase 38) and loaded in {time.perf_counter() - t0:.1f} s")
+    print_registers(_build, torch_plugin_toy.sources())
 
     scene = make_scene(device=dev)
     max_err = 0.0
@@ -2767,6 +2989,8 @@ def main(argv=None) -> int:
     host_surface_phase(torch, mk, cli, dev, card)
     t37 = time.perf_counter()
     sharding = sharding_phase(torch, mk, cli, rng, cuda_ms, dev, card)
+    t38 = time.perf_counter()
+    plugin_rows = plugin_phase(torch, mk, rng, cuda_ms, dev, card, total_bytes)
 
     kernels = [dict(
         name="megakernel_fwd", route="cuda", source="pathtracer_tpu_torch/csrc/megakernel_fwd.cu",
@@ -2795,10 +3019,10 @@ def main(argv=None) -> int:
         replaces="pathtracer_tpu/ops/megakernel_sdf.py:395", launches=k6_launches,
         max_abs_err=float(k6_err), ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_bound_by,
         library_ms=None,
-    ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row, *media_rows, *media_bwd_rows]
+    ), *mesh_rows, mesh_bwd_row, *occupancy_rows, stream_row, *media_rows, *media_bwd_rows, *plugin_rows]
     print(f"== total {time.perf_counter() - started:.1f} s (phase 25 {t26 - t25:.1f} s, phase 26 {t27 - t26:.1f} s, "
           f"phases 27-29 {t30 - t27:.1f} s, phases 30-33 {t34 - t30:.1f} s, phase 34 {t35 - t34:.1f} s, "
-          f"phase 36 {t37 - t36:.1f} s, phase 37 {time.perf_counter() - t37:.1f} s)")
+          f"phase 36 {t37 - t36:.1f} s, phase 37 {t38 - t37:.1f} s, phase 38 {time.perf_counter() - t38:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

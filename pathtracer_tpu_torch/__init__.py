@@ -11,8 +11,11 @@ with respect to the packed scene for the analytical, SDF and mesh
 families; K3 counts the bounces each path entered, K4 draws the in-kernel
 uniform stream, K6 counts the SDF march's trips. K1 and K2 take a range of
 the frame's pixels, which `parallel/` gives each rank of a
-torch.distributed process group. On the CPU the same entry points run the
-eager integrator. The package imports torch and numpy, never JAX.
+torch.distributed process group. A scene family defined outside the
+package (a packer and a CUDA header with its backend structs) registers
+with `register_backend` and goes through K1, K3 and K2 as the built-in
+ones do. On the CPU the same entry points run the eager integrator. The
+package imports torch and numpy, never JAX.
 
 This module is the prelude: one flat namespace of the public API, under
 the JAX package's names where the port has them, and the port's kernel
@@ -79,8 +82,10 @@ from .models.sdf import make_scene as make_sdf_scene
 from .models.sdf import scene_sdf, sdf_normal, sphere_trace
 from .ops import bsdf, intersect, sampling, vecmath
 from .ops.megakernel import (
+    KernelBackend,
     measure_occupancy_megakernel,
     pack_scene,
+    register_backend,
     render_frame_megakernel,
     render_frame_reference,
 )

@@ -10,7 +10,8 @@
 // media_bounce_adj over 26-scalar material records) on each of the three,
 // built apart without FMA contraction (megakernel_bwd_media.cu). This
 // header holds the template; megakernel_bwd.cu and megakernel_bwd_media.cu
-// instantiate it.
+// instantiate it, and megakernel_plugin.cu for a scene-backend plugin's
+// adjoint struct.
 //
 // Replaces the TPU kernel pathtracer_tpu/ops/megakernel.py::_pallas_backward
 // (body _make_grad_kernel: replay, stored carries, per-bounce VJP in

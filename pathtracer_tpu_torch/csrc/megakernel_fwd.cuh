@@ -3,9 +3,10 @@
 // scene (sdf.cuh, the port of the SDF backend K5), the small triangle mesh
 // (mesh.cuh, K7) and the big one (bigmesh.cuh, K8); and its instrumented
 // twin, the occupancy kernel K3, on the same four backends. This header
-// holds the template; megakernel_fwd.cu instantiates it for the analytical,
-// mesh and big mesh backends, megakernel_sdf.cu for the SDF backend of one
-// scene's primitive counts.
+// holds the template; megakernel_fwd.cu instantiates it for the analytical
+// and big mesh backends, megakernel_mesh.cu for the small mesh,
+// megakernel_sdf.cu for the SDF backend of one scene's primitive counts,
+// and megakernel_plugin.cu for a scene-backend plugin's struct.
 //
 // Replaces the TPU kernel pathtracer_tpu/ops/megakernel.py::_pallas_forward
 // (body _make_kernel -> _trace_tile -> _tile_bounce, over a KernelBackend).

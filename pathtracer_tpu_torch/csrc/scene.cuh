@@ -6,7 +6,8 @@
 //
 //   [0, 12)   camera lower_left(3) horizontal(3) vertical(3) origin(3)
 //   ...       the backend's records (analytical.cuh, sdf.cuh, mesh.cuh;
-//             bigmesh.cuh has none, its tables come beside the vector)
+//             bigmesh.cuh has none, its tables come beside the vector; a
+//             plugin's, megakernel_plugin.cu)
 //   L x 15    light: position(3) emission(3) u(3) v(3) radius area type
 //   M x 20    material: rgb(3) anisotropic emission(3) metallic roughness
 //             subsurface specular_tint sheen sheen_tint clearcoat
@@ -55,6 +56,11 @@ struct SceneView {
   const float* attr = nullptr;
   const float* aabb = nullptr;
   int n_chunks = 0;
+  // A plugin backend's extra tensors (ops/megakernel.KernelBackend.extras):
+  // n_extras float32 arrays in device memory, their pointers in a table
+  // there. The built-in backends have none.
+  const float* const* extras = nullptr;
+  int n_extras = 0;
 
   __device__ __forceinline__ const float* light(int i) const { return sv + lights_at + i * LIGHT_STRIDE; }
   __device__ __forceinline__ const float* material(int i) const {

@@ -13,8 +13,9 @@
 //   bool  B::any_hit(s, ro, rd, max_dist)
 //   V3    B::background(s, rd)
 // over the packed scene of scene.cuh (Analytical in analytical.cuh, Sdf in
-// sdf.cuh, Mesh in mesh.cuh, BigMesh in bigmesh.cuh); its closest hit is a
-// template over the material it fills (Material, MediaMaterial, MatRef).
+// sdf.cuh, Mesh in mesh.cuh, BigMesh in bigmesh.cuh, a plugin's struct in
+// its own header, megakernel_plugin.cu); its closest hit is a template over
+// the material it fills (Material, MediaMaterial, MatRef).
 #pragma once
 
 #include <type_traits>
@@ -32,6 +33,21 @@ enum : int {
   FLAG_PRIMARY_MIS = 2,
   FLAG_RESPECT_MAX_DIST = 4,
 };
+
+// The view of a plugin backend's packed scene (megakernel_plugin.cu; host
+// side): the camera, the plugin's own records, then the vector's tail of
+// L light records and M material records (of 26 with the medium), whose
+// start it finds from the vector's length; the shadow-ray semantics from
+// the flags; the plugin's extra tensors. Where n_sv is too short for the
+// camera and those records, lights_at ends up below the camera's end.
+inline SceneView plugin_view(const float* sv, int n_sv, int n_lights, int n_materials, bool media, int flags,
+                             const float* const* extras, int n_extras) {
+  SceneView s = {sv, n_lights, n_materials, (flags & FLAG_RESPECT_MAX_DIST) != 0,
+                 n_sv - n_lights * LIGHT_STRIDE - n_materials * (media ? MAT_STRIDE_MEDIA : MAT_STRIDE), 0, 0, 0};
+  s.extras = extras;
+  s.n_extras = n_extras;
+  return s;
+}
 
 struct EmitterHit {
   bool hit;

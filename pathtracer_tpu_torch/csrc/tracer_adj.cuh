@@ -41,7 +41,8 @@
 //     MediaMatAdj whose medium goes to the 26-scalar record)
 //   void  B::background_adj(s, rd, ct, g, c_rd&)
 // (AnalyticalAdj in analytical_adj.cuh, SdfAdj in sdf_adj.cuh, MeshAdj in
-// mesh_adj.cuh).
+// mesh_adj.cuh, a plugin's adjoint struct in its own header,
+// megakernel_plugin.cu).
 #pragma once
 
 #include <cstring>

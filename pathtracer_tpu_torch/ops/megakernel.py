@@ -39,9 +39,11 @@ medium goes through K1's (and K3's) media instantiation, the port of
 `_tile_bounce(has_media=True)`, on every backend, and its gradient
 through K2's (`_make_grad_kernel(has_media=True)`'s counterpart,
 `csrc/megakernel_bwd_media.cu`, built without FMA contraction) on the
-analytical, SDF and mesh ones. The kernels take no procedural hooks, and
-K2 no big mesh: a CUDA big mesh scene that requires grad raises (the JAX
-package differentiates it through its XLA twin).
+analytical, SDF and mesh ones. The kernels take no procedural hooks (a
+plugin whose struct wraps a backend's closest hit takes their place,
+`tests/torch_plugin_toy.py` `stripes`), and K2 no big mesh: a CUDA big mesh
+scene that requires grad raises (the JAX package differentiates it through
+its XLA twin).
 
 Every entry point takes a pixel range `pixels=(p_begin, p_count)` of the
 frame, the whole frame by default, as the TPU kernels take a tile base and
@@ -51,6 +53,17 @@ are the whole frame's bit for bit, and write nothing else (the frame is
 zero there); K2 walks only the range's chunks and reduces only its blocks,
 the gradient of the range's pixels. `parallel/mesh` gives each rank its
 range.
+
+Scene-backend plugins, the port of the JAX package's `KernelBackend` and
+`register_backend`: code outside the package describes a scene family (its
+packer and the packer's inverse, optional extra tensors, a `.cuh` header
+with its backend structs) and registers it; `models/families.family_of`
+then names it for the scenes its `matches` claims, and the wrappers below
+take it as they take a built-in family, through K1, K3 and, where it gives
+an adjoint struct and no extras, K2, built from `csrc/megakernel_plugin.cu`
+at first use (`ops/_build.load_plugin`). A plugin's CUDA scene that
+requires grad without them raises before any launch; on the CPU it runs
+the plain version with autograd.
 
 The instruments: `measure_occupancy_megakernel` (the port of
 `measure_occupancy_pallas`) launches K3, `_pallas_forward_occupancy`'s
@@ -63,12 +76,13 @@ K4 (`csrc/uniform_stream.cu`), which writes the uniforms K1's threads draw.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..integrator.tracer import VERBATIM, Quirks, bounces_entered, check_pixels, draw_uniforms, has_media, render_frame
-from ..models import analytical
+from ..models import analytical, families
 from ..models.families import family_of
 from ..models.scene import Scene
 from . import megakernel_bigmesh, megakernel_mesh, megakernel_sdf, rng
@@ -109,7 +123,9 @@ def _check_supported(scene: Scene) -> None:
     """What the kernel does not take raises, on every device."""
     family_of(scene)
     if scene.procedural_fn is not None:
-        raise NotImplementedError("procedural material hooks run on the eager integrator only")
+        raise NotImplementedError("procedural material hooks run on the eager integrator only; on the card, register "
+                                  "a plugin whose backend struct wraps the family's closest hit and changes the "
+                                  "material there (register_backend; tests/torch_plugin_toy.py, stripes)")
 
 
 def scene_media(scene: Scene) -> bool:
@@ -177,7 +193,8 @@ class Backend(NamedTuple):
     points and the stem of K2's (`<stem>_record` and `<stem>_adjoint`; None
     where K2 does not take the family), the device tensors its entry points
     take before those ints, and K1's, K3's and K2's media entry points (the
-    same arguments; K2's None as its media-free one)."""
+    same arguments; K2's None as its media-free one); for a plugin, its
+    KernelBackend (its library and its extras' pointer table)."""
 
     pack: Callable[..., torch.Tensor]
     unpack: Callable[[torch.Tensor, Scene], tuple]
@@ -189,6 +206,43 @@ class Backend(NamedTuple):
     media_entry: str
     media_occupancy: str
     media_backward: str | None
+    plugin: KernelBackend | None = None
+
+
+class KernelBackend(NamedTuple):
+    """A scene family that code outside the package registers for the
+    kernels (register_backend), the port of the JAX package's KernelBackend:
+
+    - `name` (the family's name, `family_of`'s answer) and `matches(scene)`,
+      which claims a scene (the built-in families are asked first, then the
+      plugins in registration order);
+    - `pack(scene, width, height, with_medium)`: the [1, P] float32 packed
+      vector on the scene's device, by torch ops (autograd carries d/d sv to
+      the leaves): the camera (ops/pack.pack_camera), the plugin's own
+      records, the lights (pack_lights) and the materials (pack_materials),
+      in that order;
+    - `unpack(sv, scene)`: its inverse, (the scene with its packed float
+      leaves read from sv, the camera basis: unpack_camera), the plain
+      version's input (render_frame_packed, render_grad_reference);
+    - `header`: the path of a .cuh file that defines, in CUDA C++ over
+      csrc/'s headers, the forward struct `forward` (tracer.cuh's hooks:
+      closest_hit, a template over the material it fills, any_hit,
+      background, reading the vector through SceneView) and, for K2, the
+      adjoint struct `adjoint` (tracer_adj.cuh's: closest_hit_rec, surface,
+      closest_hit_adj, background_adj), each named as code at global scope
+      names it;
+    - `extras(scene)`, optional: float32 tensors on the scene's device beside
+      the vector (SceneView::extras, as the JAX package's `extra_of`); a
+      plugin with extras is forward-only on the card."""
+
+    name: str
+    matches: Callable[[Scene], bool]
+    pack: Callable[..., torch.Tensor]
+    unpack: Callable[[torch.Tensor, Scene], tuple]
+    header: str
+    forward: str
+    adjoint: str | None = None
+    extras: Callable[[Scene], tuple] | None = None
 
 
 BACKENDS = {
@@ -215,6 +269,40 @@ BACKENDS = {
         "pt_render_forward_occupancy_media_bigmesh", None,
     ),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def plugin_source(plugin: KernelBackend):
+    """What a plugin's library is built from (ops/_build.PluginSource), its
+    header read at the first call for the plugin in the process, which
+    keys its library from then on: a launch reads no file."""
+    from . import _build
+
+    return _build.plugin_source(plugin.name, plugin.header, plugin.forward, plugin.adjoint)
+
+
+def register_backend(plugin: KernelBackend) -> None:
+    """Register a scene-backend plugin, the port of the JAX package's
+    register_backend: `family_of` names it for the scenes its `matches`
+    claims (after the built-in families and the plugins registered before
+    it), and render_frame_megakernel and measure_occupancy_megakernel launch
+    K1 and K3 built for its `forward` struct, and its gradient K2 built for
+    its `adjoint` struct (none: forward-only), from one library built at the
+    first launch (ops/_build.load_plugin). Its launches are counted in
+    `render_frame_megakernel.<name>_launches` and `.<name>_bwd_launches`
+    and `measure_occupancy_megakernel.<name>_launches` too. A name that a
+    built-in family or another plugin holds raises ValueError; nothing is
+    built here."""
+    families.register_plugin(plugin.name, plugin.matches)
+    stem = "pt_render_backward_plugin" if plugin.adjoint is not None and plugin.extras is None else None
+    BACKENDS[plugin.name] = Backend(
+        plugin.pack, plugin.unpack, lambda scene: (), "pt_render_forward_plugin", "pt_render_forward_occupancy_plugin",
+        stem, plugin.extras or (lambda scene: ()), "pt_render_forward_media_plugin",
+        "pt_render_forward_occupancy_media_plugin", stem and "pt_render_backward_media_plugin", plugin,
+    )
+    for fn, counter in ((render_frame_megakernel, "launches"), (render_frame_megakernel, "bwd_launches"),
+                        (measure_occupancy_megakernel, "launches")):
+        setattr(fn, f"{plugin.name}_{counter}", 0)
 
 
 def render_frame_reference(
@@ -270,6 +358,7 @@ class KernelLaunch(NamedTuple):
     extras: tuple = ()  # the backend's device tensors, e.g. the mesh's topology
     media: bool = False  # the media instantiation, over 26-scalar material records
     pixels: tuple | None = None  # (p_begin, p_count) of the frame's flat pixels; None: the whole frame
+    held: tuple = ()  # a plugin's extra tensors, which `extras` holds a device table of pointers to
 
 
 def pixel_range(k: KernelLaunch) -> tuple[int, int]:
@@ -282,8 +371,9 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
                    pixels=None) -> KernelLaunch:
     """Pack the scene and upload the sample keys for one frame, or for its
     pixel range `pixels` (p_begin, p_count; None: the whole frame), on the
-    scene's CUDA device; a scene with a medium takes the media
-    instantiation. A range's frame is zero outside it."""
+    scene's CUDA device (on the CPU, what the host builds of the kernels'
+    code take); a scene with a medium takes the media instantiation. A
+    range's frame is zero outside it."""
     device = scene.device
     keys = launch_keys(key, spp)
     backend = family_of(scene)
@@ -291,9 +381,12 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     media = scene_media(scene)
     begin, count = check_pixels(width * height, pixels)
     alloc = torch.empty if count == width * height else torch.zeros
+    extras, counts, held = b.extras(scene), b.counts(scene), ()
+    if b.plugin is not None:
+        held, extras, counts = extras, (extras_table(backend, extras, device),), (len(extras),)
     return KernelLaunch(
         sv=b.pack(scene, width, height, media).contiguous(),
-        keys=keys.pin_memory().to(device, non_blocking=True),
+        keys=keys.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else keys,
         out=alloc((height, width, 4), dtype=torch.float32, device=device),
         spp=spp,
         depth=scene.recursion_depth,
@@ -301,11 +394,24 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
         n_materials=int(scene.params.materials.roughness.shape[0]),
         flags=kernel_flags(scene, quirks),
         backend=backend,
-        counts=b.counts(scene),
-        extras=b.extras(scene),
+        counts=counts,
+        extras=extras,
         media=media,
         pixels=(begin, count),
+        held=held,
     )
+
+
+def extras_table(backend: str, extras: tuple, device) -> torch.Tensor:
+    """A plugin's extra tensors as its entry points take them: an int64
+    table of their data pointers on `device` (SceneView::extras); each must
+    be a contiguous float32 tensor there, or this raises."""
+    for i, t in enumerate(extras):
+        if t.dtype != torch.float32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"the {backend} plugin's extra tensor {i} must be contiguous float32 on {device}, got "
+                             f"{t.dtype} on {t.device}")
+    table = torch.tensor([t.data_ptr() for t in extras], dtype=torch.int64)
+    return table.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else table
 
 
 def forward_library(k: KernelLaunch, csrc=None):
@@ -318,15 +424,25 @@ def forward_library(k: KernelLaunch, csrc=None):
     from . import _build
 
     csrc = csrc or _build.CSRC
+    plugin = BACKENDS[k.backend].plugin
+    if plugin is not None:
+        return _build.load_plugin(plugin_source(plugin), csrc=csrc)
     if k.backend == "sdf" and "megakernel_sdf" in _build.per_count_kernels(csrc):
         return _build.load("megakernel_sdf", csrc=csrc, counts=k.counts)
     return _build.load("megakernel_mesh" if k.backend == "mesh" else "megakernel_fwd", csrc=csrc)
 
 
+# The built-in backends' numbers in the libraries' resource and layout
+# entry points; a plugin's library answers to PLUGIN_INDEX (and, for K2's
+# MEDIA instantiation's resources, PLUGIN_INDEX + 1: megakernel_plugin.cu).
+BUILT_IN_INDEX = ("analytical", "sdf", "mesh", "bigmesh")
+PLUGIN_INDEX = 4
+
+
 def _backend_index(k: KernelLaunch) -> int:
     """The backend's number in the libraries' resource and layout entry
     points."""
-    return ("analytical", "sdf", "mesh", "bigmesh").index(k.backend)
+    return PLUGIN_INDEX if BACKENDS[k.backend].plugin is not None else BUILT_IN_INDEX.index(k.backend)
 
 
 def _n_tris(k: KernelLaunch) -> int:
@@ -359,10 +475,12 @@ def backward_library(k: KernelLaunch, csrc=None):
     sources `csrc` (tools/k2_pair): the SDF scene's built for its counts
     (`megakernel_sdf.cu`, `megakernel_sdf_bwd_media.cu`), where the tree
     has them; the small mesh's media-free one built with its K1
-    (`megakernel_mesh.cu`)."""
+    (`megakernel_mesh.cu`); a plugin's, its K1's library."""
     from . import _build
 
     csrc = csrc or _build.CSRC
+    if BACKENDS[k.backend].plugin is not None:
+        return forward_library(k, csrc)
     if k.backend == "sdf" and "megakernel_sdf" in _build.per_count_kernels(csrc):
         return _build.load("megakernel_sdf_bwd_media" if k.media else "megakernel_sdf", csrc=csrc, counts=k.counts)
     if k.backend == "mesh" and not k.media:
@@ -376,7 +494,8 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     range launches nothing and counts nothing.
     Counted in `render_frame_megakernel.launches`, and those with another
     backend than the analytical one in `render_frame_megakernel.
-    <backend>_launches` too (sdf_launches, mesh_launches, bigmesh_launches);
+    <backend>_launches` too (sdf_launches, mesh_launches, bigmesh_launches,
+    a plugin's <name>_launches);
     a launch of the media instantiation (`k.media`) in `.media_launches`
     too.
 
@@ -428,10 +547,15 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
 def _require_backward(backend: str, media: bool = False) -> None:
     """K2 takes the backend (with or without a medium), or this raises."""
     b = BACKENDS[backend]
-    if (b.media_backward if media else b.backward) is None:
-        raise NotImplementedError(f"the {backend} scene's gradient on the card is not ported (ROADMAP item 12: the "
-                                  "JAX package differentiates it through its XLA twin, not a kernel); its CPU scene "
-                                  "has autograd")
+    if (b.media_backward if media else b.backward) is not None:
+        return
+    if b.plugin is not None:
+        why = "extra tensors (a plugin with extras is forward-only)" if b.plugin.extras else "no adjoint struct"
+        raise NotImplementedError(f"the {backend} plugin's gradient on the card: it has {why}; its CPU scene has "
+                                  "autograd")
+    raise NotImplementedError(f"the {backend} scene's gradient on the card is not ported (ROADMAP item 12: the "
+                              "JAX package differentiates it through its XLA twin, not a kernel); its CPU scene "
+                              "has autograd")
 
 
 def record_plan(k: KernelLaunch, cap: int | None = None) -> tuple[int, int, int]:
@@ -538,7 +662,8 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor, cap: int | None = None) -
     counted in `render_frame_megakernel.bwd_launches`, and those with
     another backend than the analytical one in
     `render_frame_megakernel.<backend>_bwd_launches` too (sdf_bwd_launches,
-    mesh_bwd_launches), a launch of the media instantiation (`k.media`) in
+    mesh_bwd_launches, a plugin's <name>_bwd_launches), a launch of the
+    media instantiation (`k.media`) in
     `.media_bwd_launches` too.
     A scene whose packed vector, gradient table and triangle table exceed K2's
     shared memory per block (the card's opt-in maximum), or with more
@@ -602,8 +727,8 @@ def backward_resources(k: KernelLaunch) -> dict:
     runtime's occupancy calculator)."""
     lib = backward_library(k)
     out = (ctypes.c_int * 8)()
-    n_tris = k.counts[0] if k.backend == "mesh" else 0
-    err = lib.pt_backward_resources(("analytical", "sdf", "mesh").index(k.backend), k.sv.shape[1], n_tris, out)
+    index = _backend_index(k) + (int(k.media) if _backend_index(k) == PLUGIN_INDEX else 0)
+    err = lib.pt_backward_resources(index, k.sv.shape[1], _n_tris(k), out)
     if err != 0:
         raise RuntimeError(f"backward megakernel resources: {lib.pt_error_string(err).decode()}")
     names = ("registers", "stack_bytes", "shared_bytes", "blocks_per_sm")
@@ -664,7 +789,8 @@ def render_frame_megakernel(
     the same backend (counted in `render_frame_megakernel.bwd_launches`;
     its record and adjoint kernels' launches, one each a chunk, in
     `.record_launches` and `.adjoint_launches`);
-    K2 takes no big mesh, and such a gradient on the card raises
+    K2 takes no big mesh, nor a plugin without an adjoint struct or with
+    extra tensors, and such a gradient on the card raises
     NotImplementedError before any launch. A scene with a medium takes K1's
     and K2's media instantiations (also counted in
     `render_frame_megakernel.media_launches` and `.media_bwd_launches`). A
@@ -678,7 +804,7 @@ def render_frame_megakernel(
     k = prepare_launch(scene, key, width, height, spp, quirks, pixels)
     if pixel_range(k)[1] == 0:
         return k.out
-    if torch.is_grad_enabled() and (k.sv.requires_grad or any(t.requires_grad for t in k.extras)):
+    if torch.is_grad_enabled() and (k.sv.requires_grad or any(t.requires_grad for t in k.extras + k.held)):
         _require_backward(k.backend, k.media)
         return MegakernelRender.apply(k.sv, k)
     return launch(k)

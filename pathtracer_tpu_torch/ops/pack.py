@@ -1,9 +1,18 @@
 """The records every packed scene vector shares: the camera basis, the
 light table and the material table, in the JAX package's layout
-(`pathtracer_tpu/ops/megakernel.py` `pack_scene`). Each family's packer
+(`pathtracer_tpu/ops/megakernel.py` `pack_scene`, `pack_camera`,
+`pack_lights`, `pack_materials`). Each family's packer
 (`megakernel.pack_scene`, `megakernel_sdf.pack_sdf_scene`,
 `megakernel_mesh.pack_mesh_scene`, `megakernel_bigmesh.pack_bigmesh_scene`)
 puts its own records between the camera and the lights.
+
+They are also the helpers of a scene-backend plugin's packer and its
+inverse (`megakernel.KernelBackend`; `tests/torch_plugin_toy.py`): a
+plugin's vector is `pack_camera`, its own records, `pack_lights`,
+`pack_materials` (with the medium's fields where the scene declares a
+medium), which is the layout its kernels read (`csrc/tracer.cuh`
+plugin_view); `unpack_camera`, `unpack_lights` and `unpack_materials`
+read them back for the plain version, which differentiates through them.
 """
 
 from __future__ import annotations

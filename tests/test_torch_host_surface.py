@@ -54,8 +54,6 @@ JAX_CLI_ARGS = ["--cpu", "--width", "16", "--height", "12", "--depth", "2", "--p
 FAMILIES = ("analytical", "sdf", "mesh", "bigmesh")
 # the JAX prelude's names the port leaves out, and why
 NOT_PORTED = {
-    "KernelBackend": "scene-backend plugins are ROADMAP queue 1 item 5",
-    "register_backend": "scene-backend plugins are ROADMAP queue 1 item 5",
     "render_frame_pallas": "the port's K1 entry point is render_frame_megakernel",
     "measure_occupancy_pallas": "the port's K3 entry point is measure_occupancy_megakernel",
     "resolve_tiling": "a TPU tile layout (ROADMAP: do not port)",

@@ -30,6 +30,13 @@ version at K2's tolerance (the mesh's coplanar-tie pixels masked too), the
 Scatter density's entry exactly 0; a CUDA big mesh media scene that
 requires grad raises and launches nothing.
 
+Scene-backend plugins, as chip_smoke.py phase 38 (tests/torch_plugin_toy.py:
+the toy, the toy with its sphere in an extra tensor, the stripes hook; the
+toy's glass with a Scatter medium): K1 against the plain version, K3's
+frame K1's, the toy's K2 against its plain version at K2's tolerance, the
+forward-only plugins' gradients refused before any launch, the toy over
+pixel ranges bit for bit.
+
 K1 and K2 over a pixel range, as chip_smoke.py phase 37: K1 over the
 ranges of parallel/mesh.shard_ranges (2 and 3 ranks) and over unaligned
 ranges, on every backend and the media instantiation, each launch the
@@ -63,6 +70,7 @@ from pathtracer_tpu_torch.ops import _build, rng
 from pathtracer_tpu_torch.models.material import MediumType
 from pathtracer_tpu_torch.tools import validate_rng
 from test_torch_media_kernel_host import DEMO, media_scene
+import torch_plugin_toy as toy
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "analytical_64x48_d4_k3.npy")
 SDF_FIXTURE = os.path.join(os.path.dirname(__file__), "golden_torch", "sdf_64x48_d4_k3.npy")
@@ -766,3 +774,87 @@ def test_backward_kernel_range_gradients_sum_to_the_frame(cuda_device, family):
     assert (parts[0] + parts[1] - whole).abs().max() <= 1e-5 * whole.abs().max()
     with pytest.raises(ValueError, match="block of 128"):
         MK.launch_backward(MK.prepare_launch(scene, key, w, h, 1, VERBATIM, (100, 300)), ct)
+
+
+# Scene-backend plugins (tests/torch_plugin_toy.py), as chip_smoke.py phase
+# 38: each plugin's library built from its header at the first launch.
+PLUGIN_SCENES = {
+    "toy": lambda device: toy.make_toy_scene(recursion_depth=4, device=device),
+    "toy_extra": lambda device: toy.make_toy_scene(recursion_depth=4, device=device, extra=True),
+    "stripes": lambda device: toy.make_stripes_scene(device=device),
+    "toy_media": lambda device: toy.make_toy_media_scene(device=device),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLUGIN_SCENES))
+def test_plugin_kernel_matches_plain_version(cuda_device, name):
+    """Each plugin's K1 against its plain version at 320x240, spp 2, one
+    launch counted in `<plugin>_launches` (the media toy's in
+    media_launches too); K3's frame K1's bit for bit and its counts the
+    plain version's on at least 99.9% of the lanes."""
+    scene = PLUGIN_SCENES[name](cuda_device)
+    family = families.family_of(scene)
+    key, (w, h) = rng.prng_key(131), (320, 240)
+    fn = MK.render_frame_megakernel
+    before = (fn.launches, getattr(fn, f"{family}_launches"), fn.media_launches)
+    img = fn(scene, key, w, h, 2)
+    assert (fn.launches, getattr(fn, f"{family}_launches"), fn.media_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(name == "toy_media"))
+    assert_image_close(img.cpu(), MK.render_frame_reference(scene, key, w, h, 2).cpu())
+    k = MK.prepare_launch(scene, key, w, h, 2, VERBATIM)
+    entered = torch.zeros((2, h, w), dtype=torch.int32, device=cuda_device)
+    assert torch.equal(MK.launch(k, entered), img)
+    same = float((entered == bounces_entered(scene, key, w, h, 2)).double().mean())
+    assert same >= 0.999
+
+
+@pytest.mark.parametrize("name", ["toy", "toy_media"])
+def test_plugin_backward_kernel_matches_plain_version(cuda_device, name):
+    """The toy's K2 (its adjoint struct; MEDIA on the glass toy) through the
+    autograd Function against its plain version at K2's tolerance, one
+    record and one adjoint launch counted in `toy_bwd_launches`."""
+    scene = PLUGIN_SCENES[name](cuda_device)
+    key, (w, h), seed = rng.prng_key(132), (320, 240), 132
+    k = MK.prepare_launch(scene, key, w, h, 1, VERBATIM)
+    ct = torch.from_numpy(np.random.default_rng(seed).standard_normal((h, w, 4)).astype(np.float32)).to(cuda_device)
+    edge = (MK.launch(k) - MK.render_frame_reference(scene, key, w, h)).abs()[..., :3].amax(-1) > 1e-3
+    ct = ct * (~edge)[..., None]
+    sv = k.sv.clone().requires_grad_(True)
+    before = (MK.render_frame_megakernel.toy_bwd_launches, MK.render_frame_megakernel.record_launches)
+    (g,) = torch.autograd.grad((MK.MegakernelRender.apply(sv, k) * ct).sum(), [sv])
+    assert (MK.render_frame_megakernel.toy_bwd_launches, MK.render_frame_megakernel.record_launches) == (
+        before[0] + 1, before[1] + 1)
+    g = g.cpu().double().numpy().ravel()
+    r = MK.render_grad_reference(k.sv, scene, key, ct, w, h).cpu().double().numpy().ravel()
+    assert np.isfinite(g).all() and np.abs(g - r).max() <= 1e-2 * np.abs(r).max()
+    big = np.abs(r) > 1e-2 * np.abs(r).max()
+    np.testing.assert_allclose(g[big], r[big], rtol=2e-2)
+
+
+@pytest.mark.parametrize("name", ["toy_extra", "stripes"])
+def test_forward_only_plugin_gradient_on_the_card_raises(cuda_device, name):
+    """A plugin with extras (toy_extra) or without an adjoint struct
+    (stripes), whose CUDA scene requires grad, raises before any launch."""
+    scene = PLUGIN_SCENES[name](cuda_device)
+    leaf = scene.params.center.x if name == "toy_extra" else scene.params.sphere_radius
+    leaf.requires_grad_(True)
+    before = (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches)
+    with pytest.raises(NotImplementedError, match="extra tensors" if name == "toy_extra" else "no adjoint struct"):
+        MK.render_frame_megakernel(scene, rng.prng_key(0), 16, 8)
+    assert (MK.render_frame_megakernel.launches, MK.render_frame_megakernel.bwd_launches) == before
+
+
+def test_plugin_kernel_over_pixel_ranges(cuda_device):
+    """The toy's K1 over 2 and 3 ranks' ranges: the single launch's pixels
+    bit for bit, one launch a range."""
+    from pathtracer_tpu_torch.parallel.mesh import shard_ranges
+
+    scene, key, (w, h) = PLUGIN_SCENES["toy"](cuda_device), rng.prng_key(133), (320, 240)
+    whole = MK.render_frame_megakernel(scene, key, w, h).reshape(-1, 4)
+    for ranks in (2, 3):
+        total = torch.zeros_like(whole)
+        for begin, count in shard_ranges(w * h, ranks):
+            part = MK.render_frame_megakernel(scene, key, w, h, pixels=(begin, count)).reshape(-1, 4)
+            assert torch.equal(part[begin:begin + count], whole[begin:begin + count])
+            total += part
+        assert torch.equal(total, whole)
