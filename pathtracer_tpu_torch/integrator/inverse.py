@@ -36,6 +36,7 @@ from ..ops import rng
 from ..ops.megakernel import render_frame_megakernel
 from ..ops.vecmath import V3, clip, maximum
 from ..utils.checkpoint import STRUCTURE_KEY, latest_checkpoint, load_checkpoint, save_checkpoint
+from ..utils.metrics import Span
 from ..utils.sceneio import invert_state_from_jax
 from .tracer import VERBATIM, Quirks, render_frame
 
@@ -46,6 +47,12 @@ DEMO_SELECTS = {
     "analytical": ("materials.rgb", "materials.roughness", "lights.emission"),
     "sdf": ("sphere_radius", "torus_major", "lights.emission"),
 }
+# paired_step's host phases (utils/metrics.Span), read by the benchmark's
+# step_forward_host_ms.train, step_backward_host_ms.train and
+# step_adam_host_ms.train
+STEP_FORWARD = Span("step_forward")  # zero_grad, rebuild, projection, both renders, the loss
+STEP_BACKWARD = Span("step_backward")  # loss.backward(): K2 through MegakernelRender, as enqueued
+STEP_ADAM = Span("step_adam")  # opt.step()
 
 
 def keypath_str(path: Iterable[str]) -> str:
@@ -144,18 +151,23 @@ def make_adam(train, lr: float) -> torch.optim.Adam:
 def paired_step(train, rebuild, projection, opt, render, target, key) -> torch.Tensor:
     """One optimizer step on the paired loss: two renders of the same scene
     on the keys split from `key`, the first with grad, then backward and
-    opt.step(). Returns the detached loss."""
+    opt.step(). Returns the detached loss. The host's phases are timed in
+    the spans `step_forward` (up to the loss), `step_backward` and
+    `step_adam`."""
     ka, kb = rng.split(key)
-    opt.zero_grad(set_to_none=True)
-    s = rebuild(train)
-    if projection is not None:
-        s = projection(s)
-    img_a = render(s, ka)
-    with torch.no_grad():
-        img_b = render(s, kb)
-    loss = paired_image_loss(img_a, img_b, target)
-    loss.backward()
-    opt.step()
+    with STEP_FORWARD:
+        opt.zero_grad(set_to_none=True)
+        s = rebuild(train)
+        if projection is not None:
+            s = projection(s)
+        img_a = render(s, ka)
+        with torch.no_grad():
+            img_b = render(s, kb)
+        loss = paired_image_loss(img_a, img_b, target)
+    with STEP_BACKWARD:
+        loss.backward()
+    with STEP_ADAM:
+        opt.step()
     return loss.detach()
 
 

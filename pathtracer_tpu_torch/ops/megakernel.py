@@ -85,6 +85,7 @@ from ..integrator.tracer import VERBATIM, Quirks, bounces_entered, check_pixels,
 from ..models import analytical, families
 from ..models.families import family_of
 from ..models.scene import Scene
+from ..utils.metrics import Span
 from . import megakernel_bigmesh, megakernel_mesh, megakernel_sdf, rng
 from .pack import cols, pack_camera, pack_lights, pack_materials, unpack_camera, unpack_lights, unpack_materials
 from .vecmath import V3
@@ -92,6 +93,14 @@ from .vecmath import V3
 _FLAG_STALE_EMITTER_GATE = 1
 _FLAG_PRIMARY_MIS = 2
 _FLAG_RESPECT_MAX_DIST = 4
+
+# The wrappers' host phases (utils/metrics.Span), read by the benchmark's
+# k1_keys_host_ms.frames, k1_pack_host_ms.frames, k1_enqueue_host_ms.frames
+# and k2_wrapper_host_ms.train
+K1_KEYS = Span("k1_keys")  # prepare_launch: the keys split on the host and uploaded
+K1_PACK = Span("k1_pack")  # prepare_launch: the backend's packer, as enqueued
+K1_ENQUEUE = Span("k1_enqueue")  # launch: the checks, the library and the entry call
+K2_WRAPPER = Span("k2_wrapper")  # launch_backward, the whole call
 
 
 def pack_scene(scene: Scene, width: int, height: int, with_medium: bool = False) -> torch.Tensor:
@@ -133,13 +142,19 @@ def scene_media(scene: Scene) -> bool:
     the kernels' media instantiation and the 26-scalar material records.
     The check reads the device, which would make every frame wait for the
     card; a scene remembers the medium_type tensor and version it was
-    checked with, and editing or replacing that tensor checks again."""
+    checked with, and editing or replacing that tensor checks again. Each
+    check that reads the device is counted in `scene_media.device_reads`."""
     mt = scene.params.materials.medium.medium_type
     seen = getattr(scene, "_media", None)
     if seen is None or seen[0] is not mt or seen[1] != mt._version:
         seen = (mt, mt._version, has_media(scene))
         scene._media = seen
+        if mt.device.type != "cpu":
+            scene_media.device_reads += 1
     return seen[2]
+
+
+scene_media.device_reads = 0
 
 
 def sample_keys(key, spp: int) -> torch.Tensor:
@@ -373,9 +388,13 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     pixel range `pixels` (p_begin, p_count; None: the whole frame), on the
     scene's CUDA device (on the CPU, what the host builds of the kernels'
     code take); a scene with a medium takes the media instantiation. A
-    range's frame is zero outside it."""
+    range's frame is zero outside it. The keys' split and upload are timed
+    in the span `k1_keys`, the packing in `k1_pack`."""
     device = scene.device
-    keys = launch_keys(key, spp)
+    with K1_KEYS:
+        keys = launch_keys(key, spp)
+        if device.type == "cuda":
+            keys = keys.pin_memory().to(device, non_blocking=True)
     backend = family_of(scene)
     b = BACKENDS[backend]
     media = scene_media(scene)
@@ -384,9 +403,11 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     extras, counts, held = b.extras(scene), b.counts(scene), ()
     if b.plugin is not None:
         held, extras, counts = extras, (extras_table(backend, extras, device),), (len(extras),)
+    with K1_PACK:
+        sv = b.pack(scene, width, height, media).contiguous()
     return KernelLaunch(
-        sv=b.pack(scene, width, height, media).contiguous(),
-        keys=keys.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else keys,
+        sv=sv,
+        keys=keys,
         out=alloc((height, width, 4), dtype=torch.float32, device=device),
         spp=spp,
         depth=scene.recursion_depth,
@@ -503,45 +524,47 @@ def launch(k: KernelLaunch, entered: torch.Tensor | None = None) -> torch.Tensor
     launch of K3 instead: the same frame, and the bounces each sample's
     path entered alive written to `entered`; counted alike in
     `measure_occupancy_megakernel.launches` and `.<backend>_launches`.
+    The whole call, K3's too, is timed in the span `k1_enqueue`.
 
     A scene whose packed vector, triangle table and tile need more shared
     memory a block than the card's opt-in maximum raises, naming both
     sizes."""
-    shared = forward_layout(k)["shared_bytes"]
-    budget = torch.cuda.get_device_properties(k.out.device).shared_memory_per_block_optin
-    if shared > budget:
-        raise ValueError(f"a {k.backend}{' media' if k.media else ''} scene of {k.sv.shape[1]} packed scalars and "
-                         f"{_n_tris(k)} triangles needs {shared} bytes of shared memory per block in the forward "
-                         f"megakernel, which holds {budget} (the card's opt-in maximum)"
-                         + ("; the big mesh backend takes such a mesh" if k.backend == "mesh" else ""))
-    lib = forward_library(k)
-    height, width = k.out.shape[:2]
-    begin, count = pixel_range(k)
-    if count == 0:
+    with K1_ENQUEUE:
+        shared = forward_layout(k)["shared_bytes"]
+        budget = torch.cuda.get_device_properties(k.out.device).shared_memory_per_block_optin
+        if shared > budget:
+            raise ValueError(f"a {k.backend}{' media' if k.media else ''} scene of {k.sv.shape[1]} packed scalars and "
+                             f"{_n_tris(k)} triangles needs {shared} bytes of shared memory per block in the forward "
+                             f"megakernel, which holds {budget} (the card's opt-in maximum)"
+                             + ("; the big mesh backend takes such a mesh" if k.backend == "mesh" else ""))
+        lib = forward_library(k)
+        height, width = k.out.shape[:2]
+        begin, count = pixel_range(k)
+        if count == 0:
+            return k.out
+        b, counter = BACKENDS[k.backend], render_frame_megakernel
+        entry, head = getattr(lib, b.media_entry if k.media else b.entry), ()
+        if entered is not None:
+            if (entered.shape != (k.spp, height, width) or entered.dtype != torch.int32
+                    or entered.device != k.out.device or not entered.is_contiguous()):
+                raise ValueError(f"entered must be contiguous int32 {(k.spp, height, width)} on {k.out.device}, got "
+                                 f"{entered.dtype} {tuple(entered.shape)} on {entered.device}")
+            entry = getattr(lib, b.media_occupancy if k.media else b.occupancy)
+            head, counter = (entered.data_ptr(),), measure_occupancy_megakernel
+        err = entry(
+            k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(), *head,
+            width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
+            *k.counts, begin, count, torch.cuda.current_stream(k.out.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"megakernel launch failed: {lib.pt_error_string(err).decode()}")
+        counter.launches += 1
+        if k.backend != "analytical":
+            name = f"{k.backend}_launches"
+            setattr(counter, name, getattr(counter, name) + 1)
+        if k.media:
+            counter.media_launches += 1
         return k.out
-    b, counter = BACKENDS[k.backend], render_frame_megakernel
-    entry, head = getattr(lib, b.media_entry if k.media else b.entry), ()
-    if entered is not None:
-        if (entered.shape != (k.spp, height, width) or entered.dtype != torch.int32 or entered.device != k.out.device
-                or not entered.is_contiguous()):
-            raise ValueError(f"entered must be contiguous int32 {(k.spp, height, width)} on {k.out.device}, got "
-                             f"{entered.dtype} {tuple(entered.shape)} on {entered.device}")
-        entry = getattr(lib, b.media_occupancy if k.media else b.occupancy)
-        head, counter = (entered.data_ptr(),), measure_occupancy_megakernel
-    err = entry(
-        k.sv.data_ptr(), k.sv.shape[1], k.keys.data_ptr(), k.out.data_ptr(), *head,
-        width, height, k.spp, k.depth, k.n_lights, k.n_materials, k.flags, *(t.data_ptr() for t in k.extras),
-        *k.counts, begin, count, torch.cuda.current_stream(k.out.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: {lib.pt_error_string(err).decode()}")
-    counter.launches += 1
-    if k.backend != "analytical":
-        name = f"{k.backend}_launches"
-        setattr(counter, name, getattr(counter, name) + 1)
-    if k.media:
-        counter.media_launches += 1
-    return k.out
 
 
 def _require_backward(backend: str, media: bool = False) -> None:
@@ -664,60 +687,65 @@ def launch_backward(k: KernelLaunch, ct: torch.Tensor, cap: int | None = None) -
     `render_frame_megakernel.<backend>_bwd_launches` too (sdf_bwd_launches,
     mesh_bwd_launches, a plugin's <name>_bwd_launches), a launch of the
     media instantiation (`k.media`) in
-    `.media_bwd_launches` too.
+    `.media_bwd_launches` too; the record buffer's bytes (record_plan's)
+    are added to `.record_bytes`, and the whole call is timed in the span
+    `k2_wrapper` (on autograd's device thread under a backward).
     A scene whose packed vector, gradient table and triangle table exceed K2's
     shared memory per block (the card's opt-in maximum), or with more
     lights than its records index, raises."""
     from . import _build
 
-    if k.sv.device.type != "cuda":
-        raise ValueError("the backward megakernel needs CUDA tensors")
-    _require_backward(k.backend, k.media)
-    lib = _build.load("megakernel_bwd")
-    if k.backend == "sdf" and sum(k.counts) + 1 > lib.pt_backward_sdf_max_primitives():
-        raise ValueError(f"the backward megakernel holds {lib.pt_backward_sdf_max_primitives()} SDF primitives "
-                         f"(the plane included), got {sum(k.counts) + 1}")
-    if k.n_lights > lib.pt_backward_max_lights():
-        raise ValueError(f"the backward megakernel's records index {lib.pt_backward_max_lights()} lights, got "
-                         f"{k.n_lights}")
-    height, width = k.out.shape[:2]
-    n_sv = k.sv.shape[1]
-    n_tris = k.counts[0] if k.backend == "mesh" else 0
-    smem = lib.pt_backward_smem_bytes(n_sv, n_tris)
-    budget = torch.cuda.get_device_properties(k.sv.device).shared_memory_per_block_optin
-    if smem > budget:
-        raise ValueError(f"a scene of {n_sv} packed scalars and {n_tris} triangles needs {smem} bytes of shared "
-                         f"memory per block in the backward megakernel, which holds {budget} (the card's opt-in "
-                         "maximum)")
-    if ct.shape != k.out.shape or ct.device != k.sv.device:
-        raise ValueError(f"cotangent {tuple(ct.shape)} on {ct.device}, frame {tuple(k.out.shape)} on {k.sv.device}")
-    threads = lib.pt_backward_threads()
-    begin, count = pixel_range(k)
-    if begin % threads != 0:
-        raise ValueError(f"the backward megakernel's pixel range starts on a block of {threads} pixels, got {begin}")
-    grad = torch.zeros((1, n_sv), dtype=torch.float32, device=k.sv.device)
-    if count == 0:
+    with K2_WRAPPER:
+        if k.sv.device.type != "cuda":
+            raise ValueError("the backward megakernel needs CUDA tensors")
+        _require_backward(k.backend, k.media)
+        lib = _build.load("megakernel_bwd")
+        if k.backend == "sdf" and sum(k.counts) + 1 > lib.pt_backward_sdf_max_primitives():
+            raise ValueError(f"the backward megakernel holds {lib.pt_backward_sdf_max_primitives()} SDF primitives "
+                             f"(the plane included), got {sum(k.counts) + 1}")
+        if k.n_lights > lib.pt_backward_max_lights():
+            raise ValueError(f"the backward megakernel's records index {lib.pt_backward_max_lights()} lights, got "
+                             f"{k.n_lights}")
+        height, width = k.out.shape[:2]
+        n_sv = k.sv.shape[1]
+        n_tris = k.counts[0] if k.backend == "mesh" else 0
+        smem = lib.pt_backward_smem_bytes(n_sv, n_tris)
+        budget = torch.cuda.get_device_properties(k.sv.device).shared_memory_per_block_optin
+        if smem > budget:
+            raise ValueError(f"a scene of {n_sv} packed scalars and {n_tris} triangles needs {smem} bytes of shared "
+                             f"memory per block in the backward megakernel, which holds {budget} (the card's opt-in "
+                             "maximum)")
+        if ct.shape != k.out.shape or ct.device != k.sv.device:
+            raise ValueError(f"cotangent {tuple(ct.shape)} on {ct.device}, frame {tuple(k.out.shape)} on {k.sv.device}")
+        threads = lib.pt_backward_threads()
+        begin, count = pixel_range(k)
+        if begin % threads != 0:
+            raise ValueError(f"the backward megakernel's pixel range starts on a block of {threads} pixels, got "
+                             f"{begin}")
+        grad = torch.zeros((1, n_sv), dtype=torch.float32, device=k.sv.device)
+        if count == 0:
+            return grad
+        ct = ct.to(torch.float32).contiguous()
+        rec = record_buffer(k, cap)
+        # the adjoint kernel writes block b's sums to row b of the frame's
+        # blocks; the reduction reads only the range's rows
+        partial = torch.empty((-(-width * height // threads), n_sv), dtype=torch.float32, device=k.sv.device)
+        first, blocks = begin // threads, -(-count // threads)
+        for chunk in record_chunks(k, cap):
+            launch_record(k, rec, chunk)
+            launch_adjoint(k, ct, rec, partial, chunk)
+        stream = torch.cuda.current_stream(k.sv.device).cuda_stream
+        _check(lib.pt_backward_reduce(partial[first].data_ptr(), blocks, n_sv, grad.data_ptr(), stream), lib,
+               "reduction")
+        counter = render_frame_megakernel
+        counter.bwd_launches += 1
+        counter.record_bytes += rec.nbytes
+        if k.backend != "analytical":
+            name = f"{k.backend}_bwd_launches"
+            setattr(counter, name, getattr(counter, name) + 1)
+        if k.media:
+            counter.media_bwd_launches += 1
         return grad
-    ct = ct.to(torch.float32).contiguous()
-    rec = record_buffer(k, cap)
-    # the adjoint kernel writes block b's sums to row b of the frame's
-    # blocks; the reduction reads only the range's rows
-    partial = torch.empty((-(-width * height // threads), n_sv), dtype=torch.float32, device=k.sv.device)
-    first, blocks = begin // threads, -(-count // threads)
-    for chunk in record_chunks(k, cap):
-        launch_record(k, rec, chunk)
-        launch_adjoint(k, ct, rec, partial, chunk)
-    stream = torch.cuda.current_stream(k.sv.device).cuda_stream
-    _check(lib.pt_backward_reduce(partial[first].data_ptr(), blocks, n_sv, grad.data_ptr(), stream), lib,
-           "reduction")
-    counter = render_frame_megakernel
-    counter.bwd_launches += 1
-    if k.backend != "analytical":
-        name = f"{k.backend}_bwd_launches"
-        setattr(counter, name, getattr(counter, name) + 1)
-    if k.media:
-        counter.media_bwd_launches += 1
-    return grad
 
 
 def backward_resources(k: KernelLaunch) -> dict:
@@ -788,7 +816,8 @@ def render_frame_megakernel(
     scene leaf requires grad, the frame's backward is one call of K2 with
     the same backend (counted in `render_frame_megakernel.bwd_launches`;
     its record and adjoint kernels' launches, one each a chunk, in
-    `.record_launches` and `.adjoint_launches`);
+    `.record_launches` and `.adjoint_launches`, its record buffer's bytes
+    in `.record_bytes`);
     K2 takes no big mesh, nor a plugin without an adjoint struct or with
     extra tensors, and such a gradient on the card raises
     NotImplementedError before any launch. A scene with a medium takes K1's
@@ -821,6 +850,7 @@ render_frame_megakernel.mesh_bwd_launches = 0
 render_frame_megakernel.media_bwd_launches = 0
 render_frame_megakernel.record_launches = 0
 render_frame_megakernel.adjoint_launches = 0
+render_frame_megakernel.record_bytes = 0
 
 
 # A row of lanes: of JAX's tiles and of debug_uniform_stream's output, and

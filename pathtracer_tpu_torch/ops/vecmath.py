@@ -154,15 +154,32 @@ def safe_sqrt(x):
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
+def _uploads(x, c) -> bool:
+    """Whether torch.as_tensor(c) on x's device is a blocking copy from the
+    host to the card, which waits for the card's queue to drain."""
+    return x.is_cuda and not (isinstance(c, torch.Tensor) and c.is_cuda)
+
+
 def maximum(x, c):
     """jnp.maximum against a constant: a tie sends half the gradient to
-    each side, where torch.clamp_min would send all of it to x."""
+    each side, where torch.clamp_min would send all of it to x. A host
+    constant against a tensor on the card is uploaded with a blocking copy,
+    counted in `maximum.device_reads`."""
+    if _uploads(x, c):
+        maximum.device_reads += 1
     return torch.maximum(x, torch.as_tensor(c, dtype=x.dtype, device=x.device))
 
 
 def minimum(x, c):
-    """jnp.minimum against a constant, with its half-and-half tie gradient."""
+    """jnp.minimum against a constant, with its half-and-half tie gradient;
+    its blocking uploads counted in `minimum.device_reads`."""
+    if _uploads(x, c):
+        minimum.device_reads += 1
     return torch.minimum(x, torch.as_tensor(c, dtype=x.dtype, device=x.device))
+
+
+maximum.device_reads = 0
+minimum.device_reads = 0
 
 
 def clip(x, lo, hi):

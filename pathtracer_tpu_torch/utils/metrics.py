@@ -1,10 +1,31 @@
-"""Per-frame metrics and the profiler hook of the render CLI.
+"""Per-frame metrics, the profiler hook of the render CLI, and the
+program's spans.
 
 Port of `pathtracer_tpu/utils/metrics.py`: `FrameMetrics` (primary rays/s,
 spp/s, frame ms), `MetricsLog` (its summary leaves the first frame, which
 pays the kernels' load, out of the steady state; JSON lines) and `Timer`.
 `trace_to` records a Chrome trace with `torch.profiler` in place of
 `jax.profiler`.
+
+`Span` times one phase of the program on the host clock: a `with` block
+adds its nanoseconds to the span's running `seconds` and one to its
+`calls`, also when the block raises. Each span is made once, when the
+module that records it is imported, and is registered by name in
+`SPANS` (`SPANS.k1_pack`), where a reader finds it by a dotted path
+(`pathtracer_tpu_torch.utils.metrics:SPANS.k1_pack.seconds`); nothing
+resets it, so a reader takes the difference of two readings. The spans:
+`k1_keys`, `k1_pack` (`ops/megakernel.prepare_launch`), `k1_enqueue`
+(`launch`), `k2_wrapper` (`launch_backward`), `step_forward`,
+`step_backward`, `step_adam` (`integrator/inverse.paired_step`).
+
+While a `torch.profiler` runs, a span also opens a `record_function`
+range named `pt.<name>`, on the profiler's clock beside the card's
+activity, so a trace shows which phase the host was in while the card
+idled: the render CLI's `--profile` trace shows the K1 wrapper's phases
+within each frame. Without a profiler it opens none: a range costs more
+than a span's whole work, a check and two clock reads, and a frame holds
+three spans. A span is not reentrant: one block at a time, from one
+thread at a time.
 """
 
 from __future__ import annotations
@@ -14,6 +35,7 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -109,3 +131,38 @@ def trace_to(log_dir: str | None, device=None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, f"render_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
+
+
+# Every Span by name (Span registers itself)
+SPANS = SimpleNamespace()
+_profiling = torch._C._autograd._profiler_enabled  # whether a profiler runs, on this thread
+
+
+class Span:
+    """A phase of the program on the host clock: `seconds` and `calls`,
+    running totals over the process; registered in SPANS under `name`, an
+    identifier."""
+
+    __slots__ = ("name", "label", "seconds", "calls", "_start", "_range")
+
+    def __init__(self, name: str):
+        if not name.isidentifier() or hasattr(SPANS, name):
+            raise ValueError(f"a span's name is a new identifier, got {name!r}")
+        self.name, self.label = name, f"pt.{name}"
+        self.seconds, self.calls = 0.0, 0
+        self._start, self._range = 0, None
+        setattr(SPANS, name, self)
+
+    def __enter__(self) -> "Span":
+        if _profiling():
+            self._range = torch.profiler.record_function(self.label)
+            self._range.__enter__()
+        self._start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.seconds += (time.perf_counter_ns() - self._start) * 1e-9
+        self.calls += 1
+        opened, self._range = self._range, None
+        if opened is not None:
+            opened.__exit__(*exc)

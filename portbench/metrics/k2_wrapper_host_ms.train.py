@@ -1,0 +1,22 @@
+"""Kernel wrappers: host ms a call of the program's span `k2_wrapper`
+(ops/megakernel.launch_backward, on autograd's device thread: the checks,
+the record buffer, each chunk's record and adjoint entry calls, the
+reduction).
+The span's totals cover the whole window, its labelled second (the CPU
+profiler's, which slows the host) included."""
+import importlib
+
+from portbench.tracing import read_counter
+
+importlib.import_module("pathtracer_tpu_torch.ops.megakernel")  # which makes the span
+SPAN = "pathtracer_tpu_torch.utils.metrics:SPANS.k2_wrapper"
+try:
+    read_counter(SPAN)
+    COUNTERS = (f"{SPAN}.seconds", f"{SPAN}.calls")
+except AttributeError:  # a program without the span: nothing to read
+    COUNTERS = ()
+
+
+def read(run):
+    calls = run.counters.get(f"{SPAN}.calls")
+    return run.counters[f"{SPAN}.seconds"] * 1e3 / calls if calls else None
