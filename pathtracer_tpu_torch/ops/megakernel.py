@@ -20,7 +20,11 @@ package's layout (`pack_scene`: camera basis,
 analytical params, L light records of 15, M material records of 20, or 26
 with the medium's six when a material declares one; each family's packer
 in its module), with the tensors a backend takes beside it
-(the mesh's topology, the big mesh's tables); the random numbers are
+(the mesh's topology, the big mesh's tables). A scene of a built-in family
+whose leaves, frame size and medium have not changed since its last frame
+is not packed again: it keeps its vector (`packed_scene`), as the big mesh
+keeps its tables; one with a leaf that requires grad packs every frame,
+and a plugin's does too. The random numbers are
 threefry drawn in the kernel, bit-equal to `ops/rng`, so K1 renders the
 same image as `integrator/tracer.render_frame` for the same key and K2
 replays exactly K1's paths.
@@ -98,7 +102,7 @@ _FLAG_RESPECT_MAX_DIST = 4
 # k1_keys_host_ms.frames, k1_pack_host_ms.frames, k1_enqueue_host_ms.frames
 # and k2_wrapper_host_ms.train
 K1_KEYS = Span("k1_keys")  # prepare_launch: the keys split on the host and uploaded
-K1_PACK = Span("k1_pack")  # prepare_launch: the backend's packer, as enqueued
+K1_PACK = Span("k1_pack")  # prepare_launch: packed_scene, the key check or the packer as enqueued
 K1_ENQUEUE = Span("k1_enqueue")  # launch: the checks, the library and the entry call
 K2_WRAPPER = Span("k2_wrapper")  # launch_backward, the whole call
 
@@ -389,7 +393,9 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     scene's CUDA device (on the CPU, what the host builds of the kernels'
     code take); a scene with a medium takes the media instantiation. A
     range's frame is zero outside it. The keys' split and upload are timed
-    in the span `k1_keys`, the packing in `k1_pack`."""
+    in the span `k1_keys`, the packing in `k1_pack` (`packed_scene`: a
+    scene that has not changed since its last frame reuses that frame's
+    vector, the key check inside the span)."""
     device = scene.device
     with K1_KEYS:
         keys = launch_keys(key, spp)
@@ -404,7 +410,7 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
     if b.plugin is not None:
         held, extras, counts = extras, (extras_table(backend, extras, device),), (len(extras),)
     with K1_PACK:
-        sv = b.pack(scene, width, height, media).contiguous()
+        sv = packed_scene(scene, backend, width, height, media)
     return KernelLaunch(
         sv=sv,
         keys=keys,
@@ -421,6 +427,67 @@ def prepare_launch(scene: Scene, key, width: int, height: int, spp: int, quirks:
         pixels=(begin, count),
         held=held,
     )
+
+
+prepare_launch.packs = 0
+prepare_launch.pack_reuses = 0
+
+
+def _leaves(module, out: list) -> list:
+    """`module`'s buffers and its children's, appended to `out` (the
+    tensors of `module.buffers()`, walked at a quarter of its cost)."""
+    out.extend(module._buffers.values())
+    for child in module._modules.values():
+        _leaves(child, out)
+    return out
+
+
+def _pack_key(scene: Scene, head: tuple) -> tuple:
+    """(key, leaves): `head` and each scene leaf's identity, version and
+    whether it requires grad, and the leaves, which the stored key keeps
+    alive so that no other tensor takes one's identity."""
+    leaves = _leaves(scene, [])
+    return (head, [(id(t), t._version, t.requires_grad) for t in leaves]), leaves
+
+
+def packed_scene(scene: Scene, backend: str, width: int, height: int, media: bool) -> torch.Tensor:
+    """The scene packed by its backend's packer, contiguous. A progressive
+    render packs the same scene every frame, some eighty small operations
+    on the card for the same bits, so a scene of a built-in family keeps
+    the vector it was last packed into with what the packer reads: every
+    scene leaf (params, camera, lights) with its version and whether it
+    requires grad, the frame's width and height, `media`, and the card's
+    current stream, on which the vector was made and on which alone it is
+    used again; with the vector's own version too, so that a caller that
+    edits a launch's `sv` in place packs again. An in-place edit, a
+    replaced leaf, `scene.to(...)` or a new scene (`scene.replace(...)`)
+    packs again. An edit through `.data` is not seen: that alias has a
+    version counter of its own, so such an edit keeps the old vector; edit
+    the tensor itself under `torch.no_grad()` instead. A scene with a leaf
+    that requires grad, whatever the grad mode, and a plugin's scene (its
+    packer is code outside the package, which may read more than the
+    leaves) keep nothing and pack every call, as does a vector made under
+    `torch.inference_mode()`. Each pack is counted in
+    `prepare_launch.packs`, each vector used again in
+    `prepare_launch.pack_reuses`."""
+    b = BACKENDS[backend]
+    stream = torch.cuda.current_stream(scene.device) if scene.device.type == "cuda" else None
+    head = (backend, width, height, media, stream)
+    seen = getattr(scene, "_packed", None)
+    key = None
+    if seen is not None:
+        key, leaves = _pack_key(scene, head)
+        if key == seen[0] and seen[2]._version == seen[3]:
+            prepare_launch.pack_reuses += 1
+            return seen[2]
+    sv = b.pack(scene, width, height, media).contiguous()
+    prepare_launch.packs += 1
+    if b.plugin is None and not sv.requires_grad and not sv.is_inference():
+        if key is None:
+            key, leaves = _pack_key(scene, head)
+        if not any(grad for _, _, grad in key[1]):
+            scene._packed = (key, leaves, sv, sv._version)
+    return sv
 
 
 def extras_table(backend: str, extras: tuple, device) -> torch.Tensor:

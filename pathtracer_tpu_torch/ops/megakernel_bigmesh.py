@@ -70,10 +70,11 @@ def bigmesh_tables(scene: Scene) -> tuple[torch.Tensor, torch.Tensor, torch.Tens
     the card for a scene whose triangles did not move, so a scene keeps its
     tables with the tensors they were built from, their versions and
     whether they require grad; an in-place edit or a replaced tensor builds
-    them again. An edit through `.data` (or `.detach()`) is not seen: that
-    alias has a version counter of its own, so such an edit keeps the old
-    tables; edit the tensor itself under `torch.no_grad()` instead. Each
-    build is counted in `bigmesh_tables.builds`."""
+    them again. An edit through `.data` is not seen: that alias has a
+    version counter of its own (a `.detach()` shares the tensor's), so such
+    an edit keeps the old tables; edit the tensor itself under
+    `torch.no_grad()` instead. Each build is counted in
+    `bigmesh_tables.builds`."""
     p = scene.params.unpack()
     key = tuple((t, t._version, t.requires_grad) for t in _table_sources(p))
     seen = getattr(scene, "_bigmesh_tables", None)

@@ -18,6 +18,15 @@ resets it, so a reader takes the difference of two readings. The spans:
 (`launch`), `k2_wrapper` (`launch_backward`), `step_forward`,
 `step_backward`, `step_adam` (`integrator/inverse.paired_step`).
 
+The program's counters are attributes of the functions that count, read
+the same way (`pathtracer_tpu_torch.ops.megakernel:prepare_launch.packs`):
+`render_frame_megakernel.launches` and its kin (the kernels' launches,
+`record_bytes`), `prepare_launch.packs` and `.pack_reuses` (scenes packed,
+and packed vectors used again, `ops/megakernel.packed_scene`),
+`bigmesh_tables.builds`, and the reads of the card that make the host wait:
+`scene_media.device_reads`, `vecmath.maximum.device_reads` and
+`minimum.device_reads`.
+
 While a `torch.profiler` runs, a span also opens a `record_function`
 range named `pt.<name>`, on the profiler's clock beside the card's
 activity, so a trace shows which phase the host was in while the card

@@ -319,6 +319,84 @@ def test_bigmesh_tables_built_once(cuda_device):
     assert all(torch.equal(f, fresh) for f in frames)
 
 
+def dim_first_material(scene):
+    scene.params.materials.rgb.x[0] *= 0.5
+
+
+@pytest.mark.parametrize("family", ["analytical", "sdf"])
+def test_frames_of_an_unchanged_scene_reuse_its_vector(cuda_device, family):
+    """Two frames of one scene pack it once and are bit-equal to each other
+    and to a freshly built copy's; after an in-place edit of a material the
+    next frame packs again and is a fresh scene's with that edit, bit for
+    bit."""
+    key = rng.prng_key(72)
+    scene = families.make_family_scene(family, device=cuda_device)
+    packs, reuses = MK.prepare_launch.packs, MK.prepare_launch.pack_reuses
+    frames = [MK.render_frame_megakernel(scene, key, 320, 240) for _ in range(2)]
+    assert (MK.prepare_launch.packs - packs, MK.prepare_launch.pack_reuses - reuses) == (1, 1)
+    fresh = MK.render_frame_megakernel(families.make_family_scene(family, device=cuda_device), key, 320, 240)
+    assert torch.equal(frames[0], frames[1]) and torch.equal(frames[0], fresh)
+    with torch.no_grad():
+        dim_first_material(scene)
+    edited = MK.render_frame_megakernel(scene, key, 320, 240)
+    assert MK.prepare_launch.packs - packs == 3
+    other = families.make_family_scene(family, device=cuda_device)
+    with torch.no_grad():
+        dim_first_material(other)
+    assert torch.equal(edited, MK.render_frame_megakernel(other, key, 320, 240))
+    assert not torch.equal(edited, fresh)
+
+
+class GradsOf:
+    """Stands in for paired_step's optimizer: keeps the gradients it steps on."""
+
+    def __init__(self, train):
+        self.train, self.grads = train, None
+
+    def zero_grad(self, set_to_none=True):
+        for t in self.train:
+            t.grad = None
+
+    def step(self):
+        self.grads = [t.grad.clone() for t in self.train]
+
+
+def packing_render(width, height):
+    """render_frame_megakernel as it was before scenes kept their vectors:
+    the scene packed for every render."""
+
+    def render(s, key):
+        k = MK.prepare_launch(s, key, width, height, 1, VERBATIM)
+        k = k._replace(sv=MK.BACKENDS[k.backend].pack(s, width, height, k.media).contiguous())
+        if torch.is_grad_enabled() and k.sv.requires_grad:
+            return MK.MegakernelRender.apply(k.sv, k)
+        return MK.launch(k)
+
+    return render
+
+
+@pytest.mark.parametrize("family", ["analytical", "sdf"])
+def test_paired_step_packs_every_render(cuda_device, family):
+    """paired_step's rebuilt scene requires grad: both its renders pack, none
+    reuses, and its loss and gradient are bit-equal to those of renders that
+    pack every call."""
+    true, start = inverse.demo_scenes(4, cuda_device, family)
+    train, rebuild, _ = inverse.select_leaves(start, inverse.DEMO_SELECTS[family])
+    render = inverse.make_renderer("megakernel", 160, 120, 1, VERBATIM)
+    with torch.no_grad():
+        target = render(true, rng.prng_key(73))
+    results = []
+    for r in (render, packing_render(160, 120)):
+        opt = GradsOf(train)
+        packs, reuses = MK.prepare_launch.packs, MK.prepare_launch.pack_reuses
+        loss = inverse.paired_step(train, rebuild, inverse.PROJECTIONS[family], opt, r, target, rng.prng_key(74))
+        results.append((loss, opt.grads, MK.prepare_launch.packs - packs, MK.prepare_launch.pack_reuses - reuses))
+    (loss, grads, packs, reuses), (want_loss, want_grads, _, _) = results
+    assert (packs, reuses) == (2, 0)
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want_grads))
+
+
 def test_march_step_kernel_matches_plain_version(cuda_device):
     scene = sdf.make_scene(device=cuda_device)
     launches = MS.measure_march_steps.launches
