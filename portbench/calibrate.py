@@ -13,6 +13,12 @@ the cell's own size, in one process:
 - for a training cell, each fault of `faults.py` planted in the program on
   the first `--faults` seeds.
 
+A cell on several cards runs the program's part as one rank a card in one
+process group (`ranks.py`, this process rank 0; every rank runs each seed
+and fault in turn and rank 0 keeps the outputs), then the references and
+comparisons on rank 0's card once the group is torn down (`--device cpu
+--size WxH`: with gloo ranks on the CPU).
+
 A training cell whose check file gives `grazing` also takes the first
 gradient over the pixels that `check.FirstStep.keep_of` keeps, on every
 side.
@@ -77,7 +83,7 @@ def control_numbers(cell, seed: int, device, want=None, size=None, first=None) -
     first gradient over the pixels `first` keeps of its renders)."""
     from portbench import check
 
-    if cell.traffic["kind"] == "frames":
+    if cell.kind.COMPARES == "frames":
         return control_frames(cell, seed, device, int(cell.checks["sample"]) + 2, size)
     low = check.TrainReference(cell.config, cell.traffic, int(cell.checks["steps"]), seed, device, torch.bfloat16,
                                size)
@@ -99,31 +105,76 @@ def free(device) -> None:
         torch.cuda.empty_cache()
 
 
-def program_numbers(cell, seed: int, device, seconds: float, want=None, size=None, first=None) -> dict:
-    """The program's numbers for one seed: set-up and (frames) a short
-    window, then the comparison, as a run makes them."""
-    from portbench import check, drivers
+def program_outputs(cell, seed: int, device, seconds: float, size=None) -> dict:
+    """The program's outputs for one seed: set-up and (frames) a short
+    window, as a run makes them; the driver freed."""
     from portbench.tracing import Spans
 
-    driver = drivers.DRIVERS[cell.traffic["kind"]](cell, seed, device, Spans(), size)
+    driver = cell.kind.DRIVER(cell, seed, device, Spans(), size)
     driver.setup()
-    if cell.traffic["kind"] == "frames":
+    if cell.kind.COMPARES == "frames":
         driver.window(seconds)
     out = driver.outputs()
+    driver.free()
+    free(device)
+    return out
+
+
+def program_numbers(cell, seed: int, device, seconds: float, want=None, size=None, first=None, out=None) -> dict:
+    """The program's numbers for one seed (its outputs `out`, or taken
+    here), compared as a run compares them."""
+    from portbench import check
+    from portbench.tracing import Spans
+
     if first is not None:
+        driver = cell.kind.DRIVER(cell, seed, device, Spans(), size)
+        driver.setup()
+        out = driver.outputs()
         out["train"]["masked_grad"], keep, counts = driver.masked_grad(first)
         print(f"seed {seed}: pixels left out {counts}", file=sys.stderr)
         want.masked_grad = first.masked_grad(keep)
-    driver.free()
-    free(device)
+        driver.free()
+        free(device)
+    elif out is None:
+        out = program_outputs(cell, seed, device, seconds, size)
     t = cell.traffic
-    if t["kind"] == "frames":
+    if cell.kind.COMPARES == "frames":
         width, height = size or (int(t["width"]), int(t["height"]))
         return check.compare_frames(out["frames"], check.reference_scene(cell.config, device), width, height,
                                     int(t["spp"]))
     for line in check.train_details(out["train"], want):
         print(f"seed {seed}: {line}", file=sys.stderr)
     return check.compare_train(out["train"], want)
+
+
+def rank_outputs(cell, items, device, size=None) -> dict:
+    """Every rank of a cell on several cards, in the same order: each
+    (seed, what) of `items` through set-up, `what` a fault planted or
+    "sound"; {(seed, what): outputs}."""
+    import contextlib
+
+    from portbench import faults
+
+    held = {}
+    for seed, what in items:
+        with faults.planted(cell.traffic["kind"], what) if what != "sound" else contextlib.nullcontext():
+            held[(seed, what)] = program_outputs(cell, seed, device, 0.0, size)
+    return held
+
+
+def rank_items(job: dict) -> int:
+    """A rank other than 0 of calibrate's group (`ranks.child`)."""
+    from pathlib import Path
+
+    from portbench import harness, spec
+    from portbench import ranks as shard
+
+    cell = spec.resolve(job["cell"], Path(job["root"]))
+    device = shard.join_group(job["rank"], job["world"], job["init_method"], job["device"])
+    rank_outputs(cell, [tuple(i) for i in job["items"]], device, tuple(job["size"]) if job["size"] else None)
+    shard.gather(0, len(harness.forbidden_modules()), device)
+    shard.leave()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -140,13 +191,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     from portbench import check, faults, spec
+    from portbench import ranks as shard
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("calibrate reads the card; CUDA is not available")
     size = tuple(int(x) for x in args.size.split("x")) if args.size else None
     cell = spec.resolve(args.workload)
-    kind = cell.traffic["kind"]
+    kind, train = cell.traffic["kind"], cell.kind.COMPARES == "train"
     readings = {"sound": [], "control": [], **{f: [] for f in faults.faults_of(kind)}}
 
     def emit(seed, what, numbers, t0):
@@ -156,20 +208,36 @@ def main(argv=None) -> int:
 
     seeds = [int(x) for x in args.seed_list.split(",")] if args.seed_list else \
         [args.first_seed + j for j in range(args.seeds)]
+    held = {}  # (seed, what) -> outputs, of a cell on several cards
+    if cell.chips > 1:
+        if "grazing" in cell.checks or not train:
+            raise ValueError("calibrate runs a cell on several cards for a training comparison without grazing")
+        items = [(s, "sound") for s in seeds] + [(s, f) for s in seeds[:args.faults] for f in faults.faults_of(kind)]
+        job = dict(job="calibrate", cell=args.workload, kind=kind, root=ROOT, size=size, items=items)
+        t0 = time.perf_counter()
+        with shard.Ranks(cell.chips, job, device.type) as group:
+            held = rank_outputs(cell, items, group.join(), size)
+            group.close(0, 0)
+        print(f"{cell.chips} ranks: {len(items)} set-ups in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     for j, seed in enumerate(seeds):
         t0 = time.perf_counter()
         want = first = None
-        if kind == "train":
+        if train:
             first = first_step(cell, seed, device, size)
             want = check.TrainReference(cell.config, cell.traffic, int(cell.checks["steps"]), seed, device, size=size,
                                         target=first.target if first is not None else None)
-        emit(seed, "sound", program_numbers(cell, seed, device, args.seconds, want, size, first), t0)
+        emit(seed, "sound", program_numbers(cell, seed, device, args.seconds, want, size, first,
+                                            held.get((seed, "sound"))), t0)
         if j < args.control:
             t0 = time.perf_counter()
             emit(seed, "control", control_numbers(cell, seed, device, want, size, first), t0)
-        if kind == "train" and j < args.faults:
+        if train and j < args.faults:
             for fault in faults.faults_of(kind):
                 t0 = time.perf_counter()
+                if held:
+                    emit(seed, fault, program_numbers(cell, seed, device, args.seconds, want, size,
+                                                      out=held[(seed, fault)]), t0)
+                    continue
                 with faults.planted(kind, fault):
                     emit(seed, fault, program_numbers(cell, seed, device, args.seconds, want, size, first), t0)
         free(device)

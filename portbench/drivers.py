@@ -1,7 +1,9 @@
-"""The system under test, driven as its users drive it: one driver for
-each traffic kind. Each builds the program's own objects from the cell's
-files, warms up every shape the window uses, runs the measured window,
-and hands what the window produced to the correctness check.
+"""The system under test, driven as its users drive it: the drivers of the
+one-card traffic kinds, which `kinds/frames.py` and `kinds/train.py` name
+(a kind may define its driver in its own file). Each builds the program's
+own objects from the cell's files, warms up every shape the window uses,
+runs the measured window, and hands what the window produced to the
+correctness check.
 
 Everything here calls the port (`pathtracer_tpu_torch`) and nothing else
 of the repository; the program is imported when a driver is built, never
@@ -283,5 +285,3 @@ class Train:
 
         return rng.split(gen.step_key(self.seed, 0))[0]
 
-
-DRIVERS = {"frames": Frames, "train": Train}

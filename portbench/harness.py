@@ -1,10 +1,11 @@
 """One run of one cell: set-up, the measured window, the correctness check
 against the plain reference, the metrics, and the result line.
 
-`run()` is what `run.py` calls on the card. The tests call it too, on the
-CPU at a small size (`device=`, `size=`), where the program renders
-through its plain version; a result from such a run is never a device
-metric.
+`run()` is what `run.py` calls on the card; a cell on several cards runs
+as one rank a card (`ranks.py`), the others `rank_window`. The tests call
+it too, on the CPU at a small size (`device=`, `size=`, `ranks=`, gloo
+ranks), where the program renders through its plain version; a result
+from such a run is never a device metric.
 """
 
 from __future__ import annotations
@@ -15,14 +16,15 @@ import resource
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
-from . import check, drivers, spec
+from . import check, faults, roofline, spec
+from . import ranks as shard
 from . import traffic as gen
 from .reference import scenes
 from .reference import work as ref_work
-from .roofline import bound_ms
 from .tracing import Profiler, Run, Spans, log, read_counter
 
 LABEL_SECONDS, TRACE_SECONDS = 1.0, 2.0  # the traced parts of a --trace 1 window (tracing.Profiler)
@@ -93,34 +95,57 @@ def scene_scalars(scene) -> int:
 
 def reference_bounds(cell: spec.Cell, key, device, width: int, height: int, spp: int) -> dict:
     """The K1 and K2 bounds, ms, of one launch on the work the reference
-    counts for the key's frame (each of spp samples' keys)."""
-    ref = cell.config["scene"] if cell.traffic["kind"] == "frames" else cell.config["train"]["start"]
-    scene = scenes.scene_from_dict(ref, device=device)
+    counts for the key's frame (each of spp samples' keys); none for a
+    family without frozen operation counts (`roofline.counts_of`)."""
+    ref = cell.config["scene"] if cell.kind.COMPARES == "frames" else cell.config["train"]["start"]
     family = ref["family"]
+    if roofline.counts_of(family) is None:
+        return {}
+    scene = scenes.scene_from_dict(ref, device=device)
     keys = [key] if spp == 1 else list(gen.rng.split(key, spp))
     work = {}
     for k in keys:
         for name, v in ref_work.count_work(scene, family, k, width, height).items():
             work[name] = work.get(name, 0) + v
     pixels, scalars = width * height, scene_scalars(scene)
-    return {"k1": bound_ms("k1", family, work, pixels, scalars), "k2": bound_ms("k2", family, work, pixels, scalars),
-            "work": work}
+    return {"k1": roofline.bound_ms("k1", family, work, pixels, scalars),
+            "k2": roofline.bound_ms("k2", family, work, pixels, scalars), "work": work}
 
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float, root=spec.ROOT, device=None,
-        size=None) -> tuple[dict, list[str]]:
-    """(the result line's object, the lines for standard error)."""
+        size=None, ranks=None, group=None) -> tuple[dict, list[str]]:
+    """(the result line's object, the lines for standard error). A cell on
+    several cards (`ranks`, by default its chips) runs as that many ranks,
+    this process rank 0: the others `group` (`ranks.Ranks`, spawned by the
+    caller with `ranks.window_job`'s job), or spawned here."""
     t = log("set-up: python, torch and the benchmark imported", t_start)
     cell = spec.resolve(cell_name, root)
-    gen.check_traffic(cell.traffic, drivers.DRIVERS)
+    gen.check_traffic(cell.traffic, spec.kinds(root))
     if device is None:
         device = card(cell.chips)
     device = torch.device(device)
+    world = cell.chips if ranks is None else ranks
+    if world == 1:
+        return measured(cell, seed, seconds, trace, t_start, t, device, size)
+    if group is None:
+        _, job = shard.window_job(cell_name, seed, seconds, root, size, faults.active())
+        group = shard.Ranks(world, job, device.type)
+    with group:
+        return measured(cell, seed, seconds, trace, t_start, t, device, size, group)
+
+
+def measured(cell: spec.Cell, seed: int, seconds: float, trace: bool, t_start: float, t: float, device, size,
+             group=None) -> tuple[dict, list[str]]:
+    """`run`'s set-up, window, comparison and metrics, as rank 0 where
+    `group` (`ranks.Ranks`) holds the other ranks."""
+    if group is not None:
+        device = group.join()
+        t = log(f"set-up: {group.world} ranks joined", t)
     if device.type == "cuda":
         torch.cuda.init()
         t = log("set-up: the card's context", t)
     spans = Spans(annotate=trace)
-    driver = drivers.DRIVERS[cell.traffic["kind"]](cell, seed, device, spans, size)
+    driver = cell.kind.DRIVER(cell, seed, device, spans, size)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)  # once the driver's tensors made the allocator
     driver.setup()
@@ -144,6 +169,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float, 
                           for k, v in traces.items()), t)
     counters = {p: read_counter(p) - before[p] for p in paths}
     memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    if group is not None:
+        memory_peak = group.close(memory_peak, len(forbidden_modules()))
+        t = log("the ranks' peaks gathered, the group torn down, the ranks joined", t)
     e2e = {} if trace else driver.end_to_end()
 
     mix = cell.traffic
@@ -157,7 +185,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float, 
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    if mix["kind"] == "frames":
+    if cell.kind.COMPARES == "frames":
         numbers = check.compare_frames(outputs["frames"], check.reference_scene(cell.config, device), width, height,
                                        int(mix["spp"]))
     else:
@@ -177,8 +205,11 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float, 
     metrics = {}
     if trace:
         bounds = reference_bounds(cell, driver.work_key(), device, width, height, int(mix["spp"]))
-        print(f"portbench: work {bounds['work']}, bounds k1 {bounds['k1']!r} ms, k2 {bounds['k2']!r} ms",
-              file=sys.stderr)
+        if bounds:
+            print(f"portbench: work {bounds['work']}, bounds k1 {bounds['k1']!r} ms, k2 {bounds['k2']!r} ms",
+                  file=sys.stderr)
+        else:
+            print("portbench: no frozen operation counts for the scene's family: no roofline", file=sys.stderr)
         r = Run(cell, driver.units(), driver.window_s, spans, counters, traced, driver.latency_ms, bounds)
         for entry, module in cell.per_layer:
             value = module.read(r)
@@ -191,7 +222,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float, 
 
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-           "count": cell.chips, "memory_peak_bytes": int(memory_peak)}
+           "count": 1 if group is None else group.world, "memory_peak_bytes": int(memory_peak)}
     if device.type == "cuda":
         dev["power_limit_w"] = power_limit()
     result = {"correct": bool(correct), "attempted": driver.units(), "failed": failed, "metrics": metrics,
@@ -204,3 +235,25 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float, 
     result["checks"] = checks
     lines = [f"check {name}: {c['value']!r} (limit {c['limit']!r})" for name, c in checks.items()]
     return result, lines
+
+
+def rank_window(job: dict) -> int:
+    """A rank other than 0 of a run (`ranks.child`): its driver's set-up and
+    window in lock step with rank 0's, then its memory peak and forbidden
+    modules to rank 0; 3 where it loaded one."""
+    cell = spec.resolve(job["cell"], Path(job["root"]))
+    device = shard.join_group(job["rank"], job["world"], job["init_method"], job["device"])
+    size = tuple(job["size"]) if job["size"] else None
+    driver = cell.kind.DRIVER(cell, job["seed"], device, Spans(), size)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    driver.setup()
+    driver.window(job["seconds"])
+    loaded = forbidden_modules()
+    shard.gather(torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0, len(loaded), device)
+    shard.leave()
+    if loaded:
+        print(f"portbench: rank {job['rank']}: JAX or the JAX package is loaded: {', '.join(loaded)}",
+              file=sys.stderr)
+        return 3
+    return 0

@@ -9,10 +9,17 @@ light, three primitives) on the shading path (the comments at
 steps) is counted by the benchmark's own plain reference on the run's
 inputs (`reference/work.py`). Bytes count each input once and each output
 once: the scene's leaves (float32; K2 reads them and writes their
-gradient) and the frame (K1 writes it, K2 reads its cotangent).
+gradient) and the frame (K1 writes it, K2 reads its cotangent). Each
+family's K1 and K2 arithmetic is a file of its own (`bounds/<family>.py`),
+so a family's counts come as a new file; a family without one has no
+bound, and its rooflines read nothing.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
+
+from . import spec
 
 # chip_smoke.py:402: float32 and float64 outside the tensor cores, device
 # memory (NVIDIA's data sheet for the H100 SXM at 700 W)
@@ -46,40 +53,20 @@ def bound_of(f32_ops: float, f64_ops: float, nbytes: float, i32_ops: float = 0) 
     return max(t_ops, nbytes / PEAK_BYTES) * 1e3
 
 
-def k1_work(family: str, work: dict, pixels: int, scene_scalars: int) -> tuple[float, float, float]:
-    """K1's (float32 operations, float64 operations, bytes) for one frame
-    of `pixels` pixels whose counts are `work` (segments; march_steps for
-    the SDF scene), chip_smoke.py:2654-2655 and 2852-2856."""
-    segs, nbytes = work["segments"], scene_scalars * 4 + pixels * 16
-    camera = pixels * CAMERA_F64_OPS
-    if family == "sdf":
-        return (work["march_steps"] * SDF_STEP_OPS + segs * SDF_SEGMENT_OPS["f32"],
-                segs * SDF_SEGMENT_OPS["f64"] + camera, nbytes)
-    if family == "analytical":
-        return segs * K1_OPS["f32"], segs * K1_OPS["f64"] + camera, nbytes
-    raise ValueError(f"no frozen K1 operation counts for the {family} scene")
+def counts_of(family: str, root: Path = spec.ROOT):
+    """The family's frozen K1 and K2 counts (`bounds/<family>.py`: `k1` and
+    `k2`, each (work, pixels, scene_scalars) -> (float32 operations,
+    float64 operations, bytes)), or None where it has none."""
+    try:
+        return spec.load_module(root, "bounds", family)
+    except FileNotFoundError:
+        return None
 
 
-def k2_work(family: str, work: dict, pixels: int, scene_scalars: int) -> tuple[float, float, float]:
-    """K2's (float32 operations, float64 operations, bytes) for one
-    gradient of a frame whose counts are `work`: what the gradient needs,
-    the forward once and its adjoint (chip_smoke.py:2754 and 2960-2963).
-    The scene is read and its gradient written; the cotangent read."""
-    segs, nbytes = work["segments"], scene_scalars * 8 + pixels * 16
-    camera = pixels * CAMERA_F64_OPS
-    if family == "sdf":
-        f32 = work["march_steps"] * SDF_STEP_OPS + segs * (
-            SDF_SEGMENT_OPS["f32"] + K2_ADJ_OPS["f32"] - ANALYTICAL_HIT_ADJ_F32 + SDF_ADJ_OPS)
-        return f32, segs * SDF_SEGMENT_OPS["f64"] + camera, nbytes
-    if family == "analytical":
-        return segs * K2_OPS["f32"], segs * K2_OPS["f64"] + camera, nbytes
-    raise ValueError(f"no frozen K2 operation counts for the {family} scene")
-
-
-BOUNDS = {"k1": k1_work, "k2": k2_work}
-
-
-def bound_ms(kernel: str, family: str, work: dict, pixels: int, scene_scalars: int) -> float:
+def bound_ms(kernel: str, family: str, work: dict, pixels: int, scene_scalars: int,
+             root: Path = spec.ROOT) -> float | None:
     """The bound, ms, of one launch of `kernel` ("k1": a frame; "k2": a
-    gradient) on the family's scene."""
-    return bound_of(*BOUNDS[kernel](family, work, pixels, scene_scalars))
+    gradient) on the family's scene; None for a family without frozen
+    counts."""
+    counts = counts_of(family, root)
+    return None if counts is None else bound_of(*getattr(counts, kernel)(work, pixels, scene_scalars))

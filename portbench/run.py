@@ -9,9 +9,11 @@ plain reference, and prints as its last line one JSON object: `correct`,
 `attempted`, `failed`, `metrics` (with `--trace 0` the cell's end-to-end
 metrics, with `--trace 1` its per-layer metrics), `device`, with `--trace
 1` `breakdown`, and last `checks`, each number compared beside its limit
-(also the last lines of standard error). Without a card, with fewer cards
-than the cell asks for, or with JAX or the JAX package loaded once the
-window has closed, it prints no result and exits with another code than 0.
+(also the last lines of standard error). A cell on several cards runs as
+one process a card, this one rank 0 (`ranks.py`). Without a card, with
+fewer cards than the cell asks for, with JAX or the JAX package loaded
+once the window has closed (on any rank), or with a rank lost, it prints
+no result and exits with another code than 0.
 """
 
 import time
@@ -19,6 +21,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -35,13 +38,22 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
-    from portbench import harness
+    from portbench import ranks
 
-    try:
-        result, lines = harness.run(args.workload, args.seed, args.seconds, bool(args.trace), T_START)
-    except harness.NoCard as e:
-        print(e, file=sys.stderr)
-        return 2
+    chips, job = ranks.window_job(args.workload, args.seed, args.seconds, ROOT)
+    group = ranks.Ranks(chips, job, "cuda") if chips > 1 else None  # spawned before torch is imported here
+    with group or contextlib.nullcontext():
+        from portbench import harness
+
+        try:
+            result, lines = harness.run(args.workload, args.seed, args.seconds, bool(args.trace), T_START,
+                                        group=group)
+        except harness.NoCard as e:
+            print(e, file=sys.stderr)
+            return 2
+        except ranks.RankFailed as e:
+            print(f"portbench: {e}", file=sys.stderr)
+            return 3
     loaded = harness.forbidden_modules()
     if loaded:
         print(f"portbench: JAX or the JAX package is loaded: {', '.join(loaded)}", file=sys.stderr)

@@ -11,7 +11,12 @@ adding files:
   dict), its precision, its trainer's leaves, start scene and projection;
   its plain reference is `reference/<family>.py`;
 - `traffic/<traffic>.json`: the mix's parameters (`kind`, the frame size,
-  spp, ...), which `traffic.py` and `drivers.py` read;
+  spp, ...), which `traffic.py` and the kind's driver read;
+- `kinds/<kind>.py`: a traffic kind's driver (`DRIVER`, the class that
+  drives the program: `drivers.py`'s or one of its own) and the
+  comparison its outputs feed (`COMPARES`, "frames" or "train",
+  `check.py`); a cell on several cards runs the driver on every rank
+  (`ranks.py`);
 - `checks/<cell>.json`: how many frames or steps the correctness check
   compares, the limit of each number it reads, and for an SDF trainer
   `grazing`, the |<rd, n>| below which a pixel is left out of
@@ -40,6 +45,7 @@ class Cell(NamedTuple):
     end_to_end: list  # BENCHMARK.json's end-to-end entries this cell reports
     per_layer: list  # (entry, reader module) this cell reports with --trace 1
     chips: int
+    kind: object  # kinds/<kind>.py of the traffic's kind: DRIVER, COMPARES
 
 
 def load_json(path: Path) -> dict:
@@ -65,14 +71,35 @@ def named_file(root: Path, folder: str, name: str, suffix: str) -> Path:
     return path
 
 
-def reader(root: Path, name: str):
-    """The per-layer metric `name`'s reader module (metrics/<name>.py)."""
-    path = named_file(root, "metrics", name, ".py")
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+def load_module(root: Path, folder: str, name: str):
+    """portbench/<folder>/<name>.py, loaded as a module of its own."""
+    path = named_file(root, folder, name, ".py")
+    module_name = f"portbench_{folder}_{name.replace('.', '_').replace('-', '_')}"
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    return module
+
+
+def reader(root: Path, name: str):
+    """The per-layer metric `name`'s reader module (metrics/<name>.py)."""
+    module = load_module(root, "metrics", name)
     if not callable(getattr(module, "read", None)):
-        raise ValueError(f"{path.relative_to(root)} has no read(run)")
+        raise ValueError(f"portbench/metrics/{name}.py has no read(run)")
+    return module
+
+
+def kinds(root: Path = ROOT) -> list[str]:
+    """The traffic kinds that have a driver (kinds/<kind>.py)."""
+    return sorted(p.stem for p in (root / "portbench" / "kinds").glob("*.py"))
+
+
+def kind(root: Path, name: str):
+    """The traffic kind `name`'s module (kinds/<name>.py): its DRIVER and
+    what it COMPARES."""
+    module = load_module(root, "kinds", name)
+    if getattr(module, "COMPARES", None) not in ("frames", "train") or not callable(getattr(module, "DRIVER", None)):
+        raise ValueError(f"portbench/kinds/{name}.py has no DRIVER or COMPARES (frames or train)")
     return module
 
 
@@ -96,4 +123,4 @@ def resolve(cell: str, root: Path = ROOT) -> Cell:
     checks = load_json(named_file(root, "checks", cell, ".json"))
     e2e = [m for m in bench["end_to_end"] if reports(m, cell)]
     layers = [(m, reader(root, m["name"])) for m in bench["per_layer"] if reports(m, cell)]
-    return Cell(cell, config, traffic, checks, e2e, layers, int(w["chips"]))
+    return Cell(cell, config, traffic, checks, e2e, layers, int(w["chips"]), kind(root, traffic["kind"]))
